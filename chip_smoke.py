@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Smoke run of irn_tpu_torch on one NVIDIA card: python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc``, checks
+each against its plain PyTorch twin at the main path's shapes and times
+both, then drives make_sem_seg end to end through the port's CLI
+(``irn_tpu_torch.pipeline.run.main``) on a synthetic VOC-sized tree with a
+seeded random IRNet, in the default configuration (the K0 stencil walk) and
+at ``--rw_square_times 1`` (K2 squaring, K1 pack, K3 chain). Every check
+that fails raises, so the exit code is non-zero; without CUDA, or without
+the repository beside it, the script fails before printing any result.
+
+The last three lines of standard output are the card's name and power
+limit (nvidia-smi), one JSON object with the per-kernel results (its
+``launches`` count kernel launches in the stage runs; ``shared`` is true
+when nvidia-smi showed another process on the card, so the times are not
+clean), and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# main-path geometry: the (96, 128) grid bucket of a VOC-sized image
+BUCKET = (96, 128)
+BS = 512
+N_IMAGES = 8
+SEED = 0
+
+REPLACES = {
+    "diag_chain": "irn_tpu/ops/random_walk.py:208",
+    "pack_banded": "irn_tpu/ops/matpow_pallas.py:742",
+    "square_banded": "irn_tpu/ops/matpow_pallas.py:218",
+    "packed_chain": "irn_tpu/ops/matpow_pallas.py:536",
+}
+SOURCES = {
+    "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
+    "pack_banded": "irn_tpu_torch/csrc/pack_banded.cu",
+    "square_banded": "irn_tpu_torch/csrc/square_banded.cu",
+    "packed_chain": "irn_tpu_torch/csrc/packed_chain.cu",
+}
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def nvidia_smi(*query: str) -> str:
+    out = subprocess.run(["nvidia-smi", *query], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device milliseconds per call (CUDA events after warm-up)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def check_kernels(dev, card: str) -> dict:
+    """K0-K3 vs their plain twins at the main path's shapes."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    gen = torch.Generator().manual_seed(SEED)
+    geom = rw.build_geometry(*BUCKET, radius=5)
+    n = geom.n_pad
+    h = rw.band_halfwidth(geom)
+    check(n == 14336 and h == 556, f"geometry n={n} h={h}")
+    edge = torch.rand(BUCKET, generator=gen).to(dev) * 0.9
+    x = torch.rand((8, n), generator=gen).to(dev)
+    res = {}
+
+    # K0: 256 applications of T in diagonal form, C = 8 seed rows
+    w, inv = rw.build_diag_operator(geom, edge)
+    doffs = rw.diag_offsets(geom)
+    got = rw.apply_diag_chain(x, w, inv, doffs, 256)
+    want = rw.apply_diag_chain_plain(x, w, inv, doffs, 256)
+    err, rel = rel_err(got, want)
+    check(rel <= 1e-5, f"diag_chain rel err {rel}")
+    res["diag_chain"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: rw.apply_diag_chain(x, w, inv, doffs, 256), 10),
+        plain_ms=cuda_ms(
+            lambda: rw.apply_diag_chain_plain(x, w, inv, doffs, 256), 2),
+        shape=f"x [8, {n}], w [{len(doffs)}, {n}], 256 applications",
+    )
+
+    # K2: one banded squaring of T (h = 556)
+    t = rw.normalize_transition(rw.dense_affinity(geom, edge))
+    got = mk.square_banded(t, h, BS)
+    want = mk.square_banded_plain(t, h, BS)
+    r = torch.arange(n, device=dev)
+    inband = (r[:, None] - r[None, :]).abs() <= 2 * h
+    err, rel = rel_err(got[inband], want[inband])
+    check(rel <= 1e-5, f"square_banded rel err {rel}")
+    res["square_banded"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.square_banded(t, h, BS), 5),
+        plain_ms=cuda_ms(lambda: mk.square_banded_plain(t, h, BS), 3),
+        shape=f"T [{n}, {n}], h {h}, bs {BS}",
+    )
+    del inband, want
+
+    # K1: pack T^2 (h = 1112), bit-equal
+    t2, h2 = got, 2 * h
+    got = mk.pack_banded(t2, h2, BS)
+    want = mk.pack_banded_plain(t2, h2, BS)
+    check(torch.equal(got, want), "pack_banded not bit-equal")
+    res["pack_banded"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: mk.pack_banded(t2, h2, BS), 10),
+        plain_ms=cuda_ms(lambda: mk.pack_banded_plain(t2, h2, BS), 5),
+        shape=f"T^2 [{n}, {n}] -> tiles {tuple(got.shape)}",
+    )
+
+    # K3: 128 applications over the packed tiles, C = 8
+    tp = got
+    del want, t
+    got = mk.packed_chain(x, tp, 128, BS)
+    want = mk.packed_chain_plain(x, tp, 128, BS)
+    err, rel = rel_err(got, want)
+    check(rel <= 1e-4, f"packed_chain rel err {rel}")
+    res["packed_chain"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.packed_chain(x, tp, 128, BS), 5),
+        plain_ms=cuda_ms(lambda: mk.packed_chain_plain(x, tp, 128, BS), 3),
+        shape=f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications",
+    )
+    for name, r_ in res.items():
+        print(f"kernel {name}: max_abs_err {r_['max_abs_err']:.3e} "
+              f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms "
+              f"({r_['shape']}; {card})", flush=True)
+    return res
+
+
+def run_stage(dev, work: str) -> dict:
+    """make_sem_seg through the port's CLI, both walk configurations."""
+    from irn_tpu_torch.data import synthetic
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.models.irn import IRNet, init_irnet
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.utils.checkpoint import save_checkpoint
+    from irn_tpu_torch.utils.weights import irn_to_jax
+
+    root = os.path.join(work, "voc")
+    synthetic.generate(root, n_images=N_IMAGES, size=360,
+                       max_side_jitter=140, seed=SEED)
+    names = [f"2007_{i:06d}" for i in range(N_IMAGES)]
+    ids = os.path.join(root, "all.txt")
+    with open(ids, "w") as f:
+        f.write("\n".join(names) + "\n")
+    synthetic.write_gt_cams(root, names, os.path.join(work, "cam"))
+    model = init_irnet(IRNet(), torch.Generator().manual_seed(SEED))
+    weights = os.path.join(work, "irn.ckpt")
+    save_checkpoint(weights, irn_to_jax(model.state_dict()))
+
+    def argv(out, extra=()):
+        return [
+            "--voc12_root", root, "--infer_list", ids, "--train_list", ids,
+            "--cam_out_dir", os.path.join(work, "cam"),
+            "--irn_weights_name", weights,
+            "--session_dir", os.path.join(work, "sess"),
+            "--log_name", os.path.join(work, "log"),
+            "--sem_seg_out_dir", out, "--make_sem_seg_pass",
+            "--eval_sem_seg_pass", "--device", str(dev), *extra,
+        ]
+
+    _build.reset_launches()
+    runs = {}
+    for tag, extra in (("default", ()), ("banded", ("--rw_square_times", "1"))):
+        out = os.path.join(work, f"sem_{tag}")
+        first = port_run.main(argv(out, extra))
+        # a second pass over the same images (warm caches): a smoke-run
+        # rate over N_IMAGES images, not a settled throughput
+        again = port_run.main(argv(out, (*extra, "--overwrite")))
+        summ = again["make_sem_seg_labels"]
+        for n_ in names:
+            check(os.path.exists(os.path.join(out, n_ + ".png")),
+                  f"{tag}: no PNG for {n_}")
+        runs[tag] = dict(
+            out=out,
+            img_s=summ["n_images"] / summ["seconds"],
+            first_img_s=(first["make_sem_seg_labels"]["n_images"]
+                         / first["make_sem_seg_labels"]["seconds"]),
+            modes=summ["modes"],
+            edge_mean=summ["edge_mean"],
+            edge_saturated=summ["edge_saturated"],
+            miou=float(again["eval_sem_seg"]["miou"]),
+        )
+    launches = dict(_build.LAUNCHES)
+    for tag, r_ in runs.items():
+        print(f"stage {tag}: {r_['img_s']:.3f} img/s second pass "
+              f"({r_['first_img_s']:.3f} img/s first pass; smoke rates over "
+              f"{N_IMAGES} images 360-500 px), walk modes {r_['modes']}, edge mean "
+              f"{r_['edge_mean']:.4f}, edge saturated "
+              f"{r_['edge_saturated']:.4f}, mIoU {r_['miou']:.4f}",
+              flush=True)
+    check(all(m == "diag" for m in runs["default"]["modes"].values()),
+          f"default walk modes {runs['default']['modes']}")
+    check(all(m == "banded" for m in runs["banded"]["modes"].values()),
+          f"banded walk modes {runs['banded']['modes']}")
+    agree = []
+    for n_ in names:
+        a = imread(os.path.join(runs["default"]["out"], n_ + ".png"))
+        b = imread(os.path.join(runs["banded"]["out"], n_ + ".png"))
+        check(a.shape == b.shape, f"{n_}: shapes {a.shape} {b.shape}")
+        agree.append(float(np.mean(a == b)))
+    print(f"stage label agreement default vs banded: min {min(agree):.6f} "
+          f"mean {np.mean(agree):.6f}", flush=True)
+    check(min(agree) >= 0.99, f"default vs banded agreement {agree}")
+    print(f"launches in the stage runs: {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} never launched on the main path")
+    cfg, _ = port_run.parse(argv(runs["default"]["out"]))
+    return dict(runs=runs, launches=launches, cfg=cfg, work=work)
+
+
+def cpu_walk_check(dev, stage: dict) -> float:
+    """One image's walk through the plain twins on CPU tensors vs the
+    card's default-configuration labels, from the same edge map."""
+    from irn_tpu_torch.data import voc12
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.pipeline import stages_irn
+
+    cfg = stage["cfg"]
+    runner = stages_irn._load_irn(cfg, dev)
+    sample = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)[0]
+    img = sample["img"]
+    size = img.shape[:2]
+    (edge, _, (h4, w4)), = runner.batch([img], [size])
+    cams, keys = stages_irn._load_sem_cam(cfg, sample["name"])
+    walker = stages_irn.RandomWalkRunner(cfg, 20, torch.device("cpu"))
+    t0 = time.perf_counter()
+    labels = walker(cams, edge.cpu(), h4, w4, size, cfg.sem_seg_bg_thres)
+    seconds = time.perf_counter() - t0
+    pred = keys[labels.numpy()[: size[0], : size[1]]]
+    card = imread(os.path.join(cfg.sem_seg_out_dir,
+                                       sample["name"] + ".png"))
+    agree = float(np.mean(pred == card))
+    print(f"CPU plain-twin walk of {sample['name']} ({size[0]}x{size[1]} px, "
+          f"modes {walker.modes}, {seconds:.2f} s on the host): label "
+          f"agreement with the card {agree:.6f}", flush=True)
+    check(agree >= 0.999, f"CPU vs card agreement {agree}")
+    return agree
+
+
+def layer_breakdown(dev, stage: dict, card: str) -> None:
+    """Where an image's time goes: each step of the stage, run alone over
+    the tree's images and ended by a synchronize (host clock), for both
+    walks; then one default-configuration stage pass under torch.profiler
+    for the device's busy share."""
+    from collections import defaultdict
+
+    from irn_tpu_torch.data import image_io, voc12
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+    from irn_tpu_torch.pipeline import stages_irn
+
+    cfg = stage["cfg"]
+    runner = stages_irn._load_irn(cfg, dev)
+    walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
+    ds = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)
+    ms = defaultdict(float)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3 / len(ds)
+        return out
+
+    out_png = os.path.join(stage["work"], "layer.png")
+    for rep in range(2):  # the first pass warms up; the second is kept
+        ms.clear()
+        for i in range(len(ds)):
+            sample = timed("read image + cams", lambda: ds[i])
+            img = sample["img"]
+            size = img.shape[:2]
+            (edge, _, (h4, w4)), = timed(
+                "forward", lambda: runner.batch([img], [size]))
+            cams, keys = timed("read image + cams",
+                               lambda: stages_irn._load_sem_cam(
+                                   cfg, sample["name"]))
+            ch, cw = walker._bucket(h4), walker._bucket(w4)
+            geom = rw.build_geometry(ch, cw, radius=cfg.rw_radius)
+            edge_b = edge[:ch, :cw]
+
+            def upload():
+                cam = np.zeros((walker._row_bucket(len(cams)), ch, cw),
+                               np.float32)
+                cam[: len(cams), :h4, :w4] = cams
+                return torch.from_numpy(cam).to(dev)
+
+            cam_t = timed("seed upload", upload)
+            w, inv = timed("default: operator build (band values, diag T)",
+                           lambda: rw.build_diag_operator(geom, edge_b))
+            x = rw._flat_seeds(geom, cam_t, edge_b)
+            y = timed("default: K0 chain (256 applications)",
+                      lambda: rw.apply_diag_chain(
+                          x, w, inv, rw.diag_offsets(geom), 256))
+            h = rw.band_halfwidth(geom)
+            t = timed("banded: dense T (affinity, A^beta, colnorm)",
+                      lambda: rw.normalize_transition(
+                          rw.dense_affinity(geom, edge_b)))
+            t = timed("banded: K2 squaring", lambda: mk.square_banded(t, h))
+            tp = timed("banded: K1 pack", lambda: mk.pack_banded(t, 2 * h))
+            xb = torch.nn.functional.pad(x, (0, 0, 0, (-len(x)) % 8))
+            timed("banded: K3 chain (128 applications)",
+                  lambda: mk.packed_chain(xb, tp, 128))
+            del t, tp
+            labels = timed("decode (x4 upsample, argmax)",
+                           lambda: rw.upsample_and_decode(
+                               rw._unflatten_rw(geom, y), h4, w4, size[0],
+                               size[1], cfg.sem_seg_bg_thres)[0])
+            timed("fetch labels + PNG write", lambda: image_io.imwrite(
+                out_png, keys[labels.cpu().numpy()[: size[0], : size[1]]]
+                .astype(np.uint8)))
+    for name, v in ms.items():
+        print(f"layer {name}: {v:.3f} ms/img ({card})", flush=True)
+
+    prof_cfg = dataclasses.replace(
+        cfg, sem_seg_out_dir=os.path.join(stage["work"], "sem_prof"))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        summ = stages_irn.make_sem_seg_labels(prof_cfg, dev)
+    device_us = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    wall_ms = summ["seconds"] * 1e3
+    if device_us > 0:
+        print(f"profiled default pass: {summ['n_images']} images in "
+              f"{wall_ms:.1f} ms, device busy {device_us / 1e3:.1f} ms "
+              f"({100 * device_us / 1e3 / wall_ms:.1f}% of the loop; "
+              f"profiler on) ({card})", flush=True)
+    else:
+        print("profiled default pass: the profiler saw no device time; "
+              "device busy share not measured", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke run needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "irn_tpu_torch")):
+        print(f"chip_smoke: irn_tpu_torch not found beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    t_start = time.perf_counter()
+
+    phase("environment")
+    others = nvidia_smi("--query-compute-apps=pid,process_name",
+                        "--format=csv,noheader")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    card = nvidia_smi("--query-gpu=name,power.limit", "--format=csv,noheader")
+    card = card.splitlines()[0]
+    shared = bool(others)
+    print(f"card: {card}; other processes on the card: "
+          f"{others or 'none'}", flush=True)
+    if shared:
+        print("WARNING: the card is shared; the timings below are not clean "
+              "(the kernels line carries \"shared\": true)", flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase("build")
+    from irn_tpu_torch.ops import _build
+
+    _build.load()
+    info = _build.BUILD_INFO
+    print(f"built {os.path.relpath(info['path'], here)} in "
+          f"{info['seconds']:.2f} s (cached: {info['cached']})", flush=True)
+    for line in str(info["log"]).splitlines():
+        if "Used" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+
+    phase("kernels vs plain twins")
+    kernels = check_kernels(dev, card)
+
+    phase("stage: make_sem_seg")
+    work = tempfile.mkdtemp(prefix="irn_smoke_")
+    try:
+        stage = run_stage(dev, work)
+        phase("stage: CPU plain-twin walk vs the card")
+        cpu_walk_check(dev, stage)
+        phase("layers")
+        layer_breakdown(dev, stage, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  for m in sys.modules), "JAX was imported")
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
+             launches=stage["launches"][k],
+             max_abs_err=kernels[k]["max_abs_err"], ms=kernels[k]["ms"],
+             plain_ms=kernels[k]["plain_ms"])
+        for k in ("diag_chain", "pack_banded", "square_banded",
+                  "packed_chain")
+    ], "shared": shared}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

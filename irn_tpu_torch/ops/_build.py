@@ -1,0 +1,179 @@
+"""Build and load the hand-written CUDA kernels (``irn_tpu_torch/csrc``).
+
+The kernels expose a plain C interface, so they build with ``nvcc`` alone
+(no PyTorch headers: seconds, not minutes) into one shared library that
+``ctypes`` loads. The library is built at first use, never at import, into
+``irn_tpu_torch/_kernels/`` (git-ignored); its file name carries a hash of
+the sources and flags, so an edited source never loads a stale build.
+
+Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
+entry point reports how many kernels it launched (a 256-application chain
+is 256 launches of K0, or 512 of K3's two kernels), and :func:`launch` adds
+that number, so a run can show that its main path really went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_kernels")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_INFO: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))) + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cands = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels build from "
+        f"{CSRC} at first use"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into one shared library (cached by content);
+    returns its path. Raises with nvcc's output if the build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"libirn_tpu_torch_{_digest()}.so")
+    if os.path.exists(out):
+        BUILD_INFO.update(path=out, seconds=0.0, cached=True, log="")
+        return out
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    BUILD_INFO.update(
+        path=out, seconds=seconds, cached=False,
+        log=(proc.stdout + proc.stderr),
+    )
+    return out
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    n = ctypes.POINTER(ctypes.c_int)  # kernels launched (out)
+    lib.irn_diag_chain.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, p, n,
+    ]
+    lib.irn_pack_banded.argtypes = [p, p, i, i, i, p, n]
+    lib.irn_square_banded.argtypes = [p, p, i, i, i, i, p, n]
+    lib.irn_packed_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
+    for fn in (lib.irn_diag_chain, lib.irn_pack_banded,
+               lib.irn_square_banded, lib.irn_packed_chain):
+        fn.restype = ctypes.c_int
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel takes contiguous float32 CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``irn_<name>`` with ``args``, then the
+    current stream of ``device`` and the launch-count out-argument; raise on
+    a non-zero cudaError, else add the kernels it launched to
+    ``LAUNCHES[name]``."""
+    fn = getattr(load(), f"irn_{name}")
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = fn(*args, stream, ctypes.byref(launched))
+    if status != 0:
+        raise RuntimeError(
+            f"{name}: CUDA launch failed with cudaError {status}"
+        )
+    LAUNCHES[name] += launched.value
+
+
+def is_plain(t: torch.Tensor) -> bool:
+    """True when ``t`` lies on the CPU (the kernel's plain twin runs);
+    False on CUDA (the kernel runs). Any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain twin for device {t.device}")

@@ -1,0 +1,385 @@
+"""Boundary-guided random-walk propagation — the counterpart of
+:mod:`irn_tpu.ops.random_walk` (single device).
+
+The edge map becomes radius-r path affinities, the affinities a symmetric
+banded matrix A with a unit diagonal, and T = colnorm(A^beta) the
+transition operator; the boundary-damped seed rows propagate as
+x @ T^(2^exp_times), evaluated as 2^(E-e) applications of T^(2^e).
+
+Routes, as the JAX package takes them on its TPU default (the port reads no
+environment switches):
+
+- e = 0: T in diagonal form (2*n_pairs+1 nonzero diagonals), applied by the
+  stencil chain :func:`apply_diag_chain` (kernel K0) — f32 throughout, no
+  matrix.
+- e > 0 with the band fitting (:func:`banded_fits`): banded squarings
+  (K2), packed tiles (K1) and the packed application chain (K3).
+- otherwise: dense T, squarings and applications as ``torch.matmul`` (the
+  JAX package leaves these to XLA's dot).
+
+Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
+[cap_h, cap_w] edge, [n_pairs, n_pad] band table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from irn_tpu.ops import paths
+from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops import matpow_kernels as mk
+from irn_tpu_torch.ops.affinity import path_affinity
+from irn_tpu_torch.ops.resize import resize_bilinear
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomWalkGeometry:
+    """Static geometry of the capped random-walk grid.
+
+    cap: (H, W) stride-4 grid cap (true images occupy a top-left window);
+    padded: (H + r, W + 2r), the reference's boundary pad; n_vertices:
+    padded pixel count; n_pad: n_vertices rounded up to a multiple of 512.
+    """
+
+    cap: Tuple[int, int]
+    radius: int
+    padded: Tuple[int, int]
+    n_vertices: int
+    n_pad: int
+    path_set: paths.PathSet
+
+
+@functools.lru_cache(maxsize=None)
+def build_geometry(cap_h: int = 128, cap_w: int = 128,
+                   radius: int = 5) -> RandomWalkGeometry:
+    padded = (cap_h + radius, cap_w + 2 * radius)
+    ps = paths.build_path_set(radius)
+    if padded[0] - ps.radius_floor <= 0 or padded[1] - 2 * ps.radius_floor <= 0:
+        raise ValueError(f"grid {(cap_h, cap_w)} too small for radius {radius}")
+    n_vertices = padded[0] * padded[1]
+    return RandomWalkGeometry(
+        cap=(cap_h, cap_w), radius=radius, padded=padded,
+        n_vertices=n_vertices, n_pad=_round_up(n_vertices, 512), path_set=ps,
+    )
+
+
+def _extent_mask(h: int, w: int, shape: Tuple[int, int],
+                 device) -> torch.Tensor:
+    """[shape] f32 mask, 1.0 where (row < h) & (col < w)."""
+    rows = torch.arange(shape[0], device=device)[:, None]
+    cols = torch.arange(shape[1], device=device)[None, :]
+    return ((rows < h) & (cols < w)).to(torch.float32)
+
+
+def pow_int(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x**e by binary exponentiation (static integer e >= 1) — the
+    multiplication order of JAX's ``integer_pow``."""
+    acc = None
+    base = x
+    while e:
+        if e & 1:
+            acc = base if acc is None else acc * base
+        e >>= 1
+        if e:
+            base = base * base
+    return acc
+
+
+def diag_offsets(geom: RandomWalkGeometry) -> Tuple[int, ...]:
+    """The static flat-grid diagonal offsets (one per path direction)."""
+    pw = geom.padded[1]
+    return tuple(
+        int(dy) * pw + int(dx) for dy, dx in np.asarray(geom.path_set.dst_offsets)
+    )
+
+
+def band_values(geom: RandomWalkGeometry, edge_capped: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """(vs [n_pairs, n_pad], doffs): A[i, i + doffs[k]] = vs[k, i] and
+    A[j, j - doffs[k]] = vs[k, j - doffs[k]], plus the unit diagonal — the
+    whole content of the banded affinity matrix."""
+    r = geom.radius
+    ph, pw = geom.padded
+    ps = geom.path_set
+    rf = ps.radius_floor
+    ch, cw = ph - rf, pw - 2 * rf
+    dev = edge_capped.device
+    edge_padded = torch.ones((ph, pw), dtype=torch.float32, device=dev)
+    edge_padded[: geom.cap[0], r : r + geom.cap[1]] = edge_capped.float()
+    aff = path_affinity(edge_padded, ps).reshape(ps.n_pairs, ch, cw)
+    v = torch.zeros((ps.n_pairs, ph, pw), dtype=torch.float32, device=dev)
+    v[:, :ch, rf : rf + cw] = aff
+    vs = F.pad(v.reshape(ps.n_pairs, -1), (0, geom.n_pad - ph * pw))
+    return vs, diag_offsets(geom)
+
+
+def _shift_r(v: torch.Tensor, d: int) -> torch.Tensor:
+    """out[..., c] = v[..., c - d] with zero fill."""
+    if not d:
+        return v
+    return F.pad(v, (d, 0))[..., :-d]
+
+
+def build_diag_operator(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
+                        beta: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T as its nonzero diagonals: (w [n_pairs, n_pad], inv [n_pad]) with
+    T[c-d, c] = w[k, c-d], T[c+d, c] = w[k, c], T[c, c] = 1, all divided by
+    colsum[c] = 1 + sum_k (w[k, c-d_k] + w[k, c])."""
+    vs, doffs = band_values(geom, edge_capped)
+    w = pow_int(vs, beta)
+    total = torch.zeros_like(w[0])
+    for k, d in enumerate(doffs):  # Python sum()'s order in the JAX source
+        total = total + (_shift_r(w[k], d) + w[k])
+    return w, 1.0 / (1.0 + total)
+
+
+def apply_diag_chain_plain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                           doffs: Sequence[int], n_apply: int) -> torch.Tensor:
+    """K0's plain twin: the padded-slice loop of the JAX ``one()``, term for
+    term, ``n_apply`` times."""
+    h = max(doffs)
+    n = x.shape[-1]
+    wpad = F.pad(w, (h, h))
+    for _ in range(n_apply):
+        xpad = F.pad(x, (h, h))
+        acc = x
+        for k, d in enumerate(doffs):
+            acc = (
+                acc
+                + xpad[:, h - d : h - d + n] * wpad[k, h - d : h - d + n][None]
+                + xpad[:, h + d : h + d + n] * w[k][None]
+            )
+        x = acc * inv[None]
+    return x
+
+
+def apply_diag_chain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                     doffs: Sequence[int], n_apply: int) -> torch.Tensor:
+    """x @ T^n_apply with T in diagonal form (K0, ``csrc/diag_chain.cu``).
+    ``x``: [C, n]; ``w``: [n_pairs, n]; ``inv``: [n]."""
+    c, n = x.shape
+    if w.shape != (len(doffs), n) or inv.shape != (n,):
+        raise ValueError(
+            f"apply_diag_chain: x {tuple(x.shape)} w {tuple(w.shape)} "
+            f"inv {tuple(inv.shape)} doffs {len(doffs)}"
+        )
+    if n_apply < 0:
+        raise ValueError(f"n_apply={n_apply} must be >= 0")
+    if _build.is_plain(x):
+        return apply_diag_chain_plain(x, w, inv, doffs, n_apply)
+    _build.check_cuda("diag_chain", x, w, inv)
+    if n_apply == 0:
+        return x.clone()
+    if max(doffs) >= n or min(doffs) < 0:
+        raise ValueError(f"diag_chain: offsets outside [0, {n})")
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x)
+    d = np.ascontiguousarray(doffs, dtype=np.int32)
+    _build.launch("diag_chain", x.device,
+                  x.data_ptr(), w.data_ptr(), inv.data_ptr(), d.ctypes.data,
+                  out.data_ptr(), scratch.data_ptr(), len(doffs), c, n,
+                  n_apply)
+    return out
+
+
+def _flat_seeds(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
+                edge_capped: torch.Tensor) -> torch.Tensor:
+    """Boundary-damped seeds embedded in the padded flat grid [C, n_pad]."""
+    r = geom.radius
+    ch, cw = geom.cap
+    c = cam_capped.shape[0]
+    damped = cam_capped * (1.0 - edge_capped)[None]
+    seeds = torch.zeros((c,) + geom.padded, dtype=torch.float32,
+                        device=cam_capped.device)
+    seeds[:, :ch, r : r + cw] = damped
+    return F.pad(seeds.reshape(c, geom.n_vertices),
+                 (0, geom.n_pad - geom.n_vertices))
+
+
+def _unflatten_rw(geom: RandomWalkGeometry, rw: torch.Tensor) -> torch.Tensor:
+    r = geom.radius
+    ch, cw = geom.cap
+    c = rw.shape[0]
+    rw = rw[:, : geom.n_vertices].reshape((c,) + geom.padded)
+    return rw[:, :ch, r : r + cw]
+
+
+def propagate_diag(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
+                   edge_capped: torch.Tensor, beta: int = 10,
+                   exp_times: int = 8) -> torch.Tensor:
+    """:func:`propagate` at square_times=0 through the diagonal stencil."""
+    w, inv = build_diag_operator(geom, edge_capped, beta)
+    x = _flat_seeds(geom, cam_capped, edge_capped)
+    rw = apply_diag_chain(x, w, inv, diag_offsets(geom), 1 << exp_times)
+    return _unflatten_rw(geom, rw)
+
+
+def band_halfwidth(geom: RandomWalkGeometry) -> int:
+    """Affinity band halfwidth in flat-grid elements."""
+    off = geom.path_set.dst_offsets
+    return int(off[:, 0].max()) * geom.padded[1] + int(off[:, 1].max())
+
+
+def banded_fits(geom: RandomWalkGeometry, exp_times: int, square_times: int,
+                bs: int = 512) -> bool:
+    """True when the band after ``square_times`` doublings stays under the
+    matrix (otherwise unspecified out-of-band blocks would leak)."""
+    if not 0 <= square_times <= exp_times:
+        raise ValueError(f"square_times={square_times} not in [0, {exp_times}]")
+    n = geom.n_pad
+    if n % bs:
+        return False
+    h_final = band_halfwidth(geom) << square_times
+    return 2 * (-(-h_final // bs)) + 1 < n // bs
+
+
+def normalize_transition(affinity: torch.Tensor, beta: int = 10) -> torch.Tensor:
+    """A^beta, column-normalized (misc/indexing.py:132-137)."""
+    scaled = pow_int(affinity, beta)
+    return scaled / torch.sum(scaled, dim=0, keepdim=True)
+
+
+def dense_affinity(geom: RandomWalkGeometry,
+                   edge_capped: torch.Tensor) -> torch.Tensor:
+    """[n_pad, n_pad] symmetric affinity with a unit diagonal, written
+    diagonal by diagonal from :func:`band_values`."""
+    vs, doffs = band_values(geom, edge_capped)
+    n = geom.n_pad
+    a = torch.eye(n, dtype=torch.float32, device=edge_capped.device)
+    for k, d in enumerate(doffs):
+        a.diagonal(d).copy_(vs[k, : n - d])
+        a.diagonal(-d).copy_(vs[k, : n - d])
+    return a
+
+
+def build_transition_banded(geom: RandomWalkGeometry,
+                            edge_capped: torch.Tensor, beta: int = 10,
+                            square_times: int = 2,
+                            bs: int = 512) -> Tuple[torch.Tensor, int]:
+    """T^(2^square_times) via banded squarings (K2). Returns (t, band); the
+    out-of-band blocks of ``t`` are unspecified. Check
+    :func:`banded_fits` first."""
+    h = band_halfwidth(geom)
+    t = normalize_transition(dense_affinity(geom, edge_capped), beta)
+    for _ in range(square_times):
+        t = mk.square_banded(t, h, bs=bs)
+        h *= 2
+    return t, h
+
+
+def apply_transition_banded(geom: RandomWalkGeometry,
+                            cam_capped: torch.Tensor,
+                            edge_capped: torch.Tensor, t: torch.Tensor,
+                            band: int, n_apply: int,
+                            bs: int = 512) -> torch.Tensor:
+    """Seed propagation through a banded T (K1 pack + K3 chain)."""
+    seeds = _flat_seeds(geom, cam_capped, edge_capped)
+    c = seeds.shape[0]
+    seeds = F.pad(seeds, (0, 0, 0, _round_up(c, 8) - c))
+    rw = mk.apply_banded_chain(seeds, t, band, n_apply, bs=bs)
+    return _unflatten_rw(geom, rw[:c])
+
+
+def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
+              edge_capped: torch.Tensor, beta: int = 10, exp_times: int = 8,
+              square_times: Optional[int] = None) -> torch.Tensor:
+    """Dense single-device propagation: T = colnorm(A^beta), ``e``
+    squarings, then 2^(E-e) applications, all ``torch.matmul`` in f32.
+
+    Returns [C, cap_h, cap_w] propagated scores (zero beyond extent)."""
+    e = exp_times if square_times is None else square_times
+    if not 0 <= e <= exp_times:
+        raise ValueError(f"square_times={e} not in [0, {exp_times}]")
+    t = normalize_transition(dense_affinity(geom, edge_capped), beta)
+    for _ in range(e):
+        t = torch.matmul(t, t)
+    rw = _flat_seeds(geom, cam_capped, edge_capped)
+    for _ in range(1 << (exp_times - e)):
+        rw = torch.matmul(rw, t)
+    return _unflatten_rw(geom, rw)
+
+
+def propagate_banded(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
+                     edge_capped: torch.Tensor, beta: int = 10,
+                     exp_times: int = 8, square_times: Optional[int] = None,
+                     bs: int = 512) -> torch.Tensor:
+    """:func:`propagate` through the hand kernels: the diagonal stencil at
+    e = 0, the banded kernels when the band fits, else dense."""
+    e = exp_times if square_times is None else square_times
+    if not 0 <= e <= exp_times:
+        raise ValueError(f"square_times={e} not in [0, {exp_times}]")
+    if e == 0:
+        return propagate_diag(geom, cam_capped, edge_capped, beta, exp_times)
+    if not banded_fits(geom, exp_times, e, bs):
+        return propagate(geom, cam_capped, edge_capped, beta, exp_times,
+                         square_times=e)
+    t, band = build_transition_banded(geom, edge_capped, beta, e, bs)
+    return apply_transition_banded(geom, cam_capped, edge_capped, t, band,
+                                   1 << (exp_times - e), bs)
+
+
+def pick_square_times_banded(exp_times: int) -> int:
+    """Squarings before the banded chain: e = 0 (the stencil), the
+    measured choice of the JAX package."""
+    return 0
+
+
+def pick_square_times(n_pad: int, exp_times: int) -> int:
+    """Cost-model split for the dense path (constants as in the JAX package,
+    f32 operands): each squaring costs 2n^3 FLOPs, each application one
+    streaming read of T."""
+    sq = 2 * n_pad**3 / 2.8e13
+    ap = 4 * n_pad**2 / 8.2e11 * 1.8
+    return min(
+        range(exp_times + 1),
+        key=lambda e: e * sq + (1 << (exp_times - e)) * ap,
+    )
+
+
+def upsample_scores(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
+                    w0: int) -> torch.Tensor:
+    """x4 bilinear upsample with true extents: mask-normalized bilinear
+    over the (h4, w4) valid cells, zero beyond the (h0, w0) pixels.
+    Returns [C, 4H, 4W]."""
+    c, ch, cw = rw_capped.shape
+    dev = rw_capped.device
+    m4 = _extent_mask(h4, w4, (ch, cw), dev)
+    rw_up = resize_bilinear(rw_capped * m4[None], (4 * ch, 4 * cw))
+    m_up = resize_bilinear(m4, (4 * ch, 4 * cw))
+    rw_up = torch.where(m_up > 1e-6, rw_up / torch.clamp(m_up, min=1e-6),
+                        torch.zeros((), device=dev))
+    pix = _extent_mask(h0, w0, (4 * ch, 4 * cw), dev)
+    return rw_up * pix[None]
+
+
+def upsample_and_decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
+                        w0: int, bg_thres: float):
+    """x4 upsample, max-normalize, bg-threshold plane, argmax
+    (step/make_sem_seg_labels.py:44-47). Returns (labels [4H, 4W] int64,
+    0 = background and k >= 1 = seed row k-1; rw_up [C, 4H, 4W]
+    max-normalized scores; max_score). Out-of-extent pixels are
+    background."""
+    c, ch, cw = rw_capped.shape
+    dev = rw_capped.device
+    rw_up = upsample_scores(rw_capped, h4, w4, h0, w0)
+    pix = _extent_mask(h0, w0, (4 * ch, 4 * cw), dev)
+    max_score = torch.max(rw_up)
+    rw_up = rw_up / torch.clamp(max_score, min=1e-12)
+    stacked = torch.cat(
+        [torch.full((1, 4 * ch, 4 * cw), bg_thres, dtype=rw_up.dtype,
+                    device=dev), rw_up], dim=0,
+    )
+    labels = torch.argmax(stacked, dim=0)
+    labels = torch.where(pix > 0, labels, torch.zeros((), dtype=labels.dtype,
+                                                       device=dev))
+    return labels, rw_up, max_score

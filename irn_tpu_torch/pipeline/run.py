@@ -1,0 +1,93 @@
+"""Pipeline CLI of the port: the flags of ``irn_tpu.pipeline.run`` (one
+``Config``, the same artifacts) plus ``--device`` (default ``cuda``).
+
+Usage:
+    python -m irn_tpu_torch.pipeline.run --voc12_root <VOC2012> \
+        --infer_list <ids.txt> --make_sem_seg_pass --eval_sem_seg_pass \
+        [--device cuda|cpu]
+
+Stages not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; none is skipped silently."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+from typing import Dict, Optional, Sequence
+
+from irn_tpu.pipeline import run as jax_run
+from irn_tpu.pipeline.config import Config
+from irn_tpu.utils.logging import Logger, Timer
+
+# flag -> (module, function(cfg, device)) of the port, or the ROADMAP item
+# that ports it
+STAGES = [
+    ("train_cam_pass", "ROADMAP queue 1 item 8 (train_cam)"),
+    ("make_cam_pass", "ROADMAP queue 1 item 5 (make_cam)"),
+    ("eval_cam_pass", "ROADMAP queue 1 item 5 (make_cam)"),
+    ("cam_to_ir_label_pass", "ROADMAP queue 1 item 6 (cam_to_ir_label)"),
+    ("train_irn_pass", "ROADMAP queue 1 item 7 (train_irn)"),
+    ("make_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
+    ("eval_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
+    ("make_sem_seg_pass",
+     ("irn_tpu_torch.pipeline.stages_irn", "make_sem_seg_labels")),
+    ("eval_sem_seg_pass",
+     ("irn_tpu_torch.pipeline.stages_eval", "eval_sem_seg")),
+    ("make_cocoann_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
+]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = jax_run.build_parser()
+    parser.description = "irn_tpu_torch pipeline"
+    parser.add_argument("--device", default="cuda",
+                        help="torch device for every stage (cuda | cpu)")
+    return parser
+
+
+def parse(argv: Optional[Sequence[str]] = None):
+    """(Config, device) from the command line."""
+    kw = vars(build_parser().parse_args(argv))
+    device = kw.pop("device")
+    kw["cam_scales"] = tuple(kw["cam_scales"])
+    return Config(**kw).resolve(), device
+
+
+def run_pipeline(cfg: Config, device: str) -> Dict:
+    """Run the enabled stages in the reference's order; returns each
+    stage's result by function name."""
+    if cfg.dist_initialize or cfg.dist_coordinator:
+        raise NotImplementedError(
+            "multi-process runs are ROADMAP queue 1 item 10 (Multi-GPU)"
+        )
+    for flag, target in STAGES:
+        if getattr(cfg, flag) and isinstance(target, str):
+            raise NotImplementedError(
+                f"--{flag} is not ported to irn_tpu_torch yet: {target}"
+            )
+    results = {}
+    for flag, target in STAGES:
+        if not getattr(cfg, flag):
+            continue
+        module_name, fn_name = target
+        fn = getattr(importlib.import_module(module_name), fn_name)
+        print(f"step.{fn_name}:", flush=True)
+        timer = Timer()
+        results[fn_name] = fn(cfg, device)
+        print(f"step.{fn_name} done in {timer.lapse():.1f}s", flush=True)
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    cfg, device = parse(argv)
+    logger = Logger(cfg.log_name + ".log")
+    try:
+        print(dict(dataclasses.asdict(cfg), device=device))
+        return run_pipeline(cfg, device)
+    finally:
+        logger.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""JAX variable pytrees -> torch state dicts: the inverse of
+:mod:`irn_tpu.utils.weights` (which is numpy-only and maps a torch state
+dict to the JAX variables; the port reuses it for that direction).
+
+HWIO conv kernels become OIHW; ``stats`` mean/var become the frozen-BN
+buffers; ``scale``/``bias`` become ``weight``/``bias``; ConvGN blocks
+become Sequential(conv, GN) indices; ``fc_dp7a``/``fc_dp7b`` become
+``fc_dp7.0/.1/.3``; ``dp_mean`` becomes ``mean_shift.running_mean``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from irn_tpu.utils.weights import convert_irn_net
+
+BLOCKS = (3, 4, 6, 3)
+_IRN_GN = (
+    "fc_edge1", "fc_edge2", "fc_edge3", "fc_edge4", "fc_edge5",
+    "fc_dp1", "fc_dp2", "fc_dp3", "fc_dp4", "fc_dp5", "fc_dp6",
+)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _kernel(k) -> torch.Tensor:
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _bn(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(params["scale"])
+    sd[prefix + ".bias"] = _t(params["bias"])
+    sd[prefix + ".running_mean"] = _t(stats["mean"])
+    sd[prefix + ".running_var"] = _t(stats["var"])
+
+
+def resnet50_from_jax(params: Mapping, stats: Mapping,
+                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """ResNet50 ``params``/``stats`` subtrees -> torch ResNet50 keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    sd[prefix + "conv1.weight"] = _kernel(params["conv1"]["kernel"])
+    _bn(sd, prefix + "bn1", params["bn1"], stats["bn1"])
+    for li in range(4):
+        for bi in range(BLOCKS[li]):
+            src = f"layer{li + 1}_{bi}"
+            dst = f"{prefix}layer{li + 1}.{bi}"
+            bp, bs = params[src], stats[src]
+            for ci in (1, 2, 3):
+                sd[f"{dst}.conv{ci}.weight"] = _kernel(bp[f"conv{ci}"]["kernel"])
+                _bn(sd, f"{dst}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            if "down_conv" in bp:
+                sd[f"{dst}.downsample.0.weight"] = _kernel(
+                    bp["down_conv"]["kernel"])
+                _bn(sd, f"{dst}.downsample.1", bp["down_bn"], bs["down_bn"])
+    return sd
+
+
+def _convgn(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".0.weight"] = _kernel(p["conv"]["kernel"])
+    sd[prefix + ".1.weight"] = _t(p["gn"]["scale"])
+    sd[prefix + ".1.bias"] = _t(p["gn"]["bias"])
+
+
+def irn_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """IRNet variables ``{'params', 'stats'}`` (a JAX checkpoint) -> the
+    state dict of :class:`irn_tpu_torch.models.irn.IRNet`."""
+    params, stats = variables["params"], variables["stats"]
+    sd = resnet50_from_jax(params["resnet50"], stats["resnet50"],
+                           prefix="resnet50.")
+    for name in _IRN_GN:
+        _convgn(sd, name, params[name])
+    sd["fc_edge6.weight"] = _kernel(params["fc_edge6"]["kernel"])
+    sd["fc_edge6.bias"] = _t(params["fc_edge6"]["bias"])
+    _convgn(sd, "fc_dp7", params["fc_dp7a"])
+    sd["fc_dp7.3.weight"] = _kernel(params["fc_dp7b"]["kernel"])
+    sd["mean_shift.running_mean"] = _t(stats["dp_mean"])
+    return sd
+
+
+def irn_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's IRNet state dict -> JAX variables (a JAX checkpoint),
+    through the JAX package's numpy-only converter."""
+    return convert_irn_net(
+        {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    )
