@@ -5,21 +5,37 @@ Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc``, checks
 each against its plain PyTorch twin at the main path's shapes and times
 both, then drives make_sem_seg end to end through the port's CLI
 (``irn_tpu_torch.pipeline.run.main``) on a synthetic VOC-sized tree with a
-seeded random IRNet, in the default configuration (the K0 stencil walk) and
-at ``--rw_square_times 1`` (K2 squaring, K1 pack, K3 chain). Every check
-that fails raises, so the exit code is non-zero; without CUDA, or without
-the repository beside it, the script fails before printing any result.
+seeded random IRNet, in five configurations, each with the launch counts
+set to 0 just before it and read just after:
+
+- ``default``: the K0 stencil walk;
+- ``banded`` = ``--rw_square_times 1``: K2 squaring, K1 pack, K3 chain;
+- ``pure`` = ``--rw_square_times 8`` on 4 images: the reference's pure
+  squaring on the dense route, K6 then 7 x K5;
+- ``e3`` = ``--exp_times 3 --rw_square_times 3``: three K2 squarings, then
+  one K4 application;
+- ``e3_diag`` = ``--exp_times 3``: the K0 stencil, e3's comparison.
+
+Then the library entry point ``random_walk.propagate_banded(..., bj=1024)``
+on one image (the K7 rectangular-tile chain), the pure route of one image
+through the plain twins on the card, one image's default walk through the
+twins on the host, and a per-layer breakdown. Every check that fails
+raises, so the exit code is non-zero; without CUDA, or without the
+repository beside it, the script fails before printing any result.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the per-kernel results (its
-``launches`` count kernel launches in the stage runs; ``shared`` is true
-when nvidia-smi showed another process on the card, so the times are not
-clean), and ``{"ok": true, "device": {...}}``.
+``launches`` count kernel launches in the run of the kernel's path, see
+``HOME_RUN``; ``shared`` is true when nvidia-smi showed another process on
+the card, so the times are not clean), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -34,7 +50,9 @@ import torch
 # main-path geometry: the (96, 128) grid bucket of a VOC-sized image
 BUCKET = (96, 128)
 BS = 512
+BJ = 1024  # K7's output tile in the library call
 N_IMAGES = 8
+N_PURE = 4  # images of the pure-squaring run (about 1-2.3 s each)
 SEED = 0
 
 REPLACES = {
@@ -42,12 +60,27 @@ REPLACES = {
     "pack_banded": "irn_tpu/ops/matpow_pallas.py:742",
     "square_banded": "irn_tpu/ops/matpow_pallas.py:218",
     "packed_chain": "irn_tpu/ops/matpow_pallas.py:536",
+    "apply_banded": "irn_tpu/ops/matpow_pallas.py:295",
+    "square_dense": "irn_tpu/ops/matpow_pallas.py:126",
+    "square_fused_first": "irn_tpu/ops/matpow_pallas.py:810",
+    "banded_chain": "irn_tpu/ops/matpow_pallas.py:457",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
     "pack_banded": "irn_tpu_torch/csrc/pack_banded.cu",
     "square_banded": "irn_tpu_torch/csrc/square_banded.cu",
     "packed_chain": "irn_tpu_torch/csrc/packed_chain.cu",
+    "apply_banded": "irn_tpu_torch/csrc/apply_banded.cu",
+    "square_dense": "irn_tpu_torch/csrc/square_dense.cu",
+    "square_fused_first": "irn_tpu_torch/csrc/square_fused_first.cu",
+    "banded_chain": "irn_tpu_torch/csrc/banded_chain.cu",
+}
+# the run whose launch counts the kernels line reports for each kernel
+HOME_RUN = {
+    "diag_chain": "default", "pack_banded": "banded",
+    "square_banded": "banded", "packed_chain": "banded",
+    "apply_banded": "e3", "square_dense": "pure",
+    "square_fused_first": "pure", "banded_chain": "library bj",
 }
 
 
@@ -156,6 +189,8 @@ def check_kernels(dev, card: str) -> dict:
         plain_ms=cuda_ms(lambda: mk.packed_chain_plain(x, tp, 128, BS), 3),
         shape=f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications",
     )
+    del got, want, tp, t2
+    check_dense_kernels(dev, geom, edge, x, res)
     for name, r_ in res.items():
         print(f"kernel {name}: max_abs_err {r_['max_abs_err']:.3e} "
               f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms "
@@ -163,10 +198,125 @@ def check_kernels(dev, card: str) -> dict:
     return res
 
 
-def run_stage(dev, work: str) -> dict:
-    """make_sem_seg through the port's CLI, both walk configurations."""
-    from irn_tpu_torch.data import synthetic
+def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
+    """T with every BS x BS block beyond kb = ceil(h/BS) set to NaN: where
+    K2's output is unspecified, so a kernel that reads it fails."""
+    kb = -(-h // BS)
+    bi = torch.arange(t.shape[0], device=t.device) // BS
+    return torch.where((bi[:, None] - bi[None, :]).abs() > kb,
+                       torch.full((), float("nan"), device=t.device), t)
+
+
+def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
+    """K5, K6, K4 and K7 vs their plain twins at the main path's shapes."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    n = geom.n_pad
+    h = rw.band_halfwidth(geom)
+    a = rw.dense_affinity(geom, edge)
+    t = rw.normalize_transition(a)
+
+    # K5: one dense squaring of T
+    got = mk.square_dense(t)
+    want = mk.square_dense_plain(t)
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"square_dense rel err {rel}")
+    res["square_dense"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.square_dense(t), 3),
+        plain_ms=cuda_ms(lambda: mk.square_dense_plain(t), 3),
+        shape=f"T [{n}, {n}]",
+    )
+
+    # K6: A -> T^2 with T never stored, beta 10
+    got = mk.square_fused_first(a, 10)
+    want = mk.square_fused_first_plain(a, 10)
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"square_fused_first rel err {rel}")
+    res["square_fused_first"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.square_fused_first(a, 10), 3),
+        plain_ms=cuda_ms(lambda: mk.square_fused_first_plain(a, 10), 3),
+        shape=f"A [{n}, {n}], beta 10",
+    )
+    del got, want, a
+
+    # K4: one application of T^8 (three K2 squarings, h 4448), NaN in every
+    # block beyond kb
+    t8, h8 = t, h
+    for _ in range(3):
+        t8, h8 = mk.square_banded(t8, h8, BS), 2 * h8
+    check(h8 == 4448, f"e3 band {h8}")
+    t8 = _poison_blocks(t8, h8)
+    got = mk.apply_banded(x, t8, h8, BS)
+    want = mk.apply_banded_plain(x, t8, h8, BS)
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"apply_banded rel err {rel}")
+    res["apply_banded"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.apply_banded(x, t8, h8, BS), 10),
+        plain_ms=cuda_ms(lambda: mk.apply_banded_plain(x, t8, h8, BS), 5),
+        shape=f"x [8, {n}], T^8 [{n}, {n}], h {h8}, bs {BS}",
+    )
+    del t8, got, want
+
+    # K7: 128 applications of T^2 (h 1112) over BS x BJ tiles, NaN beyond
+    # the written block band; against its twin and against K1 + K3
+    t2, h2 = _poison_blocks(mk.square_banded(t, h, BS), 2 * h), 2 * h
+    del t
+    got = mk.banded_chain(x, t2, h2, 128, BS, BJ)
+    want = mk.banded_chain_plain(x, t2, h2, 128)
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-4,
+          f"banded_chain rel err {rel}")
+    _, rel13 = rel_err(got, mk.packed_chain(
+        x, mk.pack_banded(t2, h2, BS), 128, BS))
+    check(rel13 <= 1e-4, f"banded_chain vs K1 + K3 rel err {rel13}")
+    res["banded_chain"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.banded_chain(x, t2, h2, 128, BS, BJ), 5),
+        plain_ms=cuda_ms(
+            lambda: mk.banded_chain_plain(x, t2, h2, 128), 3),
+        shape=(f"x [8, {n}], T^2 [{n}, {n}], h {h2}, bs {BS}, bj {BJ}, "
+               f"128 applications; rel err vs K1 + K3 {rel13:.2e}"),
+    )
+
+
+def cli(argv) -> dict:
+    """The port's CLI (``irn_tpu_torch.pipeline.run.main``) with its
+    config and progress prints captured, and shown only if it raises."""
+    from irn_tpu_torch.pipeline import run as port_run
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return port_run.main(argv)
+    except BaseException:
+        print(buf.getvalue()[-8000:], flush=True)
+        raise
+
+
+def agreement(dir_a: str, dir_b: str, names) -> list:
+    """Per-image share of equal label pixels between two PNG dirs."""
     from irn_tpu_torch.data.image_io import imread
+
+    out = []
+    for n_ in names:
+        a = imread(os.path.join(dir_a, n_ + ".png"))
+        b = imread(os.path.join(dir_b, n_ + ".png"))
+        check(a.shape == b.shape, f"{n_}: shapes {a.shape} {b.shape}")
+        out.append(float(np.mean(a == b)))
+    return out
+
+
+def run_stage(dev, work: str) -> dict:
+    """make_sem_seg through the port's CLI in each walk configuration, the
+    launch counts of each run read on their own."""
+    from irn_tpu_torch.data import synthetic
     from irn_tpu_torch.models.irn import IRNet, init_irnet
     from irn_tpu_torch.ops import _build
     from irn_tpu_torch.pipeline import run as port_run
@@ -185,7 +335,11 @@ def run_stage(dev, work: str) -> dict:
     weights = os.path.join(work, "irn.ckpt")
     save_checkpoint(weights, irn_to_jax(model.state_dict()))
 
-    def argv(out, extra=()):
+    four = os.path.join(root, "pure.txt")
+    with open(four, "w") as f:
+        f.write("\n".join(names[:N_PURE]) + "\n")
+
+    def argv(out, extra=(), ids=ids, evaluate=True):
         return [
             "--voc12_root", root, "--infer_list", ids, "--train_list", ids,
             "--cam_out_dir", os.path.join(work, "cam"),
@@ -193,17 +347,20 @@ def run_stage(dev, work: str) -> dict:
             "--session_dir", os.path.join(work, "sess"),
             "--log_name", os.path.join(work, "log"),
             "--sem_seg_out_dir", out, "--make_sem_seg_pass",
-            "--eval_sem_seg_pass", "--device", str(dev), *extra,
+            *(("--eval_sem_seg_pass",) if evaluate else ()),
+            "--device", str(dev), *extra,
         ]
 
-    _build.reset_launches()
     runs = {}
+    launches = {}
     for tag, extra in (("default", ()), ("banded", ("--rw_square_times", "1"))):
         out = os.path.join(work, f"sem_{tag}")
-        first = port_run.main(argv(out, extra))
+        _build.reset_launches()
+        first = cli(argv(out, extra))
         # a second pass over the same images (warm caches): a smoke-run
         # rate over N_IMAGES images, not a settled throughput
-        again = port_run.main(argv(out, (*extra, "--overwrite")))
+        again = cli(argv(out, (*extra, "--overwrite")))
+        launches[tag] = dict(_build.LAUNCHES)
         summ = again["make_sem_seg_labels"]
         for n_ in names:
             check(os.path.exists(os.path.join(out, n_ + ".png")),
@@ -218,7 +375,6 @@ def run_stage(dev, work: str) -> dict:
             edge_saturated=summ["edge_saturated"],
             miou=float(again["eval_sem_seg"]["miou"]),
         )
-    launches = dict(_build.LAUNCHES)
     for tag, r_ in runs.items():
         print(f"stage {tag}: {r_['img_s']:.3f} img/s second pass "
               f"({r_['first_img_s']:.3f} img/s first pass; smoke rates over "
@@ -230,20 +386,131 @@ def run_stage(dev, work: str) -> dict:
           f"default walk modes {runs['default']['modes']}")
     check(all(m == "banded" for m in runs["banded"]["modes"].values()),
           f"banded walk modes {runs['banded']['modes']}")
-    agree = []
-    for n_ in names:
-        a = imread(os.path.join(runs["default"]["out"], n_ + ".png"))
-        b = imread(os.path.join(runs["banded"]["out"], n_ + ".png"))
-        check(a.shape == b.shape, f"{n_}: shapes {a.shape} {b.shape}")
-        agree.append(float(np.mean(a == b)))
+    agree = agreement(runs["default"]["out"], runs["banded"]["out"], names)
     print(f"stage label agreement default vs banded: min {min(agree):.6f} "
           f"mean {np.mean(agree):.6f}", flush=True)
     check(min(agree) >= 0.99, f"default vs banded agreement {agree}")
-    print(f"launches in the stage runs: {launches}", flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
+
+    # the pure-squaring routes, one pass each
+    for tag, extra, ids_, mode in (
+        ("pure", ("--rw_square_times", "8"), four, "dense"),
+        ("e3", ("--exp_times", "3", "--rw_square_times", "3"), ids, "banded"),
+        ("e3_diag", ("--exp_times", "3"), ids, "diag"),
+    ):
+        out = os.path.join(work, f"sem_{tag}")
+        _build.reset_launches()
+        summ = cli(argv(out, extra, ids_, evaluate=False))[
+            "make_sem_seg_labels"]
+        launches[tag] = dict(_build.LAUNCHES)
+        runs[tag] = dict(out=out, img_s=summ["n_images"] / summ["seconds"],
+                         modes=summ["modes"], n_images=summ["n_images"])
+        print(f"stage {tag} ({' '.join(extra)}): {runs[tag]['img_s']:.3f} "
+              f"img/s over {summ['n_images']} images, one pass, walk modes "
+              f"{summ['modes']}", flush=True)
+        check(summ["modes"] and all(m == mode for m in summ["modes"].values()),
+              f"{tag} walk modes {summ['modes']}")
+    lp, le = launches["pure"], launches["e3"]
+    check(lp["square_fused_first"] == N_PURE
+          and lp["square_dense"] == 7 * N_PURE,
+          f"pure launches {lp}")
+    check(le["apply_banded"] == N_IMAGES and le["square_banded"] == 3 * N_IMAGES,
+          f"e3 launches {le}")
+    agree = agreement(runs["default"]["out"], runs["pure"]["out"],
+                      names[:N_PURE])
+    print(f"stage label agreement pure vs default: min {min(agree):.6f} "
+          f"mean {np.mean(agree):.6f}", flush=True)
+    check(min(agree) >= 0.99, f"pure vs default agreement {agree}")
+    agree = agreement(runs["e3"]["out"], runs["e3_diag"]["out"], names)
+    print(f"stage label agreement e3 vs e3_diag: min {min(agree):.6f} "
+          f"mean {np.mean(agree):.6f}", flush=True)
+    check(min(agree) >= 0.99, f"e3 vs e3_diag agreement {agree}")
     cfg, _ = port_run.parse(argv(runs["default"]["out"]))
-    return dict(runs=runs, launches=launches, cfg=cfg, work=work)
+    return dict(runs=runs, launches=launches, cfg=cfg, work=work,
+                names=names)
+
+
+def _walk_inputs(cfg, dev, index: int):
+    """One image of the tree through the stage's own runner: (name, size,
+    geom, cam [rows, ch, cw], edge [ch, cw], (h4, w4), keys) at the image's
+    bucket, as RandomWalkRunner builds them."""
+    from irn_tpu_torch.data import voc12
+    from irn_tpu_torch.ops import random_walk as rw
+    from irn_tpu_torch.pipeline import stages_irn
+
+    runner = stages_irn._load_irn(cfg, dev)
+    walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
+    sample = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)[index]
+    img = sample["img"]
+    size = img.shape[:2]
+    (edge, _, (h4, w4)), = runner.batch([img], [size])
+    cams, keys = stages_irn._load_sem_cam(cfg, sample["name"])
+    ch, cw = walker._bucket(h4), walker._bucket(w4)
+    cam = np.zeros((walker._row_bucket(len(cams)), ch, cw), np.float32)
+    cam[: len(cams), :h4, :w4] = cams
+    geom = rw.build_geometry(ch, cw, radius=cfg.rw_radius)
+    return (sample["name"], size, geom, torch.from_numpy(cam).to(dev),
+            edge[:ch, :cw], (h4, w4), keys)
+
+
+def _labels_agree(cfg, rw_capped, hw4, size, keys, png: str) -> float:
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.ops import random_walk as rw
+
+    labels, _, _ = rw.upsample_and_decode(rw_capped, hw4[0], hw4[1], size[0],
+                                          size[1], cfg.sem_seg_bg_thres)
+    pred = keys[labels.cpu().numpy()[: size[0], : size[1]]]
+    return float(np.mean(pred == imread(png)))
+
+
+def library_bj_check(dev, stage: dict) -> None:
+    """random_walk.propagate_banded(..., bj=1024) on one image (the K7
+    rectangular-tile chain) vs the --rw_square_times 1 stage PNG."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import random_walk as rw
+
+    cfg = stage["cfg"]
+    name, size, geom, cam, edge, hw4, keys = _walk_inputs(cfg, dev, 0)
+    _build.reset_launches()
+    out = rw.propagate_banded(geom, cam, edge, cfg.beta, exp_times=8,
+                              square_times=1, bj=BJ)
+    torch.cuda.synchronize()
+    stage["launches"]["library bj"] = dict(_build.LAUNCHES)
+    agree = _labels_agree(cfg, out, hw4, size, keys, os.path.join(
+        stage["runs"]["banded"]["out"], name + ".png"))
+    print(f"library propagate_banded(bj={BJ}) on {name} (grid "
+          f"{geom.cap}): launches {stage['launches']['library bj']}, label "
+          f"agreement with the --rw_square_times 1 stage {agree:.6f}",
+          flush=True)
+    check(_build.LAUNCHES["banded_chain"] == 128,
+          f"library bj launches {_build.LAUNCHES}")
+    check(agree >= 0.99, f"library bj agreement {agree}")
+
+
+def pure_twin_check(dev, stage: dict) -> None:
+    """One pure-route image through the plain twins, called by name on
+    CUDA tensors (normalize + cuBLAS squarings), vs the hand-kernel
+    route's PNG. On the host these eight squarings would take minutes."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    cfg = stage["cfg"]
+    name, size, geom, cam, edge, hw4, keys = _walk_inputs(cfg, dev, 0)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    t = mk.square_fused_first_plain(rw.dense_affinity(geom, edge), cfg.beta)
+    for _ in range(7):
+        t = mk.square_dense_plain(t)
+    out = rw.propagate_with_transition(geom, cam, edge, t, 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(not any(_build.LAUNCHES.values()), f"twins launched {_build.LAUNCHES}")
+    agree = _labels_agree(cfg, out, hw4, size, keys, os.path.join(
+        stage["runs"]["pure"]["out"], name + ".png"))
+    print(f"pure route of {name} (grid {geom.cap}, n_pad {geom.n_pad}) "
+          f"through the plain twins on the card ({seconds:.3f} s): label "
+          f"agreement with the hand kernels {agree:.6f}", flush=True)
+    check(agree >= 0.999, f"pure twin vs kernel agreement {agree}")
 
 
 def cpu_walk_check(dev, stage: dict) -> float:
@@ -371,6 +638,60 @@ def layer_breakdown(dev, stage: dict, card: str) -> None:
               "device busy share not measured", flush=True)
 
 
+def dense_layers(dev, stage: dict, card: str) -> None:
+    """The pure and e3 routes' steps, each ended by a synchronize (host
+    clock), over the first two images after one warm-up call."""
+    from collections import defaultdict
+
+    from irn_tpu_torch.ops import matpow
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    cfg = stage["cfg"]
+    inputs = [_walk_inputs(cfg, dev, i) for i in range(2)]
+    ms = defaultdict(float)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3 / len(inputs)
+        return out
+
+    for batch in ([inputs[0]], inputs):
+        ms.clear()  # the first call warms up; the two images are kept
+        for _, _, geom, cam, edge, _, _ in batch:
+            a = timed("dense A build (affinity)",
+                      lambda: rw.dense_affinity(geom, edge))
+            t = timed("pure: K6 fused first squaring",
+                      lambda: mk.square_fused_first(a, cfg.beta))
+            t = timed("pure: 7 x K5 squarings",
+                      lambda: matpow.matrix_power_squarings(t, 7))
+            timed("pure: x @ T application (torch.matmul)",
+                  lambda: rw.propagate_with_transition(geom, cam, edge, t, 1))
+            del t
+            h = rw.band_halfwidth(geom)
+            t = timed("e3: T (A^beta, colnorm)",
+                      lambda: rw.normalize_transition(a, cfg.beta))
+            del a
+
+            def squarings():
+                t_, h_ = t, h
+                for _ in range(3):
+                    t_, h_ = mk.square_banded(t_, h_, BS), 2 * h_
+                return t_, h_
+
+            t8, h8 = timed("e3: 3 x K2 squarings", squarings)
+            timed("e3: K4 application", lambda: rw.apply_transition_banded(
+                geom, cam, edge, t8, h8, 1, BS))
+            del t, t8
+    grids = ", ".join(f"{g.cap[0]}x{g.cap[1]}" for _, _, g, *_ in inputs)
+    for name, v in ms.items():
+        print(f"layer {name}: {v:.3f} ms/img (grids {grids}; {card})",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -419,12 +740,24 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="irn_smoke_")
     try:
         stage = run_stage(dev, work)
+        phase("library: propagate_banded(bj=1024)")
+        library_bj_check(dev, stage)
+        phase("stage: pure route through the plain twins on the card")
+        pure_twin_check(dev, stage)
         phase("stage: CPU plain-twin walk vs the card")
         cpu_walk_check(dev, stage)
         phase("layers")
         layer_breakdown(dev, stage, card)
+        dense_layers(dev, stage, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    launches = stage["launches"]
+    for run, counts in launches.items():
+        print(f"launches in the {run} run: {counts}", flush=True)
+    for k, run in HOME_RUN.items():
+        check(launches[run][k] > 0,
+              f"kernel {k} never launched on its path ({run})")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
                   for m in sys.modules), "JAX was imported")
@@ -432,11 +765,10 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-             launches=stage["launches"][k],
+             launches=launches[HOME_RUN[k]][k],
              max_abs_err=kernels[k]["max_abs_err"], ms=kernels[k]["ms"],
              plain_ms=kernels[k]["plain_ms"])
-        for k in ("diag_chain", "pack_banded", "square_banded",
-                  "packed_chain")
+        for k in _build.KERNELS
     ], "shared": shared}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

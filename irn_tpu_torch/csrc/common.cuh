@@ -4,6 +4,12 @@
 // (0 on success), so a refused launch surfaces in the Python wrapper. Each
 // also counts the kernels it launched into its last argument, ``launched``,
 // which the wrapper adds to its launch counter.
+//
+// Two tile routines are shared by several kernels:
+// - sgemm_tile: a dense f32 SIMT product tile (K5 square_dense, K6
+//   square_fused_first), with an elementwise transform on each operand load.
+// - thin_apply: one block of a thin product x @ T over a row range (K4
+//   apply_banded, K7 banded_chain), optionally masked to a band.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,3 +24,192 @@
     if (e_ != cudaSuccess) return (int)e_;         \
     ++*(launched);                                 \
   } while (0)
+
+namespace irn {
+
+// x**e by binary exponentiation (e >= 1): the multiplication order of JAX's
+// integer_pow and of matpow_kernels.pow_int. With a compile-time e the loop
+// unrolls to its multiplies.
+__device__ __forceinline__ float pow_int(float x, int e) {
+  float acc = 1.f;
+  bool have = false;
+  float base = x;
+  while (e) {
+    if (e & 1) {
+      acc = have ? __fmul_rn(acc, base) : base;
+      have = true;
+    }
+    e >>= 1;
+    if (e) base = __fmul_rn(base, base);
+  }
+  return acc;
+}
+
+// -- sgemm_tile ------------------------------------------------------------
+//
+// C[i, j] = sum_k la(A[i, k]) * lb(B[k, j]) for one 128 x 128 output tile
+// (blockIdx.y, blockIdx.x) of an n x n product, n % 128 == 0. A loader
+// transforms 4 consecutive elements of a row as they are staged:
+// la(v, i, k) gets A[i, k .. k+3], lb(v, k, j) gets B[k, j .. j+3].
+// 256 threads, each holding an 8 x 8 register tile (two 4-row by two
+// 4-column quads, 64 apart, so shared-memory reads are conflict-free float4
+// loads); 128 x 8 and 8 x 128 operand slabs double-buffered in shared memory,
+// the next slab prefetched into registers while the current one is used.
+// Every output sums k = 0 .. n-1 in order with fmaf: a fixed order, so the
+// result is deterministic. f32 SIMT arithmetic: the tensor cores' TF32 would
+// not be an f32 result.
+
+constexpr int kGemmBM = 128;
+constexpr int kGemmBN = 128;
+constexpr int kGemmBK = 8;
+constexpr int kGemmThreads = 256;
+
+struct IdentityLoad {
+  __device__ __forceinline__ float4 operator()(float4 v, int, int) const {
+    return v;
+  }
+};
+
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           float* __restrict__ c, int n,
+                                           LoadA la, LoadB lb) {
+  __shared__ __align__(16) float As[2][kGemmBK][kGemmBM];  // As[k][m]
+  __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN];  // Bs[k][n]
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * kGemmBM;
+  const int col0 = blockIdx.x * kGemmBN;
+  // global -> shared mapping: one float4 of A (row ar, cols ac..ac+3) and
+  // one of B (row br, cols bc..bc+3) per thread and slab
+  const int ar = tid >> 1, ac = (tid & 1) * 4;
+  const int br = tid >> 5, bc = (tid & 31) * 4;
+  const float* a_ptr = a + (size_t)(row0 + ar) * n + ac;
+  const float* b_ptr = b + (size_t)br * n + col0 + bc;
+  // register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise cols
+  const int tx = tid & 15, ty = tid >> 4;
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+
+  auto stage = [&](int buf, int k0, float4 va, float4 vb) {
+    va = la(va, row0 + ar, k0 + ac);
+    As[buf][ac + 0][ar] = va.x;
+    As[buf][ac + 1][ar] = va.y;
+    As[buf][ac + 2][ar] = va.z;
+    As[buf][ac + 3][ar] = va.w;
+    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = lb(vb, k0 + br, col0 + bc);
+  };
+
+  float4 va = *reinterpret_cast<const float4*>(a_ptr);
+  float4 vb = *reinterpret_cast<const float4*>(b_ptr);
+  stage(0, 0, va, vb);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < n; k0 += kGemmBK) {
+    const bool more = k0 + kGemmBK < n;
+    if (more) {
+      va = *reinterpret_cast<const float4*>(a_ptr + k0 + kGemmBK);
+      vb = *reinterpret_cast<const float4*>(b_ptr + (size_t)(k0 + kGemmBK) * n);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
+    }
+    if (more) stage(buf ^ 1, k0 + kGemmBK, va, vb);
+    __syncthreads();
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int row = row0 + (p < 4 ? ty * 4 + p : 64 + ty * 4 + p - 4);
+    float* crow = c + (size_t)row * n + col0;
+    *reinterpret_cast<float4*>(crow + tx * 4) =
+        make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    *reinterpret_cast<float4*>(crow + 64 + tx * 4) =
+        make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+  }
+}
+
+// -- thin_apply ------------------------------------------------------------
+//
+// out[c0 + r, col] = sum_{row in [r_begin, r_end)} x[c0 + r, row] * T'[row, col]
+// for the 8 seed rows c0 .. c0+7 and the 32 columns col0 .. col0+31 of one
+// block (256 threads = 32 columns x 8 row groups), with T' = T, or with kMask
+// T' = (|row - col| <= h ? T : 0) as a select, so that a NaN outside the
+// band never reaches a sum. Reads T only at rows [r_begin, r_end). The seed
+// rows' window is staged through shared memory in chunks of 256 rows; row
+// group g sums the rows g, g+8, g+16, ... of each chunk in order, and the
+// groups reduce in a fixed order: the result is deterministic.
+
+constexpr int kApplyCols = 32;
+constexpr int kApplyGroups = 8;
+constexpr int kApplyRows = 8;
+constexpr int kApplyChunk = 256;
+constexpr int kApplyThreads = kApplyCols * kApplyGroups;
+
+template <bool kMask>
+__device__ __forceinline__ void thin_apply(const float* __restrict__ x,
+                                           const float* __restrict__ t,
+                                           float* __restrict__ out, int C,
+                                           int n, int c0, int col0,
+                                           int r_begin, int r_end, int h) {
+  __shared__ float xs[kApplyRows][kApplyChunk];
+  __shared__ float red[kApplyGroups][kApplyRows][kApplyCols];
+  const int tx = threadIdx.x % kApplyCols;
+  const int g = threadIdx.x / kApplyCols;
+  const int col = col0 + tx;
+  float acc[kApplyRows];
+#pragma unroll
+  for (int r = 0; r < kApplyRows; ++r) acc[r] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kApplyChunk) {
+    const int len = min(kApplyChunk, r_end - r0);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int e = threadIdx.x; e < kApplyRows * kApplyChunk;
+         e += kApplyThreads) {
+      const int r = e / kApplyChunk;
+      const int s = e % kApplyChunk;
+      xs[r][s] = (c0 + r < C && s < len) ? x[(size_t)(c0 + r) * n + r0 + s]
+                                         : 0.f;
+    }
+    __syncthreads();
+    const float* tcol = t + (size_t)r0 * n + col;
+#pragma unroll 4
+    for (int s = g; s < len; s += kApplyGroups) {
+      float tv = __ldg(tcol + (size_t)s * n);
+      if (kMask) tv = (abs(r0 + s - col) <= h) ? tv : 0.f;
+#pragma unroll
+      for (int r = 0; r < kApplyRows; ++r) acc[r] = fmaf(xs[r][s], tv, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kApplyRows; ++r) red[g][r][tx] = acc[r];
+  __syncthreads();
+  if (g == 0) {
+    for (int r = 0; r < kApplyRows; ++r) {
+      if (c0 + r < C) {
+        float v = red[0][r][tx];
+#pragma unroll
+        for (int u = 1; u < kApplyGroups; ++u) v += red[u][r][tx];
+        out[(size_t)(c0 + r) * n + col] = v;
+      }
+    }
+  }
+}
+
+}  // namespace irn

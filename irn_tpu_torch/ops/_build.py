@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``irn_tpu_torch/csrc``).
 
 The kernels expose a plain C interface, so they build with ``nvcc`` alone
-(no PyTorch headers: seconds, not minutes) into one shared library that
-``ctypes`` loads. The library is built at first use, never at import, into
+(no PyTorch headers: seconds, not minutes): one ``nvcc -c`` per source, all
+started together, then one link into a shared library that ``ctypes``
+loads. The library is built at first use, never at import, into
 ``irn_tpu_torch/_kernels/`` (git-ignored); its file name carries a hash of
 the sources and flags, so an edited source never loads a stale build.
 
@@ -34,11 +35,13 @@ BUILD_DIR = os.path.join(_PKG, "_kernels")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain")
+KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
+           "apply_banded", "square_dense", "square_fused_first",
+           "banded_chain")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -89,25 +92,46 @@ def build() -> str:
     """Compile ``csrc/*.cu`` into one shared library (cached by content);
     returns its path. Raises with nvcc's output if the build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"libirn_tpu_torch_{_digest()}.so")
+    digest = _digest()
+    out = os.path.join(BUILD_DIR, f"libirn_tpu_torch_{digest}.so")
     if os.path.exists(out):
         BUILD_INFO.update(path=out, seconds=0.0, cached=True, log="")
         return out
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    nvcc = _nvcc()
+    objdir = os.path.join(BUILD_DIR, f"obj_{digest}_{os.getpid()}")
+    os.makedirs(objdir, exist_ok=True)
     t0 = time.perf_counter()
+    jobs = []
+    for cu in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(objdir, os.path.basename(cu)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, cu]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                if other.poll() is None:
+                    other.kill()
+                    other.wait()
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     BUILD_INFO.update(
-        path=out, seconds=seconds, cached=False,
-        log=(proc.stdout + proc.stderr),
+        path=out, seconds=time.perf_counter() - t0, cached=False,
+        log="".join(log) + proc.stdout + proc.stderr,
     )
     return out
 
@@ -122,9 +146,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_pack_banded.argtypes = [p, p, i, i, i, p, n]
     lib.irn_square_banded.argtypes = [p, p, i, i, i, i, p, n]
     lib.irn_packed_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
-    for fn in (lib.irn_diag_chain, lib.irn_pack_banded,
-               lib.irn_square_banded, lib.irn_packed_chain):
-        fn.restype = ctypes.c_int
+    lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, p, n]
+    lib.irn_square_dense.argtypes = [p, p, i, p, n]
+    lib.irn_square_fused_first.argtypes = [p, p, p, i, i, p, n]
+    lib.irn_banded_chain.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
+    for k in KERNELS:
+        getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:

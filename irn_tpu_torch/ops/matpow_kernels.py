@@ -1,25 +1,59 @@
-"""Banded transition-power kernels: the counterparts of
-:mod:`irn_tpu.ops.matpow_pallas` on the slice's path.
+"""Transition-power kernels: the counterparts of
+:mod:`irn_tpu.ops.matpow_pallas`.
 
 - :func:`pack_banded` (K1, ``csrc/pack_banded.cu``): T's in-band blocks
   into packed tiles [nb, (2kh+1)*bs, bs].
 - :func:`square_banded` (K2, ``csrc/square_banded.cu``): T @ T over the
   band only; out-of-band output is unspecified.
 - :func:`packed_chain` (K3, ``csrc/packed_chain.cu``): x @ T^n over the
-  packed tiles; :func:`apply_banded_chain` packs and chains.
+  packed tiles.
+- :func:`apply_banded` (K4, ``csrc/apply_banded.cu``): one x @ T over the
+  in-band blocks only.
+- :func:`square_dense` (K5, ``csrc/square_dense.cu``): dense T @ T.
+- :func:`square_fused_first` (K6, ``csrc/square_fused_first.cu``):
+  A -> T @ T with T = colnorm(A^beta) never stored.
+- :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n over
+  rectangular (bs x bj) tiles, T masked to its band.
+
+:func:`apply_banded_chain` dispatches among K4, K1 + K3 and K7 as the JAX
+function does.
 
 Each kernel has a plain PyTorch twin beside it (``*_plain``). A wrapper runs
 the twin for CPU tensors and launches the kernel for CUDA tensors (or
-raises); it never falls back from the card to the twin. Kernels take f32
-only in this version.
+raises); it never falls back from the card to the twin. The dense products
+the JAX package leaves to XLA's dot outside any Pallas body (a band that
+covers the matrix) are ``torch.matmul`` here. Kernels take f32 only in
+this version.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from irn_tpu_torch.ops import _build
+
+
+def pow_int(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x**e by binary exponentiation (static integer e >= 1) — the
+    multiplication order of JAX's ``integer_pow``."""
+    acc = None
+    base = x
+    while e:
+        if e & 1:
+            acc = base if acc is None else acc * base
+        e >>= 1
+        if e:
+            base = base * base
+    return acc
+
+
+def normalize_transition(affinity: torch.Tensor, beta: int = 10) -> torch.Tensor:
+    """A^beta, column-normalized (misc/indexing.py:132-137)."""
+    scaled = pow_int(affinity, beta)
+    return scaled / torch.sum(scaled, dim=0, keepdim=True)
 
 
 def _blocks(n: int, h: int, bs: int):
@@ -156,17 +190,167 @@ def packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
     return out
 
 
-def apply_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
-                       n_apply: int, bs: int = 512) -> torch.Tensor:
-    """x @ T^n_apply for a banded T (halfwidth ``h``): pack (K1), then the
-    packed chain (K3). ``x``: [C, n] with C a multiple of 8. The band must
-    stay under the matrix (``random_walk.banded_fits``); a single
-    application (the TPU's separate ``apply_banded`` kernel) runs as a
-    one-step chain."""
+# -- K4 ---------------------------------------------------------------------
+
+def apply_banded_plain(x: torch.Tensor, t: torch.Tensor, h: int,
+                       bs: int = 512) -> torch.Tensor:
+    """Column block j contracts the row blocks [j - kb, j + kb] in range
+    (``torch.matmul`` each); a band that covers the matrix is a full
+    product, as the TPU path's dot."""
+    n = t.shape[0]
+    nb, kb = _blocks(n, h, bs)
+    if 2 * kb + 1 >= nb:
+        return torch.matmul(x, t)
+    out = torch.empty_like(x)
+    for j in range(nb):
+        lo, hi = max(j - kb, 0) * bs, (min(j + kb, nb - 1) + 1) * bs
+        out[:, j * bs : (j + 1) * bs] = torch.matmul(
+            x[:, lo:hi], t[lo:hi, j * bs : (j + 1) * bs])
+    return out
+
+
+def apply_banded(x: torch.Tensor, t: torch.Tensor, h: int,
+                 bs: int = 512) -> torch.Tensor:
+    """x @ T for a banded T (halfwidth ``h``), reading only the in-band
+    bs x bs blocks (K4): the rest may hold :func:`square_banded`'s
+    unspecified fill. ``x``: [C, n] with C a multiple of 8. When the band
+    covers the matrix this is a full product (valid only for a T that is
+    zero out of band, as in the JAX package)."""
     c, n = x.shape
-    if t.shape != (n, n) or c % 8:
-        raise ValueError(f"bad shapes x={tuple(x.shape)} t={tuple(t.shape)}")
-    nb, kh = _blocks(n, h, bs)
-    if 1 + 2 * kh >= nb:
-        raise ValueError(f"band {h} covers the matrix (n={n}, bs={bs})")
-    return packed_chain(x, pack_banded(t, h, bs), n_apply, bs)
+    if t.shape != (n, n) or n % bs or c % 8:
+        raise ValueError(f"apply_banded: x {tuple(x.shape)} t "
+                         f"{tuple(t.shape)} bs {bs}")
+    if _build.is_plain(x):
+        return apply_banded_plain(x, t, h, bs)
+    _build.check_cuda("apply_banded", x, t)
+    nb, kb = _blocks(n, h, bs)
+    if 2 * kb + 1 >= nb:
+        return torch.matmul(x, t)
+    if bs % 32:
+        raise ValueError(f"apply_banded: bs={bs} must be a multiple of 32")
+    out = torch.empty_like(x)
+    _build.launch("apply_banded", x.device,
+                  x.data_ptr(), t.data_ptr(), out.data_ptr(), c, n, bs, kb)
+    return out
+
+
+# -- K5 ---------------------------------------------------------------------
+
+def square_dense_plain(t: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(t, t)`` (f32 with TF32 off)."""
+    return torch.matmul(t, t)
+
+
+def square_dense(t: torch.Tensor) -> torch.Tensor:
+    """Dense T @ T in f32 (K5). ``t``: [n, n], n a multiple of 128."""
+    n = t.shape[0]
+    if t.shape != (n, n):
+        raise ValueError(f"square_dense: square matrix expected, got {t.shape}")
+    if _build.is_plain(t):
+        return square_dense_plain(t)
+    _build.check_cuda("square_dense", t)
+    if n % 128:
+        raise ValueError(f"square_dense: n={n} must be a multiple of 128")
+    out = torch.empty_like(t)
+    _build.launch("square_dense", t.device, t.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# -- K6 ---------------------------------------------------------------------
+
+def square_fused_first_plain(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
+    """:func:`normalize_transition`, then ``torch.matmul(t, t)``."""
+    t = normalize_transition(a, beta)
+    return torch.matmul(t, t)
+
+
+def square_fused_first(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
+    """T @ T with T = colnorm(A^beta), T never stored (K6): the left
+    operand is A^beta, the right A^beta * inv[k] * inv[j] with
+    inv = 1 / colsum(A^beta) computed here. ``a``: [n, n], n a multiple of
+    128."""
+    n = a.shape[0]
+    if a.shape != (n, n) or beta < 1:
+        raise ValueError(f"square_fused_first: a {tuple(a.shape)} beta {beta}")
+    if _build.is_plain(a):
+        return square_fused_first_plain(a, beta)
+    _build.check_cuda("square_fused_first", a)
+    if n % 128:
+        raise ValueError(f"square_fused_first: n={n} must be a multiple of 128")
+    inv = 1.0 / torch.sum(pow_int(a, beta), dim=0)
+    out = torch.empty_like(a)
+    _build.launch("square_fused_first", a.device,
+                  a.data_ptr(), inv.data_ptr(), out.data_ptr(), n, beta)
+    return out
+
+
+# -- K7 ---------------------------------------------------------------------
+
+def banded_chain_plain(x: torch.Tensor, t: torch.Tensor, h: int,
+                       n_apply: int) -> torch.Tensor:
+    """K7's twin: T with every element of |r - c| > h replaced by 0 (a
+    select, so a NaN out of band does not leak), then ``n_apply`` dense
+    products; K7's tile row ranges only skip elements the mask zeroes.
+    This is also the JAX package's path when the band covers the matrix
+    (an XLA dot outside any kernel)."""
+    r = torch.arange(t.shape[0], device=t.device)
+    tm = torch.where((r[:, None] - r[None, :]).abs() <= h, t,
+                     torch.zeros((), dtype=t.dtype, device=t.device))
+    out = x
+    for _ in range(n_apply):
+        out = torch.matmul(out, tm)
+    return out
+
+
+def banded_chain(x: torch.Tensor, t: torch.Tensor, h: int, n_apply: int,
+                 bs: int = 512, bj: int = 512) -> torch.Tensor:
+    """x @ T^n_apply over (bs x bj) tiles (K7): output tile j contracts the
+    rows [j*bj - kh*bs, j*bj + bj + kh*bs) of T masked to |r - c| <= h.
+    ``x``: [C, n] f32; n a multiple of bj, bj of bs, bs of 32."""
+    c, n = x.shape
+    if t.shape != (n, n) or n % bs or bj % bs or n % bj:
+        raise ValueError(f"banded_chain: x {tuple(x.shape)} t "
+                         f"{tuple(t.shape)} bs {bs} bj {bj}")
+    if n_apply < 1:
+        raise ValueError(f"banded_chain: n_apply={n_apply} must be >= 1")
+    if _build.is_plain(x):
+        return banded_chain_plain(x, t, h, n_apply)
+    _build.check_cuda("banded_chain", x, t)
+    if bs % 32:
+        raise ValueError(f"banded_chain: bs={bs} must be a multiple of 32")
+    _, kh = _blocks(n, h, bs)
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x)
+    _build.launch("banded_chain", x.device,
+                  x.data_ptr(), t.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), c, n, bs, bj, kh, h, n_apply)
+    return out
+
+
+def apply_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
+                       n_apply: int, bs: int = 512,
+                       bj: Optional[int] = None) -> torch.Tensor:
+    """x @ T^n_apply for a banded T (halfwidth ``h``) whose out-of-band
+    blocks may hold :func:`square_banded`'s fill, dispatched as
+    ``matpow_pallas.apply_banded_chain``: one application through
+    :func:`apply_banded` (K4); square tiles (``bj == bs``) with the band
+    under the matrix through :func:`pack_banded` + :func:`packed_chain`
+    (K1 + K3); a band covering the matrix through T masked to the band and
+    dense products; otherwise rectangular tiles through
+    :func:`banded_chain` (K7). ``x``: [C, n] with C a multiple of 8;
+    ``bj`` defaults to ``bs``, as ``matpow_pallas.default_apply_bj``."""
+    c, n = x.shape
+    if bj is None:
+        bj = bs
+    if t.shape != (n, n) or n % bs or c % 8 or bj % bs or n % bj:
+        raise ValueError(f"bad shapes x={tuple(x.shape)} t={tuple(t.shape)} "
+                         f"bs={bs} bj={bj}")
+    if n_apply == 1:
+        return apply_banded(x, t, h, bs)
+    nkb, kh = _blocks(n, h, bs)
+    bjk = bj // bs
+    if bjk + 2 * kh >= nkb:  # the band covers the matrix
+        return banded_chain_plain(x, t, h, n_apply)
+    if bjk == 1:
+        return packed_chain(x, pack_banded(t, h, bs), n_apply, bs)
+    return banded_chain(x, t, h, n_apply, bs, bj)

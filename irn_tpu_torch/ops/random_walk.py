@@ -13,9 +13,13 @@ environment switches):
   stencil chain :func:`apply_diag_chain` (kernel K0) — f32 throughout, no
   matrix.
 - e > 0 with the band fitting (:func:`banded_fits`): banded squarings
-  (K2), packed tiles (K1) and the packed application chain (K3).
-- otherwise: dense T, squarings and applications as ``torch.matmul`` (the
-  JAX package leaves these to XLA's dot).
+  (K2), then the application chain: one application through K4, square
+  tiles through packed tiles (K1) and the packed chain (K3), rectangular
+  tiles (``bj > bs``) through K7.
+- otherwise: dense T, built the way the JAX package builds it under
+  ``IRN_TPU_MATPOW=fused``: the first squaring fused with the transition
+  build (K6), the others dense squarings (K5); the applications x @ T stay
+  ``torch.matmul``, as the JAX package leaves them to XLA's dot.
 
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
@@ -33,8 +37,10 @@ import torch.nn.functional as F
 
 from irn_tpu.ops import paths
 from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops import matpow
 from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops.affinity import path_affinity
+from irn_tpu_torch.ops.matpow_kernels import normalize_transition, pow_int
 from irn_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -79,20 +85,6 @@ def _extent_mask(h: int, w: int, shape: Tuple[int, int],
     rows = torch.arange(shape[0], device=device)[:, None]
     cols = torch.arange(shape[1], device=device)[None, :]
     return ((rows < h) & (cols < w)).to(torch.float32)
-
-
-def pow_int(x: torch.Tensor, e: int) -> torch.Tensor:
-    """x**e by binary exponentiation (static integer e >= 1) — the
-    multiplication order of JAX's ``integer_pow``."""
-    acc = None
-    base = x
-    while e:
-        if e & 1:
-            acc = base if acc is None else acc * base
-        e >>= 1
-        if e:
-            base = base * base
-    return acc
 
 
 def diag_offsets(geom: RandomWalkGeometry) -> Tuple[int, ...]:
@@ -243,12 +235,6 @@ def banded_fits(geom: RandomWalkGeometry, exp_times: int, square_times: int,
     return 2 * (-(-h_final // bs)) + 1 < n // bs
 
 
-def normalize_transition(affinity: torch.Tensor, beta: int = 10) -> torch.Tensor:
-    """A^beta, column-normalized (misc/indexing.py:132-137)."""
-    scaled = pow_int(affinity, beta)
-    return scaled / torch.sum(scaled, dim=0, keepdim=True)
-
-
 def dense_affinity(geom: RandomWalkGeometry,
                    edge_capped: torch.Tensor) -> torch.Tensor:
     """[n_pad, n_pad] symmetric affinity with a unit diagonal, written
@@ -280,41 +266,71 @@ def build_transition_banded(geom: RandomWalkGeometry,
 def apply_transition_banded(geom: RandomWalkGeometry,
                             cam_capped: torch.Tensor,
                             edge_capped: torch.Tensor, t: torch.Tensor,
-                            band: int, n_apply: int,
-                            bs: int = 512) -> torch.Tensor:
-    """Seed propagation through a banded T (K1 pack + K3 chain)."""
+                            band: int, n_apply: int, bs: int = 512,
+                            bj: Optional[int] = None) -> torch.Tensor:
+    """Seed propagation through a banded T (:func:`mk.apply_banded_chain`:
+    K4, K1 + K3 or K7)."""
     seeds = _flat_seeds(geom, cam_capped, edge_capped)
     c = seeds.shape[0]
     seeds = F.pad(seeds, (0, 0, 0, _round_up(c, 8) - c))
-    rw = mk.apply_banded_chain(seeds, t, band, n_apply, bs=bs)
+    rw = mk.apply_banded_chain(seeds, t, band, n_apply, bs=bs, bj=bj)
     return _unflatten_rw(geom, rw[:c])
+
+
+def transition_matrix(affinity: torch.Tensor, beta: int = 10,
+                      exp_times: int = 8) -> torch.Tensor:
+    """A^beta, column-normalize, then ``exp_times`` squarings => T^(2^e):
+    the first squaring fused with the normalization (K6), the rest dense
+    squarings (K5)."""
+    if exp_times < 1:
+        return normalize_transition(affinity, beta)
+    t = mk.square_fused_first(affinity, beta)
+    return matpow.matrix_power_squarings(t, exp_times - 1)
+
+
+def build_transition(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
+                     beta: int = 10, exp_times: int = 8) -> torch.Tensor:
+    """Dense T^(2^e) from the edge map (seed-independent)."""
+    return transition_matrix(dense_affinity(geom, edge_capped), beta,
+                             exp_times)
+
+
+def propagate_with_transition(geom: RandomWalkGeometry,
+                              cam_capped: torch.Tensor,
+                              edge_capped: torch.Tensor, t: torch.Tensor,
+                              n_apply: int = 1) -> torch.Tensor:
+    """Boundary-damp the seeds and right-multiply them by a prebuilt T
+    ``n_apply`` times (``torch.matmul``, f32)."""
+    rw = _flat_seeds(geom, cam_capped, edge_capped)
+    for _ in range(n_apply):
+        rw = torch.matmul(rw, t)
+    return _unflatten_rw(geom, rw)
 
 
 def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
               edge_capped: torch.Tensor, beta: int = 10, exp_times: int = 8,
               square_times: Optional[int] = None) -> torch.Tensor:
-    """Dense single-device propagation: T = colnorm(A^beta), ``e``
-    squarings, then 2^(E-e) applications, all ``torch.matmul`` in f32.
+    """Dense single-device propagation: T^(2^e) from
+    :func:`build_transition`, then 2^(E-e) applications
+    (:func:`propagate_with_transition`). ``square_times`` None is the
+    reference's pure squaring (e = E).
 
     Returns [C, cap_h, cap_w] propagated scores (zero beyond extent)."""
     e = exp_times if square_times is None else square_times
     if not 0 <= e <= exp_times:
         raise ValueError(f"square_times={e} not in [0, {exp_times}]")
-    t = normalize_transition(dense_affinity(geom, edge_capped), beta)
-    for _ in range(e):
-        t = torch.matmul(t, t)
-    rw = _flat_seeds(geom, cam_capped, edge_capped)
-    for _ in range(1 << (exp_times - e)):
-        rw = torch.matmul(rw, t)
-    return _unflatten_rw(geom, rw)
+    t = build_transition(geom, edge_capped, beta, e)
+    return propagate_with_transition(geom, cam_capped, edge_capped, t,
+                                     n_apply=1 << (exp_times - e))
 
 
 def propagate_banded(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
                      edge_capped: torch.Tensor, beta: int = 10,
                      exp_times: int = 8, square_times: Optional[int] = None,
-                     bs: int = 512) -> torch.Tensor:
+                     bs: int = 512, bj: Optional[int] = None) -> torch.Tensor:
     """:func:`propagate` through the hand kernels: the diagonal stencil at
-    e = 0, the banded kernels when the band fits, else dense."""
+    e = 0, the banded kernels when the band fits (``bj``: the output tile
+    width of the application chain, default ``bs``), else dense."""
     e = exp_times if square_times is None else square_times
     if not 0 <= e <= exp_times:
         raise ValueError(f"square_times={e} not in [0, {exp_times}]")
@@ -325,7 +341,7 @@ def propagate_banded(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
                          square_times=e)
     t, band = build_transition_banded(geom, edge_capped, beta, e, bs)
     return apply_transition_banded(geom, cam_capped, edge_capped, t, band,
-                                   1 << (exp_times - e), bs)
+                                   1 << (exp_times - e), bs, bj)
 
 
 def pick_square_times_banded(exp_times: int) -> int:

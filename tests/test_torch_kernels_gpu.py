@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops import matpow
 from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops import random_walk as rw
 
@@ -77,9 +78,112 @@ def test_packed_chain(cuda):
     assert _build.LAUNCHES["packed_chain"] == 2 * 6  # two per application
 
 
+def _poisoned(t, h, bs):
+    """T with every block beyond kb = ceil(h/bs) set to NaN (K2's
+    unspecified fill)."""
+    n = t.shape[0]
+    kb = -(-h // bs)
+    bi = torch.arange(n, device=t.device) // bs
+    return torch.where((bi[:, None] - bi[None, :]).abs() > kb,
+                       torch.full((), float("nan"), device=t.device), t)
+
+
+@pytest.mark.parametrize("c", [8, 16])
+def test_apply_banded(cuda, c):
+    n, h, bs = 1024, 130, 128
+    t = _banded(n, h).to(cuda)
+    x = torch.rand((c, n), generator=torch.Generator().manual_seed(0)).to(cuda)
+    got = mk.apply_banded(x, _poisoned(t, h, bs), h, bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["apply_banded"] == 1
+    torch.testing.assert_close(got, mk.apply_banded_plain(x, t, h, bs),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [384, 1024])
+def test_square_dense(cuda, n):
+    t = _banded(n, n).to(cuda)  # dense, column-stochastic
+    got = mk.square_dense(t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_dense"] == 1
+    torch.testing.assert_close(got, mk.square_dense_plain(t), rtol=1e-5,
+                               atol=1e-6)
+    matpow.matrix_power_squarings(t, 3)
+    assert _build.LAUNCHES["square_dense"] == 1 + 3  # one per squaring
+
+
+def test_square_fused_first(cuda):
+    n = 512
+    g = np.random.default_rng(0)
+    a = g.uniform(0.3, 1.0, (n, n)).astype(np.float32)
+    a = torch.from_numpy(np.minimum(a, a.T)).to(cuda)
+    a.fill_diagonal_(1.0)
+    got = mk.square_fused_first(a, 10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_fused_first"] == 1
+    want = mk.square_fused_first_plain(a, 10)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_transition_matrix_runs_k6_then_k5(cuda):
+    """The dense route on the card: one K6, then exp_times - 1 K5, and no
+    twin."""
+    geom = rw.build_geometry(16, 16, radius=5)
+    g = np.random.default_rng(0)
+    edge = torch.from_numpy(g.random((16, 16), dtype=np.float32)).to(cuda)
+    a = rw.dense_affinity(geom, edge)
+    got = rw.transition_matrix(a, 10, 4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_fused_first"] == 1
+    assert _build.LAUNCHES["square_dense"] == 3
+    want = rw.normalize_transition(a, 10)
+    for _ in range(4):
+        want = want @ want
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n,bj", [(1024, 256), (2048, 512)])
+def test_banded_chain(cuda, n, bj):
+    h, bs = 130, 128
+    t = _banded(n, h).to(cuda)
+    x = torch.rand((8, n), generator=torch.Generator().manual_seed(0)).to(cuda)
+    got = mk.banded_chain(x, _poisoned(t, h, bs), h, 6, bs, bj)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_chain"] == 6  # one per application
+    torch.testing.assert_close(got, mk.banded_chain_plain(x, t, h, 6),
+                               rtol=1e-5, atol=1e-6)
+    via = mk.apply_banded_chain(x, _poisoned(t, h, bs), h, 6, bs=bs, bj=bj)
+    assert torch.equal(via, got)  # deterministic sums
+
+
+def test_single_application_launches_apply_banded(cuda):
+    """n_apply == 1 through apply_banded_chain launches K4 once and neither
+    K1 nor K3."""
+    n, h, bs = 1024, 130, 128
+    t = _banded(n, h).to(cuda)
+    x = torch.rand((8, n), generator=torch.Generator().manual_seed(0)).to(cuda)
+    got = mk.apply_banded_chain(x, _poisoned(t, h, bs), h, 1, bs=bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["apply_banded"] == 1
+    assert _build.LAUNCHES["pack_banded"] == 0
+    assert _build.LAUNCHES["packed_chain"] == 0
+    torch.testing.assert_close(got, x @ t, rtol=1e-5, atol=1e-6)
+
+
 def test_kernels_refuse_non_f32(cuda):
     t = _banded(512, 60).to(cuda).to(torch.float64)
+    x = torch.zeros((8, 512), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
         mk.pack_banded(t, 60, 128)
     with pytest.raises(TypeError):
         mk.square_banded(t, 60, 128)
+    with pytest.raises(TypeError):
+        mk.apply_banded(x, t, 60, 128)
+    with pytest.raises(TypeError):
+        mk.square_dense(t)
+    with pytest.raises(TypeError):
+        mk.square_fused_first(t, 10)
+    with pytest.raises(TypeError):
+        mk.banded_chain(x, t, 60, 2, 128, 256)

@@ -139,19 +139,22 @@ def test_apply_banded_chain_matches_jax(rng, impl):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("square_times", [1, 2])
-def test_propagate_banded_matches_jax(rng, square_times):
+@pytest.mark.parametrize("square_times,exp_times", [(1, 3), (2, 3), (2, 2)],
+                         ids=["1", "2", "2-single-application"])
+def test_propagate_banded_matches_jax(rng, square_times, exp_times):
+    """The banded walk; at square_times == exp_times its one application
+    runs through apply_banded (K4's twin)."""
     geom_args = (24, 24)
     cam, edge = _scene(rng, 24, (20, 20))
     jg = jrw.build_geometry(*geom_args, radius=2)
     tg = trw.build_geometry(*geom_args, radius=2)
-    assert trw.banded_fits(tg, 3, square_times, bs=128)
+    assert trw.banded_fits(tg, exp_times, square_times, bs=128)
     want = np.asarray(jrw.propagate_banded(
-        jg, cam, edge, beta=10, exp_times=3, square_times=square_times,
-        bs=128, interpret=True,
+        jg, cam, edge, beta=10, exp_times=exp_times,
+        square_times=square_times, bs=128, interpret=True,
     ))
     got = trw.propagate_banded(
-        tg, _t(cam), _t(edge), beta=10, exp_times=3,
+        tg, _t(cam), _t(edge), beta=10, exp_times=exp_times,
         square_times=square_times, bs=128,
     ).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
@@ -204,3 +207,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         trw.apply_diag_chain(x, torch.empty((2, 1024), device="meta"),
                              torch.empty((1024,), device="meta"), (1, 5), 2)
+    with pytest.raises(ValueError):
+        tmk.apply_banded(x, t, 130, 128)
+    with pytest.raises(ValueError):
+        tmk.square_dense(t)
+    with pytest.raises(ValueError):
+        tmk.square_fused_first(t, 10)
+    with pytest.raises(ValueError):
+        tmk.banded_chain(x, t, 130, 4, 128, 256)

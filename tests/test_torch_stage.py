@@ -5,8 +5,11 @@ same cam files (CPU).
 On the CPU the JAX stage takes its dense route (its banded kernels are
 TPU-only), while the port takes its hand-kernel routes through the plain
 twins: the stencil by default, the banded squaring and packed chain at
-``--rw_square_times 1``. All compute x @ T^256 in f32, so the label PNGs
-agree to >= 99% per image (in practice all pixels)."""
+``--rw_square_times 1``, and at ``--rw_square_times 8`` (pure squaring, the
+reference's evaluation order) the dense route on both sides, the port's
+through the fused first squaring and the dense squarings. All compute
+x @ T^256 in f32, so the label PNGs agree to >= 99% per image (in practice
+all pixels)."""
 
 import dataclasses
 import os
@@ -79,11 +82,13 @@ def _port_argv(cfg, out_dir, extra=()):
     ]
 
 
-@pytest.mark.parametrize("extra", [(), ("--rw_square_times", "1")],
-                         ids=["default", "banded"])
-def test_make_sem_seg_matches_jax(tree, extra):
+@pytest.mark.parametrize("extra,mode", [
+    ((), "diag"), (("--rw_square_times", "1"), "banded"),
+    (("--rw_square_times", "8"), "dense"),
+], ids=["default", "banded", "pure"])
+def test_make_sem_seg_matches_jax(tree, extra, mode):
     tmp, cfg, names, _ = tree
-    tag = "banded" if extra else "default"
+    tag = mode
     jcfg = dataclasses.replace(
         cfg, sem_seg_out_dir=str(tmp / f"jax_{tag}"),
         rw_square_times=int(extra[1]) if extra else -1,
@@ -99,7 +104,7 @@ def test_make_sem_seg_matches_jax(tree, extra):
 
     summary = res["make_sem_seg_labels"]
     assert summary["n_images"] == len(names)
-    assert set(summary["modes"].values()) == {"banded" if extra else "diag"}
+    assert set(summary["modes"].values()) == {mode}
     assert 0.0 <= summary["edge_mean"] <= 1.0
     # the port's eval_sem_seg (Pillow reads) scores its PNGs as the JAX one
     want_scores = jax_eval_sem_seg(dataclasses.replace(cfg, sem_seg_out_dir=out))
@@ -146,6 +151,18 @@ def test_walk_modes():
     assert stages_irn.RandomWalkRunner(
         dataclasses.replace(cfg, rw_banded=False), 20, dev
     ).resolve_mode(96, 128) == "dense"
+    # the pure-squaring routes: 8 squarings outgrow the band (dense: K6 +
+    # K5), 3 of exp_times 3 keep it (banded: K2, then K4 once)
+    pure = stages_irn.RandomWalkRunner(
+        dataclasses.replace(cfg, rw_square_times=8), 20, dev)
+    e3 = stages_irn.RandomWalkRunner(
+        dataclasses.replace(cfg, exp_times=3, rw_square_times=3), 20, dev)
+    e3_diag = stages_irn.RandomWalkRunner(
+        dataclasses.replace(cfg, exp_times=3), 20, dev)
+    for bucket in ((96, 128), (128, 128)):
+        assert pure.resolve_mode(*bucket) == "dense"
+        assert e3.resolve_mode(*bucket) == "banded"
+        assert e3_diag.resolve_mode(*bucket) == "diag"
     assert [walker._row_bucket(k) for k in (1, 8, 9, 17, 20)] == [
         8, 8, 16, 20, 20]
 
