@@ -16,12 +16,18 @@ set to 0 just before it and read just after:
   one K4 application;
 - ``e3_diag`` = ``--exp_times 3``: the K0 stencil, e3's comparison.
 
-Then the library entry point ``random_walk.propagate_banded(..., bj=1024)``
-on one image (the K7 rectangular-tile chain), the pure route of one image
-through the plain twins on the card, one image's default walk through the
-twins on the host, and a per-layer breakdown. Every check that fails
-raises, so the exit code is non-zero; without CUDA, or without the
-repository beside it, the script fails before printing any result.
+Then the library entry points ``random_walk.propagate_banded(...,
+bj=1024)`` on one image (the K7 rectangular-tile chain) and
+``random_walk.propagate_banded_batch(..., square_times=1)`` on four images
+of one bucket (the K8 batched chain, each image bit-equal to
+``propagate_banded``); the two tools' entry points, ``tools.bench_conv``
+over its four shapes (``probe conv``: K9 against its twin and cuDNN's bf16
+conv) and ``tools.bench_banded``'s batched sweep at B 1, 2, 4 (K8); the
+pure route of one image through the plain twins on the card, one image's
+default walk through the twins on the host, and a per-layer breakdown.
+Every check that fails raises, so the exit code is non-zero; without CUDA,
+or without the repository beside it, the script fails before printing any
+result.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the per-kernel results (its
@@ -53,6 +59,8 @@ BS = 512
 BJ = 1024  # K7's output tile in the library call
 N_IMAGES = 8
 N_PURE = 4  # images of the pure-squaring run (about 1-2.3 s each)
+B_BATCH = 4  # images of the batched chain (K8); the tree's first 4 share
+             # the 128x128 bucket
 SEED = 0
 
 REPLACES = {
@@ -64,6 +72,8 @@ REPLACES = {
     "square_dense": "irn_tpu/ops/matpow_pallas.py:126",
     "square_fused_first": "irn_tpu/ops/matpow_pallas.py:810",
     "banded_chain": "irn_tpu/ops/matpow_pallas.py:457",
+    "packed_chain_batched": "irn_tpu/ops/matpow_pallas.py:678",
+    "conv3x3": "tools/bench_conv_pallas.py:82",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -74,6 +84,8 @@ SOURCES = {
     "square_dense": "irn_tpu_torch/csrc/square_dense.cu",
     "square_fused_first": "irn_tpu_torch/csrc/square_fused_first.cu",
     "banded_chain": "irn_tpu_torch/csrc/banded_chain.cu",
+    "packed_chain_batched": "irn_tpu_torch/csrc/packed_chain_batched.cu",
+    "conv3x3": "irn_tpu_torch/csrc/conv3x3.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -81,6 +93,7 @@ HOME_RUN = {
     "square_banded": "banded", "packed_chain": "banded",
     "apply_banded": "e3", "square_dense": "pure",
     "square_fused_first": "pure", "banded_chain": "library bj",
+    "packed_chain_batched": "library batch", "conv3x3": "probe conv",
 }
 
 
@@ -191,6 +204,8 @@ def check_kernels(dev, card: str) -> dict:
     )
     del got, want, tp, t2
     check_dense_kernels(dev, geom, edge, x, res)
+    check_batched_chain(dev, geom, gen, res)
+    check_conv(dev, res)
     for name, r_ in res.items():
         print(f"kernel {name}: max_abs_err {r_['max_abs_err']:.3e} "
               f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms "
@@ -283,6 +298,82 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
             lambda: mk.banded_chain_plain(x, t2, h2, 128), 3),
         shape=(f"x [8, {n}], T^2 [{n}, {n}], h {h2}, bs {BS}, bj {BJ}, "
                f"128 applications; rel err vs K1 + K3 {rel13:.2e}"),
+    )
+
+
+def check_batched_chain(dev, geom, gen, res: dict) -> None:
+    """K8 at the main path's shapes: B_BATCH images, each with its own T^2
+    (h 1112) from a seeded edge map, 128 applications, C 8; against its twin,
+    and against K3 on each image (bit-equal)."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    n = geom.n_pad
+    h = rw.band_halfwidth(geom)
+    tps = []
+    for _ in range(B_BATCH):  # one dense T at a time; only its tiles stay
+        edge = torch.rand(BUCKET, generator=gen).to(dev) * 0.9
+        t2 = mk.square_banded(
+            rw.normalize_transition(rw.dense_affinity(geom, edge)), h, BS)
+        tps.append(mk.pack_banded(t2, 2 * h, BS))
+        del t2
+    tps = torch.stack(tps)
+    xs = torch.rand((B_BATCH, 8, n), generator=gen).to(dev)
+    got = mk.packed_chain_batched(xs, tps, 128, BS)
+    want = mk.packed_chain_batched_plain(xs, tps, 128, BS)
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-4,
+          f"packed_chain_batched rel err {rel}")
+    for b in range(B_BATCH):
+        check(torch.equal(got[b], mk.packed_chain(xs[b], tps[b], 128, BS)),
+              f"packed_chain_batched image {b} not bit-equal to K3")
+    k3_ms = cuda_ms(lambda: [mk.packed_chain(xs[b], tps[b], 128, BS)
+                             for b in range(B_BATCH)], 3)
+    res["packed_chain_batched"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: mk.packed_chain_batched(xs, tps, 128, BS), 5),
+        plain_ms=cuda_ms(
+            lambda: mk.packed_chain_batched_plain(xs, tps, 128, BS), 3),
+        shape=(f"xs [{B_BATCH}, 8, {n}], tiles {tuple(tps.shape)}, 128 "
+               f"applications; each image bit-equal to K3; K3 on the "
+               f"{B_BATCH} images one by one {k3_ms:.4f} ms"),
+    )
+
+
+def _bf16_check(got, want, what: str) -> tuple:
+    """(max abs err, share of bit-equal elements); fails past 2^-7 of
+    max|want| or under 99% bit-equal."""
+    err, rel = rel_err(got.float(), want.float())
+    equal = float((got == want).float().mean())
+    check(bool(torch.isfinite(got.float()).all()) and rel <= 2.0 ** -7
+          and equal >= 0.99, f"{what}: rel err {rel}, bit-equal {equal}")
+    return err, equal
+
+
+def check_conv(dev, res: dict) -> None:
+    """K9 against its twin (f32 conv on the bf16 values, one round) at the
+    probe's largest-traffic shape and at one odd small shape, with cuDNN's
+    own bf16 conv timed beside it."""
+    from irn_tpu_torch.ops import conv3x3 as cv
+    from irn_tpu_torch.tools import bench_conv
+
+    odd = (2, 13, 11, 32, 48)
+    x, k = bench_conv.make_inputs(*odd, dev, seed=SEED)
+    _, equal_odd = _bf16_check(cv.conv3x3(x, k), cv.conv3x3_plain(x, k),
+                               f"conv3x3 at {odd}")
+    label, *shape = bench_conv.SHAPES[0]
+    x, k = bench_conv.make_inputs(*shape, dev, seed=SEED)
+    err, equal = _bf16_check(cv.conv3x3(x, k), cv.conv3x3_plain(x, k),
+                             f"conv3x3 at {shape}")
+    w_cl = bench_conv.cudnn_weight(k)
+    cudnn = cuda_ms(lambda: bench_conv.cudnn_conv(x, w_cl), 10)
+    res["conv3x3"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: cv.conv3x3(x, k), 10),
+        plain_ms=cuda_ms(lambda: cv.conv3x3_plain(x, k), 5),
+        shape=(f"{label} x {shape[:4]} -> {shape[4]}, bf16; bit-equal "
+               f"{equal:.5f} ({equal_odd:.5f} at the odd shape {odd}); "
+               f"cuDNN bf16 {cudnn:.4f} ms"),
     )
 
 
@@ -484,6 +575,90 @@ def library_bj_check(dev, stage: dict) -> None:
     check(_build.LAUNCHES["banded_chain"] == 128,
           f"library bj launches {_build.LAUNCHES}")
     check(agree >= 0.99, f"library bj agreement {agree}")
+
+
+def library_batch_check(dev, stage: dict) -> None:
+    """random_walk.propagate_banded_batch(..., square_times=1) on the tree's
+    first B_BATCH images, which share the 128x128 bucket (n_pad 18432): one
+    K8 chain for all, each image bit-equal to propagate_banded of that image
+    and agreeing with the --rw_square_times 1 stage PNG."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import random_walk as rw
+
+    cfg = stage["cfg"]
+    ins = [_walk_inputs(cfg, dev, i) for i in range(B_BATCH)]
+    geom = ins[0][2]
+    check(all(g.cap == geom.cap for _, _, g, *_ in ins)
+          and geom.n_pad == 18432, f"batch buckets {[g.cap for _, _, g, *_ in ins]}")
+    rows = max(cam.shape[0] for _, _, _, cam, *_ in ins)
+    cams = torch.stack([torch.nn.functional.pad(
+        cam, (0, 0, 0, 0, 0, rows - cam.shape[0])) for _, _, _, cam, *_ in ins])
+    edges = torch.stack([edge for _, _, _, _, edge, *_ in ins])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = rw.propagate_banded_batch(geom, cams, edges, cfg.beta, exp_times=8,
+                                    square_times=1)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    stage["launches"]["library batch"] = dict(_build.LAUNCHES)
+    check(_build.LAUNCHES["packed_chain_batched"] == 2 * 128
+          and _build.LAUNCHES["packed_chain"] == 0,
+          f"library batch launches {_build.LAUNCHES}")
+    t0 = time.perf_counter()
+    refs = [rw.propagate_banded(geom, cam, edge, cfg.beta, exp_times=8,
+                                square_times=1)
+            for _, _, _, cam, edge, *_ in ins]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    for b, (name, size, _, cam, _, hw4, keys) in enumerate(ins):
+        check(torch.equal(out[b, : cam.shape[0]], refs[b]),
+              f"propagate_banded_batch {name} not bit-equal to propagate_banded")
+        agree = _labels_agree(cfg, out[b, : cam.shape[0]], hw4, size, keys,
+                              os.path.join(
+            stage["runs"]["banded"]["out"], name + ".png"))
+        print(f"library propagate_banded_batch image {name}: bit-equal to "
+              f"propagate_banded; label agreement with the --rw_square_times "
+              f"1 stage {agree:.6f}", flush=True)
+        check(agree >= 0.99, f"library batch agreement {name} {agree}")
+    print(f"library propagate_banded_batch(square_times=1) on {B_BATCH} "
+          f"images (grid {geom.cap}, n_pad {geom.n_pad}): "
+          f"{batch_s * 1e3 / B_BATCH:.3f} ms/img batched, "
+          f"{single_s * 1e3 / B_BATCH:.3f} ms/img one by one (host clock, "
+          f"one call each; launches "
+          f"{stage['launches']['library batch']})", flush=True)
+
+
+def probe_conv(dev, stage: dict) -> None:
+    """The conv probe's entry point, irn_tpu_torch.tools.bench_conv, over
+    its four shapes with a small rep count; every shape within 2^-7 of
+    max|twin| and >= 99% bit-equal."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.tools import bench_conv
+
+    _build.reset_launches()
+    rows = bench_conv.main(["--reps", "3"])
+    torch.cuda.synchronize()
+    stage["launches"]["probe conv"] = dict(_build.LAUNCHES)
+    for r_ in rows:
+        check(r_["rel_err"] <= 2.0 ** -7 and r_["bit_equal"] >= 0.99,
+              f"bench_conv {r_['label']}: rel {r_['rel_err']}, bit-equal "
+              f"{r_['bit_equal']}")
+
+
+def probe_banded(dev, stage: dict) -> None:
+    """The banded sweep's entry point, irn_tpu_torch.tools.bench_banded,
+    batched sweep only, B in {1, 2, 4} at e = 1, one timed run."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.tools import bench_banded
+
+    _build.reset_launches()
+    bench_banded.main(["--batch_only", "--batch_sizes", "1", "2", "4",
+                       "--square_times", "1", "--reps", "1"])
+    torch.cuda.synchronize()
+    stage["launches"]["probe banded"] = dict(_build.LAUNCHES)
+    check(_build.LAUNCHES["packed_chain_batched"] > 0,
+          f"bench_banded launches {_build.LAUNCHES}")
 
 
 def pure_twin_check(dev, stage: dict) -> None:
@@ -742,6 +917,12 @@ def main() -> int:
         stage = run_stage(dev, work)
         phase("library: propagate_banded(bj=1024)")
         library_bj_check(dev, stage)
+        phase("library: propagate_banded_batch (K8)")
+        library_batch_check(dev, stage)
+        phase("probe: conv3x3 (K9)")
+        probe_conv(dev, stage)
+        phase("probe: bench_banded batched sweep")
+        probe_banded(dev, stage)
         phase("stage: pure route through the plain twins on the card")
         pure_twin_check(dev, stage)
         phase("stage: CPU plain-twin walk vs the card")

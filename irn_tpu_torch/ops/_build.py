@@ -9,7 +9,8 @@ the sources and flags, so an edited source never loads a stale build.
 
 Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a 256-application chain
-is 256 launches of K0, or 512 of K3's two kernels), and :func:`launch` adds
+is 256 launches of K0, or 512 of K3's two kernels; a batch of B images
+through K8 is 512 too), and :func:`launch` adds
 that number, so a run can show that its main path really went through the
 kernels.
 """
@@ -41,7 +42,7 @@ NVCC_FLAGS = (
 
 KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
-           "banded_chain")
+           "banded_chain", "packed_chain_batched", "conv3x3")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -150,6 +151,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_square_dense.argtypes = [p, p, i, p, n]
     lib.irn_square_fused_first.argtypes = [p, p, p, i, i, p, n]
     lib.irn_banded_chain.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
+    lib.irn_packed_chain_batched.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, i, p, n,
+    ]
+    lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
     for k in KERNELS:
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
@@ -165,16 +170,18 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """A kernel takes contiguous float32 CUDA tensors on one device."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> None:
+    """A kernel takes contiguous CUDA tensors of ``dtype`` (float32 unless
+    the kernel says otherwise) on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {dtype} only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor must be contiguous")
 

@@ -14,9 +14,12 @@
   A -> T @ T with T = colnorm(A^beta) never stored.
 - :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n over
   rectangular (bs x bj) tiles, T masked to its band.
+- :func:`packed_chain_batched` (K8, ``csrc/packed_chain_batched.cu``): B
+  images' packed chains, each with its own tiles, in the same launches.
 
 :func:`apply_banded_chain` dispatches among K4, K1 + K3 and K7 as the JAX
-function does.
+function does; :func:`apply_banded_chain_batched` packs each image's T (K1)
+and runs K8.
 
 Each kernel has a plain PyTorch twin beside it (``*_plain``). A wrapper runs
 the twin for CPU tensors and launches the kernel for CUDA tensors (or
@@ -28,7 +31,7 @@ this version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -354,3 +357,77 @@ def apply_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
     if bjk == 1:
         return packed_chain(x, pack_banded(t, h, bs), n_apply, bs)
     return banded_chain(x, t, h, n_apply, bs, bj)
+
+
+# -- K8 ---------------------------------------------------------------------
+
+def packed_chain_batched_plain(xs: torch.Tensor, tps: torch.Tensor,
+                               n_apply: int, bs: int = 512) -> torch.Tensor:
+    """K8's twin: :func:`packed_chain_plain`'s windowed bmm on each image."""
+    return torch.stack([packed_chain_plain(x, tp, n_apply, bs)
+                        for x, tp in zip(xs, tps)])
+
+
+def packed_chain_batched(xs: torch.Tensor, tps: torch.Tensor, n_apply: int,
+                         bs: int = 512) -> torch.Tensor:
+    """x_b @ T_b^n_apply for B images at once over each image's packed tiles
+    (K8): ``xs`` [B, C, n] f32, ``tps`` [B, n/bs, (2kh+1)*bs, bs] from
+    :func:`pack_banded`. Two launches per application for the whole batch;
+    each image's result is bit-equal to :func:`packed_chain` on it."""
+    if xs.dim() != 3 or tps.dim() != 4 or tps.shape[0] != xs.shape[0]:
+        raise ValueError(f"packed_chain_batched: xs {tuple(xs.shape)} "
+                         f"tiles {tuple(tps.shape)}")
+    bimg, c, n = xs.shape
+    if tps.shape[1] * bs != n or tps.shape[3] != bs or tps.shape[2] % bs \
+            or (tps.shape[2] // bs) % 2 == 0:
+        raise ValueError(f"packed_chain_batched: tiles {tuple(tps.shape)} "
+                         f"vs xs {tuple(xs.shape)}")
+    if n_apply < 1:
+        raise ValueError(f"packed_chain_batched: n_apply={n_apply} must be >= 1")
+    if _build.is_plain(xs):
+        return packed_chain_batched_plain(xs, tps, n_apply, bs)
+    _build.check_cuda("packed_chain_batched", xs, tps)
+    if bs % 64 or bs > 1536:
+        raise ValueError(f"packed_chain_batched: bs={bs} must be a multiple "
+                         "of 64, <= 1536")
+    kh = (tps.shape[2] // bs - 1) // 2
+    out = torch.empty_like(xs)
+    scratch = torch.empty_like(xs)
+    part = torch.empty((bimg, 2 * kh + 1, c, n), dtype=xs.dtype,
+                       device=xs.device)
+    _build.launch("packed_chain_batched", xs.device,
+                  xs.data_ptr(), tps.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), part.data_ptr(), bimg, c, n, bs, kh,
+                  n_apply)
+    return out
+
+
+def apply_banded_chain_batched(xs: torch.Tensor, ts: Iterable[torch.Tensor],
+                               h: int, n_apply: int,
+                               bs: int = 512) -> torch.Tensor:
+    """B images' x_b @ T_b^n_apply in one batched chain, as
+    ``matpow_pallas.apply_banded_chain_batched``: each T_b (halfwidth
+    ``h``, out-of-band blocks unspecified) is packed by :func:`pack_banded`
+    (K1), then :func:`packed_chain_batched` (K8) runs the chain. ``xs``:
+    [B, C, n] with C a multiple of 8. ``ts``: a [B, n, n] tensor, or B
+    [n, n] tensors in image order; it is read once, each T_b only until it
+    is packed, so a generator that builds them lets each dense T be freed
+    before the next is built. A band that does not fit under the matrix
+    raises (no dense fallback). Returns [B, C, n] f32."""
+    bimg, c, n = xs.shape
+    if n % bs or c % 8:
+        raise ValueError(f"bad shapes xs={tuple(xs.shape)} bs={bs}")
+    nkb, kh = _blocks(n, h, bs)
+    if 1 + 2 * kh >= nkb:
+        raise ValueError(f"band 2*{h} does not fit n={n} (bs={bs})")
+    tps = []
+    for t in ts:
+        if t.shape != (n, n):
+            raise ValueError(f"apply_banded_chain_batched: T {tuple(t.shape)} "
+                             f"vs xs {tuple(xs.shape)}")
+        tps.append(pack_banded(t, h, bs))
+        del t
+    if len(tps) != bimg:
+        raise ValueError(f"apply_banded_chain_batched: {len(tps)} T for "
+                         f"{bimg} images")
+    return packed_chain_batched(xs, torch.stack(tps), n_apply, bs)

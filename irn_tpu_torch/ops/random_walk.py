@@ -21,6 +21,9 @@ environment switches):
   build (K6), the others dense squarings (K5); the applications x @ T stay
   ``torch.matmul``, as the JAX package leaves them to XLA's dot.
 
+:func:`propagate_banded_batch` takes the same routes for B images of one
+bucket; on the banded route their application chains run together (K8).
+
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
 """
@@ -342,6 +345,50 @@ def propagate_banded(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
     t, band = build_transition_banded(geom, edge_capped, beta, e, bs)
     return apply_transition_banded(geom, cam_capped, edge_capped, t, band,
                                    1 << (exp_times - e), bs, bj)
+
+
+def propagate_banded_batch(geom: RandomWalkGeometry, cams_capped: torch.Tensor,
+                           edges_capped: torch.Tensor, beta: int = 10,
+                           exp_times: int = 8,
+                           square_times: Optional[int] = None,
+                           bs: int = 512) -> torch.Tensor:
+    """B same-bucket images' walks, each equal to :func:`propagate_banded`
+    of that image: at e = 0 the diagonal stencil (K0) per image, no matrix;
+    when the band outgrows the matrix, dense :func:`propagate` per image;
+    otherwise each image's banded T^(2^e) (K2) goes to one batched chain,
+    :func:`mk.apply_banded_chain_batched` (K1 per image, then K8 for all).
+    The dense T's are built one at a time and each freed once packed, where
+    the JAX function stacks them.
+
+    ``cams_capped``: [B, C, cap_h, cap_w]; ``edges_capped``:
+    [B, cap_h, cap_w]. Returns [B, C, cap_h, cap_w]."""
+    e = exp_times if square_times is None else square_times
+    if not 0 <= e <= exp_times:
+        raise ValueError(f"square_times={e} not in [0, {exp_times}]")
+    bimg = cams_capped.shape[0]
+    if e == 0:
+        return torch.stack([
+            propagate_diag(geom, cams_capped[b], edges_capped[b], beta,
+                           exp_times)
+            for b in range(bimg)
+        ])
+    if not banded_fits(geom, exp_times, e, bs):
+        return torch.stack([
+            propagate(geom, cams_capped[b], edges_capped[b], beta, exp_times,
+                      square_times=e)
+            for b in range(bimg)
+        ])
+    seeds = torch.stack([
+        _flat_seeds(geom, cams_capped[b], edges_capped[b])
+        for b in range(bimg)
+    ])
+    c = seeds.shape[1]
+    seeds = F.pad(seeds, (0, 0, 0, _round_up(c, 8) - c))
+    ts = (build_transition_banded(geom, edges_capped[b], beta, e, bs)[0]
+          for b in range(bimg))
+    rw = mk.apply_banded_chain_batched(seeds, ts, band_halfwidth(geom) << e,
+                                       1 << (exp_times - e), bs)
+    return torch.stack([_unflatten_rw(geom, rw[b, :c]) for b in range(bimg)])
 
 
 def pick_square_times_banded(exp_times: int) -> int:

@@ -187,3 +187,125 @@ def test_kernels_refuse_non_f32(cuda):
         mk.square_fused_first(t, 10)
     with pytest.raises(TypeError):
         mk.banded_chain(x, t, 60, 2, 128, 256)
+
+
+def test_packed_chain_batched_bit_equal_to_k3(cuda):
+    """K8 on B = 3 images, each with its own T (NaN beyond the block band,
+    read only through K1): each image bit-equal to K3 on it, all within rel
+    1e-5 of the twin; two launches per application for the whole batch."""
+    n, h, bs, bimg, n_apply = 1024, 130, 128, 3, 6
+    ts = [_poisoned(_banded(n, h, seed=b).to(cuda), h, bs) for b in range(bimg)]
+    xs = torch.rand((bimg, 8, n),
+                    generator=torch.Generator().manual_seed(0)).to(cuda)
+    got = mk.apply_banded_chain_batched(xs, ts, h, n_apply, bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pack_banded"] == bimg
+    assert _build.LAUNCHES["packed_chain_batched"] == 2 * n_apply
+    assert _build.LAUNCHES["packed_chain"] == 0
+    tps = torch.stack([mk.pack_banded(t, h, bs) for t in ts])
+    torch.testing.assert_close(
+        got, mk.packed_chain_batched_plain(xs, tps, n_apply, bs),
+        rtol=1e-5, atol=1e-6)
+    for b in range(bimg):
+        assert torch.equal(got[b], mk.packed_chain(xs[b], tps[b], n_apply, bs))
+    assert _build.LAUNCHES["packed_chain"] == 2 * n_apply * bimg
+
+
+def test_propagate_banded_batch_launches_k8(cuda):
+    """propagate_banded_batch at e = 1 runs one K8 chain for the batch and
+    no K3; each image bit-equal to propagate_banded of that image."""
+    geom = rw.build_geometry(24, 24, radius=2)
+    g = np.random.default_rng(0)
+    edges = torch.from_numpy(g.random((2, 24, 24), dtype=np.float32)).to(cuda)
+    cams = torch.from_numpy(g.random((2, 3, 24, 24), dtype=np.float32)).to(cuda)
+    got = rw.propagate_banded_batch(geom, cams, edges, 10, 3, square_times=1,
+                                    bs=128)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["packed_chain_batched"] == 2 * 4
+    assert _build.LAUNCHES["packed_chain"] == 0
+    for b in range(2):
+        assert torch.equal(got[b], rw.propagate_banded(
+            geom, cams[b], edges[b], 10, 3, square_times=1, bs=128))
+
+
+def _bf16_close(got, want):
+    """max abs <= 2^-7 max|want| and >= 99% of the elements bit-equal."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    assert float((g - w).abs().max()) <= 2.0 ** -7 * float(w.abs().max())
+    assert float((got == want).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 11, 32, 48), (1, 9, 20, 512, 512)])
+def test_conv3x3(cuda, shape):
+    """K9 vs its twin (f32 conv on the bf16 values, TF32 off, one round) at
+    an odd shape (edge masks in H, W and F) and at C = F = 512."""
+    from irn_tpu_torch.ops import conv3x3 as cv
+
+    torch.backends.cudnn.allow_tf32 = False
+    b, h, w, c, f = shape
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((b, h, w, c), generator=gen).to(torch.bfloat16).to(cuda)
+    k = (torch.randn((3, 3, c, f), generator=gen) * 0.05).to(
+        torch.bfloat16).to(cuda)
+    got = cv.conv3x3(x, k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["conv3x3"] == 1
+    _bf16_close(got, cv.conv3x3_plain(x, k))
+
+
+def test_conv3x3_refuses(cuda):
+    """C or F not a multiple of 16, a non-contiguous input (a permuted
+    NCHW view), or f32 tensors raise; nothing is launched."""
+    from irn_tpu_torch.ops import conv3x3 as cv
+
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((1, 8, 8, 16), **bf)
+    with pytest.raises(ValueError):
+        cv.conv3x3(torch.zeros((1, 8, 8, 24), **bf),
+                   torch.zeros((3, 3, 24, 16), **bf))
+    with pytest.raises(ValueError):
+        cv.conv3x3(x, torch.zeros((3, 3, 16, 40), **bf))
+    with pytest.raises(ValueError):
+        cv.conv3x3(torch.zeros((1, 16, 8, 8), **bf).permute(0, 2, 3, 1),
+                   torch.zeros((3, 3, 16, 16), **bf))
+    with pytest.raises(TypeError):
+        cv.conv3x3(x.float(), torch.zeros((3, 3, 16, 16), device=cuda))
+    assert _build.LAUNCHES["conv3x3"] == 0
+
+
+def test_check_cuda_dtype(cuda):
+    """check_cuda's dtype: conv3x3 takes bf16 and refuses f32; every other
+    wrapper still takes f32 only and refuses bf16."""
+    from irn_tpu_torch.ops import conv3x3 as cv
+
+    k = torch.zeros((3, 3, 16, 16), dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((1, 8, 8, 16), dtype=torch.bfloat16, device=cuda)
+    assert cv.conv3x3(x, k).dtype == torch.bfloat16
+    with pytest.raises(TypeError):
+        cv.conv3x3(x.float(), k.float())
+    t = _banded(512, 60).to(cuda).to(torch.bfloat16)
+    xb = torch.zeros((8, 512), dtype=torch.bfloat16, device=cuda)
+    for fn in (lambda: mk.pack_banded(t, 60, 128),
+               lambda: mk.square_banded(t, 60, 128),
+               lambda: mk.apply_banded(xb, t, 60, 128),
+               lambda: mk.square_dense(t),
+               lambda: mk.square_fused_first(t, 10),
+               lambda: mk.banded_chain(xb, t, 60, 2, 128, 256),
+               lambda: mk.packed_chain(xb, torch.zeros(
+                   (4, 384, 128), dtype=torch.bfloat16, device=cuda), 2, 128),
+               lambda: mk.packed_chain_batched(xb[None], torch.zeros(
+                   (1, 4, 384, 128), dtype=torch.bfloat16, device=cuda), 2,
+                   128)):
+        with pytest.raises(TypeError):
+            fn()
+    geom = rw.build_geometry(16, 16, radius=5)
+    w = torch.zeros((len(rw.diag_offsets(geom)), geom.n_pad),
+                    dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        rw.apply_diag_chain(torch.zeros((8, geom.n_pad), dtype=torch.bfloat16,
+                                        device=cuda), w, w[0],
+                            rw.diag_offsets(geom), 2)
+    assert sum(v for k_, v in _build.LAUNCHES.items() if k_ != "conv3x3") == 0

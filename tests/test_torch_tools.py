@@ -1,0 +1,81 @@
+"""The port's measurement tools run end to end on the CPU at tiny sizes
+(``--device cpu``: the kernels' plain twins, host clock), reach the kernel
+wrappers they exist for, and refuse a CUDA device where there is none."""
+
+import pytest
+import torch
+
+from irn_tpu_torch.ops import matpow_kernels as tmk
+from irn_tpu_torch.ops import random_walk as trw
+from irn_tpu_torch.tools import bench_banded, bench_conv, resolve_device
+
+torch.set_num_threads(2)
+CPU = torch.device("cpu")
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(name)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_bench_banded_batched_sweep_reaches_k8(monkeypatch, capsys):
+    """The batched sweep through main() at e = 1 on a (64, 16) bucket
+    (n_pad 2048, bs 512: the band fits) goes through K8's wrapper once per
+    group."""
+    calls = _spy(monkeypatch, tmk, "packed_chain_batched")
+    rows = bench_banded.main([
+        "--device", "cpu", "--cap", "64", "16", "--reps", "1",
+        "--batch_only", "--batch_sizes", "1", "2", "--square_times", "1"])
+    assert [(r["sweep"], r["B"], r["e"]) for r in rows] == [
+        ("batched", 1, 1), ("batched", 2, 1)]
+    assert all(r["ms"] > 0 for r in rows)
+    # (1 warm-up + 1 timed run) x (8 groups of 1 + 4 groups of 2)
+    assert len(calls) == 2 * 8 + 2 * 4
+    out = capsys.readouterr().out
+    assert "batched e=1 B=2" in out and "not a device time" in out
+
+
+def test_bench_banded_dense_and_banded_sweeps():
+    """The dense hybrid and the e x bj sweep on a 16x16 bucket at bs 128
+    (n_pad 1024): e = 0 (stencil) and e = 1 at bj 128 (K1 + K3) and 256
+    (K7)."""
+    geom = trw.build_geometry(16, 16, radius=5)
+    rows = bench_banded.dense_sweep(geom, CPU, "cpu", reps=1, n_images=1)
+    assert rows[0]["e"] == trw.pick_square_times(geom.n_pad, 8)
+    rows = bench_banded.banded_sweep(geom, CPU, "cpu", reps=1, n_images=1,
+                                     es=(0, 1), bjs=(128, 256), bs=128)
+    assert [(r["e"], r["bj"]) for r in rows] == [
+        (0, 128), (0, 256), (1, 128), (1, 256)]
+
+
+def test_bench_conv_sweep_on_cpu():
+    """The conv probe at one small odd shape: on the CPU the wrapper is the
+    twin, so it is bit-equal to it; cuDNN's slot times torch's bf16 conv."""
+    rows = bench_conv.sweep(CPU, reps=1,
+                            shapes=[("odd", 2, 13, 11, 32, 48)])
+    (row,) = rows
+    assert row["gflop"] == pytest.approx(2 * 2 * 13 * 11 * 32 * 48 * 9 / 1e9)
+    assert row["max_abs_err"] == 0.0 and row["bit_equal"] == 1.0
+    assert min(row["ms"], row["plain_ms"], row["cudnn_ms"]) > 0
+    x, k = bench_conv.make_inputs(2, 13, 11, 32, 48, CPU)
+    ref = bench_conv.conv3x3_plain(x, k).float()
+    got = bench_conv.cudnn_conv(x, bench_conv.cudnn_weight(k)).float()
+    assert float((got - ref).abs().max()) <= 2.0 ** -6 * float(ref.abs().max())
+
+
+def test_tools_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        bench_conv.main(["--device", "cuda"])
+    with pytest.raises(RuntimeError):
+        bench_banded.main(["--device", "cuda", "--batch_only"])
+    assert resolve_device("cpu") == CPU
