@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of irn_tpu_torch on one NVIDIA card: python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc``, checks
-each against its plain PyTorch twin at the main path's shapes and times
-both, then drives make_sem_seg end to end through the port's CLI
+Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
+each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
+count: K6 and K9 must run on ``wgmma`` without a spill), checks each
+kernel against its plain PyTorch twin at the main path's shapes and times
+it beside the twin, one library call where there is one and its bound,
+then drives make_sem_seg end to end through the port's CLI
 (``irn_tpu_torch.pipeline.run.main``) on a synthetic VOC-sized tree with a
 seeded random IRNet, in five configurations, each with the launch counts
 set to 0 just before it and read just after:
@@ -32,8 +35,11 @@ result.
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the per-kernel results (its
 ``launches`` count kernel launches in the run of the kernel's path, see
-``HOME_RUN``; ``shared`` is true when nvidia-smi showed another process on
-the card, so the times are not clean), and
+``HOME_RUN``; ``bound_ms`` is the larger of the operations over the peak
+for their type and the bytes over HBM's rate, from the run's shapes;
+``library_ms`` is one PyTorch call computing the same function, or null;
+``shared`` is true when nvidia-smi showed another process on the card, so
+the times are not clean), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,6 +50,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -97,6 +104,17 @@ HOME_RUN = {
 }
 
 
+# the card's published peaks (H100 SXM, dense, at the 700 W limit): f32
+# outside the tensor cores, bf16 on them, HBM
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+HBM_BYTES_S = 3.35e12
+
+# kernels that must run on wgmma: the build phase fails if their SASS holds
+# no HGMMA instruction or ptxas reports a spill in their source
+WGMMA_KERNELS = ("conv3x3", "square_fused_first")
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
@@ -127,9 +145,112 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of ``ops`` over
+    ``peak`` and ``nbytes`` (each input read once, each output written
+    once) over HBM's rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _band_rows(n: int, bs: int, kh: int) -> int:
+    """Rows of T inside the matrix over all packed tiles: tile j spans
+    rows [(j - kh) bs, (j + kh + 1) bs)."""
+    return sum(min(n, (j + kh + 1) * bs) - max(0, (j - kh) * bs)
+               for j in range(n // bs))
+
+
+def _band_nnz(n: int, h: int) -> int:
+    """Entries with |r - c| <= h of an n x n matrix."""
+    return sum(min(n - 1, c + h) - max(0, c - h) + 1 for c in range(n))
+
+
+def _square_banded_work(n: int, h: int, bs: int) -> tuple:
+    """(ops, bytes) of K2: the in-band output blocks, each contracting the
+    blocks inside both operands' bands; the input's in-band blocks read
+    once, the output's written once."""
+    nb, kb, jb = n // bs, -(-h // bs), -(-2 * h // bs)
+    ops = 0
+    out_blocks = 0
+    for i in range(nb):
+        for j in range(max(0, i - jb), min(nb, i + jb + 1)):
+            out_blocks += 1
+            klo, khi = max(max(i, j) - kb, 0), min(min(i, j) + kb, nb - 1)
+            ops += 2 * bs ** 3 * max(0, khi - klo + 1)
+    in_blocks = sum(min(nb, i + kb + 1) - max(0, i - kb) for i in range(nb))
+    return ops, (in_blocks + out_blocks) * bs * bs * 4
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     err = float((got - want).abs().max())
     return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or Triton's copy of it."""
+    cands = [os.path.join(os.environ.get(v, ""), "bin", "cuobjdump")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands += [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("cuobjdump not found (toolkit or triton)")
+
+
+def hgmma_counts(lib_path: str) -> dict:
+    """HGMMA (wgmma) instructions in the built library's SASS per kernel
+    source. Every kernel sits in its source's anonymous namespace, whose
+    mangled name carries the file name (``_10_conv3x3_cu_`` for
+    conv3x3.cu), so each ``Function :`` block is attributed by that."""
+    from irn_tpu_torch.ops import _build
+
+    sass = subprocess.run([_cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    tags = {k: f"_{len(k) + 3}_{k}_cu_" for k in _build.KERNELS}
+    counts = {k: 0 for k in _build.KERNELS}
+    owner = None
+    for line in sass.splitlines():
+        s_ = line.strip()
+        if s_.startswith("Function :"):
+            owner = next((k for k, tag in tags.items() if tag in s_), None)
+        elif "HGMMA" in s_ and owner:
+            counts[owner] += 1
+    return counts
+
+
+def build_report(here: str) -> dict:
+    """Build the kernels; print each source's ptxas register and spill
+    lines and each kernel's HGMMA count; fail if a wgmma kernel shows no
+    HGMMA or any spill."""
+    from irn_tpu_torch.ops import _build
+
+    _build.load()
+    info = _build.BUILD_INFO
+    print(f"built {os.path.relpath(info['path'], here)} in "
+          f"{info['seconds']:.2f} s (cached: {info['cached']})", flush=True)
+    for src, log in sorted(info.get("logs", {}).items()):
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line or "wgmma" in line:
+                print(f"  {src}: {line.strip()}", flush=True)
+        if src in WGMMA_KERNELS:
+            spills = [ln.strip() for ln in log.splitlines()
+                      if any(int(v) for v in re.findall(
+                          r"(\d+) bytes spill (?:stores|loads)", ln))]
+            check(not spills, f"{src}: register spills {spills}")
+    counts = hgmma_counts(info["path"])
+    print(f"HGMMA instructions per kernel source: {counts}", flush=True)
+    for k in WGMMA_KERNELS:
+        check(counts[k] > 0, f"{k}: no HGMMA instruction in its SASS")
+    return counts
 
 
 def check_kernels(dev, card: str) -> dict:
@@ -159,6 +280,9 @@ def check_kernels(dev, card: str) -> dict:
         plain_ms=cuda_ms(
             lambda: rw.apply_diag_chain_plain(x, w, inv, doffs, 256), 2),
         shape=f"x [8, {n}], w [{len(doffs)}, {n}], 256 applications",
+        library_ms=None,
+        **bound(256 * 8 * n * (4 * len(doffs) + 1),
+                4 * (8 * n + len(doffs) * n + n) + 4 * 8 * n, PEAK_F32),
     )
 
     # K2: one banded squaring of T (h = 556)
@@ -174,6 +298,8 @@ def check_kernels(dev, card: str) -> dict:
         ms=cuda_ms(lambda: mk.square_banded(t, h, BS), 5),
         plain_ms=cuda_ms(lambda: mk.square_banded_plain(t, h, BS), 3),
         shape=f"T [{n}, {n}], h {h}, bs {BS}",
+        library_ms=cuda_ms(lambda: torch.matmul(t, t), 1),
+        **bound(*_square_banded_work(n, h, BS), PEAK_F32),
     )
     del inband, want
 
@@ -187,6 +313,9 @@ def check_kernels(dev, card: str) -> dict:
         ms=cuda_ms(lambda: mk.pack_banded(t2, h2, BS), 10),
         plain_ms=cuda_ms(lambda: mk.pack_banded_plain(t2, h2, BS), 5),
         shape=f"T^2 [{n}, {n}] -> tiles {tuple(got.shape)}",
+        library_ms=None,
+        **bound(0, 4 * (_band_rows(n, BS, (got.shape[1] // BS - 1) // 2) * BS
+                        + got.numel()), PEAK_F32),
     )
 
     # K3: 128 applications over the packed tiles, C = 8
@@ -201,15 +330,21 @@ def check_kernels(dev, card: str) -> dict:
         ms=cuda_ms(lambda: mk.packed_chain(x, tp, 128, BS), 5),
         plain_ms=cuda_ms(lambda: mk.packed_chain_plain(x, tp, 128, BS), 3),
         shape=f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications",
+        library_ms=None,
+        **bound(128 * 2 * 8 * _band_rows(n, BS, (tp.shape[1] // BS - 1) // 2)
+                * BS, 4 * (tp.numel() + 2 * x.numel()), PEAK_F32),
     )
     del got, want, tp, t2
     check_dense_kernels(dev, geom, edge, x, res)
     check_batched_chain(dev, geom, gen, res)
     check_conv(dev, res)
     for name, r_ in res.items():
+        lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
+               else "none")
         print(f"kernel {name}: max_abs_err {r_['max_abs_err']:.3e} "
-              f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms "
-              f"({r_['shape']}; {card})", flush=True)
+              f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {r_['bound_ms']:.4f} ms "
+              f"({r_['bound_by']}) ({r_['shape']}; {card})", flush=True)
     return res
 
 
@@ -232,7 +367,7 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
     a = rw.dense_affinity(geom, edge)
     t = rw.normalize_transition(a)
 
-    # K5: one dense squaring of T
+    # K5: one dense squaring of T (its twin is the library call, cuBLAS f32)
     got = mk.square_dense(t)
     want = mk.square_dense_plain(t)
     err, rel = rel_err(got, want)
@@ -243,9 +378,17 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
         ms=cuda_ms(lambda: mk.square_dense(t), 3),
         plain_ms=cuda_ms(lambda: mk.square_dense_plain(t), 3),
         shape=f"T [{n}, {n}]",
+        **bound(2 * n ** 3, 2 * 4 * n * n, PEAK_F32),
     )
+    res["square_dense"]["library_ms"] = res["square_dense"]["plain_ms"]
 
-    # K6: A -> T^2 with T never stored, beta 10
+    # K6: A -> T^2, beta 10: the split pass alone bit-equal to its twin, then
+    # the split product against normalize_transition + cuBLAS f32 (its twin,
+    # the library line)
+    inv = 1.0 / torch.sum(mk.pow_int(a, 10), dim=0)
+    check(torch.equal(mk.split_operands(a, inv, 10),
+                      mk.split_operands_plain(a, inv, 10)),
+          "square_fused_first split pass not bit-equal to its twin")
     got = mk.square_fused_first(a, 10)
     want = mk.square_fused_first_plain(a, 10)
     err, rel = rel_err(got, want)
@@ -255,9 +398,16 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
         max_abs_err=err,
         ms=cuda_ms(lambda: mk.square_fused_first(a, 10), 3),
         plain_ms=cuda_ms(lambda: mk.square_fused_first_plain(a, 10), 3),
-        shape=f"A [{n}, {n}], beta 10",
+        shape=(f"A [{n}, {n}], beta 10; split pass bit-equal; K5 "
+               f"{res['square_dense']['ms']:.3f} ms at the same n"),
+        # six bf16 passes on the tensor cores; the f32 SIMT design's bound
+        # beside it
+        bound_f32_ms=bound(2 * n ** 3, 0, PEAK_F32)["bound_ms"],
+        **bound(6 * 2 * n ** 3, 2 * 4 * n * n, PEAK_BF16),
     )
-    del got, want, a
+    res["square_fused_first"]["library_ms"] = res["square_fused_first"][
+        "plain_ms"]
+    del got, want, a, inv
 
     # K4: one application of T^8 (three K2 squarings, h 4448), NaN in every
     # block beyond kb
@@ -265,6 +415,7 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
     for _ in range(3):
         t8, h8 = mk.square_banded(t8, h8, BS), 2 * h8
     check(h8 == 4448, f"e3 band {h8}")
+    k4_library = cuda_ms(lambda: torch.matmul(x, t8), 10)
     t8 = _poison_blocks(t8, h8)
     got = mk.apply_banded(x, t8, h8, BS)
     want = mk.apply_banded_plain(x, t8, h8, BS)
@@ -275,7 +426,12 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
         max_abs_err=err,
         ms=cuda_ms(lambda: mk.apply_banded(x, t8, h8, BS), 10),
         plain_ms=cuda_ms(lambda: mk.apply_banded_plain(x, t8, h8, BS), 5),
-        shape=f"x [8, {n}], T^8 [{n}, {n}], h {h8}, bs {BS}",
+        shape=(f"x [8, {n}], T^8 [{n}, {n}], h {h8}, bs {BS}; library: "
+               f"torch.matmul over the whole T^8 before the NaN fill"),
+        library_ms=k4_library,
+        **bound(2 * 8 * _band_rows(n, BS, -(-h8 // BS)) * BS,
+                4 * (_band_rows(n, BS, -(-h8 // BS)) * BS + 2 * x.numel()),
+                PEAK_F32),
     )
     del t8, got, want
 
@@ -298,6 +454,9 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
             lambda: mk.banded_chain_plain(x, t2, h2, 128), 3),
         shape=(f"x [8, {n}], T^2 [{n}, {n}], h {h2}, bs {BS}, bj {BJ}, "
                f"128 applications; rel err vs K1 + K3 {rel13:.2e}"),
+        library_ms=None,
+        **bound(128 * 2 * 8 * _band_nnz(n, h2),
+                4 * (_band_nnz(n, h2) + 2 * x.numel()), PEAK_F32),
     )
 
 
@@ -337,6 +496,10 @@ def check_batched_chain(dev, geom, gen, res: dict) -> None:
         shape=(f"xs [{B_BATCH}, 8, {n}], tiles {tuple(tps.shape)}, 128 "
                f"applications; each image bit-equal to K3; K3 on the "
                f"{B_BATCH} images one by one {k3_ms:.4f} ms"),
+        library_ms=None,
+        **bound(B_BATCH * 128 * 2 * 8 * BS * _band_rows(
+                    n, BS, (tps.shape[2] // BS - 1) // 2),
+                4 * (tps.numel() + 2 * xs.numel()), PEAK_F32),
     )
 
 
@@ -367,13 +530,17 @@ def check_conv(dev, res: dict) -> None:
                              f"conv3x3 at {shape}")
     w_cl = bench_conv.cudnn_weight(k)
     cudnn = cuda_ms(lambda: bench_conv.cudnn_conv(x, w_cl), 10)
+    b, h, w, c, f = shape
     res["conv3x3"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: cv.conv3x3(x, k), 10),
         plain_ms=cuda_ms(lambda: cv.conv3x3_plain(x, k), 5),
         shape=(f"{label} x {shape[:4]} -> {shape[4]}, bf16; bit-equal "
                f"{equal:.5f} ({equal_odd:.5f} at the odd shape {odd}); "
-               f"cuDNN bf16 {cudnn:.4f} ms"),
+               f"library: cuDNN bf16"),
+        library_ms=cudnn,
+        **bound(2 * b * h * w * 9 * c * f,
+                2 * (x.numel() + k.numel() + b * h * w * f), PEAK_BF16),
     )
 
 
@@ -501,7 +668,8 @@ def run_stage(dev, work: str) -> dict:
         check(summ["modes"] and all(m == mode for m in summ["modes"].values()),
               f"{tag} walk modes {summ['modes']}")
     lp, le = launches["pure"], launches["e3"]
-    check(lp["square_fused_first"] == N_PURE
+    # K6 is two launches per image (split pass, product)
+    check(lp["square_fused_first"] == 2 * N_PURE
           and lp["square_dense"] == 7 * N_PURE,
           f"pure launches {lp}")
     check(le["apply_banded"] == N_IMAGES and le["square_banded"] == 3 * N_IMAGES,
@@ -900,13 +1068,7 @@ def main() -> int:
     phase("build")
     from irn_tpu_torch.ops import _build
 
-    _build.load()
-    info = _build.BUILD_INFO
-    print(f"built {os.path.relpath(info['path'], here)} in "
-          f"{info['seconds']:.2f} s (cached: {info['cached']})", flush=True)
-    for line in str(info["log"]).splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+    hgmma = build_report(here)
 
     phase("kernels vs plain twins")
     kernels = check_kernels(dev, card)
@@ -940,15 +1102,20 @@ def main() -> int:
         check(launches[run][k] > 0,
               f"kernel {k} never launched on its path ({run})")
 
-    check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
-                  for m in sys.modules), "JAX was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "irn_tpu"))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
              launches=launches[HOME_RUN[k]][k],
              max_abs_err=kernels[k]["max_abs_err"], ms=kernels[k]["ms"],
-             plain_ms=kernels[k]["plain_ms"])
+             plain_ms=kernels[k]["plain_ms"], bound_ms=kernels[k]["bound_ms"],
+             bound_by=kernels[k]["bound_by"],
+             library_ms=kernels[k]["library_ms"], hgmma=hgmma[k],
+             **({"bound_f32_ms": kernels[k]["bound_f32_ms"]}
+                if "bound_f32_ms" in kernels[k] else {}))
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)
     print(json.dumps({"ok": True, "device": {

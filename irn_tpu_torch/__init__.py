@@ -2,9 +2,11 @@
 and CUDA for one NVIDIA H100 (Hopper).
 
 It sits beside the JAX package, which stays the reference: each module
-mirrors its ``irn_tpu`` counterpart's path and keeps its public layouts,
-reuses the framework-free ``irn_tpu`` modules (``Config``, path geometry,
-evaluation), and imports ``torch`` but never ``jax``.
+mirrors its ``irn_tpu`` counterpart's path and keeps its public layouts.
+It imports ``torch`` but never ``jax``, and nothing of ``irn_tpu``: what it
+needs of the JAX package's framework-free modules (``Config``, the path
+geometry, the weight converter, the semseg scores) it holds as its own
+copies under the same names.
 
 Subpackages
 -----------

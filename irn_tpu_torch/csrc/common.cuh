@@ -6,8 +6,7 @@
 // which the wrapper adds to its launch counter.
 //
 // Three tile routines are shared by several kernels:
-// - sgemm_tile: a dense f32 SIMT product tile (K5 square_dense, K6
-//   square_fused_first), with an elementwise transform on each operand load.
+// - sgemm_tile: a dense f32 SIMT product tile (K5 square_dense).
 // - thin_apply: one block of a thin product x @ T over a row range (K4
 //   apply_banded, K7 banded_chain), optionally masked to a band.
 // - packed_partial_block / slot_sum: one block of a packed-tile application
@@ -50,10 +49,8 @@ __device__ __forceinline__ float pow_int(float x, int e) {
 
 // -- sgemm_tile ------------------------------------------------------------
 //
-// C[i, j] = sum_k la(A[i, k]) * lb(B[k, j]) for one 128 x 128 output tile
-// (blockIdx.y, blockIdx.x) of an n x n product, n % 128 == 0. A loader
-// transforms 4 consecutive elements of a row as they are staged:
-// la(v, i, k) gets A[i, k .. k+3], lb(v, k, j) gets B[k, j .. j+3].
+// C[i, j] = sum_k A[i, k] * B[k, j] for one 128 x 128 output tile
+// (blockIdx.y, blockIdx.x) of an n x n product, n % 128 == 0.
 // 256 threads, each holding an 8 x 8 register tile (two 4-row by two
 // 4-column quads, 64 apart, so shared-memory reads are conflict-free float4
 // loads); 128 x 8 and 8 x 128 operand slabs double-buffered in shared memory,
@@ -67,17 +64,9 @@ constexpr int kGemmBN = 128;
 constexpr int kGemmBK = 8;
 constexpr int kGemmThreads = 256;
 
-struct IdentityLoad {
-  __device__ __forceinline__ float4 operator()(float4 v, int, int) const {
-    return v;
-  }
-};
-
-template <class LoadA, class LoadB>
 __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
                                            const float* __restrict__ b,
-                                           float* __restrict__ c, int n,
-                                           LoadA la, LoadB lb) {
+                                           float* __restrict__ c, int n) {
   __shared__ __align__(16) float As[2][kGemmBK][kGemmBM];  // As[k][m]
   __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN];  // Bs[k][n]
   const int tid = threadIdx.x;
@@ -98,18 +87,17 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
 
-  auto stage = [&](int buf, int k0, float4 va, float4 vb) {
-    va = la(va, row0 + ar, k0 + ac);
+  auto stage = [&](int buf, float4 va, float4 vb) {
     As[buf][ac + 0][ar] = va.x;
     As[buf][ac + 1][ar] = va.y;
     As[buf][ac + 2][ar] = va.z;
     As[buf][ac + 3][ar] = va.w;
-    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = lb(vb, k0 + br, col0 + bc);
+    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = vb;
   };
 
   float4 va = *reinterpret_cast<const float4*>(a_ptr);
   float4 vb = *reinterpret_cast<const float4*>(b_ptr);
-  stage(0, 0, va, vb);
+  stage(0, va, vb);
   __syncthreads();
   int buf = 0;
   for (int k0 = 0; k0 < n; k0 += kGemmBK) {
@@ -133,7 +121,7 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 #pragma unroll
         for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
     }
-    if (more) stage(buf ^ 1, k0 + kGemmBK, va, vb);
+    if (more) stage(buf ^ 1, va, vb);
     __syncthreads();
     buf ^= 1;
   }

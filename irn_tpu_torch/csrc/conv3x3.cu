@@ -6,165 +6,282 @@
 // along lanes and three [bh*W, 3C] x [3C, F] MXU dots per step).
 //
 // out[b, y, x, f] = sum_{dy, dx, c} xpad[b, y + dy, x + dx, c] * k[dy, dx, c, f]
-// with xpad the input zero-padded by one pixel on each side; k is HWIO.
+// with xpad the input zero-padded by one pixel on each side. The wrapper
+// re-lays k (HWIO) once as wt [F, 9, C], so that every weight slice is
+// K-major.
 //
 // Bound on this card: the tensor cores. At the probe's c3 shape
 // ([64, 125, 94, 128] -> 128) the conv is 221.8 GFLOP against 0.38 GB of
-// activations in and out: about 580 operations per byte, over the H100's
-// ~295 bf16 ridge, so time goes to the product, not to HBM.
+// activations in and out: 0.224 ms at the 989 TFLOP/s bf16 peak, 0.115 ms
+// at 3.35 TB/s.
 //
-// Design: an implicit GEMM (M = B*H*W pixels, N = F, K = 9*C) on
-// nvcuda::wmma 16x16x16 bf16 tiles with f32 accumulators. One block of 8
-// warps computes an 8-row x 16-column pixel tile of one image for 64 output
-// channels; warp r owns output row r (one 16-pixel M tile) and four 16-wide
-// N tiles. For each 16-channel chunk the block stages, once, the (8+2) x
-// (16+2) x 16 input halo (zeros beyond the image: the SAME padding, and the
-// edge masks for H and W that are not multiples of the tile) and the
-// matching 3 x 3 x 16 x 64 weight slice in shared memory; each warp then
-// runs the 9 taps as shifted A tiles of the halo (a tap is an offset into
-// it: no im2col copy). The f32 accumulators go through shared memory to
-// 16-byte bf16 stores with the ragged edge masked. This first version does
-// not pipeline the chunk loads against the products (no cp.async, no
-// wgmma): making it fast is later work.
+// Design: an implicit GEMM (M = pixels, N = F, K = 9 C) on wgmma, persistent
+// over output tiles of 8 rows x 16 pixels (128 M rows) x 128 channels.
+// - One producer warp keeps TMA loads in flight: per 64-channel chunk the
+//   (8+2) x (16+2) x 64 input halo (a 4-D box at (c0, x0-1, y0-1, b); TMA
+//   fills zeros outside the tensor, which is the SAME padding, the ragged
+//   edge in H and W and the channels past C), and per tap the 128 x 64
+//   weight slice, into two rings of mbarrier-guarded stages, both in TMA's
+//   128-byte swizzle.
+// - Two consumer warpgroups (warp w owns output row w of the tile) run
+//   wgmma m64n128k16 with A from registers: each lane's ldmatrix row
+//   address is a halo pixel, so a tap is an address offset and no im2col
+//   copy is made (a shared-memory A descriptor cannot say this: an 8 x 16
+//   pixel tile's rows sit at a halo stride of 18, not 16). B is the weight
+//   slice through a wgmma descriptor. Two register sets of A let the next
+//   tap's ldmatrix run under the current tap's products; each weight stage
+//   is released once its products have retired.
+// - Epilogue: f32 -> bf16 (nearest even) through a per-warp staging tile,
+//   then 16-byte stores, masked at the ragged edge in H, W and F.
+// Every tile re-reads its weight slices from L2 (295 KB per 128 pixels at
+// c3): at the bf16 peak that asks more of L2 than it delivers, so this
+// first pipeline stays under the peak; a larger pixel tile or cluster
+// multicast of the weights is the next step.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+namespace hp = irn::hopper;
 
-constexpr int kTileH = 8;   // output rows per block, one warp each
-constexpr int kTileW = 16;  // output columns per block: one wmma M tile
-constexpr int kTileF = 64;  // output channels per block: four wmma N tiles
-constexpr int kChunk = 16;  // input channels per stage: one wmma K step
+constexpr int kTileH = 8;    // output rows per tile: one per consumer warp
+constexpr int kTileW = 16;   // pixels per row: a warp's 16 M rows
+constexpr int kTileF = 128;  // output channels per tile: the wgmma N
+constexpr int kChunk = 64;   // input channels per stage: a 128-byte row
 constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
-constexpr int kThreads = 32 * kTileH;
-constexpr int kNTiles = kTileF / 16;
-constexpr int kOutLd = kTileF + 4;  // f32 staging row stride
-constexpr int kVec = 8;             // bf16 per 16-byte load or store
+constexpr int kHaloBytes = kHaloH * kHaloW * kChunk * 2;        // 23040
+constexpr int kHaloStride = (kHaloBytes + 1023) / 1024 * 1024;  // 23552
+constexpr int kHaloStages = 2;
+constexpr int kWBytes = kTileF * kChunk * 2;  // one tap's weight slice
+constexpr int kWStages = 8;
+constexpr int kOutLd = kTileF * 2 + 16;  // staged output row, bytes (padded)
+constexpr int kOutWarpBytes = kTileW * kOutLd;
+constexpr int kConsumerWarps = 8;  // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 32;  // + one producer warp
+constexpr int kWOffset = kHaloStages * kHaloStride;
+constexpr int kOutOffset = kWOffset + kWStages * kWBytes;
+constexpr int kBarOffset = kOutOffset + kConsumerWarps * kOutWarpBytes;
+constexpr int kSmemBytes =
+    1024 + kBarOffset + 2 * (kHaloStages + kWStages) * 8;
+static_assert(kSmemBytes <= 232448, "over the per-block shared memory");
 
-constexpr int kHaloBytes = kHaloH * kHaloW * kChunk * 2;
-constexpr int kWeightBytes = 9 * kChunk * kTileF * 2;
-constexpr int kStageBytes = kTileH * kTileW * kOutLd * 4;
-constexpr int kSmemBytes = (kHaloBytes + kWeightBytes > kStageBytes)
-                               ? kHaloBytes + kWeightBytes
-                               : kStageBytes;
-static_assert(kHaloBytes % 32 == 0, "wmma pointers need 32-byte alignment");
+struct Tiles {
+  int f, x, y, total;
+};
 
-// Two f32 values rounded to bf16 (nearest even), lo in the low half.
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
+__device__ __forceinline__ void tile_origin(const Tiles& t, int i, int& b,
+                                            int& y0, int& x0, int& f0) {
+  f0 = (i % t.f) * kTileF;
+  i /= t.f;
+  x0 = (i % t.x) * kTileW;
+  i /= t.x;
+  y0 = (i % t.y) * kTileH;
+  b = i / t.y;
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
                bf16* __restrict__ out, int H, int W, int C, int F,
-               int tiles_w) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  bf16* halo = reinterpret_cast<bf16*>(smem);  // [kHaloH][kHaloW][kChunk]
-  bf16* wt = reinterpret_cast<bf16*>(smem + kHaloBytes);  // [9][kChunk][kTileF]
-  float* stage = reinterpret_cast<float*>(smem);  // [kTileH*kTileW][kOutLd]
+               Tiles tiles) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* halo_full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* halo_empty = halo_full + kHaloStages;
+  uint64_t* w_full = halo_empty + kHaloStages;
+  uint64_t* w_empty = w_full + kWStages;
 
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = (blockIdx.x % tiles_w) * kTileW;
-  const int f0 = (blockIdx.x / tiles_w) * kTileF;
   const int warp = threadIdx.x / 32;
-  const int n_valid = min(kNTiles, (F - f0) / 16);  // F % 16 == 0
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kNTiles];
-#pragma unroll
-  for (int t = 0; t < kNTiles; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    __syncthreads();  // the previous chunk's fragment loads are done
-    for (int e = threadIdx.x; e < kHaloH * kHaloW * (kChunk / kVec);
-         e += kThreads) {
-      const int p = e / (kChunk / kVec);
-      const int v = e % (kChunk / kVec);
-      const int gy = y0 - 1 + p / kHaloW;
-      const int gx = x0 - 1 + p % kHaloW;
-      uint4 val = zero;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        val = *reinterpret_cast<const uint4*>(
-            x + (((size_t)b * H + gy) * W + gx) * C + c0 + v * kVec);
-      *reinterpret_cast<uint4*>(halo + p * kChunk + v * kVec) = val;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHaloStages; ++s) {
+      hp::mbar_init(&halo_full[s], 1);
+      hp::mbar_init(&halo_empty[s], kConsumerWarps);
     }
-    for (int e = threadIdx.x; e < 9 * kChunk * (kTileF / kVec);
-         e += kThreads) {
-      const int row = e / (kTileF / kVec);  // tap * kChunk + channel
-      const int v = e % (kTileF / kVec);
-      const int f = f0 + v * kVec;
-      uint4 val = zero;
-      if (f < F)
-        val = *reinterpret_cast<const uint4*>(
-            k + ((size_t)(row / kChunk) * C + c0 + row % kChunk) * F + f);
-      *reinterpret_cast<uint4*>(wt + row * kTileF + v * kVec) = val;
+    for (int s = 0; s < kWStages; ++s) {
+      hp::mbar_init(&w_full[s], 1);
+      hp::mbar_init(&w_empty[s], kConsumerWarps);
     }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      // A[m, c] = halo[warp + dy][m + dx][c]: the tap is an offset
-      wmma::load_matrix_sync(a, halo + ((warp + dy) * kHaloW + dx) * kChunk,
-                             kChunk);
-#pragma unroll
-      for (int t = 0; t < kNTiles; ++t) {
-        if (t < n_valid) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> w;
-          wmma::load_matrix_sync(w, wt + tap * kChunk * kTileF + t * 16,
-                                 kTileF);
-          wmma::mma_sync(acc[t], a, w, acc[t]);
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // producer warp: lane 0 issues the loads
+    if (lane == 0) {
+      int h_it = 0, w_it = 0;
+      for (int t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+        int b, y0, x0, f0;
+        tile_origin(tiles, t, b, y0, x0, f0);
+        for (int c0 = 0; c0 < C; c0 += kChunk, ++h_it) {
+          const int hs = h_it % kHaloStages;
+          hp::mbar_wait(&halo_empty[hs], ((h_it / kHaloStages) & 1) ^ 1);
+          hp::mbar_expect_tx(&halo_full[hs], kHaloBytes);
+          hp::tma_load_4d(smem + hs * kHaloStride, &xmap, &halo_full[hs], c0,
+                          x0 - 1, y0 - 1, b);
+          for (int tap = 0; tap < 9; ++tap, ++w_it) {
+            const int ws = w_it % kWStages;
+            hp::mbar_wait(&w_empty[ws], ((w_it / kWStages) & 1) ^ 1);
+            hp::mbar_expect_tx(&w_full[ws], kWBytes);
+            hp::tma_load_3d(smem + kWOffset + ws * kWBytes, &wmap, &w_full[ws],
+                            c0, tap, f0);
+          }
         }
       }
     }
+    return;
   }
 
-  __syncthreads();  // the staging buffer overlays the halo and weights
+  // consumers: warp w computes output row w of the tile, 16 pixels x 128
+  // channels; lane l addresses halo pixel l % 16 for ldmatrix, channels
+  // 8 (l / 16) .. +7 of each 16-channel step
+  const uint32_t halo0 = hp::smem_u32(smem);
+  const uint32_t wbuf0 = hp::smem_u32(smem + kWOffset);
+  uint8_t* stage = smem + kOutOffset + warp * kOutWarpBytes;
+  const int lane_row = warp * kHaloW + (lane & 15);
+  const int lane_half = lane >> 4;
+  float acc[64];
+  uint32_t a[2][4][4];
+  int h_it = 0, w_it = 0;
+  int pending = -1;  // weight stage whose products may still be in flight
+
+  for (int t = blockIdx.x; t < tiles.total; t += gridDim.x) {
+    int b, y0, x0, f0;
+    tile_origin(tiles, t, b, y0, x0, f0);
 #pragma unroll
-  for (int t = 0; t < kNTiles; ++t)
-    if (t < n_valid)
-      wmma::store_matrix_sync(stage + warp * 16 * kOutLd + t * 16, acc[t],
-                              kOutLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTileH * kTileW * (kTileF / kVec);
-       e += kThreads) {
-    const int p = e / (kTileF / kVec);
-    const int v = e % (kTileF / kVec);
-    const int gy = y0 + p / kTileW;
-    const int gx = x0 + p % kTileW;
-    const int f = f0 + v * kVec;
-    if (gy >= H || gx >= W || f >= F) continue;
-    const float* s = stage + p * kOutLd + v * kVec;
-    *reinterpret_cast<uint4*>(out + (((size_t)b * H + gy) * W + gx) * F + f) =
-        make_uint4(pack_bf16x2(s[0], s[1]), pack_bf16x2(s[2], s[3]),
-                   pack_bf16x2(s[4], s[5]), pack_bf16x2(s[6], s[7]));
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    // a chunk past C holds TMA's zeros in both operands, so every chunk
+    // runs all four k16 steps: no wgmma sits on a divergent path
+    for (int c0 = 0; c0 < C; c0 += kChunk, ++h_it) {
+      const int hs = h_it % kHaloStages;
+      const uint32_t halo = halo0 + hs * kHaloStride;
+      hp::mbar_wait(&halo_full[hs], (h_it / kHaloStages) & 1);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap, ++w_it) {
+        const int buf = tap & 1;
+        if (tap == 0) {
+          // the previous chunk's last tap used this register set
+          hp::wgmma_wait<0>();
+          if (pending >= 0) {
+            __syncwarp();
+            if (lane == 0) hp::mbar_arrive(&w_empty[pending]);
+          }
+          pending = -1;
+        }
+        const int row = lane_row + (tap / 3) * kHaloW + tap % 3;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int chunk16 = (2 * kk + lane_half) ^ (row & 7);
+          hp::ldmatrix_x4(a[buf][kk], halo + row * 128 + chunk16 * 16);
+        }
+        if (tap == 8) {  // the halo stage is read for the last time
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(&halo_empty[hs]);
+        }
+        const int ws = w_it % kWStages;
+        hp::mbar_wait(&w_full[ws], (w_it / kWStages) & 1);
+        const uint64_t desc = hp::desc_k128(wbuf0 + ws * kWBytes);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hp::wgmma_m64n128k16_rs(acc, a[buf][kk], desc + 2 * kk, 1);
+        hp::wgmma_commit();
+        hp::wgmma_wait<1>();  // the previous tap's products have retired
+        if (pending >= 0) {
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(&w_empty[pending]);
+        }
+        pending = ws;
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&w_empty[pending]);
+    pending = -1;
+
+    // accumulator layout: per 8-column block j, pixels lane/4 and lane/4 + 8
+    // of the warp's 16, channels 8j + 2 (lane % 4) + {0, 1}
+    const int p = lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = (8 * j + 2 * (lane % 4)) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(stage + p * kOutLd + col) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(stage + (p + 8) * kOutLd + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    __syncwarp();
+    const int gy = y0 + warp;
+    if (gy < H) {
+#pragma unroll
+      for (int it = 0; it < kTileW * kTileF / 8 / 32; ++it) {
+        const int idx = it * 32 + lane;
+        const int px = idx / (kTileF / 8);
+        const int q = idx % (kTileF / 8);
+        const int gx = x0 + px;
+        const int f = f0 + q * 8;
+        if (gx < W && f < F)
+          *reinterpret_cast<uint4*>(out + (((size_t)b * H + gy) * W + gx) * F +
+                                    f) =
+              *reinterpret_cast<const uint4*>(stage + px * kOutLd + q * 16);
+      }
+    }
+    __syncwarp();  // the staging tile is read before the next tile writes it
   }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 }  // namespace
 
-// x: [B, H, W, C] bf16; k: [3, 3, C, F] bf16 (HWIO); out: [B, H, W, F] bf16;
-// all contiguous and 16-byte aligned, C and F multiples of 16.
-IRN_API int irn_conv3x3(const void* x, const void* k, void* out, int B, int H,
+// x: [B, H, W, C] bf16 (NHWC); wt: [F, 9, C] bf16 (the HWIO weights re-laid
+// by the wrapper, tap = 3 dy + dx); out: [B, H, W, F] bf16; all contiguous
+// and 16-byte aligned, C and F multiples of 16. One launch.
+IRN_API int irn_conv3x3(const void* x, const void* wt, void* out, int B, int H,
                         int W, int C, int F, void* stream, int* launched) {
-  if (B < 1 || H < 1 || W < 1 || C < 16 || F < 16 || C % 16 || F % 16 ||
-      B > 65535 || (H + kTileH - 1) / kTileH > 65535)
+  if (B < 1 || H < 1 || W < 1 || C < 16 || F < 16 || C % 16 || F % 16)
     return (int)cudaErrorInvalidValue;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
-  const dim3 grid(tiles_w * ((F + kTileF - 1) / kTileF),
-                  (H + kTileH - 1) / kTileH, B);
-  conv3x3_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(k),
-      static_cast<bf16*>(out), H, W, C, F, tiles_w);
+  const Tiles tiles{(F + kTileF - 1) / kTileF, (W + kTileW - 1) / kTileW,
+                    (H + kTileH - 1) / kTileH, 0};
+  const long long total = (long long)tiles.f * tiles.x * tiles.y * B;
+  if (total > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  Tiles t = tiles;
+  t.total = (int)total;
+
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                  (cuuint64_t)H * W * C * 2};
+  const cuuint32_t xbox[4] = {kChunk, kHaloW, kHaloH, 1};
+  const cuuint64_t wdims[3] = {(cuuint64_t)C, 9, (cuuint64_t)F};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)C * 2, (cuuint64_t)9 * C * 2};
+  const cuuint32_t wbox[3] = {kChunk, 1, kTileF};
+  if (!irn::hopper::bf16_map(&xmap, x, 4, xdims, xstrides, xbox) ||
+      !irn::hopper::bf16_map(&wmap, wt, 3, wdims, wstrides, wbox))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = t.total < sm_count() ? t.total : sm_count();
+  conv3x3_kernel<<<grid, kThreads, kSmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<bf16*>(out), H, W, C, F, t);
   IRN_CHECK_LAUNCH(launched);
   return 0;
 }

@@ -23,7 +23,7 @@ namespace {
 __global__ void __launch_bounds__(irn::kGemmThreads, 2)
 square_dense_kernel(const float* __restrict__ t, float* __restrict__ out,
                     int n) {
-  irn::sgemm_tile(t, t, out, n, irn::IdentityLoad{}, irn::IdentityLoad{});
+  irn::sgemm_tile(t, t, out, n);
 }
 
 }  // namespace

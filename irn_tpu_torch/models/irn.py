@@ -2,8 +2,9 @@
 ResNet-50 (NCHW) — the counterpart of :mod:`irn_tpu.models.irn`, with the
 reference's torch module names (net/resnet50_irn.py): ``resnet50.*``,
 ``fc_edge1..6``, ``fc_dp1..7`` (``fc_dp7.0/.1/.3``) and
-``mean_shift.running_mean``. So ``irn_tpu.utils.weights.convert_irn_net``
-maps this module's ``state_dict()`` to the JAX variables and
+``mean_shift.running_mean``. So :func:`irn_tpu_torch.utils.weights.convert_irn_net`
+(a copy of ``irn_tpu.utils.weights.convert_irn_net``) maps this module's
+``state_dict()`` to the JAX variables and
 :func:`irn_tpu_torch.utils.weights.irn_from_jax` maps them back.
 
 - Boundary branch: per-stage bias-free 1x1 conv -> GroupNorm(4, 32, eps

@@ -10,9 +10,9 @@ the sources and flags, so an edited source never loads a stale build.
 Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a 256-application chain
 is 256 launches of K0, or 512 of K3's two kernels; a batch of B images
-through K8 is 512 too), and :func:`launch` adds
-that number, so a run can show that its main path really went through the
-kernels.
+through K8 is 512 too; one K6 call is its split pass and its product, 2),
+and :func:`launch` adds that number, so a run can show that its main path
+really went through the kernels.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def build() -> str:
     digest = _digest()
     out = os.path.join(BUILD_DIR, f"libirn_tpu_torch_{digest}.so")
     if os.path.exists(out):
-        BUILD_INFO.update(path=out, seconds=0.0, cached=True, log="")
+        BUILD_INFO.update(path=out, seconds=0.0, cached=True, logs={})
         return out
     nvcc = _nvcc()
     objdir = os.path.join(BUILD_DIR, f"obj_{digest}_{os.getpid()}")
@@ -109,10 +109,10 @@ def build() -> str:
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    log = []
-    for cmd, _, proc in jobs:
+    logs = {}
+    for cmd, obj, proc in jobs:
         text, _ = proc.communicate()
-        log.append(text)
+        logs[os.path.basename(obj)[:-2]] = text
         if proc.returncode != 0:
             for _, _, other in jobs:
                 if other.poll() is None:
@@ -132,7 +132,7 @@ def build() -> str:
     shutil.rmtree(objdir, ignore_errors=True)
     BUILD_INFO.update(
         path=out, seconds=time.perf_counter() - t0, cached=False,
-        log="".join(log) + proc.stdout + proc.stderr,
+        logs=dict(logs, link=proc.stdout + proc.stderr),
     )
     return out
 
@@ -149,13 +149,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_packed_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
     lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, p, n]
     lib.irn_square_dense.argtypes = [p, p, i, p, n]
-    lib.irn_square_fused_first.argtypes = [p, p, p, i, i, p, n]
+    lib.irn_square_fused_first.argtypes = [p, p, p, p, i, i, p, n]
+    lib.irn_square_fused_first_split.argtypes = [p, p, p, i, i, p, n]
     lib.irn_banded_chain.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
     lib.irn_packed_chain_batched.argtypes = [
         p, p, p, p, p, i, i, i, i, i, i, p, n,
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
-    for k in KERNELS:
+    for k in (*KERNELS, "square_fused_first_split"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 
@@ -186,12 +187,13 @@ def check_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``irn_<name>`` with ``args``, then the
-    current stream of ``device`` and the launch-count out-argument; raise on
-    a non-zero cudaError, else add the kernels it launched to
-    ``LAUNCHES[name]``."""
-    fn = getattr(load(), f"irn_{name}")
+def launch(name: str, device: torch.device, *args,
+           entry: Optional[str] = None) -> None:
+    """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``) with
+    ``args``, then the current stream of ``device`` and the launch-count
+    out-argument; raise on a non-zero cudaError, else add the kernels it
+    launched to ``LAUNCHES[name]``."""
+    fn = getattr(load(), f"irn_{entry or name}")
     launched = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from irn_tpu.ops.paths import PathSet
+from irn_tpu_torch.ops.paths import PathSet
 
 
 def shifted_window(x: torch.Tensor, dy: int, dx: int, rf: int,

@@ -11,7 +11,9 @@
   in-band blocks only.
 - :func:`square_dense` (K5, ``csrc/square_dense.cu``): dense T @ T.
 - :func:`square_fused_first` (K6, ``csrc/square_fused_first.cu``):
-  A -> T @ T with T = colnorm(A^beta) never stored.
+  A -> T @ T with T = colnorm(A^beta), an f32-accurate split product on the
+  tensor cores (a split pass, :func:`split_operands`, then six bf16
+  products).
 - :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n over
   rectangular (bs x bj) tiles, T masked to its band.
 - :func:`packed_chain_batched` (K8, ``csrc/packed_chain_batched.cu``): B
@@ -261,6 +263,71 @@ def square_dense(t: torch.Tensor) -> torch.Tensor:
 
 # -- K6 ---------------------------------------------------------------------
 
+# (left piece, right piece) of the six products K6 keeps, as the TPU's
+# Precision.HIGHEST: hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid (0 hi,
+# 1 mid, 2 lo); the three dropped ones are about 2^-24 of each product.
+SPLIT_PRODUCTS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def split3_plain(x: torch.Tensor):
+    """f32 ``x`` as three bf16 pieces, hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each rounded to nearest even: together they
+    carry x's 24 bits (hi + mid + lo == x exactly while lo's bits stay above
+    bf16's subnormal spacing, 2^-133, which |x| >= 2^-100 ensures, and |x|
+    stays below bf16's largest finite value, about 3.39e38)."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def split_operands_plain(a: torch.Tensor, inv: torch.Tensor,
+                         beta: int = 10) -> torch.Tensor:
+    """K6's split pass, plain: [6, n, n] bf16 pieces of the left operand
+    L = A^beta (hi, mid, lo, as [i][k]) and of the right operand
+    R[k, j] = A^beta[k, j] * inv[k] * inv[j] (in that multiply order),
+    stored transposed ([j][k]), so both are K-major for the product."""
+    b = pow_int(a, beta)
+    r = b * inv[:, None] * inv[None, :]
+    return torch.stack([*split3_plain(b),
+                        *(p.t() for p in split3_plain(r))]).contiguous()
+
+
+def split_operands(a: torch.Tensor, inv: torch.Tensor,
+                   beta: int = 10) -> torch.Tensor:
+    """K6's split pass alone (its first launch, counted under
+    ``square_fused_first``); bit-equal to :func:`split_operands_plain`.
+    ``a``: [n, n] f32, ``inv``: [n] f32, n a multiple of 128."""
+    n = a.shape[0]
+    if a.shape != (n, n) or inv.shape != (n,) or beta < 1:
+        raise ValueError(f"split_operands: a {tuple(a.shape)} inv "
+                         f"{tuple(inv.shape)} beta {beta}")
+    if _build.is_plain(a):
+        return split_operands_plain(a, inv, beta)
+    _build.check_cuda("square_fused_first", a, inv)
+    if n % 128:
+        raise ValueError(f"split_operands: n={n} must be a multiple of 128")
+    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=a.device)
+    _build.launch("square_fused_first", a.device, a.data_ptr(),
+                  inv.data_ptr(), pieces.data_ptr(), n, beta,
+                  entry="square_fused_first_split")
+    return pieces
+
+
+def split_product_plain(pieces: torch.Tensor) -> torch.Tensor:
+    """The sum of K6's six products over :func:`split_operands`' pieces,
+    each in f64 (exact for the bf16 products; the sums round once per
+    add), returned as f32: what K6's product computes, up to the order
+    of its f32 sums."""
+    lt, rt = pieces[:3].double(), pieces[3:].double()
+    out = torch.zeros(pieces.shape[1:], dtype=torch.float64,
+                      device=pieces.device)
+    for p, q in SPLIT_PRODUCTS:
+        out += lt[p] @ rt[q].t()
+    return out.float()
+
+
 def square_fused_first_plain(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
     """:func:`normalize_transition`, then ``torch.matmul(t, t)``."""
     t = normalize_transition(a, beta)
@@ -268,10 +335,12 @@ def square_fused_first_plain(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
 
 
 def square_fused_first(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
-    """T @ T with T = colnorm(A^beta), T never stored (K6): the left
-    operand is A^beta, the right A^beta * inv[k] * inv[j] with
-    inv = 1 / colsum(A^beta) computed here. ``a``: [n, n], n a multiple of
-    128."""
+    """T @ T with T = colnorm(A^beta) (K6): the split pass writes the bf16
+    pieces of L = A^beta and of R = A^beta * inv[k] * inv[j], with
+    inv = 1 / colsum(A^beta) computed here, and the product sums the six
+    piece products of :data:`SPLIT_PRODUCTS` on the tensor cores in f32.
+    Two launches. ``a``: [n, n] f32, n a multiple of 128 (the product's
+    tile; the walk pads n to 512); scratch 12 n^2 bytes."""
     n = a.shape[0]
     if a.shape != (n, n) or beta < 1:
         raise ValueError(f"square_fused_first: a {tuple(a.shape)} beta {beta}")
@@ -281,9 +350,11 @@ def square_fused_first(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
     if n % 128:
         raise ValueError(f"square_fused_first: n={n} must be a multiple of 128")
     inv = 1.0 / torch.sum(pow_int(a, beta), dim=0)
+    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=a.device)
     out = torch.empty_like(a)
     _build.launch("square_fused_first", a.device,
-                  a.data_ptr(), inv.data_ptr(), out.data_ptr(), n, beta)
+                  a.data_ptr(), inv.data_ptr(), pieces.data_ptr(),
+                  out.data_ptr(), n, beta)
     return out
 
 

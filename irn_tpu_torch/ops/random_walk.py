@@ -38,10 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from irn_tpu.ops import paths
 from irn_tpu_torch.ops import _build
 from irn_tpu_torch.ops import matpow
 from irn_tpu_torch.ops import matpow_kernels as mk
+from irn_tpu_torch.ops import paths
 from irn_tpu_torch.ops.affinity import path_affinity
 from irn_tpu_torch.ops.matpow_kernels import normalize_transition, pow_int
 from irn_tpu_torch.ops.resize import resize_bilinear

@@ -1,5 +1,6 @@
 """Pipeline CLI of the port: the flags of ``irn_tpu.pipeline.run`` (one
-``Config``, the same artifacts) plus ``--device`` (default ``cuda``).
+flag per field of the port's copy of ``Config``, built the same way; the
+same artifacts) plus ``--device`` (default ``cuda``).
 
 Usage:
     python -m irn_tpu_torch.pipeline.run --voc12_root <VOC2012> \
@@ -16,9 +17,8 @@ import dataclasses
 import importlib
 from typing import Dict, Optional, Sequence
 
-from irn_tpu.pipeline import run as jax_run
-from irn_tpu.pipeline.config import Config
-from irn_tpu.utils.logging import Logger, Timer
+from irn_tpu_torch.pipeline.config import Config
+from irn_tpu_torch.utils.logging import Logger, Timer
 
 # flag -> (module, function(cfg, device)) of the port, or the ROADMAP item
 # that ports it
@@ -38,9 +38,32 @@ STAGES = [
 ]
 
 
+def _add_flag(parser: argparse.ArgumentParser, name: str, field) -> None:
+    """One flag per Config field, typed from its annotation, as
+    ``irn_tpu.pipeline.run._add_flag``."""
+    t = field.type if isinstance(field.type, str) else getattr(
+        field.type, "__name__", "str"
+    )
+    if t == "bool":
+        parser.add_argument(
+            f"--{name}", action=argparse.BooleanOptionalAction,
+            default=field.default,
+        )
+    elif name == "cam_scales":
+        parser.add_argument(
+            f"--{name}", type=float, nargs="+", default=list(field.default)
+        )
+    else:
+        ftype = {"int": int, "float": float}.get(t, str)
+        parser.add_argument(f"--{name}", type=ftype, default=field.default)
+
+
 def build_parser() -> argparse.ArgumentParser:
-    parser = jax_run.build_parser()
-    parser.description = "irn_tpu_torch pipeline"
+    parser = argparse.ArgumentParser(
+        description="irn_tpu_torch pipeline", allow_abbrev=False
+    )
+    for f in dataclasses.fields(Config):
+        _add_flag(parser, f.name, f)
     parser.add_argument("--device", default="cuda",
                         help="torch device for every stage (cuda | cpu)")
     return parser

@@ -1,18 +1,49 @@
-"""eval_sem_seg for the port: :func:`irn_tpu.pipeline.stages_eval.eval_sem_seg`
-(confusion-matrix mIoU through the reused, numpy-only
-:mod:`irn_tpu.eval.semseg`) with label PNGs read by Pillow (``image_io``), so it runs on
-hosts without imageio (which the JAX stage module imports)."""
+"""eval_sem_seg for the port: the counterpart of
+``irn_tpu.pipeline.stages_eval.eval_sem_seg`` (confusion-matrix mIoU), with
+its own copies of the two numpy functions of ``irn_tpu.eval.semseg`` that it
+uses (:func:`accumulate_confusion`, :func:`scores_from_confusion`) and label
+PNGs read by Pillow (``image_io``), so it runs on hosts without imageio
+(which the JAX stage module imports)."""
 
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 
-from irn_tpu.eval import semseg
-from irn_tpu.pipeline.config import Config
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.data.image_io import imread
+from irn_tpu_torch.pipeline.config import Config
+
+
+def accumulate_confusion(conf: np.ndarray, pred: np.ndarray, gt: np.ndarray,
+                         ignore: int = 255) -> None:
+    """In-place one-image update of a fixed-size [n, n] confusion matrix
+    (rows gt, columns pred). Void gt (``ignore`` or negative) and labels
+    >= n are dropped, as the reference's ``confusion[:21, :21]`` crop
+    (step/eval_sem_seg.py:21)."""
+    n = conf.shape[0]
+    pred = np.asarray(pred).reshape(-1).astype(np.int64)
+    gt = np.asarray(gt).reshape(-1).astype(np.int64)
+    if pred.shape != gt.shape:
+        raise ValueError("pred/gt shape mismatch")
+    valid = (gt >= 0) & (gt != ignore) & (gt < n) & (pred >= 0) & (pred < n)
+    np.add.at(conf, (gt[valid], pred[valid]), 1)
+
+
+def scores_from_confusion(conf: np.ndarray) -> Dict:
+    """Per-class IoU, its nan-mean, and the fp / fn shares of each class's
+    union."""
+    gtj = conf.sum(axis=1)
+    resj = conf.sum(axis=0)
+    diag = np.diag(conf)
+    denom = gtj + resj - diag
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = diag / denom
+        fp = 1.0 - gtj / denom
+        fn = 1.0 - resj / denom
+    return {"iou": iou, "miou": float(np.nanmean(iou)), "fp": fp, "fn": fn}
 
 
 def _gt_ids(cfg: Config):
@@ -38,8 +69,8 @@ def eval_sem_seg(cfg: Config, device=None):
         gt = imread(
             os.path.join(cfg.voc12_root, "SegmentationClass", name + ".png")
         )
-        semseg.accumulate_confusion(conf, pred, gt)
-    scores = semseg.scores_from_confusion(conf)
+        accumulate_confusion(conf, pred, gt)
+    scores = scores_from_confusion(conf)
     print(scores["fp"][0], scores["fn"][0])
     print(np.nanmean(scores["fp"][1:]), np.nanmean(scores["fn"][1:]))
     print({"iou": scores["iou"], "miou": scores["miou"]})

@@ -19,14 +19,17 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from irn_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from irn_tpu.pipeline.config import Config
 from irn_tpu_torch.data import image_io
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import random_walk as rw_mod
+from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils.checkpoint import load_checkpoint
 from irn_tpu_torch.utils.weights import irn_from_jax
+
+# ImageNet normalisation of the backbone's input, as irn_tpu.data.transforms
+IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
+IMAGENET_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
 
 
 def resolve_device(device) -> torch.device:

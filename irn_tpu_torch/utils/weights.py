@@ -1,6 +1,11 @@
-"""JAX variable pytrees -> torch state dicts: the inverse of
-:mod:`irn_tpu.utils.weights` (which is numpy-only and maps a torch state
-dict to the JAX variables; the port reuses it for that direction).
+"""Weights between the two frameworks' layouts, in both directions.
+
+:func:`irn_from_jax` maps JAX variable pytrees to torch state dicts: the
+inverse of ``irn_tpu.utils.weights``. :func:`convert_irn_net` is the port's
+own copy of that module's numpy-only converter (a torch state dict -> the
+JAX variables: OIHW conv kernels become HWIO, BN running statistics the
+``stats`` collection, affine weight/bias ``scale``/``bias``), which
+:func:`irn_to_jax` uses to write a checkpoint the JAX package reads.
 
 HWIO conv kernels become OIHW; ``stats`` mean/var become the frozen-BN
 buffers; ``scale``/``bias`` become ``weight``/``bias``; ConvGN blocks
@@ -10,12 +15,10 @@ become Sequential(conv, GN) indices; ``fc_dp7a``/``fc_dp7b`` become
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
-
-from irn_tpu.utils.weights import convert_irn_net
 
 BLOCKS = (3, 4, 6, 3)
 _IRN_GN = (
@@ -82,9 +85,91 @@ def irn_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# -- torch state dict -> JAX variables (irn_tpu.utils.weights) -------------
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _conv_kernel(t) -> np.ndarray:
+    return _np(t).transpose(2, 3, 1, 0)  # OIHW -> HWIO
+
+
+def _bn_to_jax(sd: Mapping, prefix: str) -> Tuple[Dict, Dict]:
+    params = {"scale": _np(sd[prefix + ".weight"]),
+              "bias": _np(sd[prefix + ".bias"])}
+    stats = {"mean": _np(sd[prefix + ".running_mean"]),
+             "var": _np(sd[prefix + ".running_var"])}
+    return params, stats
+
+
+def convert_resnet50(sd: Mapping, prefix: str = "") -> Dict:
+    """torch ResNet-50 state dict -> ``{'params': ..., 'stats': ...}`` in
+    the layout of ``irn_tpu.models.resnet.ResNet50``. ``fc.*`` entries, if
+    present, are ignored."""
+    p: Dict = {}
+    s: Dict = {}
+    p["conv1"] = {"kernel": _conv_kernel(sd[prefix + "conv1.weight"])}
+    p["bn1"], s["bn1"] = _bn_to_jax(sd, prefix + "bn1")
+    for li in range(4):
+        for bi in range(BLOCKS[li]):
+            tsrc = f"{prefix}layer{li + 1}.{bi}"
+            name = f"layer{li + 1}_{bi}"
+            bp: Dict = {}
+            bs: Dict = {}
+            for ci in (1, 2, 3):
+                bp[f"conv{ci}"] = {
+                    "kernel": _conv_kernel(sd[f"{tsrc}.conv{ci}.weight"])
+                }
+                bp[f"bn{ci}"], bs[f"bn{ci}"] = _bn_to_jax(sd, f"{tsrc}.bn{ci}")
+            if f"{tsrc}.downsample.0.weight" in sd:
+                bp["down_conv"] = {
+                    "kernel": _conv_kernel(sd[f"{tsrc}.downsample.0.weight"])
+                }
+                bp["down_bn"], bs["down_bn"] = _bn_to_jax(
+                    sd, f"{tsrc}.downsample.1")
+            p[name] = bp
+            s[name] = bs
+    return {"params": p, "stats": s}
+
+
+def _convgn_to_jax(sd: Mapping, prefix: str) -> Dict:
+    """torch Sequential(conv, GroupNorm, ...) -> ConvGN params."""
+    return {
+        "conv": {"kernel": _conv_kernel(sd[prefix + ".0.weight"])},
+        "gn": {"scale": _np(sd[prefix + ".1.weight"]),
+               "bias": _np(sd[prefix + ".1.bias"])},
+    }
+
+
+def convert_irn_net(sd: Mapping) -> Dict:
+    """IRN state dict (the reference's net/resnet50_irn.py names) -> IRNet
+    variables. Extra buffers of the training wrapper are ignored; a missing
+    ``mean_shift.running_mean`` becomes zeros."""
+    backbone = convert_resnet50(sd, prefix="resnet50.")
+    params: Dict = {"resnet50": backbone["params"]}
+    for name in _IRN_GN:
+        params[name] = _convgn_to_jax(sd, name)
+    params["fc_edge6"] = {
+        "kernel": _conv_kernel(sd["fc_edge6.weight"]),
+        "bias": _np(sd["fc_edge6.bias"]),
+    }
+    # fc_dp7 = Sequential(conv, GN, ReLU, conv2ch, mean_shift)
+    params["fc_dp7a"] = _convgn_to_jax(sd, "fc_dp7")
+    params["fc_dp7b"] = {"kernel": _conv_kernel(sd["fc_dp7.3.weight"])}
+    stats = {
+        "resnet50": backbone["stats"],
+        "dp_mean": _np(sd["mean_shift.running_mean"])
+        if "mean_shift.running_mean" in sd
+        else np.zeros((2,), np.float32),
+    }
+    return {"params": params, "stats": stats}
+
+
 def irn_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's IRNet state dict -> JAX variables (a JAX checkpoint),
-    through the JAX package's numpy-only converter."""
+    """The port's IRNet state dict -> JAX variables (a JAX checkpoint)."""
     return convert_irn_net(
         {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     )

@@ -112,18 +112,44 @@ def test_square_dense(cuda, n):
     assert _build.LAUNCHES["square_dense"] == 1 + 3  # one per squaring
 
 
-def test_square_fused_first(cuda):
-    n = 512
-    g = np.random.default_rng(0)
-    a = g.uniform(0.3, 1.0, (n, n)).astype(np.float32)
-    a = torch.from_numpy(np.minimum(a, a.T)).to(cuda)
-    a.fill_diagonal_(1.0)
+def _affinity(n, lo=0.3, seed=0):
+    """A symmetric affinity in [lo, 1) with a unit diagonal."""
+    g = np.random.default_rng(seed)
+    a = g.uniform(lo, 1.0, (n, n)).astype(np.float32)
+    a = np.minimum(a, a.T)
+    np.fill_diagonal(a, 1.0)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("n,lo", [(512, 0.3), (1024, 0.0), (4096, 0.3)])
+def test_square_fused_first(cuda, n, lo):
+    """K6 (split pass + six-product tensor-core product) vs its twin within
+    rel 1e-5; lo 0.0 puts entries near 0 whose 10th power is subnormal or
+    zero. The split pass alone is bit-equal to its plain twin."""
+    a = _affinity(n, lo).to(cuda)
     got = mk.square_fused_first(a, 10)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["square_fused_first"] == 1
+    assert _build.LAUNCHES["square_fused_first"] == 2  # split, product
     want = mk.square_fused_first_plain(a, 10)
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+    inv = 1.0 / torch.sum(mk.pow_int(a, 10), dim=0)
+    pieces = mk.split_operands(a, inv, 10)
+    assert _build.LAUNCHES["square_fused_first"] == 3
+    assert torch.equal(pieces, mk.split_operands_plain(a, inv, 10))
+
+
+def test_square_fused_first_refuses(cuda):
+    """n not a multiple of the 128-row tile, or a non-square A, raises
+    before any launch."""
+    with pytest.raises(ValueError):
+        mk.square_fused_first(_affinity(320).to(cuda), 10)
+    with pytest.raises(ValueError):
+        mk.square_fused_first(torch.ones((256, 128), device=cuda), 10)
+    with pytest.raises(ValueError):
+        mk.split_operands(_affinity(320).to(cuda), torch.ones(320, device=cuda))
+    assert _build.LAUNCHES["square_fused_first"] == 0
 
 
 def test_transition_matrix_runs_k6_then_k5(cuda):
@@ -135,7 +161,7 @@ def test_transition_matrix_runs_k6_then_k5(cuda):
     a = rw.dense_affinity(geom, edge)
     got = rw.transition_matrix(a, 10, 4)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["square_fused_first"] == 1
+    assert _build.LAUNCHES["square_fused_first"] == 2  # split, product
     assert _build.LAUNCHES["square_dense"] == 3
     want = rw.normalize_transition(a, 10)
     for _ in range(4):
@@ -238,10 +264,14 @@ def _bf16_close(got, want):
     assert float((got == want).float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("shape", [(2, 13, 11, 32, 48), (1, 9, 20, 512, 512)])
+@pytest.mark.parametrize("shape", [
+    (2, 13, 11, 32, 48), (1, 9, 20, 512, 512), (1, 5, 7, 16, 16),
+    (3, 19, 37, 96, 144), (1, 8, 16, 64, 128)])
 def test_conv3x3(cuda, shape):
     """K9 vs its twin (f32 conv on the bf16 values, TF32 off, one round) at
-    an odd shape (edge masks in H, W and F) and at C = F = 512."""
+    an odd shape (edge masks in H, W and F; C 32 fills half a 64-channel
+    chunk), at C = F = 512, at C = F = 16, at a partial chunk (C 96) with a
+    ragged second F tile (F 144), and at exactly one tile."""
     from irn_tpu_torch.ops import conv3x3 as cv
 
     torch.backends.cudnn.allow_tf32 = False
