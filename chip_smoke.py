@@ -3,7 +3,7 @@
 
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
-count: K6 and K9 must run on ``wgmma`` without a spill), checks each
+count: K5, K6 and K9 must run on ``wgmma`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -11,10 +11,10 @@ then drives make_sem_seg end to end through the port's CLI
 seeded random IRNet, in five configurations, each with the launch counts
 set to 0 just before it and read just after:
 
-- ``default``: the K0 stencil walk;
+- ``default``: the K0 stencil walk, one K0 launch per walk;
 - ``banded`` = ``--rw_square_times 1``: K2 squaring, K1 pack, K3 chain;
 - ``pure`` = ``--rw_square_times 8`` on 4 images: the reference's pure
-  squaring on the dense route, K6 then 7 x K5;
+  squaring on the dense route, K6 then 7 x K5 (two launches each);
 - ``e3`` = ``--exp_times 3 --rw_square_times 3``: three K2 squarings, then
   one K4 application;
 - ``e3_diag`` = ``--exp_times 3``: the K0 stencil, e3's comparison.
@@ -112,7 +112,11 @@ HBM_BYTES_S = 3.35e12
 
 # kernels that must run on wgmma: the build phase fails if their SASS holds
 # no HGMMA instruction or ptxas reports a spill in their source
-WGMMA_KERNELS = ("conv3x3", "square_fused_first")
+WGMMA_KERNELS = ("conv3x3", "square_dense", "square_fused_first")
+# K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
+# cluster, w in shared memory or from L2
+DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
+              (2, 16, False), (1, 8, False))
 
 
 def phase(name: str) -> None:
@@ -254,7 +258,8 @@ def build_report(here: str) -> dict:
 
 
 def check_kernels(dev, card: str) -> dict:
-    """K0-K3 vs their plain twins at the main path's shapes."""
+    """K0-K3 vs their plain twins at the main path's shapes (K0 also under
+    each plan of DIAG_PLANS)."""
     from irn_tpu_torch.ops import matpow_kernels as mk
     from irn_tpu_torch.ops import random_walk as rw
 
@@ -267,19 +272,44 @@ def check_kernels(dev, card: str) -> dict:
     x = torch.rand((8, n), generator=gen).to(dev)
     res = {}
 
-    # K0: 256 applications of T in diagonal form, C = 8 seed rows
+    # K0: 256 applications of T in diagonal form, C = 8 seed rows, in one
+    # launch; bit-equal to its twin under every plan
     w, inv = rw.build_diag_operator(geom, edge)
     doffs = rw.diag_offsets(geom)
     got = rw.apply_diag_chain(x, w, inv, doffs, 256)
     want = rw.apply_diag_chain_plain(x, w, inv, doffs, 256)
-    err, rel = rel_err(got, want)
-    check(rel <= 1e-5, f"diag_chain rel err {rel}")
+    check(torch.equal(got, want), "diag_chain not bit-equal to its twin")
+    plan = rw.card_diag_chain_plan(dev, 8, n, tuple(doffs))
+    plans = []
+
+    def held(p_):
+        return rw.diag_chain_max_clusters(dev, 8, n, doffs, p_)
+
+    for rows, cluster, w_shared in DIAG_PLANS:
+        p_ = rw.diag_chain_plan(8, n, doffs, held, rows, cluster, w_shared)
+        check(torch.equal(rw.launch_diag_chain(x, w, inv, doffs, 256, p_),
+                          want), f"diag_chain plan {p_} not bit-equal")
+        t_ = cuda_ms(
+            lambda: rw.launch_diag_chain(x, w, inv, doffs, 256, p_), 10)
+        plans.append(f"rows {p_[0]} x {p_[1]} CTAs, w in "
+                     f"{'shared memory' if p_[4] else 'L2'}, {held(p_)} "
+                     f"clusters at once: {t_:.4f} ms")
+    ms = cuda_ms(lambda: rw.apply_diag_chain(x, w, inv, doffs, 256), 10)
+    # the chosen plan with no diagonals: what the 256 applications' cluster
+    # barriers, halo exchanges and output cost alone
+    sync_ms = cuda_ms(lambda: rw.launch_diag_chain(
+        x, w[:0], inv, (), 256, plan), 10)
     res["diag_chain"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: rw.apply_diag_chain(x, w, inv, doffs, 256), 10),
+        max_abs_err=0.0,
+        ms=ms,
+        ms_per_application=ms / 256,
         plain_ms=cuda_ms(
             lambda: rw.apply_diag_chain_plain(x, w, inv, doffs, 256), 2),
-        shape=f"x [8, {n}], w [{len(doffs)}, {n}], 256 applications",
+        shape=(f"x [8, {n}], w [{len(doffs)}, {n}], 256 applications, one "
+               f"launch; bit-equal; plan (rows, CTAs, slice, halo, w in "
+               f"shared memory) {plan}; the plan with no diagonals (barriers "
+               f"and halo exchange alone) {sync_ms:.4f} ms; "
+               f"per plan: {', '.join(plans)}"),
         library_ms=None,
         **bound(256 * 8 * n * (4 * len(doffs) + 1),
                 4 * (8 * n + len(doffs) * n + n) + 4 * 8 * n, PEAK_F32),
@@ -341,8 +371,11 @@ def check_kernels(dev, card: str) -> dict:
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
+        per_app = (f" ({r_['ms_per_application'] * 1e3:.3f} us per "
+                   f"application)" if "ms_per_application" in r_ else "")
         print(f"kernel {name}: max_abs_err {r_['max_abs_err']:.3e} "
-              f"kernel {r_['ms']:.4f} ms, plain twin {r_['plain_ms']:.4f} ms, "
+              f"kernel {r_['ms']:.4f} ms{per_app}, plain twin "
+              f"{r_['plain_ms']:.4f} ms, "
               f"library {lib}, bound {r_['bound_ms']:.4f} ms "
               f"({r_['bound_by']}) ({r_['shape']}; {card})", flush=True)
     return res
@@ -367,7 +400,11 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
     a = rw.dense_affinity(geom, edge)
     t = rw.normalize_transition(a)
 
-    # K5: one dense squaring of T (its twin is the library call, cuBLAS f32)
+    # K5: one dense squaring of T: the split pass alone bit-equal to its
+    # twin, then the split product against its twin, the library call
+    # (cuBLAS f32)
+    check(torch.equal(mk.split_identity(t), mk.split_identity_plain(t)),
+          "square_dense split pass not bit-equal to its twin")
     got = mk.square_dense(t)
     want = mk.square_dense_plain(t)
     err, rel = rel_err(got, want)
@@ -377,10 +414,13 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
         max_abs_err=err,
         ms=cuda_ms(lambda: mk.square_dense(t), 3),
         plain_ms=cuda_ms(lambda: mk.square_dense_plain(t), 3),
-        shape=f"T [{n}, {n}]",
-        **bound(2 * n ** 3, 2 * 4 * n * n, PEAK_F32),
+        shape=f"T [{n}, {n}]; split pass bit-equal",
+        # six bf16 passes on the tensor cores; the f32 SIMT line beside it
+        bound_f32_ms=bound(2 * n ** 3, 0, PEAK_F32)["bound_ms"],
+        **bound(6 * 2 * n ** 3, 2 * 4 * n * n, PEAK_BF16),
     )
     res["square_dense"]["library_ms"] = res["square_dense"]["plain_ms"]
+    del got, want
 
     # K6: A -> T^2, beta 10: the split pass alone bit-equal to its twin, then
     # the split product against normalize_transition + cuBLAS f32 (its twin,
@@ -668,10 +708,15 @@ def run_stage(dev, work: str) -> dict:
         check(summ["modes"] and all(m == mode for m in summ["modes"].values()),
               f"{tag} walk modes {summ['modes']}")
     lp, le = launches["pure"], launches["e3"]
-    # K6 is two launches per image (split pass, product)
+    # K6 and K5 are two launches per call (split pass, product)
     check(lp["square_fused_first"] == 2 * N_PURE
-          and lp["square_dense"] == 7 * N_PURE,
+          and lp["square_dense"] == 2 * 7 * N_PURE,
           f"pure launches {lp}")
+    # K0 is one launch per walk: two passes over the tree, then one
+    check(launches["default"]["diag_chain"] == 2 * N_IMAGES
+          and launches["e3_diag"]["diag_chain"] == N_IMAGES,
+          f"K0 launches default {launches['default']['diag_chain']}, "
+          f"e3_diag {launches['e3_diag']['diag_chain']}")
     check(le["apply_banded"] == N_IMAGES and le["square_banded"] == 3 * N_IMAGES,
           f"e3 launches {le}")
     agree = agreement(runs["default"]["out"], runs["pure"]["out"],
@@ -1114,8 +1159,9 @@ def main() -> int:
              plain_ms=kernels[k]["plain_ms"], bound_ms=kernels[k]["bound_ms"],
              bound_by=kernels[k]["bound_by"],
              library_ms=kernels[k]["library_ms"], hgmma=hgmma[k],
-             **({"bound_f32_ms": kernels[k]["bound_f32_ms"]}
-                if "bound_f32_ms" in kernels[k] else {}))
+             **{key: kernels[k][key]
+                for key in ("bound_f32_ms", "ms_per_application")
+                if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)
     print(json.dumps({"ok": True, "device": {

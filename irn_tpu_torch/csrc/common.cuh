@@ -5,8 +5,8 @@
 // also counts the kernels it launched into its last argument, ``launched``,
 // which the wrapper adds to its launch counter.
 //
-// Three tile routines are shared by several kernels:
-// - sgemm_tile: a dense f32 SIMT product tile (K5 square_dense).
+// Two tile routines are shared by several kernels (the tensor-core split
+// product of K5 and K6 lives in split_product.cuh):
 // - thin_apply: one block of a thin product x @ T over a row range (K4
 //   apply_banded, K7 banded_chain), optionally masked to a band.
 // - packed_partial_block / slot_sum: one block of a packed-tile application
@@ -45,95 +45,6 @@ __device__ __forceinline__ float pow_int(float x, int e) {
     if (e) base = __fmul_rn(base, base);
   }
   return acc;
-}
-
-// -- sgemm_tile ------------------------------------------------------------
-//
-// C[i, j] = sum_k A[i, k] * B[k, j] for one 128 x 128 output tile
-// (blockIdx.y, blockIdx.x) of an n x n product, n % 128 == 0.
-// 256 threads, each holding an 8 x 8 register tile (two 4-row by two
-// 4-column quads, 64 apart, so shared-memory reads are conflict-free float4
-// loads); 128 x 8 and 8 x 128 operand slabs double-buffered in shared memory,
-// the next slab prefetched into registers while the current one is used.
-// Every output sums k = 0 .. n-1 in order with fmaf: a fixed order, so the
-// result is deterministic. f32 SIMT arithmetic: the tensor cores' TF32 would
-// not be an f32 result.
-
-constexpr int kGemmBM = 128;
-constexpr int kGemmBN = 128;
-constexpr int kGemmBK = 8;
-constexpr int kGemmThreads = 256;
-
-__device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
-                                           const float* __restrict__ b,
-                                           float* __restrict__ c, int n) {
-  __shared__ __align__(16) float As[2][kGemmBK][kGemmBM];  // As[k][m]
-  __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN];  // Bs[k][n]
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * kGemmBM;
-  const int col0 = blockIdx.x * kGemmBN;
-  // global -> shared mapping: one float4 of A (row ar, cols ac..ac+3) and
-  // one of B (row br, cols bc..bc+3) per thread and slab
-  const int ar = tid >> 1, ac = (tid & 1) * 4;
-  const int br = tid >> 5, bc = (tid & 31) * 4;
-  const float* a_ptr = a + (size_t)(row0 + ar) * n + ac;
-  const float* b_ptr = b + (size_t)br * n + col0 + bc;
-  // register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise cols
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-
-  auto stage = [&](int buf, float4 va, float4 vb) {
-    As[buf][ac + 0][ar] = va.x;
-    As[buf][ac + 1][ar] = va.y;
-    As[buf][ac + 2][ar] = va.z;
-    As[buf][ac + 3][ar] = va.w;
-    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = vb;
-  };
-
-  float4 va = *reinterpret_cast<const float4*>(a_ptr);
-  float4 vb = *reinterpret_cast<const float4*>(b_ptr);
-  stage(0, va, vb);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < n; k0 += kGemmBK) {
-    const bool more = k0 + kGemmBK < n;
-    if (more) {
-      va = *reinterpret_cast<const float4*>(a_ptr + k0 + kGemmBK);
-      vb = *reinterpret_cast<const float4*>(b_ptr + (size_t)(k0 + kGemmBK) * n);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    if (more) stage(buf ^ 1, va, vb);
-    __syncthreads();
-    buf ^= 1;
-  }
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int row = row0 + (p < 4 ? ty * 4 + p : 64 + ty * 4 + p - 4);
-    float* crow = c + (size_t)row * n + col0;
-    *reinterpret_cast<float4*>(crow + tx * 4) =
-        make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
-    *reinterpret_cast<float4*>(crow + 64 + tx * 4) =
-        make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
-  }
 }
 
 // -- thin_apply ------------------------------------------------------------

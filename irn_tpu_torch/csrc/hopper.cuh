@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels (K6
-// square_fused_first's product, K9 conv3x3): mbarriers, TMA tile loads,
-// the wgmma shared-memory descriptor and two wgmma shapes with 128 output
-// columns. Written as inline PTX; the tensor maps are encoded on the host
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
+// split product of K5 square_dense and K6 square_fused_first, K9 conv3x3)
+// and the cluster-resident K0 diag_chain: mbarriers, thread-block cluster
+// barriers and distributed shared memory, TMA tile loads, the wgmma
+// shared-memory descriptor and two wgmma shapes with 128 output columns. Written as inline PTX; the tensor maps are encoded on the host
 // through the driver entry point that the runtime hands out, so the
 // library needs no link against libcuda.
 //
@@ -48,14 +49,23 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Wait until the barrier's phase differs from ``parity``. A wait that lasts
-// past ~2^36 cycles (over half a minute) is a fault of the kernel: it traps,
-// so the launch fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+// One try of a parity wait: true once the phase of parity ``parity`` has
+// completed. kCluster: acquire at cluster scope, for a barrier on which
+// other CTAs of the cluster arrive (mbar_arrive_cluster).
+template <bool kCluster>
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   uint32_t done = 0;
-  long long start = 0;
-  while (true) {
+  if constexpr (kCluster) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } else {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -65,13 +75,64 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
-    if (done) return;
+  }
+  return done != 0;
+}
+
+// Wait until the barrier's phase differs from ``parity``. A wait that lasts
+// past ~2^36 cycles (over half a minute) is a fault of the kernel: it traps,
+// so the launch fails with an error instead of holding the card.
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  while (!mbar_try_wait<kCluster>(addr, parity)) {
     if (!start) {
       start = clock64();
     } else if (clock64() - start > (1ll << 36)) {
       __trap();
     }
   }
+}
+
+// -- thread-block clusters ---------------------------------------------------
+
+// Every thread of every CTA of the cluster, with release and acquire at
+// cluster scope: the hardware cluster barrier. It has no bound, so it is
+// used only where every CTA reaches it (a cluster's CTAs are scheduled
+// together); waits on other CTAs' progress go through mbarriers.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of this CTA's shared address ``addr`` in the
+// CTA of rank ``rank`` of the cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes from a shared::cluster address (16-byte aligned).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One arrival, with release at cluster scope, on the mbarrier at the
+// shared::cluster address ``addr`` (this CTA's or another's).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(addr)
+               : "memory");
 }
 
 // -- TMA tile loads (zero fill outside the tensor) ---------------------------

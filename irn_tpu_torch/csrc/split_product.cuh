@@ -1,0 +1,237 @@
+// The split product shared by K5 square_dense and K6 square_fused_first:
+// L @ R for dense n x n f32 operands, to f32 accuracy on the tensor cores
+// (the TPU's Precision.HIGHEST carried to Hopper).
+//
+// - split_tile: one 64 x 64 tile of the split pass. Each f32 value x becomes
+//   three bf16 pieces, hi = bf16(x), mid = bf16(x - hi),
+//   lo = bf16(x - hi - mid), which carry its 24 bits (exactly, for x whose
+//   lo piece stays a normal bf16). L's pieces are stored as they are
+//   ([i][k], K-major for the product's A operand), R's transposed ([j][k],
+//   K-major for its B operand, through a shared-memory tile). Pieces
+//   [6, n, n] bf16: L hi, mid, lo, then Rt hi, mid, lo (12 n^2 bytes).
+// - product_tile: one 128 x 128 output tile of the product: a two-stage
+//   ring of TMA loads (one producer warpgroup, of which one thread issues
+//   the loads) feeding two consumer warpgroups (64 rows each) through
+//   mbarriers; per 64-deep k slab, six wgmma products per k16 step, hi.hi,
+//   hi.mid, mid.hi, hi.lo, lo.hi, mid.mid, the terms HIGHEST keeps (the
+//   dropped ones are about 2^-24 of each product). The tensor cores align
+//   their f32 accumulation with fewer guard bits than an FMA chain; over
+//   n/16 k steps that could bias the sum by some 1e-5 of its size, so each
+//   slab's products start a fresh accumulator (scale-d 0) and are added
+//   into an f32 register total in round-to-nearest, once per slab.
+// - launch_product: encodes the pieces' tensor map and launches a kernel
+//   whose body is product_tile.
+//
+// Each source keeps its own __global__ wrappers in its anonymous namespace,
+// so the SASS of each kernel carries its source's name. Every wgmma stays
+// on a uniform path: a wgmma under a run-time branch makes ptxas serialize
+// them all (warning C7520).
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+#include <cuda_bf16.h>
+
+namespace irn {
+namespace split {
+
+using bf16 = __nv_bfloat16;
+
+// -- split pass ----------------------------------------------------------------
+
+constexpr int kSplitTile = 64;
+constexpr int kSplitThreads = 256;
+constexpr int kSplitLd = kSplitTile + 2;  // bf16 row stride of the transpose tile
+
+__device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid,
+                                       bf16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r1 = __fsub_rn(x, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+}
+
+// Tile (blockIdx.y, blockIdx.x) of the split pass over a [n, n]:
+// L = a^beta (kBeta > 0: beta fixed at compile time, the multiplies unroll;
+// 0: read at run time) and R = L * inv[k] * inv[j] in that multiply order
+// (kScale), or R = L (no scaling: ``inv`` is not read).
+template <int kBeta, bool kScale>
+__device__ __forceinline__ void split_tile(const float* __restrict__ a,
+                                           const float* __restrict__ inv,
+                                           bf16* __restrict__ pieces, int n,
+                                           int beta) {
+  __shared__ bf16 rt[3][kSplitTile][kSplitLd];  // rt[piece][col][row]
+  const size_t nn = (size_t)n * n;
+  const int r0 = blockIdx.y * kSplitTile;
+  const int c0 = blockIdx.x * kSplitTile;
+  const int tc = threadIdx.x % kSplitTile;
+  const float inv_c = kScale ? __ldg(inv + c0 + tc) : 1.f;
+  for (int tr = threadIdx.x / kSplitTile; tr < kSplitTile;
+       tr += kSplitThreads / kSplitTile) {
+    const int r = r0 + tr;
+    const size_t e = (size_t)r * n + c0 + tc;
+    const float b = pow_int(__ldg(a + e), kBeta > 0 ? kBeta : beta);
+    bf16 hi, mid, lo;
+    split3(b, hi, mid, lo);  // L[r, c]
+    pieces[e] = hi;
+    pieces[nn + e] = mid;
+    pieces[2 * nn + e] = lo;
+    if (kScale)
+      split3(__fmul_rn(__fmul_rn(b, __ldg(inv + r)), inv_c), hi, mid, lo);
+    rt[0][tc][tr] = hi;  // R[r, c], stored at Rt[c, r]
+    rt[1][tc][tr] = mid;
+    rt[2][tc][tr] = lo;
+  }
+  __syncthreads();
+  for (int tr = threadIdx.x / kSplitTile; tr < kSplitTile;
+       tr += kSplitThreads / kSplitTile) {
+    const size_t e = (size_t)(c0 + tr) * n + r0 + tc;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) pieces[(3 + p) * nn + e] = rt[p][tr][tc];
+  }
+}
+
+inline dim3 split_grid(int n) { return dim3(n / kSplitTile, n / kSplitTile); }
+
+// -- product -------------------------------------------------------------------
+
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 64;
+constexpr int kStages = 2;
+constexpr int kTileBytes = kBM * kBK * 2;       // one piece's 128 x 64 tile
+constexpr int kStageBytes = 6 * kTileBytes;     // L hi/mid/lo, Rt hi/mid/lo
+constexpr int kProductThreads = 384;            // producer + 2 consumers
+constexpr int kGroup = 16;                      // row tiles per raster group
+constexpr int kProductSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+
+// The shapes both products take: n a multiple of the 128-row tile, and a
+// split grid within CUDA's limits.
+inline bool shape_ok(int n) {
+  return n >= kBM && n % kBM == 0 && n / kSplitTile <= 65535;
+}
+
+// Product q's pieces (0 hi, 1 mid, 2 lo): hi.hi, hi.mid, mid.hi, hi.lo,
+// lo.hi, mid.mid.
+__device__ __forceinline__ int piece_a(int q) {
+  return q == 2 || q == 5 ? 1 : q == 4 ? 2 : 0;
+}
+__device__ __forceinline__ int piece_b(int q) {
+  return q == 1 || q == 5 ? 1 : q == 3 ? 2 : 0;
+}
+
+// Output tile blockIdx.x (grouped raster) of out = L @ R from the pieces'
+// tensor map (a [6n, n] bf16 matrix, 64 x 128 boxes, 128-byte swizzle).
+__device__ __forceinline__ void product_tile(const CUtensorMap* pieces,
+                                             float* __restrict__ out, int n) {
+  namespace hp = irn::hopper;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  // grouped raster: kGroup row tiles share the column tiles in flight
+  const int tiles = n / kBM;
+  const int width = kGroup * tiles;
+  const int first = (blockIdx.x / width) * kGroup;
+  const int gsize = min(tiles - first, kGroup);
+  const int tm = first + (blockIdx.x % width) % gsize;
+  const int tn = (blockIdx.x % width) / gsize;
+  const int kt = n / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues the loads
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kt; ++k) {
+        const int s = k % kStages;
+        hp::mbar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
+        hp::mbar_expect_tx(&full[s], kStageBytes);
+        uint8_t* st = smem + s * kStageBytes;
+        for (int p = 0; p < 3; ++p) {
+          hp::tma_load_2d(st + p * kTileBytes, pieces, &full[s], k * kBK,
+                          p * n + tm * kBM);
+          hp::tma_load_2d(st + (3 + p) * kTileBytes, pieces, &full[s],
+                          k * kBK, (3 + p) * n + tn * kBN);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128 - 1;  // consumer warpgroup: rows wg*64..
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4;
+  float acc[64], total[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = total[i] = 0.f;
+
+  for (int k = 0; k < kt; ++k) {
+    const int s = k % kStages;
+    hp::mbar_wait(&full[s], (k / kStages) & 1);
+    const uint32_t st = hp::smem_u32(smem + s * kStageBytes);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const uint64_t da = hp::desc_k128(st + piece_a(q) * kTileBytes +
+                                          wg * 64 * 128) + 2 * kk;
+        const uint64_t db =
+            hp::desc_k128(st + (3 + piece_b(q)) * kTileBytes) + 2 * kk;
+        hp::wgmma_m64n128k16_ss(acc, da, db, kk > 0 || q > 0);
+      }
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(acc);
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = __fadd_rn(total[i], acc[i]);
+  }
+
+  // accumulator layout: per 8-column block j, rows lane/4 and lane/4 + 8 of
+  // the warp's 16, columns 8j + 2 (lane % 4) + {0, 1}
+  const int row = tm * kBM + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = tn * kBN + j * 8 + (lane % 4) * 2;
+    *reinterpret_cast<float2*>(out + (size_t)row * n + col) =
+        make_float2(total[4 * j], total[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(row + 8) * n + col) =
+        make_float2(total[4 * j + 2], total[4 * j + 3]);
+  }
+}
+
+// Launch ``kernel`` (a __global__ (const CUtensorMap, float*, int) whose
+// body is product_tile) over the [6, n, n] pieces into out. Returns the
+// error of the set-up or the launch, or 0 and counts the launch.
+template <typename Kernel>
+inline int launch_product(Kernel kernel, const void* pieces, float* out,
+                          int n, cudaStream_t s, int* launched) {
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)6 * n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
+  const cuuint32_t box[2] = {kBK, kBM};
+  if (!irn::hopper::bf16_map(&map, pieces, 2, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kProductSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = n / kBM;
+  kernel<<<tiles * tiles, kProductThreads, kProductSmem, s>>>(map, out, n);
+  IRN_CHECK_LAUNCH(launched);
+  return 0;
+}
+
+}  // namespace split
+}  // namespace irn

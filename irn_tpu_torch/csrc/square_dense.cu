@@ -1,41 +1,75 @@
 // K5 square_dense: T @ T for a dense n x n f32 matrix (every squaring of the
-// pure-squaring walk after the first).
+// pure-squaring walk after the first), f32-accurate on the tensor cores.
 //
 // Replaces: irn_tpu/ops/matpow_pallas.py square_pallas (_square_kernel, a
-// Pallas MXU grid over (i, j, k) blocks with an f32 VMEM accumulator).
+// Pallas MXU grid over (i, j, k) blocks with an f32 VMEM accumulator; f32
+// operands in dots at Precision.HIGHEST, a six-pass bf16 decomposition on
+// the TPU's matrix unit).
 //
-// Bound on this card: f32 FLOPs. At n = 14336 one squaring is 2 n^3 =
-// 5.9 TFLOP against 2.5 GB of operand and output bytes; f32 runs outside the
-// tensor cores (67 TFLOP/s peak), and TF32 would not be the f32 result.
+// Bound on this card: the bf16 tensor cores, 6 x 2n^3 operations over
+// 989 TFLOP/s (35.7 ms at n 14336). The design it replaces, an f32 SIMT
+// tile, was bound by 2n^3 over the 67 TFLOP/s f32 peak (87.9 ms) and ran
+// 16% behind cuBLAS f32; TF32 would not be the f32 result.
 //
-// Design: a classic register-blocked SGEMM (irn::sgemm_tile in common.cuh):
-// one 128 x 128 output tile per block, 8 x 8 outputs per thread, 8-deep
-// operand slabs double-buffered through shared memory. Each output sums
-// k = 0 .. n-1 in order, so the result is deterministic. The TPU's
-// 1024-block divisibility is a TPU limit; this kernel takes any n that is a
-// multiple of 128 (the walk pads n to 512). wgmma, TMA and a persistent
-// schedule are left for later work.
+// Design: K6's split product (split_product.cuh), with an identity split,
+// in two launches:
+// 1. The split pass writes the bf16 hi/mid/lo pieces of L = T as [i][k] and
+//    of R = T transposed as [j][k], so both operands are K-major: K6's
+//    split at beta 1 with no scaling (the same pieces as beta 1 and inv all
+//    ones, since x * 1.0 is exact). It reads 4n^2 bytes and writes 12n^2:
+//    scratch of 12 n^2 bytes (2.5 GB at n 14336, 4.1 GB at n 18432) and
+//    about 1 ms of HBM at n 14336. Reading B through an MN-major wgmma
+//    descriptor would halve the scratch; the six pieces keep one product
+//    body for K5 and K6.
+// 2. K6's product: 128 x 128 tiles, a two-stage TMA ring (one producer
+//    warpgroup, two consumer warpgroups), six wgmma piece products per k16
+//    step, a fresh accumulator per 64-deep slab added into an f32 total.
+// The walk pads n to 512; this kernel takes any n that is a multiple of
+// 128.
 
-#include "common.cuh"
+#include "split_product.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(irn::kGemmThreads, 2)
-square_dense_kernel(const float* __restrict__ t, float* __restrict__ out,
-                    int n) {
-  irn::sgemm_tile(t, t, out, n);
+namespace sp = irn::split;
+
+__global__ void __launch_bounds__(sp::kSplitThreads)
+split_kernel(const float* __restrict__ t, sp::bf16* __restrict__ pieces,
+             int n) {
+  sp::split_tile<1, false>(t, nullptr, pieces, n, 1);
+}
+
+__global__ void __launch_bounds__(sp::kProductThreads, 1)
+product_kernel(const __grid_constant__ CUtensorMap pieces,
+               float* __restrict__ out, int n) {
+  sp::product_tile(&pieces, out, n);
+}
+
+int split(const float* t, void* pieces, int n, cudaStream_t s,
+          int* launched) {
+  split_kernel<<<sp::split_grid(n), sp::kSplitThreads, 0, s>>>(
+      t, static_cast<sp::bf16*>(pieces), n);
+  IRN_CHECK_LAUNCH(launched);
+  return 0;
 }
 
 }  // namespace
 
-// t, out: [n, n] (out distinct from t), n % 128 == 0.
-IRN_API int irn_square_dense(const float* t, float* out, int n, void* stream,
-                             int* launched) {
-  if (n < irn::kGemmBM || n % irn::kGemmBM || n / irn::kGemmBM > 65535)
-    return (int)cudaErrorInvalidValue;
+// The split pass alone: t [n, n] f32; pieces [6, n, n] bf16 (T hi, mid, lo,
+// then T^T hi, mid, lo). One launch.
+IRN_API int irn_square_dense_split(const float* t, void* pieces, int n,
+                                   void* stream, int* launched) {
+  if (!sp::shape_ok(n)) return (int)cudaErrorInvalidValue;
+  return split(t, pieces, n, static_cast<cudaStream_t>(stream), launched);
+}
+
+// t, out: [n, n] f32 (out distinct from t), pieces: [6, n, n] bf16
+// scratch; n % 128 == 0. Two launches: the split pass, then the product.
+IRN_API int irn_square_dense(const float* t, void* pieces, float* out, int n,
+                             void* stream, int* launched) {
+  if (!sp::shape_ok(n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n / irn::kGemmBN, n / irn::kGemmBM);
-  square_dense_kernel<<<grid, irn::kGemmThreads, 0, s>>>(t, out, n);
-  IRN_CHECK_LAUNCH(launched);
-  return 0;
+  const int e = split(t, pieces, n, s, launched);
+  if (e) return e;
+  return sp::launch_product(product_kernel, pieces, out, n, s, launched);
 }

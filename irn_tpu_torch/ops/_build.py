@@ -9,8 +9,8 @@ the sources and flags, so an edited source never loads a stale build.
 
 Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a 256-application chain
-is 256 launches of K0, or 512 of K3's two kernels; a batch of B images
-through K8 is 512 too; one K6 call is its split pass and its product, 2),
+is 1 launch of K0, or 512 of K3's two kernels; a batch of B images through
+K8 is 512 too; one K5 or K6 call is its split pass and its product, 2),
 and :func:`launch` adds that number, so a run can show that its main path
 really went through the kernels.
 """
@@ -142,13 +142,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     n = ctypes.POINTER(ctypes.c_int)  # kernels launched (out)
     lib.irn_diag_chain.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, p, n,
+        p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, n,
     ]
     lib.irn_pack_banded.argtypes = [p, p, i, i, i, p, n]
     lib.irn_square_banded.argtypes = [p, p, i, i, i, i, p, n]
     lib.irn_packed_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
     lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, p, n]
-    lib.irn_square_dense.argtypes = [p, p, i, p, n]
+    lib.irn_diag_chain_clusters.argtypes = [p, i, i, i, i, i, i, i, i, n]
+    lib.irn_square_dense.argtypes = [p, p, p, i, p, n]
+    lib.irn_square_dense_split.argtypes = [p, p, i, p, n]
     lib.irn_square_fused_first.argtypes = [p, p, p, p, i, i, p, n]
     lib.irn_square_fused_first_split.argtypes = [p, p, p, i, i, p, n]
     lib.irn_banded_chain.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
@@ -156,7 +158,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, i, p, n,
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
-    for k in (*KERNELS, "square_fused_first_split"):
+    for k in (*KERNELS, "diag_chain_clusters", "square_dense_split",
+              "square_fused_first_split"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

@@ -9,11 +9,12 @@
   packed tiles.
 - :func:`apply_banded` (K4, ``csrc/apply_banded.cu``): one x @ T over the
   in-band blocks only.
-- :func:`square_dense` (K5, ``csrc/square_dense.cu``): dense T @ T.
+- :func:`square_dense` (K5, ``csrc/square_dense.cu``): dense T @ T, an
+  f32-accurate split product on the tensor cores (a split pass,
+  :func:`split_identity`, then K6's six bf16 products).
 - :func:`square_fused_first` (K6, ``csrc/square_fused_first.cu``):
-  A -> T @ T with T = colnorm(A^beta), an f32-accurate split product on the
-  tensor cores (a split pass, :func:`split_operands`, then six bf16
-  products).
+  A -> T @ T with T = colnorm(A^beta), the same split product (a split
+  pass, :func:`split_operands`, then six bf16 products).
 - :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n over
   rectangular (bs x bj) tiles, T masked to its band.
 - :func:`packed_chain_batched` (K8, ``csrc/packed_chain_batched.cu``): B
@@ -246,8 +247,41 @@ def square_dense_plain(t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(t, t)
 
 
+def split_identity_plain(t: torch.Tensor) -> torch.Tensor:
+    """K5's split pass, plain: [6, n, n] bf16, the :func:`split3_plain`
+    pieces of T (hi, mid, lo, as [i][k]) and the same pieces stored
+    transposed ([j][k]), so both operands are K-major for the product:
+    :func:`split_operands_plain` at beta 1 with inv all ones, since
+    x * 1.0 is exact."""
+    pieces = split3_plain(t)
+    return torch.stack([*pieces, *(p.t() for p in pieces)]).contiguous()
+
+
+def split_identity(t: torch.Tensor) -> torch.Tensor:
+    """K5's split pass alone (its first launch, counted under
+    ``square_dense``); bit-equal to :func:`split_identity_plain`. ``t``:
+    [n, n] f32, n a multiple of 128."""
+    n = t.shape[0]
+    if t.shape != (n, n):
+        raise ValueError(f"split_identity: square matrix expected, got {t.shape}")
+    if _build.is_plain(t):
+        return split_identity_plain(t)
+    _build.check_cuda("square_dense", t)
+    if n % 128:
+        raise ValueError(f"split_identity: n={n} must be a multiple of 128")
+    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=t.device)
+    _build.launch("square_dense", t.device, t.data_ptr(), pieces.data_ptr(),
+                  n, entry="square_dense_split")
+    return pieces
+
+
 def square_dense(t: torch.Tensor) -> torch.Tensor:
-    """Dense T @ T in f32 (K5). ``t``: [n, n], n a multiple of 128."""
+    """Dense T @ T to f32 accuracy on the tensor cores (K5): the split pass
+    writes the bf16 pieces of T and of T transposed
+    (:func:`split_identity`), then K6's product sums the six piece products
+    of :data:`SPLIT_PRODUCTS` in f32. Two launches. ``t``: [n, n] f32, n a
+    multiple of 128 (the product's tile; the walk pads n to 512); scratch
+    12 n^2 bytes."""
     n = t.shape[0]
     if t.shape != (n, n):
         raise ValueError(f"square_dense: square matrix expected, got {t.shape}")
@@ -256,8 +290,10 @@ def square_dense(t: torch.Tensor) -> torch.Tensor:
     _build.check_cuda("square_dense", t)
     if n % 128:
         raise ValueError(f"square_dense: n={n} must be a multiple of 128")
+    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=t.device)
     out = torch.empty_like(t)
-    _build.launch("square_dense", t.device, t.data_ptr(), out.data_ptr(), n)
+    _build.launch("square_dense", t.device, t.data_ptr(), pieces.data_ptr(),
+                  out.data_ptr(), n)
     return out
 
 
@@ -316,10 +352,11 @@ def split_operands(a: torch.Tensor, inv: torch.Tensor,
 
 
 def split_product_plain(pieces: torch.Tensor) -> torch.Tensor:
-    """The sum of K6's six products over :func:`split_operands`' pieces,
-    each in f64 (exact for the bf16 products; the sums round once per
-    add), returned as f32: what K6's product computes, up to the order
-    of its f32 sums."""
+    """The sum of the six products over split pieces
+    (:func:`split_operands`' for K6, :func:`split_identity`'s for K5), each
+    in f64 (exact for the bf16 products; the sums round once per add),
+    returned as f32: what the K5/K6 product computes, up to the order of
+    its f32 sums."""
     lt, rt = pieces[:3].double(), pieces[3:].double()
     out = torch.zeros(pieces.shape[1:], dtype=torch.float64,
                       device=pieces.device)

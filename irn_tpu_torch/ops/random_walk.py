@@ -30,9 +30,10 @@ Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,10 +159,104 @@ def apply_diag_chain_plain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
     return x
 
 
+# K0's launch plan (csrc/diag_chain.cu): a thread-block cluster of up to 16
+# CTAs per group of seed rows, each CTA holding a column slice and its halo
+# in shared memory for the whole chain.
+DIAG_CLUSTERS = tuple(range(16, 7, -1))  # CTAs per cluster, tried in order
+DIAG_SMEM_MAX = 232448  # dynamic shared memory one CTA may use (bytes)
+
+# (rows per cluster, CTAs per cluster, column slice m, halo hpad, w in
+# shared memory)
+DiagChainPlan = Tuple[int, int, int, int, bool]
+
+
+def _diag_smem(rows: int, m: int, hpad: int, w_floats: int = 0) -> int:
+    """Bytes of K0's shared memory per CTA: two mbarriers, two ping-pong
+    buffers of ``rows`` x (slice + 2 halo) f32, and ``w_floats`` of w."""
+    return 16 + 4 * (2 * rows * (m + 2 * hpad) + w_floats)
+
+
+def diag_chain_plan(c: int, n: int, doffs: Sequence[int],
+                    max_clusters: Callable[[DiagChainPlan], int],
+                    rows: Optional[int] = None,
+                    cluster: Optional[int] = None,
+                    w_shared: Optional[bool] = None) -> DiagChainPlan:
+    """K0's launch plan for C seed rows over n columns with offsets
+    ``doffs``. Among 1, 2 or 4 seed rows per cluster, the cluster sizes of
+    :data:`DIAG_CLUSTERS` (slices m = n / size rounded up to 4, halo the
+    largest offset rounded up to 4) and w in shared memory (one window of
+    m + d_k columns per diagonal) or from L2, whose buffers fit in a CTA's
+    shared memory, it takes w in shared memory where any plan allows it,
+    then the fewest waves of clusters (``max_clusters(plan)``: how many
+    clusters of the plan the card holds at once), then the least work per
+    CTA (rows x m). ``rows``, ``cluster``, ``w_shared`` pin that choice.
+    Raises ValueError, with the limit, when no plan fits."""
+    hmax = max(doffs)
+    if n % 4 or n < 4 or min(doffs) < 0:
+        raise ValueError(f"diag_chain: n={n} must be a positive multiple of "
+                         f"4, offsets >= 0 (max {hmax})")
+    hpad = _round_up(hmax, 4)
+    best = None
+    for s in (DIAG_CLUSTERS if cluster is None else (cluster,)):
+        m = _round_up(-(-n // s), 4)
+        w_floats = sum(m + d for d in doffs)
+        for r in ((1, 2, 4) if rows is None else (rows,)):
+            for ws in ((True, False) if w_shared is None else (w_shared,)):
+                if _diag_smem(r, m, hpad, w_floats if ws else 0) \
+                        > DIAG_SMEM_MAX:
+                    continue
+                plan = (r, s, m, hpad, ws)
+                held = max_clusters(plan)
+                if held < 1:
+                    continue
+                waves = -(-(-(-c // r)) // held)  # ceil(ceil(c / r) / held)
+                key = (not ws, waves, r * m)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    if best is None:
+        m = _round_up(-(-n // max(DIAG_CLUSTERS)), 4)
+        m_max = ((DIAG_SMEM_MAX - 16) // 8 - 2 * hpad) // 4 * 4
+        raise ValueError(
+            f"diag_chain: n={n} with offsets up to {hmax} needs "
+            f"{_diag_smem(1, m, hpad)} bytes of shared memory per CTA, over "
+            f"the {DIAG_SMEM_MAX} a CTA may use (n up to "
+            f"{max(m_max, 0) * max(DIAG_CLUSTERS)} at this offset)")
+    return best[1]
+
+
+def diag_chain_max_clusters(device: torch.device, c: int, n: int,
+                            doffs: Sequence[int], plan: DiagChainPlan) -> int:
+    """How many clusters of K0's ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); launches nothing."""
+    rows, cluster, m, hpad, w_shared = plan
+    held = ctypes.c_int(0)
+    d = np.ascontiguousarray(doffs, dtype=np.int32)
+    with torch.cuda.device(device):
+        status = _build.load().irn_diag_chain_clusters(
+            d.ctypes.data, len(doffs), c, n, rows, cluster, m, hpad,
+            int(w_shared), ctypes.byref(held))
+    if status != 0:
+        raise RuntimeError(f"diag_chain: occupancy query failed with "
+                           f"cudaError {status} for plan {plan}")
+    return held.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_diag_chain_plan(device: torch.device, c: int, n: int,
+                         doffs: Tuple[int, ...]) -> DiagChainPlan:
+    """:func:`diag_chain_plan` with the card's own cluster occupancy
+    (cached per device and shape)."""
+    return diag_chain_plan(c, n, doffs, functools.partial(
+        diag_chain_max_clusters, device, c, n, doffs))
+
+
 def apply_diag_chain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
                      doffs: Sequence[int], n_apply: int) -> torch.Tensor:
-    """x @ T^n_apply with T in diagonal form (K0, ``csrc/diag_chain.cu``).
-    ``x``: [C, n]; ``w``: [n_pairs, n]; ``inv``: [n]."""
+    """x @ T^n_apply with T in diagonal form (K0, ``csrc/diag_chain.cu``):
+    one launch for the whole chain, bit-equal to
+    :func:`apply_diag_chain_plain`. ``x``: [C, n]; ``w``: [n_pairs, n];
+    ``inv``: [n]; on the card n a multiple of 4 and within
+    :func:`diag_chain_plan`'s limit."""
     c, n = x.shape
     if w.shape != (len(doffs), n) or inv.shape != (n,):
         raise ValueError(
@@ -177,13 +272,24 @@ def apply_diag_chain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
         return x.clone()
     if max(doffs) >= n or min(doffs) < 0:
         raise ValueError(f"diag_chain: offsets outside [0, {n})")
+    return launch_diag_chain(
+        x, w, inv, doffs, n_apply,
+        card_diag_chain_plan(x.device, c, n, tuple(doffs)))
+
+
+def launch_diag_chain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                      doffs: Sequence[int], n_apply: int,
+                      plan: DiagChainPlan) -> torch.Tensor:
+    """K0's one launch under ``plan`` (:func:`diag_chain_plan`), for CUDA
+    tensors that :func:`apply_diag_chain` has checked."""
+    c, n = x.shape
+    rows, cluster, m, hpad, w_shared = plan
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
     d = np.ascontiguousarray(doffs, dtype=np.int32)
     _build.launch("diag_chain", x.device,
                   x.data_ptr(), w.data_ptr(), inv.data_ptr(), d.ctypes.data,
-                  out.data_ptr(), scratch.data_ptr(), len(doffs), c, n,
-                  n_apply)
+                  out.data_ptr(), len(doffs), c, n, n_apply, rows, cluster,
+                  m, hpad, int(w_shared))
     return out
 
 

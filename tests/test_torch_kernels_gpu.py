@@ -4,6 +4,8 @@ Marked ``gpu``: they need an NVIDIA card and nvcc, and skip without CUDA.
 On the card host: ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
 Shapes are small; ``chip_smoke.py`` checks the main-path shapes."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,18 +35,51 @@ def _banded(n, h, seed=0):
     return torch.from_numpy(t / t.sum(0, keepdims=True))
 
 
-def test_diag_chain_bit_equal(cuda):
-    geom = rw.build_geometry(32, 32, radius=5)
+@pytest.mark.parametrize("cap,c,n_apply", [
+    ((32, 32), 5, 16), ((32, 32), 3, 16), ((32, 32), 21, 16),
+    ((128, 128), 8, 64), ((32, 32), 8, 1), ((32, 32), 8, 2),
+    ((256, 256), 3, 4)])
+def test_diag_chain_bit_equal(cuda, cap, c, n_apply):
+    """K0 bit-equal to its twin in one launch per chain: C not a multiple of
+    the rows per cluster (3, 5, 21), the 32x32 grid whose largest offset
+    (170) exceeds a CTA's 128-column slice, the 128x128 bucket (n 18432),
+    one or two applications, and rw_grid_cap 256's largest bucket (n 69632,
+    w read from L2)."""
+    geom = rw.build_geometry(*cap, radius=5)
     g = np.random.default_rng(0)
+    edge = torch.from_numpy(g.random(cap, dtype=np.float32)).to(cuda)
+    w, inv = rw.build_diag_operator(geom, edge)
+    x = torch.from_numpy(g.random((c, geom.n_pad), dtype=np.float32)).to(cuda)
+    doffs = rw.diag_offsets(geom)
+    got = rw.apply_diag_chain(x, w, inv, doffs, n_apply)
+    want = rw.apply_diag_chain_plain(x, w, inv, doffs, n_apply)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["diag_chain"] == 1  # one per chain
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,cluster,w_shared", [
+    (1, 16, False), (2, 16, True), (4, 16, True), (4, 16, False),
+    (1, 8, True), (2, 4, False)])
+def test_diag_chain_plans_bit_equal(cuda, rows, cluster, w_shared):
+    """Every launch plan gives the twin's bits: 1, 2 or 4 rows per cluster,
+    16, 8 or 4 CTAs per cluster (slices of 128, 256, 512 columns against
+    offsets up to 170), w in shared memory or from L2."""
+    geom = rw.build_geometry(32, 32, radius=5)
+    g = np.random.default_rng(1)
     edge = torch.from_numpy(g.random((32, 32), dtype=np.float32)).to(cuda)
     w, inv = rw.build_diag_operator(geom, edge)
-    x = torch.from_numpy(g.random((5, geom.n_pad), dtype=np.float32)).to(cuda)
+    x = torch.from_numpy(g.random((7, geom.n_pad), dtype=np.float32)).to(cuda)
     doffs = rw.diag_offsets(geom)
-    got = rw.apply_diag_chain(x, w, inv, doffs, 16)
-    want = rw.apply_diag_chain_plain(x, w, inv, doffs, 16)
+    held = functools.partial(rw.diag_chain_max_clusters, cuda, 7,
+                             geom.n_pad, doffs)
+    plan = rw.diag_chain_plan(7, geom.n_pad, doffs, held, rows, cluster,
+                              w_shared)
+    assert plan[0] == rows and plan[4] == w_shared
+    got = rw.launch_diag_chain(x, w, inv, doffs, 9, plan)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["diag_chain"] == 16  # one per application
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _build.LAUNCHES["diag_chain"] == 1
+    assert torch.equal(got, rw.apply_diag_chain_plain(x, w, inv, doffs, 9))
 
 
 def test_pack_banded_bit_equal(cuda):
@@ -102,14 +137,22 @@ def test_apply_banded(cuda, c):
 
 @pytest.mark.parametrize("n", [384, 1024])
 def test_square_dense(cuda, n):
+    """K5 (identity split + six-product tensor-core product) within rel
+    1e-5 of torch.matmul in f32, two launches per squaring; the split pass
+    alone bit-equal to its twin."""
     t = _banded(n, n).to(cuda)  # dense, column-stochastic
     got = mk.square_dense(t)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["square_dense"] == 1
-    torch.testing.assert_close(got, mk.square_dense_plain(t), rtol=1e-5,
-                               atol=1e-6)
+    assert _build.LAUNCHES["square_dense"] == 2  # split, product
+    want = mk.square_dense_plain(t)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
     matpow.matrix_power_squarings(t, 3)
-    assert _build.LAUNCHES["square_dense"] == 1 + 3  # one per squaring
+    assert _build.LAUNCHES["square_dense"] == 2 * (1 + 3)
+    pieces = mk.split_identity(t)
+    assert _build.LAUNCHES["square_dense"] == 2 * (1 + 3) + 1
+    assert torch.equal(pieces, mk.split_identity_plain(t))
 
 
 def _affinity(n, lo=0.3, seed=0):
@@ -153,8 +196,8 @@ def test_square_fused_first_refuses(cuda):
 
 
 def test_transition_matrix_runs_k6_then_k5(cuda):
-    """The dense route on the card: one K6, then exp_times - 1 K5, and no
-    twin."""
+    """The dense route on the card: one K6, then exp_times - 1 K5 (two
+    launches each), and no twin."""
     geom = rw.build_geometry(16, 16, radius=5)
     g = np.random.default_rng(0)
     edge = torch.from_numpy(g.random((16, 16), dtype=np.float32)).to(cuda)
@@ -162,7 +205,7 @@ def test_transition_matrix_runs_k6_then_k5(cuda):
     got = rw.transition_matrix(a, 10, 4)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["square_fused_first"] == 2  # split, product
-    assert _build.LAUNCHES["square_dense"] == 3
+    assert _build.LAUNCHES["square_dense"] == 2 * 3
     want = rw.normalize_transition(a, 10)
     for _ in range(4):
         want = want @ want

@@ -71,7 +71,11 @@ def _no_kernel_launches():
 @pytest.mark.parametrize("n", [256, 384])
 def test_square_dense_matches_jax_kernel(rng, n):
     """K5's twin vs square_pallas's kernel body (interpret mode) and an f32
-    HIGHEST dot."""
+    HIGHEST dot; and K5's arithmetic, the six-product sum over its identity
+    split's pieces (f64), vs both and vs torch.matmul within rel 1e-5 (the
+    f32 products' own rounding), and vs the f64 product within 2^-20 of
+    max|T @ T| (the three dropped products are about 2^-24 of each term and
+    every term is >= 0)."""
     t = rng.random((n, n), dtype=np.float32)
     t /= t.sum(0, keepdims=True)
     kernel = pl.pallas_call(
@@ -83,6 +87,11 @@ def test_square_dense_matches_jax_kernel(rng, n):
     _rel_close(got, want, 1e-5)
     _rel_close(got, dot, 1e-5)
     np.testing.assert_array_equal(tmp.matmul_square(_t(t)).numpy(), got)
+    split = tmk.split_product_plain(tmk.split_identity(_t(t))).numpy()
+    for ref in (want, dot, got):
+        _rel_close(split, ref, 1e-5)
+    _rel_close(split, t.astype(np.float64) @ t.astype(np.float64),
+               2.0 ** -20)
 
 
 @pytest.mark.parametrize("n", [256, 384])

@@ -195,6 +195,59 @@ def test_upsample_and_decode_matches_jax(rng):
     np.testing.assert_allclose(float(tmax), float(jmax), rtol=1e-5)
 
 
+def _held(plan):
+    """A card that holds 7 clusters of one CTA per SM (w in shared memory,
+    as the H100 reports for 12-16 CTAs per cluster) and 30 of the small
+    L2-path CTAs."""
+    return 7 if plan[4] else 30
+
+
+@pytest.mark.parametrize("cap,c,rows", [
+    ((32, 32), 3, 1), ((32, 32), 21, 4), ((96, 128), 8, 2),
+    ((128, 128), 8, 2), ((128, 128), 16, 2), ((256, 256), 20, 1)])
+def test_diag_chain_plan(cap, c, rows):
+    """K0's launch plan at the walk's geometries, up to rw_grid_cap 256:
+    slices that cover n, a halo that covers the largest offset, 16-byte
+    units, w in shared memory up to the default cap's 128x128 bucket, one
+    wave of clusters where the rows per cluster allow it (C 8 on a card
+    that holds 7 clusters: 2 rows each; at n 18432 four rows and w do not
+    fit, so C 16 takes two waves of 2 rows), and buffers within a CTA's
+    shared memory."""
+    geom = trw.build_geometry(*cap, radius=5)
+    n, doffs = geom.n_pad, trw.diag_offsets(geom)
+    hmax = max(doffs)
+    plan = trw.diag_chain_plan(c, n, doffs, _held)
+    assert plan[0] == rows
+    _, cluster, m, hpad, w_shared = plan
+    assert cluster in trw.DIAG_CLUSTERS
+    assert m * cluster >= n > (m - 4) * cluster
+    assert m % 4 == 0 and hpad % 4 == 0 and hmax <= hpad < hmax + 4
+    assert w_shared == (cap[0] * cap[1] <= 128 * 128)
+    assert cluster == 16  # the least work per CTA
+    w_floats = sum(m + d for d in doffs) if w_shared else 0
+    assert trw._diag_smem(rows, m, hpad, w_floats) <= trw.DIAG_SMEM_MAX
+    if cap == (32, 32):
+        assert hmax > m  # the halo reaches past the neighbouring CTA
+
+
+def test_diag_chain_plan_limits():
+    """The plan keeps w in shared memory over fewer waves, takes fewer
+    waves over less work per CTA, pins what it is given, skips plans the
+    card cannot hold, and raises with the limit in the message when no
+    plan fits; n must be a multiple of 4."""
+    doffs = (1, 500, 1000)
+    assert trw.diag_chain_plan(32, 16 * 512, doffs, _held)[::4] == (4, True)
+    assert trw.diag_chain_plan(3, 16 * 512, doffs, _held)[:2] == (1, 16)
+    assert trw.diag_chain_plan(8, 16 * 512, doffs, _held, rows=1,
+                               cluster=12, w_shared=False)[::4] == (1, False)
+    assert trw.diag_chain_plan(8, 16 * 512, doffs,
+                               lambda p: p[1] <= 10)[1] == 10
+    with pytest.raises(ValueError, match="232448"):
+        trw.diag_chain_plan(8, 16 * 30000, doffs, _held)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        trw.diag_chain_plan(8, 1026, (10,), _held)
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper runs its plain twin only for CPU tensors; anything else
     that is not CUDA raises instead of falling back."""

@@ -1,5 +1,5 @@
-"""K6's split pass and six-product sum, and K9's weight re-layout, through
-their plain twins on the CPU.
+"""K6's and K5's split passes and six-product sum, and K9's weight
+re-layout, through their plain twins on the CPU.
 
 K6 on the card splits each f32 operand into three bf16 pieces and sums six
 piece products on the tensor cores (the TPU's Precision.HIGHEST). Here the
@@ -122,6 +122,23 @@ def test_split_operands_layout(rng):
     assert torch.equal(left[big], b.double()[big])
     big_r = r.abs() >= 2.0 ** -100
     assert torch.equal(right.t()[big_r], r.double()[big_r])
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n", [128, 384])
+def test_split_identity_pieces(rng, n):
+    """K5's split twin: T's split3 pieces as [i][k], then the same pieces
+    transposed, piece by piece; equal to K6's split at beta 1 with inv all
+    ones (x * 1.0 is exact), and the pieces reconstruct T."""
+    t = rng.random((n, n), dtype=np.float32)
+    t = torch.from_numpy(t / t.sum(0, keepdims=True))
+    pieces = tmk.split_identity(t)  # the CPU runs the twin
+    assert pieces.shape == (6, n, n) and pieces.dtype == torch.bfloat16
+    hi, mid, lo = tmk.split3_plain(t)
+    for got, want in zip(pieces, (hi, mid, lo, hi.t(), mid.t(), lo.t())):
+        assert torch.equal(got, want)
+    assert torch.equal(pieces, tmk.split_operands_plain(t, torch.ones(n), 1))
+    assert torch.equal(_reconstruct(t), t.double())
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
