@@ -3,7 +3,7 @@
 
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
-count: K5, K6 and K9 must run on ``wgmma`` without a spill), checks each
+count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -12,7 +12,8 @@ seeded random IRNet, in five configurations, each with the launch counts
 set to 0 just before it and read just after:
 
 - ``default``: the K0 stencil walk, one K0 launch per walk;
-- ``banded`` = ``--rw_square_times 1``: K2 squaring, K1 pack, K3 chain;
+- ``banded`` = ``--rw_square_times 1``: K2 squaring (two launches), K1
+  pack, K3 chain (one cooperative launch per walk);
 - ``pure`` = ``--rw_square_times 8`` on 4 images: the reference's pure
   squaring on the dense route, K6 then 7 x K5 (two launches each);
 - ``e3`` = ``--exp_times 3 --rw_square_times 3``: three K2 squarings, then
@@ -38,8 +39,11 @@ limit (nvidia-smi), one JSON object with the per-kernel results (its
 ``HOME_RUN``; ``bound_ms`` is the larger of the operations over the peak
 for their type and the bytes over HBM's rate, from the run's shapes;
 ``library_ms`` is one PyTorch call computing the same function, or null;
-``shared`` is true when nvidia-smi showed another process on the card, so
-the times are not clean), and
+K2, K5 and K6 add ``bound_f32_ms``, the bound of the same work in f32
+outside the tensor cores; K3's ``bound_ms`` counts the tiles' nonzero
+entries and ``bound_dense_ms`` every tile row, beside its occupied-row,
+ELL-entry and held shares; ``shared`` is true when nvidia-smi showed
+another process on the card, so the times are not clean), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -112,7 +116,8 @@ HBM_BYTES_S = 3.35e12
 
 # kernels that must run on wgmma: the build phase fails if their SASS holds
 # no HGMMA instruction or ptxas reports a spill in their source
-WGMMA_KERNELS = ("conv3x3", "square_dense", "square_fused_first")
+WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
+                 "square_fused_first")
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -315,23 +320,34 @@ def check_kernels(dev, card: str) -> dict:
                 4 * (8 * n + len(doffs) * n + n) + 4 * 8 * n, PEAK_F32),
     )
 
-    # K2: one banded squaring of T (h = 556)
+    # K2: one banded squaring of T (h = 556), NaN in every input block
+    # beyond kb (never read): the split pass alone bit-equal to its twin,
+    # the split product against the twin in band
     t = rw.normalize_transition(rw.dense_affinity(geom, edge))
-    got = mk.square_banded(t, h, BS)
+    t_nan = _poison_blocks(t, h)
+    check(torch.equal(mk.split_banded(t_nan, h, BS),
+                      mk.split_banded_plain(t, h, BS)),
+          "square_banded split pass not bit-equal to its twin")
+    got = mk.square_banded(t_nan, h, BS)
     want = mk.square_banded_plain(t, h, BS)
     r = torch.arange(n, device=dev)
     inband = (r[:, None] - r[None, :]).abs() <= 2 * h
     err, rel = rel_err(got[inband], want[inband])
-    check(rel <= 1e-5, f"square_banded rel err {rel}")
+    check(bool(torch.isfinite(got[inband]).all()) and rel <= 1e-5,
+          f"square_banded rel err {rel}")
+    ops, nbytes = _square_banded_work(n, h, BS)
     res["square_banded"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: mk.square_banded(t, h, BS), 5),
+        ms=cuda_ms(lambda: mk.square_banded(t_nan, h, BS), 5),
         plain_ms=cuda_ms(lambda: mk.square_banded_plain(t, h, BS), 3),
-        shape=f"T [{n}, {n}], h {h}, bs {BS}",
+        shape=(f"T [{n}, {n}], h {h}, bs {BS}, NaN beyond the input band; "
+               f"split pass bit-equal; library: dense torch.matmul"),
         library_ms=cuda_ms(lambda: torch.matmul(t, t), 1),
-        **bound(*_square_banded_work(n, h, BS), PEAK_F32),
+        # six bf16 passes on the tensor cores; the f32 SIMT line beside it
+        bound_f32_ms=bound(ops, nbytes, PEAK_F32)["bound_ms"],
+        **bound(6 * ops, nbytes, PEAK_BF16),
     )
-    del inband, want
+    del inband, want, t_nan
 
     # K1: pack T^2 (h = 1112), bit-equal
     t2, h2 = got, 2 * h
@@ -348,21 +364,84 @@ def check_kernels(dev, card: str) -> dict:
                         + got.numel()), PEAK_F32),
     )
 
-    # K3: 128 applications over the packed tiles, C = 8
+    # K3: 128 applications over the packed tiles, C = 8, in one cooperative
+    # launch; its per-item occupied and held row segments against the plain
+    # occupancy and share
     tp = got
     del want, t
-    got = mk.packed_chain(x, tp, 128, BS)
+    kh = (tp.shape[1] // BS - 1) // 2
+    plan = mk.card_packed_chain_plan(dev, n, BS, kh)
+    got, stats, timing = mk.launch_packed_chain(x, tp, 128, BS, plan)
+    # where each CTA's clock went (thread 0's view), as shares
+    cycles = timing.double().sum(0)
+    phases = ", ".join(
+        f"{name} {float(v / cycles.sum()):.3f}" for name, v in zip(
+            ("prologue", "grid barriers", "x waits", "products", "sums"),
+            cycles))
     want = mk.packed_chain_plain(x, tp, 128, BS)
     err, rel = rel_err(got, want)
     check(rel <= 1e-4, f"packed_chain rel err {rel}")
+    check(torch.equal(got, mk.packed_chain(x, tp, 128, BS)),
+          "packed_chain not deterministic")
+    occupied = mk.packed_occupancy_plain(tp).sum(-1).flatten().tolist()
+    ell = mk.packed_ell_plain(tp).flatten(0, 1)  # [items, slots, 4]
+    entries = ell.sum((-2, -1)).tolist()
+    # the chain's critical path: each slot step waits for its CTA's longest
+    # quarter-slot; the most entries a CTA's steps sum to, per application
+    ell_cta = torch.nn.functional.pad(
+        ell, (0, 0, 0, 0, 0, plan[0] * plan[1] - ell.shape[0])).reshape(
+        plan[0], plan[1], ell.shape[1], 4)
+    critical = int(ell_cta.amax((1, 3)).sum(1).max())
+    mean_warp = float(ell.sum()) / (ell.shape[0] * 4)
+    stats = stats.cpu()
+    check(stats[:, 0].tolist() == occupied
+          and stats[:, 1].tolist() == entries,
+          "packed_chain occupancy or ELL lengths differ from the plain ones")
+    check(stats[:, 2].tolist() == mk.packed_chain_held_plain(entries, plan),
+          "packed_chain held entries differ from the plain share")
+    rows = tp.shape[0] * (BS // mk.PACKED_STRIP) * tp.shape[1]
+    occupied_share = sum(occupied) / rows
+    entry_share = sum(entries) / rows
+    held_share = int(stats[:, 2].sum()) / max(sum(entries), 1)
+    nnz = int((tp != 0).sum())
+    padding = sum(entries) * mk.PACKED_STRIP / max(nnz, 1)
+    # where the time goes: one application (the prologue's scan and copy
+    # plus one application), and all-zero tiles (nothing occupied: the grid
+    # barriers, x staging and slot sums alone)
+    zeros = torch.zeros_like(tp)
+    one_ms = cuda_ms(lambda: mk.packed_chain(x, tp, 1, BS), 5)
+    zero_ms = cuda_ms(lambda: mk.packed_chain(x, zeros, 128, BS), 5)
+    zero_one_ms = cuda_ms(lambda: mk.packed_chain(x, zeros, 1, BS), 5)
+    del zeros
     res["packed_chain"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: mk.packed_chain(x, tp, 128, BS), 5),
         plain_ms=cuda_ms(lambda: mk.packed_chain_plain(x, tp, 128, BS), 3),
-        shape=f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications",
+        shape=(f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications, "
+               f"one launch; plan (CTAs, items per CTA, threads, x blocks, "
+               f"entry slots, shared bytes) {plan}; 32-column row "
+               f"segments occupied {occupied_share:.4f}, ELL entries per "
+               f"tile row {entry_share:.4f} ({padding:.3f} x the nonzeros), "
+               f"of those held in shared memory {held_share:.4f}; entries "
+               f"per application on the slowest CTA's path {critical}, per "
+               f"warp on average {mean_warp:.1f}; nonzero "
+               f"tile entries "
+               f"{nnz} ({nnz / tp.numel():.4f}); bound over the nonzero "
+               f"entries, dense bound beside it; one application "
+               f"{one_ms:.4f} ms; all-zero tiles {zero_ms:.4f} ms (one "
+               f"application {zero_one_ms:.4f} ms); shares of the CTAs' "
+               f"clock: {phases}"),
         library_ms=None,
-        **bound(128 * 2 * 8 * _band_rows(n, BS, (tp.shape[1] // BS - 1) // 2)
-                * BS, 4 * (tp.numel() + 2 * x.numel()), PEAK_F32),
+        occupied_share=occupied_share,
+        entry_share=entry_share,
+        held_share=held_share,
+        # the work the data needs: the nonzero entries, read once; the
+        # dense bound (every in-matrix tile row, tiles read once per chain,
+        # as if they stayed on chip) beside it
+        bound_dense_ms=bound(
+            128 * 2 * 8 * _band_rows(n, BS, kh) * BS,
+            4 * (tp.numel() + 2 * x.numel()), PEAK_F32)["bound_ms"],
+        **bound(128 * 2 * 8 * nnz, 4 * (nnz + 2 * x.numel()), PEAK_F32),
     )
     del got, want, tp, t2
     check_dense_kernels(dev, geom, edge, x, res)
@@ -684,6 +763,12 @@ def run_stage(dev, work: str) -> dict:
           f"default walk modes {runs['default']['modes']}")
     check(all(m == "banded" for m in runs["banded"]["modes"].values()),
           f"banded walk modes {runs['banded']['modes']}")
+    # K3 is one launch per walk, K2 two per squaring (split pass, product):
+    # two passes over the tree
+    lb = launches["banded"]
+    check(lb["packed_chain"] == 2 * N_IMAGES
+          and lb["square_banded"] == 2 * 2 * N_IMAGES,
+          f"banded launches {lb}")
     agree = agreement(runs["default"]["out"], runs["banded"]["out"], names)
     print(f"stage label agreement default vs banded: min {min(agree):.6f} "
           f"mean {np.mean(agree):.6f}", flush=True)
@@ -717,7 +802,8 @@ def run_stage(dev, work: str) -> dict:
           and launches["e3_diag"]["diag_chain"] == N_IMAGES,
           f"K0 launches default {launches['default']['diag_chain']}, "
           f"e3_diag {launches['e3_diag']['diag_chain']}")
-    check(le["apply_banded"] == N_IMAGES and le["square_banded"] == 3 * N_IMAGES,
+    check(le["apply_banded"] == N_IMAGES
+          and le["square_banded"] == 2 * 3 * N_IMAGES,
           f"e3 launches {le}")
     agree = agreement(runs["default"]["out"], runs["pure"]["out"],
                       names[:N_PURE])
@@ -1160,7 +1246,9 @@ def main() -> int:
              bound_by=kernels[k]["bound_by"],
              library_ms=kernels[k]["library_ms"], hgmma=hgmma[k],
              **{key: kernels[k][key]
-                for key in ("bound_f32_ms", "ms_per_application")
+                for key in ("bound_f32_ms", "bound_dense_ms",
+                            "ms_per_application", "occupied_share",
+                            "entry_share", "held_share")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

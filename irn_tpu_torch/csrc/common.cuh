@@ -10,7 +10,8 @@
 // - thin_apply: one block of a thin product x @ T over a row range (K4
 //   apply_banded, K7 banded_chain), optionally masked to a band.
 // - packed_partial_block / slot_sum: one block of a packed-tile application
-//   and its fixed-order slot sum (K3 packed_chain, K8 packed_chain_batched),
+//   and its fixed-order slot sum (K8 packed_chain_batched). K3
+//   packed_chain keeps their order of sums over the tiles' nonzero entries,
 //   so that K8's result on each image is bit-equal to K3's.
 #pragma once
 
@@ -125,7 +126,7 @@ __device__ __forceinline__ void thin_apply(const float* __restrict__ x,
 // is staged in dynamic shared memory (8 * bs floats); quarter u sums
 // s in [u*bs/4, (u+1)*bs/4) in order with fmaf, and the quarters reduce in
 // a fixed order. slot_sum then adds the 2kh+1 slots in order, so the result
-// is deterministic and the same for every caller of these two routines.
+// is deterministic; K3 (packed_chain.cu) sums in the same order.
 
 constexpr int kPackedCols = 64;
 constexpr int kPackedRows = 8;

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
-// split product of K5 square_dense and K6 square_fused_first, K9 conv3x3)
-// and the cluster-resident K0 diag_chain: mbarriers, thread-block cluster
-// barriers and distributed shared memory, TMA tile loads, the wgmma
-// shared-memory descriptor and two wgmma shapes with 128 output columns. Written as inline PTX; the tensor maps are encoded on the host
+// split product of K2 square_banded, K5 square_dense and K6
+// square_fused_first, K9 conv3x3), the cluster-resident K0 diag_chain and
+// the cooperative K3 packed_chain: mbarriers, thread-block cluster
+// barriers and distributed shared memory, a grid barrier, TMA tile loads,
+// the wgmma shared-memory descriptor and two wgmma shapes with 128 output
+// columns. Written as inline PTX; the tensor maps are encoded on the host
 // through the driver entry point that the runtime hands out, so the
 // library needs no link against libcuda.
 //
@@ -133,6 +135,39 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
                ::"r"(addr)
                : "memory");
+}
+
+// -- grid barrier (cooperative launches) -------------------------------------
+
+// Barrier number ``k`` (1, 2, ...) of every CTA of a cooperative grid on a
+// global counter that is 0 at launch: each CTA adds one with release at gpu
+// scope and waits, with acquire, until the counter reaches k * gridDim.x.
+// The wait traps after ~2^36 cycles, so a grid whose CTAs are not all
+// resident fails the launch instead of holding the card.
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned k) {
+  __syncthreads();  // this CTA's reads and writes are done
+  if (threadIdx.x == 0) {
+    // the release orders the CTA's writes (ordered before it by the
+    // __syncthreads above) before the arrival, as CUTLASS's grid barrier
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter)
+                 : "memory");
+    const unsigned target = k * gridDim.x;
+    long long start = 0;
+    unsigned seen;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+      if (seen >= target) break;
+      if (!start) {
+        start = clock64();
+      } else if (clock64() - start > (1ll << 36)) {
+        __trap();
+      }
+    }
+  }
+  __syncthreads();  // every thread sees what the other CTAs wrote
 }
 
 // -- TMA tile loads (zero fill outside the tensor) ---------------------------

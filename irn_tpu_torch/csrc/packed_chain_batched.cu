@@ -5,20 +5,19 @@
 // (_packed_chain_batch_kernel, a Pallas (n_apply, nb) grid whose steps DMA
 // one [B, span, bs] stack of tiles and run B small dots against it).
 //
-// Bound on this card: HBM bandwidth, as K3 (packed_chain.cu). Each image
-// has its own T, so the images share no bytes: per application every image
-// streams its own nb * span * bs * 4 bytes (205.5 MB at n = 14336,
-// h = 1112), B times that in all, far over the 50 MB L2. Batching changes
-// the launch count (two per application for the whole batch, where B
-// chains of K3 launch 2B) and the blocks in flight per SM, not the bytes.
+// Bound on this card: HBM bandwidth. Each image has its own T, so the
+// images share no bytes: per application every image streams its own
+// nb * span * bs * 4 bytes (205.5 MB at n = 14336, h = 1112), B times that
+// in all, far over the 50 MB L2. K3 (packed_chain.cu) has since packed the
+// tiles' nonzeros on chip once per chain; this kernel still streams them.
 //
-// Design: K3's design with the image as one more grid dimension: one block
-// per (64 columns, 8 seed rows, tile j, image b x slot m), the same block
-// body (common.cuh's packed_partial_block) on image b's pointers, a partial
-// buffer [B, 2kh+1, C, n], then the same fixed-order slot sum per image.
-// Each image's result is therefore bit-equal to K3's on that image; a slot
-// past the matrix edge writes zeros per image as K3 does. Two launches per
-// application on ping-pong buffers, from one host loop.
+// Design: one block per (64 columns, 8 seed rows, tile j, image b x slot
+// m), the block body common.cuh's packed_partial_block on image b's
+// pointers, a partial buffer [B, 2kh+1, C, n], then the fixed-order slot
+// sum per image (slot_sum); a slot past the matrix edge writes zeros. K3
+// sums in the same order, so each image's result is bit-equal to K3's on
+// that image. Two launches per application on ping-pong buffers, from one
+// host loop.
 
 #include "common.cuh"
 

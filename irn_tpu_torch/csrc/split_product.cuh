@@ -1,6 +1,8 @@
-// The split product shared by K5 square_dense and K6 square_fused_first:
-// L @ R for dense n x n f32 operands, to f32 accuracy on the tensor cores
-// (the TPU's Precision.HIGHEST carried to Hopper).
+// The split product shared by K2 square_banded, K5 square_dense and K6
+// square_fused_first: L @ R for n x n f32 operands, to f32 accuracy on the
+// tensor cores (the TPU's Precision.HIGHEST carried to Hopper). K5 and K6
+// take dense operands; K2 takes band layouts and a k range per tile
+// (split_tile_at / product_tile_at with its own addressing).
 //
 // - split_tile: one 64 x 64 tile of the split pass. Each f32 value x becomes
 //   three bf16 pieces, hi = bf16(x), mid = bf16(x - hi),
@@ -19,8 +21,8 @@
 //   n/16 k steps that could bias the sum by some 1e-5 of its size, so each
 //   slab's products start a fresh accumulator (scale-d 0) and are added
 //   into an f32 register total in round-to-nearest, once per slab.
-// - launch_product: encodes the pieces' tensor map and launches a kernel
-//   whose body is product_tile.
+// - launch_product: encodes the pieces' tensor map (pieces_map) and
+//   launches a kernel whose body is product_tile.
 //
 // Each source keeps its own __global__ wrappers in its anonymous namespace,
 // so the SASS of each kernel carries its source's name. Every wgmma stays
@@ -52,44 +54,61 @@ __device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid,
   lo = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
 }
 
-// Tile (blockIdx.y, blockIdx.x) of the split pass over a [n, n]:
+// The 64 x 64 tile at (r0, c0) of a [n, n] through the split pass:
 // L = a^beta (kBeta > 0: beta fixed at compile time, the multiplies unroll;
 // 0: read at run time) and R = L * inv[k] * inv[j] in that multiply order
-// (kScale), or R = L (no scaling: ``inv`` is not read).
+// (kScale), or R = L (no scaling: ``inv`` is not read). L's pieces go to
+// l (the tile's first element of the hi piece; row stride ldl, piece
+// stride lp), R's transposed to rt (its first element, R[r0, c0], at
+// rt[0]; row stride ldr, piece stride rp).
 template <int kBeta, bool kScale>
-__device__ __forceinline__ void split_tile(const float* __restrict__ a,
-                                           const float* __restrict__ inv,
-                                           bf16* __restrict__ pieces, int n,
-                                           int beta) {
-  __shared__ bf16 rt[3][kSplitTile][kSplitLd];  // rt[piece][col][row]
-  const size_t nn = (size_t)n * n;
-  const int r0 = blockIdx.y * kSplitTile;
-  const int c0 = blockIdx.x * kSplitTile;
+__device__ __forceinline__ void split_tile_at(
+    const float* __restrict__ a, const float* __restrict__ inv, int n,
+    int r0, int c0, bf16* __restrict__ l, int ldl, size_t lp,
+    bf16* __restrict__ rt, int ldr, size_t rp, int beta) {
+  __shared__ bf16 rts[3][kSplitTile][kSplitLd];  // rts[piece][col][row]
   const int tc = threadIdx.x % kSplitTile;
   const float inv_c = kScale ? __ldg(inv + c0 + tc) : 1.f;
   for (int tr = threadIdx.x / kSplitTile; tr < kSplitTile;
        tr += kSplitThreads / kSplitTile) {
     const int r = r0 + tr;
-    const size_t e = (size_t)r * n + c0 + tc;
-    const float b = pow_int(__ldg(a + e), kBeta > 0 ? kBeta : beta);
+    const float b = pow_int(__ldg(a + (size_t)r * n + c0 + tc),
+                            kBeta > 0 ? kBeta : beta);
     bf16 hi, mid, lo;
     split3(b, hi, mid, lo);  // L[r, c]
-    pieces[e] = hi;
-    pieces[nn + e] = mid;
-    pieces[2 * nn + e] = lo;
+    const size_t e = (size_t)tr * ldl + tc;
+    l[e] = hi;
+    l[lp + e] = mid;
+    l[2 * lp + e] = lo;
     if (kScale)
       split3(__fmul_rn(__fmul_rn(b, __ldg(inv + r)), inv_c), hi, mid, lo);
-    rt[0][tc][tr] = hi;  // R[r, c], stored at Rt[c, r]
-    rt[1][tc][tr] = mid;
-    rt[2][tc][tr] = lo;
+    rts[0][tc][tr] = hi;  // R[r, c], stored at Rt[c, r]
+    rts[1][tc][tr] = mid;
+    rts[2][tc][tr] = lo;
   }
   __syncthreads();
   for (int tr = threadIdx.x / kSplitTile; tr < kSplitTile;
        tr += kSplitThreads / kSplitTile) {
-    const size_t e = (size_t)(c0 + tr) * n + r0 + tc;
+    const size_t e = (size_t)tr * ldr + tc;
 #pragma unroll
-    for (int p = 0; p < 3; ++p) pieces[(3 + p) * nn + e] = rt[p][tr][tc];
+    for (int p = 0; p < 3; ++p) rt[p * rp + e] = rts[p][tr][tc];
   }
+}
+
+// Tile (blockIdx.y, blockIdx.x) of the split pass over a dense [n, n] into
+// pieces [6, n, n]: L's as [i][k], R's transposed as [j][k].
+template <int kBeta, bool kScale>
+__device__ __forceinline__ void split_tile(const float* __restrict__ a,
+                                           const float* __restrict__ inv,
+                                           bf16* __restrict__ pieces, int n,
+                                           int beta) {
+  const size_t nn = (size_t)n * n;
+  const int r0 = blockIdx.y * kSplitTile;
+  const int c0 = blockIdx.x * kSplitTile;
+  split_tile_at<kBeta, kScale>(a, inv, n, r0, c0,
+                               pieces + (size_t)r0 * n + c0, n, nn,
+                               pieces + 3 * nn + (size_t)c0 * n + r0, n, nn,
+                               beta);
 }
 
 inline dim3 split_grid(int n) { return dim3(n / kSplitTile, n / kSplitTile); }
@@ -121,25 +140,25 @@ __device__ __forceinline__ int piece_b(int q) {
   return q == 1 || q == 5 ? 1 : q == 3 ? 2 : 0;
 }
 
-// Output tile blockIdx.x (grouped raster) of out = L @ R from the pieces'
-// tensor map (a [6n, n] bf16 matrix, 64 x 128 boxes, 128-byte swizzle).
-__device__ __forceinline__ void product_tile(const CUtensorMap* pieces,
-                                             float* __restrict__ out, int n) {
+// One 128 x 128 output tile of L @ R from the pieces' tensor map (a
+// [6 piece_rows, K] bf16 matrix: L hi, mid, lo, then Rt hi, mid, lo, each
+// piece_rows rows, K-major; 64 x 128 boxes, 128-byte swizzle): A rows
+// a_row .. a_row + 127 of the L pieces from column a_k, B rows b_row ..
+// b_row + 127 of the Rt pieces from column b_k, over kt 64-deep slabs; the
+// tile is written at out (row stride ldo). The caller keeps kt >= 1 and
+// the same for every thread of the CTA.
+__device__ __forceinline__ void product_tile_at(const CUtensorMap* pieces,
+                                                int piece_rows, int a_row,
+                                                int a_k, int b_row, int b_k,
+                                                int kt,
+                                                float* __restrict__ out,
+                                                size_t ldo) {
   namespace hp = irn::hopper;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
-
-  // grouped raster: kGroup row tiles share the column tiles in flight
-  const int tiles = n / kBM;
-  const int width = kGroup * tiles;
-  const int first = (blockIdx.x / width) * kGroup;
-  const int gsize = min(tiles - first, kGroup);
-  const int tm = first + (blockIdx.x % width) % gsize;
-  const int tn = (blockIdx.x % width) / gsize;
-  const int kt = n / kBK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -158,10 +177,10 @@ __device__ __forceinline__ void product_tile(const CUtensorMap* pieces,
         hp::mbar_expect_tx(&full[s], kStageBytes);
         uint8_t* st = smem + s * kStageBytes;
         for (int p = 0; p < 3; ++p) {
-          hp::tma_load_2d(st + p * kTileBytes, pieces, &full[s], k * kBK,
-                          p * n + tm * kBM);
+          hp::tma_load_2d(st + p * kTileBytes, pieces, &full[s],
+                          a_k + k * kBK, p * piece_rows + a_row);
           hp::tma_load_2d(st + (3 + p) * kTileBytes, pieces, &full[s],
-                          k * kBK, (3 + p) * n + tn * kBN);
+                          b_k + k * kBK, (3 + p) * piece_rows + b_row);
         }
       }
     }
@@ -201,15 +220,40 @@ __device__ __forceinline__ void product_tile(const CUtensorMap* pieces,
 
   // accumulator layout: per 8-column block j, rows lane/4 and lane/4 + 8 of
   // the warp's 16, columns 8j + 2 (lane % 4) + {0, 1}
-  const int row = tm * kBM + wg * 64 + warp * 16 + lane / 4;
+  const int row = wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const int col = tn * kBN + j * 8 + (lane % 4) * 2;
-    *reinterpret_cast<float2*>(out + (size_t)row * n + col) =
+    const int col = j * 8 + (lane % 4) * 2;
+    *reinterpret_cast<float2*>(out + (size_t)row * ldo + col) =
         make_float2(total[4 * j], total[4 * j + 1]);
-    *reinterpret_cast<float2*>(out + (size_t)(row + 8) * n + col) =
+    *reinterpret_cast<float2*>(out + (size_t)(row + 8) * ldo + col) =
         make_float2(total[4 * j + 2], total[4 * j + 3]);
   }
+}
+
+// Output tile blockIdx.x (grouped raster) of the dense out = L @ R
+// (pieces [6, n, n]).
+__device__ __forceinline__ void product_tile(const CUtensorMap* pieces,
+                                             float* __restrict__ out, int n) {
+  // grouped raster: kGroup row tiles share the column tiles in flight
+  const int tiles = n / kBM;
+  const int width = kGroup * tiles;
+  const int first = (blockIdx.x / width) * kGroup;
+  const int gsize = min(tiles - first, kGroup);
+  const int tm = first + (blockIdx.x % width) % gsize;
+  const int tn = (blockIdx.x % width) / gsize;
+  product_tile_at(pieces, n, tm * kBM, 0, tn * kBN, 0, n / kBK,
+                  out + (size_t)tm * kBM * n + tn * kBN, n);
+}
+
+// The pieces' tensor map: a [6 piece_rows, width] bf16 matrix in 64 x 128
+// boxes. False if cuTensorMapEncodeTiled refuses it.
+inline bool pieces_map(CUtensorMap* map, const void* pieces, int piece_rows,
+                       int width) {
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)6 * piece_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
+  const cuuint32_t box[2] = {kBK, kBM};
+  return irn::hopper::bf16_map(map, pieces, 2, dims, strides, box);
 }
 
 // Launch ``kernel`` (a __global__ (const CUtensorMap, float*, int) whose
@@ -219,11 +263,7 @@ template <typename Kernel>
 inline int launch_product(Kernel kernel, const void* pieces, float* out,
                           int n, cudaStream_t s, int* launched) {
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)6 * n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
-  const cuuint32_t box[2] = {kBK, kBM};
-  if (!irn::hopper::bf16_map(&map, pieces, 2, dims, strides, box))
-    return (int)cudaErrorInvalidValue;
+  if (!pieces_map(&map, pieces, n, n)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kProductSmem);
   if (err != cudaSuccess) return (int)err;

@@ -8,9 +8,10 @@ loads. The library is built at first use, never at import, into
 the sources and flags, so an edited source never loads a stale build.
 
 Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
-entry point reports how many kernels it launched (a 256-application chain
-is 1 launch of K0, or 512 of K3's two kernels; a batch of B images through
-K8 is 512 too; one K5 or K6 call is its split pass and its product, 2),
+entry point reports how many kernels it launched (a chain through K0 or
+K3 is 1 launch, whatever its length; a batch of B images through K8 is 2
+per application; one K2, K5 or K6 call is its split pass and its product,
+2),
 and :func:`launch` adds that number, so a run can show that its main path
 really went through the kernels.
 """
@@ -145,8 +146,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, n,
     ]
     lib.irn_pack_banded.argtypes = [p, p, i, i, i, p, n]
-    lib.irn_square_banded.argtypes = [p, p, i, i, i, i, p, n]
-    lib.irn_packed_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
+    lib.irn_square_banded.argtypes = [p, p, p, i, i, i, i, p, n]
+    lib.irn_square_banded_split.argtypes = [p, p, i, i, i, p, n]
+    lib.irn_packed_chain.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, n,
+    ]
+    lib.irn_packed_chain_occupancy.argtypes = [i, i, n, n]
     lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, p, n]
     lib.irn_diag_chain_clusters.argtypes = [p, i, i, i, i, i, i, i, i, n]
     lib.irn_square_dense.argtypes = [p, p, p, i, p, n]
@@ -159,7 +164,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
     for k in (*KERNELS, "diag_chain_clusters", "square_dense_split",
-              "square_fused_first_split"):
+              "square_fused_first_split", "square_banded_split",
+              "packed_chain_occupancy"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

@@ -4,9 +4,12 @@
 - :func:`pack_banded` (K1, ``csrc/pack_banded.cu``): T's in-band blocks
   into packed tiles [nb, (2kh+1)*bs, bs].
 - :func:`square_banded` (K2, ``csrc/square_banded.cu``): T @ T over the
-  band only; out-of-band output is unspecified.
+  band only, the same split product as K5 and K6 on band layouts (a split
+  pass, :func:`split_banded`, then six bf16 products); out-of-band output
+  is unspecified.
 - :func:`packed_chain` (K3, ``csrc/packed_chain.cu``): x @ T^n over the
-  packed tiles.
+  packed tiles, one cooperative launch per chain over the tiles' nonzero
+  rows (:func:`packed_chain_plan`).
 - :func:`apply_banded` (K4, ``csrc/apply_banded.cu``): one x @ T over the
   in-band blocks only.
 - :func:`square_dense` (K5, ``csrc/square_dense.cu``): dense T @ T, an
@@ -34,7 +37,9 @@ this version.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import ctypes
+import functools
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,10 +139,88 @@ def square_banded_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
     return out
 
 
+def split_banded_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
+    """K2's split pass, plain: [6, n, W] bf16 with W = (2kb+1)*bs, the
+    :func:`split3_plain` pieces of T's in-band blocks in band layouts. L
+    (hi, mid, lo): row r of block row i holds T[r, (i - kb)*bs + w] at w
+    (K-major for the A operand); Rt (hi, mid, lo): row c of block column j
+    holds T[(j - kb)*bs + w, c] at w (T's column bands transposed, K-major
+    for B). Positions whose block lies past the matrix edge are zeros; no
+    block outside the band is read."""
+    n = t.shape[0]
+    nb, kb = _blocks(n, h, bs)
+    w = (2 * kb + 1) * bs
+    pieces = torch.zeros((6, n, w), dtype=torch.bfloat16, device=t.device)
+    for i in range(nb):
+        for d in range(2 * kb + 1):
+            k = i + d - kb
+            if not 0 <= k < nb:
+                continue
+            blk = torch.stack(split3_plain(
+                t[i * bs : (i + 1) * bs, k * bs : (k + 1) * bs]))
+            pieces[:3, i * bs : (i + 1) * bs, d * bs : (d + 1) * bs] = blk
+            e = 2 * kb - d  # block row i is offset e of column band k
+            pieces[3:, k * bs : (k + 1) * bs, e * bs : (e + 1) * bs] = \
+                blk.transpose(1, 2)
+    return pieces
+
+
+def split_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
+    """K2's split pass alone (its first launch, counted under
+    ``square_banded``); bit-equal to :func:`split_banded_plain`. ``t``:
+    [n, n] f32, bs a multiple of 128, n of bs."""
+    n = t.shape[0]
+    if t.shape != (n, n):
+        raise ValueError(f"split_banded: square matrix expected, got {t.shape}")
+    if _build.is_plain(t):
+        return split_banded_plain(t, h, bs)
+    _build.check_cuda("square_banded", t)
+    _, kb = _blocks(n, h, bs)
+    if bs % 128:
+        raise ValueError(f"split_banded: bs={bs} must be a multiple of 128")
+    pieces = torch.empty((6, n, (2 * kb + 1) * bs), dtype=torch.bfloat16,
+                         device=t.device)
+    _build.launch("square_banded", t.device, t.data_ptr(), pieces.data_ptr(),
+                  n, bs, kb, entry="square_banded_split")
+    return pieces
+
+
+def square_banded_split_plain(t: torch.Tensor, h: int,
+                              bs: int = 512) -> torch.Tensor:
+    """What K2's product computes, plain: each in-band output block sums
+    the six :data:`SPLIT_PRODUCTS` of :func:`split_banded_plain`'s pieces
+    over its own k range, in f64 (exact for the bf16 products), returned as
+    f32; out-of-band blocks are zero. K2 differs only in the order of its
+    f32 sums. A band that covers the matrix is ``torch.matmul``, as the
+    kernel's wrapper."""
+    n = t.shape[0]
+    nb, kb, jb, covers = _square_bands(n, h, bs)
+    if covers:
+        return torch.matmul(t, t)
+    pieces = split_banded_plain(t, h, bs).double()
+    out = torch.zeros_like(t)
+    for i in range(nb):
+        for j in range(max(0, i - jb), min(nb, i + jb + 1)):
+            klo = max(max(i, j) - kb, 0)
+            khi = min(min(i, j) + kb, nb - 1)
+            a = pieces[:3, i * bs : (i + 1) * bs,
+                       (klo - i + kb) * bs : (khi - i + kb + 1) * bs]
+            b = pieces[3:, j * bs : (j + 1) * bs,
+                       (klo - j + kb) * bs : (khi - j + kb + 1) * bs]
+            acc = sum(a[p] @ b[q].t() for p, q in SPLIT_PRODUCTS)
+            out[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = acc.float()
+    return out
+
+
 def square_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
-    """T @ T for T banded with halfwidth ``h`` (K2). Only blocks within the
-    2h output band are written; the rest is unspecified, so read the
-    result through :func:`pack_banded` only."""
+    """T @ T for T banded with halfwidth ``h`` (K2), to f32 accuracy on the
+    tensor cores: the split pass writes the bf16 pieces of T's in-band
+    blocks in band layouts (:func:`split_banded`), then K6's product sums
+    the six piece products over each in-band output block's k range. Two
+    launches. Only blocks within the 2h output band are written; the rest
+    is unspecified, so read the result through :func:`pack_banded` only.
+    Blocks of ``t`` outside its own band are never read. On the card bs is
+    a multiple of 128; scratch 12 n (2kb+1) bs bytes."""
     n = t.shape[0]
     if t.shape != (n, n):
         raise ValueError(f"square_banded: square matrix expected, got {t.shape}")
@@ -147,11 +230,13 @@ def square_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
     _, kb, jb, covers = _square_bands(n, h, bs)
     if covers:
         return torch.matmul(t, t)
-    if bs % 64:
-        raise ValueError(f"square_banded: bs={bs} must be a multiple of 64")
+    if bs % 128:
+        raise ValueError(f"square_banded: bs={bs} must be a multiple of 128")
+    pieces = torch.empty((6, n, (2 * kb + 1) * bs), dtype=torch.bfloat16,
+                         device=t.device)
     out = torch.empty_like(t)
-    _build.launch("square_banded", t.device,
-                  t.data_ptr(), out.data_ptr(), n, bs, kb, jb)
+    _build.launch("square_banded", t.device, t.data_ptr(), pieces.data_ptr(),
+                  out.data_ptr(), n, bs, kb, jb)
     return out
 
 
@@ -172,9 +257,166 @@ def packed_chain_plain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
     return out
 
 
+# K3's launch plan (csrc/packed_chain.cu): one cooperative launch, one CTA
+# per SM; an item is one (tile, 32-column strip), read by one warp per
+# quarter of each slot from its nonzero entries in ELL form.
+PACKED_STRIP = 32  # columns per item
+PACKED_ROWS = 8  # seed rows per group
+PACKED_PREFETCH = 4  # float4 of x each thread prefetches
+PACKED_MAX_THREADS = 512
+PACKED_ENTRY_BYTES = 6 * PACKED_STRIP  # one entry: 32 f32 values, 32 rows
+PACKED_SMEM_MAX = 232448  # dynamic shared memory one CTA may use (bytes)
+
+# (CTAs, items per CTA, threads per CTA, x blocks staged per slot, held
+# entry slots per CTA, shared-memory bytes per CTA)
+PackedChainPlan = Tuple[int, int, int, int, int, int]
+
+
+def _packed_smem(bs: int, kh: int, ipc: int, x_blocks: int,
+                 slots: int) -> int:
+    """Bytes of K3's shared memory per CTA: the staged x blocks, the
+    quarters' and slots' partial sums, each item's quarter-slot table (first
+    entry, length) and counts, and the held entries."""
+    nqs = 4 * (2 * kh + 1)
+    return (4 * x_blocks * PACKED_ROWS * bs
+            + ipc * 5 * 4 * PACKED_ROWS * PACKED_STRIP
+            + 8 * ipc * nqs + 32 * ipc + PACKED_ENTRY_BYTES * slots)
+
+
+def packed_chain_plan(n: int, bs: int, kh: int, sms: int,
+                      smem_max: int = PACKED_SMEM_MAX) -> PackedChainPlan:
+    """K3's launch plan over n columns, tiles of bs with 2kh+1 slots, on a
+    card of ``sms`` SMs: the nb * bs/32 items dealt in whole runs of
+    ceil(items / sms) to as few CTAs as that needs (so no CTA waits on a
+    second wave: the launch is cooperative); one warp per quarter of up to
+    4 items at a time, and enough threads to prefetch a slot's x blocks
+    (512 at most, 128 registers each); every byte of shared memory left
+    after the fixed parts (:func:`_packed_smem`) to held entries. Raises
+    ValueError, with the limit, when the fixed parts do not fit."""
+    if bs < 64 or bs % 64 or n < bs or n % bs or kh < 0 or sms < 1:
+        raise ValueError(f"packed_chain: n={n} must be a positive multiple "
+                         f"of bs={bs}, bs a multiple of 64")
+    strips = bs // PACKED_STRIP
+    items = n // bs * strips
+    ipc = -(-items // sms)
+    ctas = -(-items // ipc)
+    x_blocks = max((min(b * ipc + ipc, items) - 1) // strips
+                   - b * ipc // strips + 1 for b in range(ctas))
+    total4 = x_blocks * PACKED_ROWS * bs // 4
+    threads = 128 * max(min(ipc, PACKED_MAX_THREADS // 128),
+                         -(-total4 // (PACKED_PREFETCH * 128)))
+    fixed = _packed_smem(bs, kh, ipc, x_blocks, 0)
+    if threads > PACKED_MAX_THREADS or fixed > smem_max:
+        raise ValueError(
+            f"packed_chain: n={n}, bs={bs}, kh={kh} on {sms} SMs needs "
+            f"{threads} threads and {fixed} bytes of shared memory per CTA "
+            f"before any held entry, over the {PACKED_MAX_THREADS} and "
+            f"{smem_max} a CTA may use")
+    slots = (smem_max - fixed) // PACKED_ENTRY_BYTES
+    return (ctas, ipc, threads, x_blocks, slots,
+            fixed + PACKED_ENTRY_BYTES * slots)
+
+
+def packed_occupancy_plain(tp: torch.Tensor) -> torch.Tensor:
+    """[nb, bs/32, span] bool: whether row s of tile j's 32-column strip
+    holds a nonzero (NaN counts)."""
+    nb, span, bs = tp.shape
+    return (tp.reshape(nb, span, bs // PACKED_STRIP, PACKED_STRIP) != 0
+            ).any(-1).transpose(1, 2)
+
+
+def packed_ell_plain(tp: torch.Tensor) -> torch.Tensor:
+    """[nb, bs/32, 2kh+1, 4] int: K3's ELL length of each item's
+    quarter-slots, the most nonzeros (NaN counts) any of the strip's 32
+    columns holds over the slot's quarter of rows."""
+    nb, span, bs = tp.shape
+    nslot = span // bs
+    nz = (tp != 0).reshape(nb, nslot, 4, bs // 4, bs // PACKED_STRIP,
+                           PACKED_STRIP)
+    return nz.sum(3).amax(-1).permute(0, 3, 1, 2)
+
+
+def packed_chain_held_plain(entries, plan: PackedChainPlan) -> list:
+    """Held entries per item under ``plan``, from each item's ELL entry
+    count (items in order: tile, then strip), as K3's prologue shares a
+    CTA's entry slots: item i of ipc holds min(entries, left // (ipc - i))."""
+    ctas, ipc, _, _, slots, _ = plan
+    entries = [int(v) for v in entries]
+    held = []
+    for b in range(ctas):
+        left = slots
+        for i in range(ipc):
+            if b * ipc + i >= len(entries):
+                break
+            h = min(entries[b * ipc + i], left // (ipc - i))
+            held.append(h)
+            left -= h
+    return held
+
+
+def packed_chain_occupancy(device: torch.device, threads: int,
+                           smem: int) -> Tuple[int, int]:
+    """(CTAs of K3 one SM holds at ``threads`` threads and ``smem`` bytes,
+    the card's SM count); launches nothing."""
+    bps, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.load().irn_packed_chain_occupancy(
+            threads, smem, ctypes.byref(bps), ctypes.byref(sms))
+    if status != 0:
+        raise RuntimeError(f"packed_chain: occupancy query failed with "
+                           f"cudaError {status}")
+    return bps.value, sms.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_packed_chain_plan(device: torch.device, n: int, bs: int,
+                           kh: int) -> PackedChainPlan:
+    """:func:`packed_chain_plan` on the card's own SM count, checked to fit
+    one CTA per SM (cached per device and shape)."""
+    _, sms = packed_chain_occupancy(device, 128, 0)
+    plan = packed_chain_plan(n, bs, kh, sms)
+    held, _ = packed_chain_occupancy(device, plan[2], plan[5])
+    if held < 1:
+        raise RuntimeError(f"packed_chain: the card holds no CTA of plan "
+                           f"{plan}")
+    return plan
+
+
+def launch_packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
+                        bs: int, plan: PackedChainPlan):
+    """K3's one cooperative launch under ``plan``, for CUDA tensors that
+    :func:`packed_chain` has checked. Returns (out, stats, timing): stats
+    [items, 3] int32 holds each item's occupied 32-column row segments, ELL
+    entries and held entries; timing [CTAs, 5] int64 the clock cycles each
+    CTA spent in the prologue, the grid barriers, the x waits, the products
+    and the sums. The entries not held go to a scratch the size of the
+    tiles (plus half for their rows)."""
+    c, n = x.shape
+    kh = (tp.shape[1] // bs - 1) // 2
+    ctas, ipc, threads, x_blocks, slots, smem = plan
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x)
+    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
+    stats = torch.zeros((n // bs * (bs // PACKED_STRIP), 3), dtype=torch.int32,
+                        device=x.device)
+    timing = torch.zeros((ctas, 5), dtype=torch.int64, device=x.device)
+    ell_val = torch.empty_like(tp)
+    ell_row = torch.empty(tp.shape, dtype=torch.int16, device=x.device)
+    _build.launch("packed_chain", x.device,
+                  x.data_ptr(), tp.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), counter.data_ptr(), stats.data_ptr(),
+                  timing.data_ptr(), ell_val.data_ptr(), ell_row.data_ptr(),
+                  c, n, bs, kh, n_apply, ctas, ipc, threads, x_blocks,
+                  slots, smem)
+    return out, stats, timing
+
+
 def packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
                  bs: int = 512) -> torch.Tensor:
-    """x @ T^n_apply over K1's packed tiles (K3). ``x``: [C, n] f32."""
+    """x @ T^n_apply over K1's packed tiles (K3): one cooperative launch
+    per chain that reads only the tiles' nonzero rows, bit-equal to K8 on
+    each image. ``x``: [C, n] f32; on the card bs a multiple of 64, within
+    :func:`packed_chain_plan`'s limit."""
     c, n = x.shape
     if tp.dim() != 3 or tp.shape[0] * bs != n or tp.shape[2] != bs \
             or tp.shape[1] % bs or (tp.shape[1] // bs) % 2 == 0:
@@ -187,13 +429,8 @@ def packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
     if bs % 64 or bs > 1536:
         raise ValueError(f"packed_chain: bs={bs} must be a multiple of 64, <= 1536")
     kh = (tp.shape[1] // bs - 1) // 2
-    out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
-    part = torch.empty((2 * kh + 1, c, n), dtype=x.dtype, device=x.device)
-    _build.launch("packed_chain", x.device,
-                  x.data_ptr(), tp.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), part.data_ptr(), c, n, bs, kh, n_apply)
-    return out
+    plan = card_packed_chain_plan(x.device, n, bs, kh)
+    return launch_packed_chain(x, tp, n_apply, bs, plan)[0]
 
 
 # -- K4 ---------------------------------------------------------------------

@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import os
 from typing import Dict, Optional, Sequence
 
 from irn_tpu_torch.pipeline.config import Config
@@ -78,8 +79,14 @@ def parse(argv: Optional[Sequence[str]] = None):
 
 
 def run_pipeline(cfg: Config, device: str) -> Dict:
-    """Run the enabled stages in the reference's order; returns each
-    stage's result by function name."""
+    """Create the session and output directories, as
+    ``irn_tpu.pipeline.run.run_pipeline`` does, then run the enabled stages
+    in the reference's order; returns each stage's result by function
+    name."""
+    os.makedirs(cfg.session_dir, exist_ok=True)
+    for d in (cfg.cam_out_dir, cfg.ir_label_out_dir, cfg.sem_seg_out_dir,
+              cfg.ins_seg_out_dir):
+        os.makedirs(d, exist_ok=True)
     if cfg.dist_initialize or cfg.dist_coordinator:
         raise NotImplementedError(
             "multi-process runs are ROADMAP queue 1 item 10 (Multi-GPU)"

@@ -89,16 +89,32 @@ def test_pack_banded_bit_equal(cuda):
     assert _build.LAUNCHES["pack_banded"] == 1
 
 
-def test_square_banded_in_band(cuda):
-    n, h, bs = 1024, 130, 128
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_square_banded_in_band(cuda, n):
+    """K2 (band split + six-product tensor-core product) within rel 1e-5 of
+    its twin in band, with NaN in every input block beyond kb (never read);
+    two launches; the split pass alone bit-equal to its twin."""
+    h, bs = 130, 128
     t = _banded(n, h).to(cuda)
-    got = mk.square_banded(t, h, bs)
+    got = mk.square_banded(_poisoned(t, h, bs), h, bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_banded"] == 2  # split, product
     want = mk.square_banded_plain(t, h, bs)
     r = torch.arange(n, device=cuda)
     inband = (r[:, None] - r[None, :]).abs() <= 2 * h
+    assert bool(torch.isfinite(got[inband]).all())
     torch.testing.assert_close(got[inband], want[inband], rtol=1e-5,
-                               atol=1e-6)
-    assert _build.LAUNCHES["square_banded"] == 1
+                               atol=1e-5 * float(want.abs().max()))
+    pieces = mk.split_banded(_poisoned(t, h, bs), h, bs)
+    assert _build.LAUNCHES["square_banded"] == 3
+    assert torch.equal(pieces, mk.split_banded_plain(t, h, bs))
+
+
+def test_square_banded_hgmma(cuda):
+    """K2's SASS holds wgmma (HGMMA) instructions."""
+    import chip_smoke
+
+    assert chip_smoke.hgmma_counts(_build.build())["square_banded"] > 0
 
 
 def test_packed_chain(cuda):
@@ -110,7 +126,77 @@ def test_packed_chain(cuda):
     want = mk.packed_chain_plain(x, tp, 6, bs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert _build.LAUNCHES["pack_banded"] == 1
-    assert _build.LAUNCHES["packed_chain"] == 2 * 6  # two per application
+    assert _build.LAUNCHES["packed_chain"] == 1  # one per chain
+
+
+def _t2_tiles(n, h, bs, seed):
+    """Packed tiles of T^2 (h doubled) from a banded T (the plain squaring,
+    which takes any bs), NaN beyond the written block band of T^2, so only
+    its in-band tiles are read."""
+    t2 = mk.square_banded_plain(_banded(n, h, seed=seed).cuda(), h, bs)
+    return mk.pack_banded(_poisoned(t2, 2 * h, bs), 2 * h, bs)
+
+
+@pytest.mark.parametrize("tiles,c,bs", [
+    ("full", 8, 128), ("t2", 8, 128), ("t2", 20, 128), ("t2", 8, 64),
+    ("t2", 8, 256)])
+def test_packed_chain_bit_equal_to_k8(cuda, tiles, c, bs):
+    """K3 is torch.equal to K8 on each image, on tiles with no zero row
+    (random everywhere) and on T^2 tiles (most row segments empty), at C 8
+    and 20 (three seed-row groups) and bs 64, 128, 256; its per-item
+    occupied rows and ELL lengths are the plain ones, its held entries the
+    plain share's, also under a plan that holds few of them."""
+    n, h, n_apply, bimg = 2048, 130, 5, 2
+    g = torch.Generator().manual_seed(0)
+    if tiles == "full":
+        kh = -(-h // bs)
+        tps = (torch.rand((bimg, n // bs, (2 * kh + 1) * bs, bs), generator=g)
+               + 0.01).to(cuda) / n
+    else:
+        tps = torch.stack([_t2_tiles(n, h, bs, b) for b in range(bimg)])
+    xs = torch.rand((bimg, c, n), generator=g).to(cuda)
+    want = mk.packed_chain_batched(xs, tps, n_apply, bs)
+    for b in range(bimg):
+        got = mk.packed_chain(xs[b], tps[b], n_apply, bs)
+        assert torch.equal(got, want[b])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["packed_chain"] == bimg
+    kh = (tps.shape[2] // bs - 1) // 2
+    plan = mk.card_packed_chain_plan(xs.device, n, bs, kh)
+    out, stats, timing = mk.launch_packed_chain(xs[0], tps[0], n_apply, bs,
+                                                plan)
+    assert timing.shape == (plan[0], 5) and bool((timing >= 0).all())
+    assert bool((timing[:, 3] > 0).any())  # products ran
+    assert torch.equal(out, want[0])
+    entries = mk.packed_ell_plain(tps[0]).sum((-2, -1)).flatten().tolist()
+    stats = stats.cpu()
+    assert stats[:, 0].tolist() == mk.packed_occupancy_plain(
+        tps[0]).sum(-1).flatten().tolist()
+    assert stats[:, 1].tolist() == entries
+    assert stats[:, 2].tolist() == mk.packed_chain_held_plain(entries, plan)
+    if tiles == "full":
+        assert int(stats[:, 0].min()) == tps.shape[2]
+    # a plan that holds 37 entries per CTA: the rest come from the scratch
+    few = plan[:4] + (37, mk._packed_smem(bs, kh, plan[1], plan[3], 37))
+    out, stats, _ = mk.launch_packed_chain(xs[0], tps[0], n_apply, bs, few)
+    assert torch.equal(out, want[0])
+    assert stats[:, 2].cpu().tolist() == mk.packed_chain_held_plain(entries,
+                                                                     few)
+
+
+def test_packed_chain_refused_launch_raises(cuda):
+    """A cooperative launch of more CTAs than the card holds at once is
+    refused, and the wrapper raises (no fallback, nothing counted)."""
+    n, h, bs = 8192, 130, 128
+    kh = -(-h // bs)
+    _, sms = mk.packed_chain_occupancy(cuda, 128, 0)
+    plan = mk.packed_chain_plan(n, bs, kh, n // bs * (bs // 32))
+    assert plan[0] > sms and plan[1] == 1
+    x = torch.rand((8, n), device=cuda)
+    tp = torch.rand((n // bs, (2 * kh + 1) * bs, bs), device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        mk.launch_packed_chain(x, tp, 3, bs, plan)
+    assert _build.LAUNCHES["packed_chain"] == 0
 
 
 def _poisoned(t, h, bs):
@@ -277,7 +363,7 @@ def test_packed_chain_batched_bit_equal_to_k3(cuda):
         rtol=1e-5, atol=1e-6)
     for b in range(bimg):
         assert torch.equal(got[b], mk.packed_chain(xs[b], tps[b], n_apply, bs))
-    assert _build.LAUNCHES["packed_chain"] == 2 * n_apply * bimg
+    assert _build.LAUNCHES["packed_chain"] == bimg  # one per chain
 
 
 def test_propagate_banded_batch_launches_k8(cuda):
