@@ -21,9 +21,9 @@ set to 0 just before it and read just after:
 - ``e3_diag`` = ``--exp_times 3``: the K0 stencil, e3's comparison.
 
 Then the library entry points ``random_walk.propagate_banded(...,
-bj=1024)`` on one image (the K7 rectangular-tile chain) and
+bj=1024)`` on one image (the K7 masked-band chain, one launch) and
 ``random_walk.propagate_banded_batch(..., square_times=1)`` on four images
-of one bucket (the K8 batched chain, each image bit-equal to
+of one bucket (the K8 batched chain, one launch, each image bit-equal to
 ``propagate_banded``); the two tools' entry points, ``tools.bench_conv``
 over its four shapes (``probe conv``: K9 against its twin and cuDNN's bf16
 conv) and ``tools.bench_banded``'s batched sweep at B 1, 2, 4 (K8); the
@@ -40,9 +40,12 @@ limit (nvidia-smi), one JSON object with the per-kernel results (its
 for their type and the bytes over HBM's rate, from the run's shapes;
 ``library_ms`` is one PyTorch call computing the same function, or null;
 K2, K5 and K6 add ``bound_f32_ms``, the bound of the same work in f32
-outside the tensor cores; K3's ``bound_ms`` counts the tiles' nonzero
-entries and ``bound_dense_ms`` every tile row, beside its occupied-row,
-ELL-entry and held shares; ``shared`` is true when nvidia-smi showed
+outside the tensor cores; the three chains over the nonzero entries (K3,
+K7, K8) count those entries in ``bound_ms`` and every band row in
+``bound_dense_ms``, beside their occupied-row, ELL-entry and held shares,
+``ms_per_application`` and the shares of their CTAs' clocks by phase
+(``phase_shares``), with K3 one image at a time beside K8 (``k3_ms``) and
+K1 + K3 beside K7 (``k13_ms``); ``shared`` is true when nvidia-smi showed
 another process on the card, so the times are not clean), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -194,6 +197,43 @@ def _square_banded_work(n: int, h: int, bs: int) -> tuple:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     err = float((got - want).abs().max())
     return err, err / max(float(want.abs().max()), 1e-30)
+
+
+PHASES = ("prologue", "grid barriers", "x waits", "products", "sums")
+
+
+def phase_shares(timing: torch.Tensor) -> dict:
+    """Where the chain's CTAs' clocks went (thread 0 of each CTA, summed
+    over the CTAs), as shares of the five phases of ``timing`` [CTAs, 5]."""
+    cycles = timing.double().sum(0)
+    return {name: float(v / cycles.sum()) for name, v in zip(PHASES, cycles)}
+
+
+def _phases_text(shares: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+
+
+def chain_stats(stats: torch.Tensor, occupied: list, entries: list, plan,
+                span: int, what: str) -> dict:
+    """A chain's per-item stats [items, 3] (or [B, items, 3]) held to the
+    plain occupied rows, ELL entries and held share (per image), and its
+    shares: occupied 32-column row segments and ELL entries per tile row,
+    and the entries held in shared memory."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+
+    stats = stats.cpu().reshape(-1, stats.shape[-2], 3)
+    items = stats.shape[1]
+    check(stats[..., 0].flatten().tolist() == occupied
+          and stats[..., 1].flatten().tolist() == entries,
+          f"{what} occupancy or ELL lengths differ from the plain ones")
+    held = [h for b in range(stats.shape[0]) for h in mk.packed_chain_held_plain(
+        entries[b * items : (b + 1) * items], plan)]
+    check(stats[..., 2].flatten().tolist() == held,
+          f"{what} held entries differ from the plain share")
+    rows = stats.shape[0] * items * span
+    return dict(occupied_share=sum(occupied) / rows,
+                entry_share=sum(entries) / rows,
+                held_share=sum(held) / max(sum(entries), 1))
 
 
 def _cuobjdump() -> str:
@@ -372,12 +412,7 @@ def check_kernels(dev, card: str) -> dict:
     kh = (tp.shape[1] // BS - 1) // 2
     plan = mk.card_packed_chain_plan(dev, n, BS, kh)
     got, stats, timing = mk.launch_packed_chain(x, tp, 128, BS, plan)
-    # where each CTA's clock went (thread 0's view), as shares
-    cycles = timing.double().sum(0)
-    phases = ", ".join(
-        f"{name} {float(v / cycles.sum()):.3f}" for name, v in zip(
-            ("prologue", "grid barriers", "x waits", "products", "sums"),
-            cycles))
+    phases = phase_shares(timing)
     want = mk.packed_chain_plain(x, tp, 128, BS)
     err, rel = rel_err(got, want)
     check(rel <= 1e-4, f"packed_chain rel err {rel}")
@@ -393,16 +428,8 @@ def check_kernels(dev, card: str) -> dict:
         plan[0], plan[1], ell.shape[1], 4)
     critical = int(ell_cta.amax((1, 3)).sum(1).max())
     mean_warp = float(ell.sum()) / (ell.shape[0] * 4)
-    stats = stats.cpu()
-    check(stats[:, 0].tolist() == occupied
-          and stats[:, 1].tolist() == entries,
-          "packed_chain occupancy or ELL lengths differ from the plain ones")
-    check(stats[:, 2].tolist() == mk.packed_chain_held_plain(entries, plan),
-          "packed_chain held entries differ from the plain share")
-    rows = tp.shape[0] * (BS // mk.PACKED_STRIP) * tp.shape[1]
-    occupied_share = sum(occupied) / rows
-    entry_share = sum(entries) / rows
-    held_share = int(stats[:, 2].sum()) / max(sum(entries), 1)
+    shares = chain_stats(stats, occupied, entries, plan, tp.shape[1],
+                         "packed_chain")
     nnz = int((tp != 0).sum())
     padding = sum(entries) * mk.PACKED_STRIP / max(nnz, 1)
     # where the time goes: one application (the prologue's scan and copy
@@ -413,16 +440,19 @@ def check_kernels(dev, card: str) -> dict:
     zero_ms = cuda_ms(lambda: mk.packed_chain(x, zeros, 128, BS), 5)
     zero_one_ms = cuda_ms(lambda: mk.packed_chain(x, zeros, 1, BS), 5)
     del zeros
+    ms = cuda_ms(lambda: mk.packed_chain(x, tp, 128, BS), 5)
     res["packed_chain"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: mk.packed_chain(x, tp, 128, BS), 5),
+        ms=ms,
+        ms_per_application=ms / 128,
         plain_ms=cuda_ms(lambda: mk.packed_chain_plain(x, tp, 128, BS), 3),
         shape=(f"x [8, {n}], tiles {tuple(tp.shape)}, 128 applications, "
                f"one launch; plan (CTAs, items per CTA, threads, x blocks, "
                f"entry slots, shared bytes) {plan}; 32-column row "
-               f"segments occupied {occupied_share:.4f}, ELL entries per "
-               f"tile row {entry_share:.4f} ({padding:.3f} x the nonzeros), "
-               f"of those held in shared memory {held_share:.4f}; entries "
+               f"segments occupied {shares['occupied_share']:.4f}, ELL "
+               f"entries per tile row {shares['entry_share']:.4f} "
+               f"({padding:.3f} x the nonzeros), of those held in shared "
+               f"memory {shares['held_share']:.4f}; entries "
                f"per application on the slowest CTA's path {critical}, per "
                f"warp on average {mean_warp:.1f}; nonzero "
                f"tile entries "
@@ -430,11 +460,10 @@ def check_kernels(dev, card: str) -> dict:
                f"entries, dense bound beside it; one application "
                f"{one_ms:.4f} ms; all-zero tiles {zero_ms:.4f} ms (one "
                f"application {zero_one_ms:.4f} ms); shares of the CTAs' "
-               f"clock: {phases}"),
+               f"clock: {_phases_text(phases)}"),
         library_ms=None,
-        occupied_share=occupied_share,
-        entry_share=entry_share,
-        held_share=held_share,
+        phase_shares=phases,
+        **shares,
         # the work the data needs: the nonzero entries, read once; the
         # dense bound (every in-matrix tile row, tiles read once per chain,
         # as if they stayed on chip) beside it
@@ -554,28 +583,72 @@ def check_dense_kernels(dev, geom, edge, x, res: dict) -> None:
     )
     del t8, got, want
 
-    # K7: 128 applications of T^2 (h 1112) over BS x BJ tiles, NaN beyond
-    # the written block band; against its twin and against K1 + K3
-    t2, h2 = _poison_blocks(mk.square_banded(t, h, BS), 2 * h), 2 * h
+    # K7: 128 applications of T^2 (h 1112) masked to its band, NaN beyond
+    # the written block band and between h and the tile edge; against its
+    # twin, and bit-equal to K1 + K3 on the same T^2 without that NaN
+    t2, h2 = mk.square_banded(t, h, BS), 2 * h
     del t
-    got = mk.banded_chain(x, t2, h2, 128, BS, BJ)
-    want = mk.banded_chain_plain(x, t2, h2, 128)
+    t2 = _poison_blocks(t2, h2)
+    r = torch.arange(n, device=dev)
+    band = (r[:, None] - r[None, :]).abs() <= h2
+    # the same T^2 with NaN between h and the tile edge too, where K2 wrote
+    # zeros (K1 + K3 would read it; K7's select drops it)
+    kb = -(-h2 // BS)
+    bi = r // BS
+    near = ~band & ((bi[:, None] - bi[None, :]).abs() <= kb)
+    t2_nan = torch.where(near, torch.full((), float("nan"), device=dev), t2)
+    del near, bi
+    plan = mk.card_packed_chain_plan(dev, n, BS, kb)
+    got, stats, timing = mk.launch_banded_chain(x, t2_nan, h2, 128, BS, plan)
+    phases = phase_shares(timing)
+    want = mk.banded_chain_plain(x, t2_nan, h2, 128)
     err, rel = rel_err(got, want)
     check(bool(torch.isfinite(got).all()) and rel <= 1e-4,
           f"banded_chain rel err {rel}")
-    _, rel13 = rel_err(got, mk.packed_chain(
-        x, mk.pack_banded(t2, h2, BS), 128, BS))
-    check(rel13 <= 1e-4, f"banded_chain vs K1 + K3 rel err {rel13}")
+    tp = mk.pack_banded(t2, h2, BS)
+    k13 = mk.packed_chain(x, tp, 128, BS)
+    check(torch.equal(got, k13), "banded_chain not bit-equal to K1 + K3")
+    check(torch.equal(got, mk.banded_chain(x, t2_nan, h2, 128, BS, BJ)),
+          "banded_chain not deterministic")
+    masked = torch.where(band, t2, torch.zeros((), device=dev))
+    del band
+    ell = mk.banded_ell_plain(t2_nan, h2, BS)
+    check(torch.equal(ell, mk.packed_ell_plain(tp)),
+          "banded_chain ELL lengths differ from K1 + K3's")
+    shares = chain_stats(
+        stats, mk.packed_occupancy_plain(tp).sum(-1).flatten().tolist(),
+        ell.sum((-2, -1)).flatten().tolist(), plan, tp.shape[1],
+        "banded_chain")
+    nnz = int((masked != 0).sum())
+    del masked, ell
+    ms = cuda_ms(lambda: mk.banded_chain(x, t2_nan, h2, 128, BS, BJ), 5)
+    k13_ms = cuda_ms(lambda: mk.packed_chain(
+        x, mk.pack_banded(t2, h2, BS), 128, BS), 5)
     res["banded_chain"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: mk.banded_chain(x, t2, h2, 128, BS, BJ), 5),
+        ms=ms,
+        ms_per_application=ms / 128,
         plain_ms=cuda_ms(
-            lambda: mk.banded_chain_plain(x, t2, h2, 128), 3),
+            lambda: mk.banded_chain_plain(x, t2_nan, h2, 128), 3),
         shape=(f"x [8, {n}], T^2 [{n}, {n}], h {h2}, bs {BS}, bj {BJ}, "
-               f"128 applications; rel err vs K1 + K3 {rel13:.2e}"),
+               f"128 applications, one launch, NaN beyond the block band "
+               f"and between h and the tile edge; bit-equal to K1 + K3 on "
+               f"T^2 without that NaN, K1 + K3 {k13_ms:.4f} ms "
+               f"({ms / k13_ms:.3f}x); plan {plan}; segments occupied "
+               f"{shares['occupied_share']:.4f}, ELL entries per tile row "
+               f"{shares['entry_share']:.4f}, held "
+               f"{shares['held_share']:.4f}; nonzero band entries {nnz}; "
+               f"shares of the CTAs' clock: {_phases_text(phases)}"),
         library_ms=None,
-        **bound(128 * 2 * 8 * _band_nnz(n, h2),
-                4 * (_band_nnz(n, h2) + 2 * x.numel()), PEAK_F32),
+        k13_ms=k13_ms,
+        phase_shares=phases,
+        **shares,
+        # the nonzero entries of T^2 masked to its band, read once; the
+        # dense band (every |r - c| <= h) beside it
+        bound_dense_ms=bound(128 * 2 * 8 * _band_nnz(n, h2),
+                             4 * (_band_nnz(n, h2) + 2 * x.numel()),
+                             PEAK_F32)["bound_ms"],
+        **bound(128 * 2 * 8 * nnz, 4 * (nnz + 2 * x.numel()), PEAK_F32),
     )
 
 
@@ -597,7 +670,13 @@ def check_batched_chain(dev, geom, gen, res: dict) -> None:
         del t2
     tps = torch.stack(tps)
     xs = torch.rand((B_BATCH, 8, n), generator=gen).to(dev)
-    got = mk.packed_chain_batched(xs, tps, 128, BS)
+    kh = (tps.shape[2] // BS - 1) // 2
+    plan = mk.card_packed_chain_plan(dev, n, BS, kh, B_BATCH)
+    check(mk.packed_chain_images(plan, n, BS) == B_BATCH,
+          f"packed_chain_batched plan {plan} needs more than one launch")
+    got, stats, timing = mk.launch_packed_chain_batched(xs, tps, 128, BS,
+                                                        plan)
+    phases = phase_shares(timing)
     want = mk.packed_chain_batched_plain(xs, tps, 128, BS)
     err, rel = rel_err(got, want)
     check(bool(torch.isfinite(got).all()) and rel <= 1e-4,
@@ -605,20 +684,48 @@ def check_batched_chain(dev, geom, gen, res: dict) -> None:
     for b in range(B_BATCH):
         check(torch.equal(got[b], mk.packed_chain(xs[b], tps[b], 128, BS)),
               f"packed_chain_batched image {b} not bit-equal to K3")
+    check(torch.equal(got, mk.packed_chain_batched(xs, tps, 128, BS)),
+          "packed_chain_batched not deterministic")
+    entries = [mk.packed_ell_plain(tp).sum((-2, -1)).flatten().tolist()
+               for tp in tps]
+    shares = chain_stats(
+        stats, [v for tp in tps for v in
+                mk.packed_occupancy_plain(tp).sum(-1).flatten().tolist()],
+        [v for e in entries for v in e], plan, tps.shape[2],
+        "packed_chain_batched")
+    held = stats[..., 2].sum(-1).double().cpu() / torch.tensor(
+        [max(sum(e), 1) for e in entries], dtype=torch.float64)
+    nnz = int((tps != 0).sum())
+    ms = cuda_ms(lambda: mk.packed_chain_batched(xs, tps, 128, BS), 5)
     k3_ms = cuda_ms(lambda: [mk.packed_chain(xs[b], tps[b], 128, BS)
-                             for b in range(B_BATCH)], 3)
+                             for b in range(B_BATCH)], 5)
     res["packed_chain_batched"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: mk.packed_chain_batched(xs, tps, 128, BS), 5),
+        ms=ms,
+        ms_per_application=ms / 128,
         plain_ms=cuda_ms(
             lambda: mk.packed_chain_batched_plain(xs, tps, 128, BS), 3),
         shape=(f"xs [{B_BATCH}, 8, {n}], tiles {tuple(tps.shape)}, 128 "
-               f"applications; each image bit-equal to K3; K3 on the "
-               f"{B_BATCH} images one by one {k3_ms:.4f} ms"),
+               f"applications, one launch; each image bit-equal to K3; K3 "
+               f"on the {B_BATCH} images one by one {k3_ms:.4f} ms "
+               f"({ms / k3_ms:.3f}x); plan {plan}; segments occupied "
+               f"{shares['occupied_share']:.4f}, ELL entries per tile row "
+               f"{shares['entry_share']:.4f}, held "
+               f"{shares['held_share']:.4f} (per image "
+               f"{', '.join(f'{v:.4f}' for v in held.tolist())}); nonzero "
+               f"tile entries {nnz}; shares of the CTAs' clock: "
+               f"{_phases_text(phases)}"),
         library_ms=None,
-        **bound(B_BATCH * 128 * 2 * 8 * BS * _band_rows(
-                    n, BS, (tps.shape[2] // BS - 1) // 2),
-                4 * (tps.numel() + 2 * xs.numel()), PEAK_F32),
+        k3_ms=k3_ms,
+        held_share_per_image=held.tolist(),
+        phase_shares=phases,
+        **shares,
+        # the B images' nonzero tile entries, read once; every in-matrix
+        # tile row beside it
+        bound_dense_ms=bound(
+            B_BATCH * 128 * 2 * 8 * BS * _band_rows(n, BS, kh),
+            4 * (tps.numel() + 2 * xs.numel()), PEAK_F32)["bound_ms"],
+        **bound(128 * 2 * 8 * nnz, 4 * (nnz + 2 * xs.numel()), PEAK_F32),
     )
 
 
@@ -871,7 +978,7 @@ def library_bj_check(dev, stage: dict) -> None:
           f"{geom.cap}): launches {stage['launches']['library bj']}, label "
           f"agreement with the --rw_square_times 1 stage {agree:.6f}",
           flush=True)
-    check(_build.LAUNCHES["banded_chain"] == 128,
+    check(_build.LAUNCHES["banded_chain"] == 1,
           f"library bj launches {_build.LAUNCHES}")
     check(agree >= 0.99, f"library bj agreement {agree}")
 
@@ -901,7 +1008,7 @@ def library_batch_check(dev, stage: dict) -> None:
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     stage["launches"]["library batch"] = dict(_build.LAUNCHES)
-    check(_build.LAUNCHES["packed_chain_batched"] == 2 * 128
+    check(_build.LAUNCHES["packed_chain_batched"] == 1
           and _build.LAUNCHES["packed_chain"] == 0,
           f"library batch launches {_build.LAUNCHES}")
     t0 = time.perf_counter()
@@ -1248,7 +1355,9 @@ def main() -> int:
              **{key: kernels[k][key]
                 for key in ("bound_f32_ms", "bound_dense_ms",
                             "ms_per_application", "occupied_share",
-                            "entry_share", "held_share")
+                            "entry_share", "held_share",
+                            "held_share_per_image", "phase_shares", "k3_ms",
+                            "k13_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -33,8 +33,7 @@ apply_banded_kernel(const float* __restrict__ x, const float* __restrict__ t,
   const int j = col0 / bs;
   const int klo = max(j - kb, 0);
   const int khi = min(j + kb, nb - 1);
-  irn::thin_apply<false>(x, t, out, C, n, c0, col0, klo * bs, (khi + 1) * bs,
-                         0);
+  irn::thin_apply(x, t, out, C, n, c0, col0, klo * bs, (khi + 1) * bs);
 }
 
 }  // namespace

@@ -1,66 +1,79 @@
-// K7 banded_chain: x @ T^n_apply over rectangular (bs x bj) tiles of a
-// banded T, T masked to its band.
+// K7 banded_chain: x @ (T masked to |r - c| <= h)^n_apply for a banded T
+// whose out-of-band elements may hold anything (K2's unspecified fill, NaN
+// included), the whole chain in one cooperative launch.
 //
 // Replaces: irn_tpu/ops/matpow_pallas.py apply_banded_chain's general path
 // (_banded_apply_chain_kernel, a Pallas (n_apply, n/bj, bj/bs + 2kh) grid
-// with the seed rows resident in VMEM).
+// over rectangular bs x bj tiles with the seed rows resident in VMEM, T
+// masked by a jnp.where).
 //
-// One application: output column tile j (bj wide) contracts the rows
-// [j*bj - kh*bs, j*bj + bj + kh*bs) and [0, n), kh = ceil(h / bs), with every
-// T element of |row - col| > h replaced by 0 through a select (the jnp.where
-// of the TPU path), so K2's unspecified fill, NaN included, never reaches a
-// sum: wide tiles straddle the written band.
+// The TPU tiled the output by bj, and output tile j contracted the rows
+// [j*bj - kh*bs, j*bj + bj + kh*bs), kh = ceil(h / bs): every row within h
+// of each of its columns. The masked sum is therefore the same for any bj,
+// so this kernel does not tile by bj (the wrapper keeps bj's checks, as the
+// JAX function does): it runs K3's plan and items, n/bs tiles x bs/32
+// strips, where strip (j, s) contracts the rows [(j - kh)*bs,
+// (j + kh + 1)*bs) of its 32 columns.
 //
-// Bound on this card: HBM bandwidth. Each application streams the tiles'
-// row ranges, (bj + 2kh*bs) * n * 4 bytes (235 MB at n = 14336, bj = 1024,
-// h = 1112), which does not fit the 50 MB L2; the seed rows (C <= 24) live
-// in L2 and shared memory.
+// Bound on this card: streaming T's band rows every application would move
+// n * (2kh+1) * bs * 4 bytes per application (205 MB at n 14336, h 1112),
+// over the 50 MB L2; only T's nonzero band entries add to a sum.
 //
-// Design: irn::thin_apply (common.cuh) with the band mask: one block of 256
-// threads per (32 columns, 8 seed rows), streaming the tile's row range with
-// coalesced loads, sums in a fixed order. The TPU ran the application grid
-// in order; Hopper blocks run in no order, so the chain launches once per
-// application on ping-pong device buffers, all from one C call.
+// Design: packed_chain.cuh's chain body (K3's) over the dense T masked to
+// its band (MaskedBand): the prologue reads each strip's rows straight from
+// T, so no packing pass (K1) is needed, and applies the band mask as a
+// select, (|r - c| <= h ? T : 0), before the nonzero test, so an element
+// beyond h (NaN included) is dropped before it is counted. Where T is zero
+// between h and the tile edge (K2's output; banded products add
+// halfwidths), the entries are K1 + K3's, and so are the bits.
 
-#include "common.cuh"
+#include "packed_chain.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(irn::kApplyThreads)
+namespace ch = irn::chain;
+
+template <int kPre>
+__global__ void __launch_bounds__(ch::kMaxThreads, 1)
 banded_chain_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                    float* __restrict__ out, int C, int n, int bs, int bj,
-                    int kh, int h) {
-  const int col0 = blockIdx.x * irn::kApplyCols;
-  const int c0 = blockIdx.y * irn::kApplyRows;
-  const int j = col0 / bj;
-  const int r_begin = max(j * bj - kh * bs, 0);
-  const int r_end = min(j * bj + bj + kh * bs, n);
-  irn::thin_apply<true>(x, t, out, C, n, c0, col0, r_begin, r_end, h);
+                    float* out, float* scratch, unsigned* counter,
+                    int* __restrict__ stats, long long* __restrict__ timing,
+                    float* __restrict__ ell_val,
+                    uint16_t* __restrict__ ell_row, const ch::Geometry g,
+                    int h, int n_apply) {
+  const ch::MaskedBand src{t, g.n, g.bs, g.kh, h, g.strips};
+  ch::run<kPre, false>(x, src, out, scratch, counter, stats, timing,
+                       ell_val, ell_row, g, blockIdx.x, n_apply);
 }
 
 }  // namespace
 
-// x, out, scratch: [C, n]; t: [n, n]. n % bj == 0, bj % bs == 0,
-// bs % 32 == 0. The last application writes ``out``; ``scratch`` carries
-// the others.
+// x, out, scratch: [C, n]; t: [n, n]; kh = ceil(h / bs); otherwise as
+// irn_packed_chain (stats [items, 3], timing [ctas, 5], ell_val / ell_row
+// [items, (2kh+1)*bs, 32], the plan packed_chain_plan's). One cooperative
+// launch for all n_apply >= 1 applications.
 IRN_API int irn_banded_chain(const float* x, const float* t, float* out,
-                             float* scratch, int C, int n, int bs, int bj,
-                             int kh, int h, int n_apply, void* stream,
+                             float* scratch, void* counter, int* stats,
+                             long long* timing, void* ell_val, void* ell_row,
+                             int C, int n, int bs, int kh, int h, int n_apply,
+                             int ctas, int ipc, int threads, int x_blocks,
+                             int slots, int smem, void* stream,
                              int* launched) {
-  if (C < 1 || n < 1 || bs < irn::kApplyCols || bs % irn::kApplyCols ||
-      bj < bs || bj % bs || n % bj || kh < 0 || h < 0 || n_apply < 1 ||
-      (C + irn::kApplyRows - 1) / irn::kApplyRows > 65535)
+  ch::Geometry g;
+  if (n_apply < 1 || h < 0 || (long long)kh * bs < h ||
+      !ch::geometry(C, n, bs, kh, 1, ctas, ipc, threads, x_blocks, slots,
+                    &g) ||
+      ch::layout(g).total != (size_t)smem)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n / irn::kApplyCols,
-                  (C + irn::kApplyRows - 1) / irn::kApplyRows);
-  const float* src = x;
-  for (int a = 0; a < n_apply; ++a) {
-    float* dst = ((n_apply - 1 - a) % 2 == 0) ? out : scratch;
-    banded_chain_kernel<<<grid, irn::kApplyThreads, 0, s>>>(src, t, dst, C, n,
-                                                            bs, bj, kh, h);
-    IRN_CHECK_LAUNCH(launched);
-    src = dst;
-  }
+  const auto kernel = ch::prefetch_of(g, threads) == 2
+                          ? banded_chain_kernel<2>
+                          : banded_chain_kernel<4>;
+  const int err = ch::launch_cooperative(
+      kernel, ctas, threads, smem, static_cast<cudaStream_t>(stream), x, t,
+      out, scratch, static_cast<unsigned*>(counter), stats, timing,
+      static_cast<float*>(ell_val), static_cast<uint16_t*>(ell_row), g, h,
+      n_apply);
+  if (err) return err;
+  IRN_CHECK_LAUNCH(launched);
   return 0;
 }

@@ -8,10 +8,10 @@ loads. The library is built at first use, never at import, into
 the sources and flags, so an edited source never loads a stale build.
 
 Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
-entry point reports how many kernels it launched (a chain through K0 or
-K3 is 1 launch, whatever its length; a batch of B images through K8 is 2
-per application; one K2, K5 or K6 call is its split pass and its product,
-2),
+entry point reports how many kernels it launched (a chain through K0, K3
+or K7 is 1 launch, whatever its length; a batch of B images through K8 is
+1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
+call is its split pass and its product, 2),
 and :func:`launch` adds that number, so a run can show that its main path
 really went through the kernels.
 """
@@ -158,9 +158,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_square_dense_split.argtypes = [p, p, i, p, n]
     lib.irn_square_fused_first.argtypes = [p, p, p, p, i, i, p, n]
     lib.irn_square_fused_first_split.argtypes = [p, p, p, i, i, p, n]
-    lib.irn_banded_chain.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
+    lib.irn_banded_chain.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, n,
+    ]
     lib.irn_packed_chain_batched.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, p, n,
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, p,
+        n,
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
     for k in (*KERNELS, "diag_chain_clusters", "square_dense_split",

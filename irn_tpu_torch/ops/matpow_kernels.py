@@ -18,10 +18,15 @@
 - :func:`square_fused_first` (K6, ``csrc/square_fused_first.cu``):
   A -> T @ T with T = colnorm(A^beta), the same split product (a split
   pass, :func:`split_operands`, then six bf16 products).
-- :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n over
-  rectangular (bs x bj) tiles, T masked to its band.
+- :func:`banded_chain` (K7, ``csrc/banded_chain.cu``): x @ T^n with T
+  masked to its band, K3's one cooperative launch per chain over the
+  masked T's nonzeros, read straight from T.
 - :func:`packed_chain_batched` (K8, ``csrc/packed_chain_batched.cu``): B
-  images' packed chains, each with its own tiles, in the same launches.
+  images' packed chains, each with its own tiles, K3's chain body with a
+  group of CTAs per image in one cooperative launch.
+
+K3, K7 and K8 share one chain body (``csrc/packed_chain.cuh``) and one
+launch plan (:func:`packed_chain_plan`).
 
 :func:`apply_banded_chain` dispatches among K4, K1 + K3 and K7 as the JAX
 function does; :func:`apply_banded_chain_batched` packs each image's T (K1)
@@ -257,9 +262,10 @@ def packed_chain_plain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
     return out
 
 
-# K3's launch plan (csrc/packed_chain.cu): one cooperative launch, one CTA
-# per SM; an item is one (tile, 32-column strip), read by one warp per
-# quarter of each slot from its nonzero entries in ELL form.
+# The launch plan of K3, K7 and K8 (csrc/packed_chain.cuh's chain body): one
+# cooperative launch, one CTA per SM; an item is one (tile, 32-column strip),
+# read by one warp per quarter of each slot from its nonzero entries in ELL
+# form; K8 gives each image its own group of CTAs.
 PACKED_STRIP = 32  # columns per item
 PACKED_ROWS = 8  # seed rows per group
 PACKED_PREFETCH = 4  # float4 of x each thread prefetches
@@ -268,13 +274,14 @@ PACKED_ENTRY_BYTES = 6 * PACKED_STRIP  # one entry: 32 f32 values, 32 rows
 PACKED_SMEM_MAX = 232448  # dynamic shared memory one CTA may use (bytes)
 
 # (CTAs, items per CTA, threads per CTA, x blocks staged per slot, held
-# entry slots per CTA, shared-memory bytes per CTA)
+# entry slots per CTA, shared-memory bytes per CTA); the CTAs are those of
+# one launch, a whole number of images' groups (:func:`packed_chain_images`)
 PackedChainPlan = Tuple[int, int, int, int, int, int]
 
 
 def _packed_smem(bs: int, kh: int, ipc: int, x_blocks: int,
                  slots: int) -> int:
-    """Bytes of K3's shared memory per CTA: the staged x blocks, the
+    """Bytes of the chain's shared memory per CTA: the staged x blocks, the
     quarters' and slots' partial sums, each item's quarter-slot table (first
     entry, length) and counts, and the held entries."""
     nqs = 4 * (2 * kh + 1)
@@ -283,38 +290,81 @@ def _packed_smem(bs: int, kh: int, ipc: int, x_blocks: int,
             + 8 * ipc * nqs + 32 * ipc + PACKED_ENTRY_BYTES * slots)
 
 
-def packed_chain_plan(n: int, bs: int, kh: int, sms: int,
-                      smem_max: int = PACKED_SMEM_MAX) -> PackedChainPlan:
-    """K3's launch plan over n columns, tiles of bs with 2kh+1 slots, on a
-    card of ``sms`` SMs: the nb * bs/32 items dealt in whole runs of
-    ceil(items / sms) to as few CTAs as that needs (so no CTA waits on a
-    second wave: the launch is cooperative); one warp per quarter of up to
-    4 items at a time, and enough threads to prefetch a slot's x blocks
-    (512 at most, 128 registers each); every byte of shared memory left
-    after the fixed parts (:func:`_packed_smem`) to held entries. Raises
-    ValueError, with the limit, when the fixed parts do not fit."""
-    if bs < 64 or bs % 64 or n < bs or n % bs or kh < 0 or sms < 1:
-        raise ValueError(f"packed_chain: n={n} must be a positive multiple "
-                         f"of bs={bs}, bs a multiple of 64")
+def _packed_items(n: int, bs: int) -> int:
+    return n // bs * (bs // PACKED_STRIP)
+
+
+def _group_plan(n: int, bs: int, kh: int, sms: int, images: int,
+                smem_max: int):
+    """(plan, threads, fixed bytes) for ``images`` images in one launch,
+    each on sms // images CTAs; plan None if it does not fit."""
     strips = bs // PACKED_STRIP
-    items = n // bs * strips
-    ipc = -(-items // sms)
-    ctas = -(-items // ipc)
+    items = _packed_items(n, bs)
+    per = sms // images
+    if per < 1:
+        return None, None, None
+    ipc = -(-items // per)
+    cpi = -(-items // ipc)
     x_blocks = max((min(b * ipc + ipc, items) - 1) // strips
-                   - b * ipc // strips + 1 for b in range(ctas))
+                   - b * ipc // strips + 1 for b in range(cpi))
     total4 = x_blocks * PACKED_ROWS * bs // 4
     threads = 128 * max(min(ipc, PACKED_MAX_THREADS // 128),
                          -(-total4 // (PACKED_PREFETCH * 128)))
     fixed = _packed_smem(bs, kh, ipc, x_blocks, 0)
     if threads > PACKED_MAX_THREADS or fixed > smem_max:
-        raise ValueError(
-            f"packed_chain: n={n}, bs={bs}, kh={kh} on {sms} SMs needs "
-            f"{threads} threads and {fixed} bytes of shared memory per CTA "
-            f"before any held entry, over the {PACKED_MAX_THREADS} and "
-            f"{smem_max} a CTA may use")
+        return None, threads, fixed
     slots = (smem_max - fixed) // PACKED_ENTRY_BYTES
-    return (ctas, ipc, threads, x_blocks, slots,
-            fixed + PACKED_ENTRY_BYTES * slots)
+    return ((images * cpi, ipc, threads, x_blocks, slots,
+             fixed + PACKED_ENTRY_BYTES * slots), threads, fixed)
+
+
+def packed_chain_plan(n: int, bs: int, kh: int, sms: int, images: int = 1,
+                      smem_max: int = PACKED_SMEM_MAX) -> PackedChainPlan:
+    """The chain's launch plan over ``images`` images of n columns, tiles
+    of bs with 2kh+1 slots, on a card of ``sms`` SMs. Each image of a
+    launch gets sms // images CTAs; its nb * bs/32 items are dealt in whole
+    runs of ceil(items / CTAs) to as few CTAs as that needs (so no CTA waits
+    on a second wave: the launch is cooperative, and no CTA's items cross an
+    image); one warp per quarter of up to 4 items at a time, and enough
+    threads to prefetch a slot's x blocks (512 at most, 128 registers each);
+    every byte of shared memory left after the fixed parts
+    (:func:`_packed_smem`) to held entries. At images 1 this is K3's plan.
+    When the images do not fit one launch, the plan is that of the fewest
+    launches of equal image groups that fit (:func:`packed_chain_groups`).
+    Raises ValueError, with the limit, when one image does not fit."""
+    if bs < 64 or bs % 64 or n < bs or n % bs or kh < 0 or sms < 1:
+        raise ValueError(f"packed_chain: n={n} must be a positive multiple "
+                         f"of bs={bs}, bs a multiple of 64")
+    if images < 1:
+        raise ValueError(f"packed_chain: images={images} must be >= 1")
+    tried = set()
+    for launches in range(1, images + 1):
+        group = -(-images // launches)
+        if group in tried:
+            continue
+        tried.add(group)
+        plan, threads, fixed = _group_plan(n, bs, kh, sms, group, smem_max)
+        if plan is not None:
+            return plan
+    raise ValueError(
+        f"packed_chain: n={n}, bs={bs}, kh={kh} on {sms} SMs needs "
+        f"{threads} threads and {fixed} bytes of shared memory per CTA "
+        f"before any held entry, over the {PACKED_MAX_THREADS} and "
+        f"{smem_max} a CTA may use")
+
+
+def packed_chain_images(plan: PackedChainPlan, n: int, bs: int) -> int:
+    """Images per launch of ``plan``: its CTAs over each image's."""
+    return plan[0] // -(-_packed_items(n, bs) // plan[1])
+
+
+def packed_chain_groups(images: int, plan: PackedChainPlan, n: int,
+                        bs: int) -> list:
+    """(first image, images) of each launch that runs ``images`` images
+    under ``plan``: consecutive groups of :func:`packed_chain_images`, the
+    last one the rest."""
+    group = packed_chain_images(plan, n, bs)
+    return [(b, min(group, images - b)) for b in range(0, images, group)]
 
 
 def packed_occupancy_plain(tp: torch.Tensor) -> torch.Tensor:
@@ -369,17 +419,40 @@ def packed_chain_occupancy(device: torch.device, threads: int,
 
 
 @functools.lru_cache(maxsize=None)
-def card_packed_chain_plan(device: torch.device, n: int, bs: int,
-                           kh: int) -> PackedChainPlan:
-    """:func:`packed_chain_plan` on the card's own SM count, checked to fit
-    one CTA per SM (cached per device and shape)."""
+def card_packed_chain_plan(device: torch.device, n: int, bs: int, kh: int,
+                           images: int = 1) -> PackedChainPlan:
+    """:func:`packed_chain_plan` for ``images`` images on the card's own SM
+    count, checked to fit one CTA per SM (cached per device and shape). K3,
+    K7 and K8 run one body under one ``__launch_bounds__``, so K3's
+    occupancy answers for all three."""
     _, sms = packed_chain_occupancy(device, 128, 0)
-    plan = packed_chain_plan(n, bs, kh, sms)
+    plan = packed_chain_plan(n, bs, kh, sms, images)
     held, _ = packed_chain_occupancy(device, plan[2], plan[5])
     if held < 1:
         raise RuntimeError(f"packed_chain: the card holds no CTA of plan "
                            f"{plan}")
     return plan
+
+
+def _chain_buffers(x: torch.Tensor, span: int, bs: int, ctas: int,
+                   launches: int = 1, held_images: int = 1):
+    """What the chain launches over x ([C, n], or [B, C, n] for B images)
+    need beside their inputs: out and the ping-pong scratch like x, a zeroed
+    barrier counter per launch, stats [images, items, 3] int32, timing
+    [ctas, 5] int64, and the scratch for the entries not held of
+    ``held_images`` images at a time, ell_val / ell_row [held_images,
+    items, span, 32] f32 / int16 (6 bytes per tile entry: 1.5x the tiles)."""
+    n = x.shape[-1]
+    items = _packed_items(n, bs)
+    images = x.shape[0] if x.dim() == 3 else 1
+    dev = x.device
+    ell = (held_images, items, span, PACKED_STRIP)
+    return (torch.empty_like(x), torch.empty_like(x),
+            torch.zeros(launches, dtype=torch.int32, device=dev),
+            torch.zeros((images, items, 3), dtype=torch.int32, device=dev),
+            torch.zeros((ctas, 5), dtype=torch.int64, device=dev),
+            torch.empty(ell, dtype=torch.float32, device=dev),
+            torch.empty(ell, dtype=torch.int16, device=dev))
 
 
 def launch_packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
@@ -394,21 +467,15 @@ def launch_packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
     c, n = x.shape
     kh = (tp.shape[1] // bs - 1) // 2
     ctas, ipc, threads, x_blocks, slots, smem = plan
-    out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
-    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
-    stats = torch.zeros((n // bs * (bs // PACKED_STRIP), 3), dtype=torch.int32,
-                        device=x.device)
-    timing = torch.zeros((ctas, 5), dtype=torch.int64, device=x.device)
-    ell_val = torch.empty_like(tp)
-    ell_row = torch.empty(tp.shape, dtype=torch.int16, device=x.device)
+    out, scratch, counter, stats, timing, ell_val, ell_row = _chain_buffers(
+        x, tp.shape[1], bs, ctas)
     _build.launch("packed_chain", x.device,
                   x.data_ptr(), tp.data_ptr(), out.data_ptr(),
                   scratch.data_ptr(), counter.data_ptr(), stats.data_ptr(),
                   timing.data_ptr(), ell_val.data_ptr(), ell_row.data_ptr(),
                   c, n, bs, kh, n_apply, ctas, ipc, threads, x_blocks,
                   slots, smem)
-    return out, stats, timing
+    return out, stats[0], timing
 
 
 def packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
@@ -650,11 +717,62 @@ def banded_chain_plain(x: torch.Tensor, t: torch.Tensor, h: int,
     return out
 
 
+def banded_ell_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
+    """[nb, bs/32, 2kh+1, 4] int: K7's ELL length of each item's
+    quarter-slots, read straight from the dense T masked to |r - c| <= h
+    (a select, so NaN beyond h does not count; NaN within it does): the
+    most nonzeros any of the strip's 32 columns holds over the slot's
+    quarter of rows, 0 for a slot past the matrix edge."""
+    n = t.shape[0]
+    nb, kh = _blocks(n, h, bs)
+    r = torch.arange(n, device=t.device)
+    nz = torch.where((r[:, None] - r[None, :]).abs() <= h, t,
+                     torch.zeros((), dtype=t.dtype, device=t.device)) != 0
+    # per (row block i, quarter u, column block j, strip): the longest column
+    cnt = nz.reshape(nb, 4, bs // 4, nb, bs // PACKED_STRIP,
+                     PACKED_STRIP).sum(2).amax(-1)
+    out = torch.zeros((nb, bs // PACKED_STRIP, 2 * kh + 1, 4),
+                      dtype=cnt.dtype, device=t.device)
+    for j in range(nb):
+        for m in range(2 * kh + 1):
+            i = j + m - kh
+            if 0 <= i < nb:
+                out[j, :, m, :] = cnt[i, :, j, :].t()
+    return out
+
+
+def launch_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
+                        n_apply: int, bs: int, plan: PackedChainPlan):
+    """K7's one cooperative launch under ``plan`` (:func:`packed_chain_plan`
+    at kh = ceil(h / bs)), for CUDA tensors that :func:`banded_chain` has
+    checked. Returns (out, stats, timing) as :func:`launch_packed_chain`;
+    the scratch for the entries not held is 6 bytes per element of T's band
+    tiles, n * (2kh+1) * bs * 6 bytes."""
+    c, n = x.shape
+    _, kh = _blocks(n, h, bs)
+    ctas, ipc, threads, x_blocks, slots, smem = plan
+    out, scratch, counter, stats, timing, ell_val, ell_row = _chain_buffers(
+        x, (2 * kh + 1) * bs, bs, ctas)
+    _build.launch("banded_chain", x.device,
+                  x.data_ptr(), t.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), counter.data_ptr(), stats.data_ptr(),
+                  timing.data_ptr(), ell_val.data_ptr(), ell_row.data_ptr(),
+                  c, n, bs, kh, h, n_apply, ctas, ipc, threads, x_blocks,
+                  slots, smem)
+    return out, stats[0], timing
+
+
 def banded_chain(x: torch.Tensor, t: torch.Tensor, h: int, n_apply: int,
                  bs: int = 512, bj: int = 512) -> torch.Tensor:
-    """x @ T^n_apply over (bs x bj) tiles (K7): output tile j contracts the
-    rows [j*bj - kh*bs, j*bj + bj + kh*bs) of T masked to |r - c| <= h.
-    ``x``: [C, n] f32; n a multiple of bj, bj of bs, bs of 32."""
+    """x @ T^n_apply with T masked to |r - c| <= h (K7), for a T whose
+    elements beyond h may hold anything (NaN included). The JAX function
+    runs rectangular (bs x bj) tiles whose row ranges [j*bj - kh*bs,
+    j*bj + bj + kh*bs) hold every row within h of their columns, so its
+    result does not depend on bj: the kernel runs K3's one cooperative
+    launch per chain over the masked T's nonzero entries, read straight
+    from T, and bj only keeps its checks. ``x``: [C, n] f32; n a multiple of
+    bj, bj of bs; on the card bs a multiple of 64, <= 1536, within
+    :func:`packed_chain_plan`'s limit."""
     c, n = x.shape
     if t.shape != (n, n) or n % bs or bj % bs or n % bj:
         raise ValueError(f"banded_chain: x {tuple(x.shape)} t "
@@ -664,15 +782,12 @@ def banded_chain(x: torch.Tensor, t: torch.Tensor, h: int, n_apply: int,
     if _build.is_plain(x):
         return banded_chain_plain(x, t, h, n_apply)
     _build.check_cuda("banded_chain", x, t)
-    if bs % 32:
-        raise ValueError(f"banded_chain: bs={bs} must be a multiple of 32")
+    if bs % 64 or bs > 1536:
+        raise ValueError(f"banded_chain: bs={bs} must be a multiple of 64, "
+                         "<= 1536")
     _, kh = _blocks(n, h, bs)
-    out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
-    _build.launch("banded_chain", x.device,
-                  x.data_ptr(), t.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), c, n, bs, bj, kh, h, n_apply)
-    return out
+    plan = card_packed_chain_plan(x.device, n, bs, kh)
+    return launch_banded_chain(x, t, h, n_apply, bs, plan)[0]
 
 
 def apply_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
@@ -713,12 +828,46 @@ def packed_chain_batched_plain(xs: torch.Tensor, tps: torch.Tensor,
                         for x, tp in zip(xs, tps)])
 
 
+def launch_packed_chain_batched(xs: torch.Tensor, tps: torch.Tensor,
+                                n_apply: int, bs: int, plan: PackedChainPlan):
+    """K8 under ``plan`` (:func:`packed_chain_plan` for the batch), for CUDA
+    tensors that :func:`packed_chain_batched` has checked: one cooperative
+    launch per image group of :func:`packed_chain_groups` (one for a batch
+    that fits one wave), each with its own barrier counter; a plan of
+    several images per launch runs the kernel's tuning for them (8 entries
+    per warp in flight), one image per launch K3's. Returns (out,
+    stats [B, items, 3], timing [CTAs of all launches, 5]) as
+    :func:`launch_packed_chain`. The scratch for the entries not held is
+    sized for one group and reused by the next: 1.5x one group's tiles
+    (6 bytes per tile entry; 1.2 GB for a group of 4 at n 14336, h 1112)."""
+    bimg, c, n = xs.shape
+    span = tps.shape[2]
+    kh = (span // bs - 1) // 2
+    ctas, ipc, threads, x_blocks, slots, smem = plan
+    group = packed_chain_images(plan, n, bs)
+    cpi = ctas // group
+    groups = packed_chain_groups(bimg, plan, n, bs)
+    out, scratch, counters, stats, timing, ell_val, ell_row = _chain_buffers(
+        xs, span, bs, cpi * bimg, len(groups), min(group, bimg))
+    for k, (b, count) in enumerate(groups):
+        _build.launch("packed_chain_batched", xs.device,
+                      xs[b].data_ptr(), tps[b].data_ptr(), out[b].data_ptr(),
+                      scratch[b].data_ptr(), counters[k].data_ptr(),
+                      stats[b].data_ptr(), timing[b * cpi].data_ptr(),
+                      ell_val.data_ptr(), ell_row.data_ptr(), count, group, c,
+                      n, bs, kh, n_apply, count * cpi, ipc, threads, x_blocks,
+                      slots, smem)
+    return out, stats, timing
+
+
 def packed_chain_batched(xs: torch.Tensor, tps: torch.Tensor, n_apply: int,
                          bs: int = 512) -> torch.Tensor:
     """x_b @ T_b^n_apply for B images at once over each image's packed tiles
     (K8): ``xs`` [B, C, n] f32, ``tps`` [B, n/bs, (2kh+1)*bs, bs] from
-    :func:`pack_banded`. Two launches per application for the whole batch;
-    each image's result is bit-equal to :func:`packed_chain` on it."""
+    :func:`pack_banded`. K3's chain body with a group of CTAs per image, in
+    one cooperative launch per chain (or per image group, when the batch
+    does not fit one wave: :func:`launch_packed_chain_batched`); each
+    image's result is bit-equal to :func:`packed_chain` on it."""
     if xs.dim() != 3 or tps.dim() != 4 or tps.shape[0] != xs.shape[0]:
         raise ValueError(f"packed_chain_batched: xs {tuple(xs.shape)} "
                          f"tiles {tuple(tps.shape)}")
@@ -736,15 +885,8 @@ def packed_chain_batched(xs: torch.Tensor, tps: torch.Tensor, n_apply: int,
         raise ValueError(f"packed_chain_batched: bs={bs} must be a multiple "
                          "of 64, <= 1536")
     kh = (tps.shape[2] // bs - 1) // 2
-    out = torch.empty_like(xs)
-    scratch = torch.empty_like(xs)
-    part = torch.empty((bimg, 2 * kh + 1, c, n), dtype=xs.dtype,
-                       device=xs.device)
-    _build.launch("packed_chain_batched", xs.device,
-                  xs.data_ptr(), tps.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), part.data_ptr(), bimg, c, n, bs, kh,
-                  n_apply)
-    return out
+    plan = card_packed_chain_plan(xs.device, n, bs, kh, bimg)
+    return launch_packed_chain_batched(xs, tps, n_apply, bs, plan)[0]
 
 
 def apply_banded_chain_batched(xs: torch.Tensor, ts: Iterable[torch.Tensor],

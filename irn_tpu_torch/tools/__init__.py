@@ -1,10 +1,13 @@
 """Measurement tools of the port, the counterparts of the JAX package's
 ``tools/``: ``bench_banded`` (the banded random-walk sweeps, K8's entry
-point) and ``bench_conv`` (the 3x3 conv probe, K9's entry point).
+point) and ``bench_conv`` (the 3x3 conv probe, K9's entry point); and
+``bench_chains``, the chains over the band tiles (K3, K7, K8) timed on the
+card at the smoke run's shapes, from this tree or another.
 
-Each takes ``--device`` (default ``cuda``). A missing card raises; nothing
-falls back to the CPU. On the CPU the tools run the kernels' plain twins
-and time them on the host clock, which says nothing about the card.
+``bench_banded`` and ``bench_conv`` take ``--device`` (default ``cuda``).
+A missing card raises; nothing falls back to the CPU. On the CPU those two
+run the kernels' plain twins and time them on the host clock, which says
+nothing about the card; ``bench_chains`` runs on the card only.
 """
 
 from __future__ import annotations

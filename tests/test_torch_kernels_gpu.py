@@ -306,11 +306,60 @@ def test_banded_chain(cuda, n, bj):
     x = torch.rand((8, n), generator=torch.Generator().manual_seed(0)).to(cuda)
     got = mk.banded_chain(x, _poisoned(t, h, bs), h, 6, bs, bj)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["banded_chain"] == 6  # one per application
+    assert _build.LAUNCHES["banded_chain"] == 1  # one per chain
     torch.testing.assert_close(got, mk.banded_chain_plain(x, t, h, 6),
                                rtol=1e-5, atol=1e-6)
     via = mk.apply_banded_chain(x, _poisoned(t, h, bs), h, 6, bs=bs, bj=bj)
     assert torch.equal(via, got)  # deterministic sums
+
+
+def _nan_near_band(t, h, bs):
+    """T with NaN between h and the block band's edge (where K1 + K3 would
+    read it) and in every block beyond it."""
+    n = t.shape[0]
+    r = torch.arange(n, device=t.device)
+    kb = -(-h // bs)
+    near = ((r[:, None] - r[None, :]).abs() > h) & (
+        (r[:, None] // bs - r[None, :] // bs).abs() <= kb)
+    return torch.where(near, torch.full((), float("nan"), device=t.device),
+                       _poisoned(t, h, bs))
+
+
+@pytest.mark.parametrize("n,c,bs,bj", [(1024, 8, 128, 256),
+                                       (2048, 24, 128, 512),
+                                       (2048, 8, 256, 512)])
+def test_banded_chain_select_mask_bit_equal_to_k1_k3(cuda, n, c, bs, bj):
+    """K7 drops every element beyond h by a select before it counts a
+    nonzero, so NaN between h and the tile edge and beyond the block band
+    leaves its result finite, within rel 1e-5 of its twin, and torch.equal
+    to K1 + K3 on the same T without that NaN; its per-item ELL lengths are
+    banded_ell_plain's and its held entries the plain share's, under the
+    card's plan and a plan that holds 37 entries per CTA."""
+    h = 130
+    t = _banded(n, h, seed=3).to(cuda)
+    x = torch.rand((c, n), generator=torch.Generator().manual_seed(1)).to(cuda)
+    tn = _nan_near_band(t, h, bs)
+    got = mk.banded_chain(x, tn, h, 5, bs, bj)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_chain"] == 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, mk.banded_chain_plain(x, tn, h, 5),
+                               rtol=1e-5, atol=1e-6)
+    tp = mk.pack_banded(t, h, bs)
+    assert torch.equal(got, mk.packed_chain(x, tp, 5, bs))
+    kh = -(-h // bs)
+    plan = mk.card_packed_chain_plan(cuda, n, bs, kh)
+    entries = mk.banded_ell_plain(tn, h, bs).sum((-2, -1)).flatten().tolist()
+    few = plan[:4] + (37, mk._packed_smem(bs, kh, plan[1], plan[3], 37))
+    for p_ in (plan, few):
+        out, stats, timing = mk.launch_banded_chain(x, tn, h, 5, bs, p_)
+        assert torch.equal(out, got)
+        assert timing.shape == (p_[0], 5)
+        stats = stats.cpu()
+        assert stats[:, 0].tolist() == mk.packed_occupancy_plain(
+            tp).sum(-1).flatten().tolist()
+        assert stats[:, 1].tolist() == entries
+        assert stats[:, 2].tolist() == mk.packed_chain_held_plain(entries, p_)
 
 
 def test_single_application_launches_apply_banded(cuda):
@@ -347,7 +396,7 @@ def test_kernels_refuse_non_f32(cuda):
 def test_packed_chain_batched_bit_equal_to_k3(cuda):
     """K8 on B = 3 images, each with its own T (NaN beyond the block band,
     read only through K1): each image bit-equal to K3 on it, all within rel
-    1e-5 of the twin; two launches per application for the whole batch."""
+    1e-5 of the twin; one launch for the whole batch's chain."""
     n, h, bs, bimg, n_apply = 1024, 130, 128, 3, 6
     ts = [_poisoned(_banded(n, h, seed=b).to(cuda), h, bs) for b in range(bimg)]
     xs = torch.rand((bimg, 8, n),
@@ -355,7 +404,7 @@ def test_packed_chain_batched_bit_equal_to_k3(cuda):
     got = mk.apply_banded_chain_batched(xs, ts, h, n_apply, bs)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["pack_banded"] == bimg
-    assert _build.LAUNCHES["packed_chain_batched"] == 2 * n_apply
+    assert _build.LAUNCHES["packed_chain_batched"] == 1  # one per chain
     assert _build.LAUNCHES["packed_chain"] == 0
     tps = torch.stack([mk.pack_banded(t, h, bs) for t in ts])
     torch.testing.assert_close(
@@ -376,11 +425,96 @@ def test_propagate_banded_batch_launches_k8(cuda):
     got = rw.propagate_banded_batch(geom, cams, edges, 10, 3, square_times=1,
                                     bs=128)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["packed_chain_batched"] == 2 * 4
+    assert _build.LAUNCHES["packed_chain_batched"] == 1
     assert _build.LAUNCHES["packed_chain"] == 0
     for b in range(2):
         assert torch.equal(got[b], rw.propagate_banded(
             geom, cams[b], edges[b], 10, 3, square_times=1, bs=128))
+
+
+def _k8_inputs(cuda, bimg, c, n=1024, h=130, bs=128):
+    """B images' packed T^2 tiles (NaN beyond the written block band) and
+    seed rows."""
+    tps = torch.stack([_t2_tiles(n, h, bs, b) for b in range(bimg)])
+    xs = torch.rand((bimg, c, n),
+                    generator=torch.Generator().manual_seed(bimg)).to(cuda)
+    return xs, tps
+
+
+@pytest.mark.parametrize("bimg", [1, 2, 5])
+@pytest.mark.parametrize("c", [8, 24])
+def test_packed_chain_batched_one_launch(cuda, bimg, c):
+    """K8 at B 1, 2 and 5, C 8 and 24 (make_sem_seg's 21 classes padded):
+    one cooperative launch for the batch, each image torch.equal to K3 on
+    it; per-image stats are K3's plain counts and share."""
+    n, bs, n_apply = 1024, 128, 5
+    xs, tps = _k8_inputs(cuda, bimg, c)
+    kh = (tps.shape[2] // bs - 1) // 2
+    plan = mk.card_packed_chain_plan(cuda, n, bs, kh, bimg)
+    assert mk.packed_chain_images(plan, n, bs) == bimg
+    got, stats, timing = mk.launch_packed_chain_batched(xs, tps, n_apply, bs,
+                                                        plan)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["packed_chain_batched"] == 1
+    assert timing.shape == (plan[0], 5) and bool((timing[:, 3] > 0).any())
+    assert torch.equal(got, mk.packed_chain_batched(xs, tps, n_apply, bs))
+    assert _build.LAUNCHES["packed_chain_batched"] == 2
+    stats = stats.cpu()
+    for b in range(bimg):
+        assert torch.equal(got[b], mk.packed_chain(xs[b], tps[b], n_apply, bs))
+        entries = mk.packed_ell_plain(tps[b]).sum((-2, -1)).flatten().tolist()
+        assert stats[b, :, 1].tolist() == entries
+        assert stats[b, :, 2].tolist() == mk.packed_chain_held_plain(entries,
+                                                                     plan)
+    assert _build.LAUNCHES["packed_chain"] == bimg
+
+
+@pytest.mark.parametrize("sms,slots", [(2, None), (2, 37), (3, 37)])
+def test_packed_chain_batched_image_groups(cuda, sms, slots):
+    """A plan for a card of 2 or 3 SMs cannot hold 5 images in one wave:
+    K8 runs them as consecutive launches of image groups, each with its own
+    barrier counter (groups of 2, 2, 1 at 2 SMs, of 3, 2 at 3), also under a
+    plan that holds only 37 entries per CTA; each image torch.equal to
+    K3."""
+    n, bs, bimg, n_apply = 1024, 128, 5, 4
+    xs, tps = _k8_inputs(cuda, bimg, 8)
+    kh = (tps.shape[2] // bs - 1) // 2
+    plan = mk.packed_chain_plan(n, bs, kh, sms, bimg)
+    if slots is not None:
+        plan = plan[:4] + (slots, mk._packed_smem(bs, kh, plan[1], plan[3],
+                                                  slots))
+    groups = mk.packed_chain_groups(bimg, plan, n, bs)
+    assert len(groups) == {2: 3, 3: 2}[sms]
+    got, stats, _ = mk.launch_packed_chain_batched(xs, tps, n_apply, bs, plan)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["packed_chain_batched"] == len(groups)
+    for b in range(bimg):
+        assert torch.equal(got[b], mk.packed_chain(xs[b], tps[b], n_apply, bs))
+        entries = mk.packed_ell_plain(tps[b]).sum((-2, -1)).flatten().tolist()
+        assert stats[b, :, 2].cpu().tolist() == mk.packed_chain_held_plain(
+            entries, plan)
+
+
+def test_packed_chain_batched_refused_launch_raises(cuda):
+    """A K8 plan of more CTAs than the card holds at once is refused: the
+    wrapper raises, counts nothing, and the next launch runs (the error was
+    not left behind)."""
+    n, h, bs, bimg = 8192, 130, 128, 2
+    kh = -(-h // bs)
+    _, sms = mk.packed_chain_occupancy(cuda, 128, 0)
+    items = n // bs * (bs // 32)
+    plan = mk.packed_chain_plan(n, bs, kh, bimg * items, bimg)
+    assert plan[0] > sms and mk.packed_chain_images(plan, n, bs) == bimg
+    xs = torch.rand((bimg, 8, n), device=cuda)
+    tps = torch.rand((bimg, n // bs, (2 * kh + 1) * bs, bs), device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        mk.launch_packed_chain_batched(xs, tps, 3, bs, plan)
+    assert _build.LAUNCHES["packed_chain_batched"] == 0
+    xs, tps = _k8_inputs(cuda, bimg, 8)
+    got = mk.packed_chain_batched(xs, tps, 3, bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["packed_chain_batched"] == 1
+    assert torch.equal(got[1], mk.packed_chain(xs[1], tps[1], 3, bs))
 
 
 def _bf16_close(got, want):
