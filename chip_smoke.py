@@ -29,6 +29,22 @@ over its four shapes (``probe conv``: K9 against its twin and cuDNN's bf16
 conv) and ``tools.bench_banded``'s batched sweep at B 1, 2, 4 (K8); the
 pure route of one image through the plain twins on the card, one image's
 default walk through the twins on the host, and a per-layer breakdown.
+
+The phase ``stage: make_cam -> cam_to_ir_label`` runs the front of the
+pipeline through the CLI on the same tree with a seeded random CAMNet
+(saved through ``cam_to_jax``): make_cam (four scales, cam_infer_batch 32)
+and eval_cam, cam_to_ir_label with the device CRF (``auto``: int8; then
+``tpu --crf_kernel_store dense``) and with the native lattice (built from
+``native/`` at first use), TF32 switched on before and required off inside
+the stages; then make_sem_seg's default walk on make_cam's own CAMs (one K0
+launch per image). It holds one image's make_cam on the card to the port
+on the host (max-abs < 1e-3), the device CRF on the card to the host port
+on one image's crop (int8 >= 99.9% equal labels, dense bf16 >= 99.5%) and
+to the native lattice (>= 90% per image), and prints each stage's smoke
+rate, a per-step breakdown and the CRF products' times beside their bound.
+These stages launch no hand kernel (their heavy work is cuDNN's and
+cuBLAS's).
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -115,6 +131,7 @@ HOME_RUN = {
 # outside the tensor cores, bf16 on them, HBM
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 HBM_BYTES_S = 3.35e12
 
 # kernels that must run on wgmma: the build phase fails if their SASS holds
@@ -936,7 +953,7 @@ def _walk_inputs(cfg, dev, index: int):
 
     runner = stages_irn._load_irn(cfg, dev)
     walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
-    sample = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)[index]
+    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)[index]
     img = sample["img"]
     size = img.shape[:2]
     (edge, _, (h4, w4)), = runner.batch([img], [size])
@@ -1103,7 +1120,7 @@ def cpu_walk_check(dev, stage: dict) -> float:
 
     cfg = stage["cfg"]
     runner = stages_irn._load_irn(cfg, dev)
-    sample = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)[0]
+    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)[0]
     img = sample["img"]
     size = img.shape[:2]
     (edge, _, (h4, w4)), = runner.batch([img], [size])
@@ -1138,7 +1155,7 @@ def layer_breakdown(dev, stage: dict, card: str) -> None:
     cfg = stage["cfg"]
     runner = stages_irn._load_irn(cfg, dev)
     walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
-    ds = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
     ms = defaultdict(float)
 
     def timed(name, fn):
@@ -1273,6 +1290,355 @@ def dense_layers(dev, stage: dict, card: str) -> None:
               flush=True)
 
 
+def _cam_net_checkpoint(work: str) -> str:
+    """A seeded random CAMNet written through cam_to_jax: the JAX-layout
+    checkpoint make_cam reads."""
+    from irn_tpu_torch.models.cam import CAMNet
+    from irn_tpu_torch.models.irn import init_irnet
+    from irn_tpu_torch.utils.checkpoint import save_checkpoint
+    from irn_tpu_torch.utils.weights import cam_to_jax
+
+    # init_irnet draws every conv of a module (here the backbone and head)
+    model = init_irnet(CAMNet(), torch.Generator().manual_seed(SEED + 1))
+    path = os.path.join(work, "cam.ckpt")
+    save_checkpoint(path, cam_to_jax(model.state_dict()))
+    return path
+
+
+def run_cam_stages(dev, stage: dict, card: str) -> dict:
+    """make_cam, eval_cam and cam_to_ir_label through the port's CLI on the
+    tree, with a seeded random CAMNet: the device CRF (auto: int8; then
+    the dense store) and the native lattice, then make_sem_seg's default
+    walk on make_cam's own CAMs. TF32 is switched on before the runs: the
+    stages must switch it off."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import crf_device
+    from irn_tpu_torch.ops import native
+    from irn_tpu_torch.pipeline import stages_cam
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    cams = os.path.join(work, "cam_made")
+    weights = _cam_net_checkpoint(work)
+
+    def argv(*extra, ir="ir_auto"):
+        return ["--voc12_root", root, "--infer_list", ids, "--train_list", ids,
+                "--cam_weights_name", weights, "--cam_out_dir", cams,
+                "--ir_label_out_dir", os.path.join(work, ir),
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_cam"),
+                "--device", str(dev), *extra]
+
+    tf32 = []
+    forward, build = stages_cam.CAMScalePass.forward, crf_device.LandmarkKernel
+
+    def forward_seen(self, *a):
+        tf32.append(("make_cam", torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return forward(self, *a)
+
+    class KernelSeen(build):
+        def __init__(self, *a, **kw):
+            tf32.append(("crf", torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            super().__init__(*a, **kw)
+
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    stages_cam.CAMScalePass.forward = forward_seen
+    crf_device.LandmarkKernel = KernelSeen
+    try:
+        _build.reset_launches()
+        first = cli(argv("--make_cam_pass", "--eval_cam_pass",
+                         "--cam_to_ir_label_pass"))
+        # a second pass over the same images (warm caches): smoke rates
+        again = cli(argv("--make_cam_pass", "--cam_to_ir_label_pass",
+                         "--overwrite"))
+        stage["launches"]["cam stages"] = dict(_build.LAUNCHES)
+        runs["native"] = cli(argv("--cam_to_ir_label_pass", "--crf_backend",
+                                  "native", ir="ir_native"))["cam_to_ir_label"]
+        runs["dense"] = cli(argv("--cam_to_ir_label_pass", "--crf_backend",
+                                 "tpu", "--crf_kernel_store", "dense",
+                                 ir="ir_dense"))["cam_to_ir_label"]
+    finally:
+        stages_cam.CAMScalePass.forward = forward
+        crf_device.LandmarkKernel = build
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(tf32 and not any(a or b for _, a, b in tf32),
+          f"TF32 on inside a stage: {sorted(set(tf32))}")
+    check(not any(stage["launches"]["cam stages"].values()),
+          f"the CAM stages launched hand kernels: "
+          f"{stage['launches']['cam stages']}")
+    for n_ in names:
+        d = np.load(os.path.join(cams, n_ + ".npy"), allow_pickle=True).item()
+        h, w = _image_size(root, n_)
+        check(sorted(d) == ["cam", "high_res", "keys"]
+              and d["keys"].dtype == np.int64
+              and d["cam"].dtype == d["high_res"].dtype == np.float32
+              and d["cam"].shape == (len(d["keys"]), (h - 1) // 4 + 1,
+                                     (w - 1) // 4 + 1)
+              and d["high_res"].shape == (len(d["keys"]), h, w)
+              and bool(np.isfinite(d["cam"]).all())
+              and bool(np.isfinite(d["high_res"]).all())
+              and float(d["high_res"].max(initial=0)) <= 1.0,
+              f"make_cam {n_}: keys {d['keys']}, cam {d['cam'].shape}, "
+              f"high_res {d['high_res'].shape} of a {h}x{w} image")
+    mc, ir = again["make_cam"], again["cam_to_ir_label"]
+    check(mc["n_images"] == ir["n_images"] == len(names)
+          and ir["backend"] == "tpu" and ir["kernel_store"] == "int8"
+          and runs["native"]["backend"] == "native"
+          and runs["dense"]["kernel_store"] == "dense",
+          f"cam stage summaries {mc} {ir} {runs}")
+    runs["int8"] = ir
+    print(f"stage make_cam: {mc['n_images'] / mc['seconds']:.3f} img/s second "
+          f"pass ({first['make_cam']['n_images'] / first['make_cam']['seconds']:.3f} "
+          f"img/s first pass; smoke rates over {len(names)} images 360-500 px, "
+          f"4 scales, cam_infer_batch 32; {card})", flush=True)
+    print(f"stage eval_cam: mIoU {first['eval_cam']['miou']:.4f} (random "
+          f"weights)", flush=True)
+    for tag in ("int8", "dense", "native"):
+        r_ = runs[tag]
+        print(f"stage cam_to_ir_label {tag} ({r_['backend']}): "
+              f"{r_['n_images'] / r_['seconds']:.3f} img/s over "
+              f"{r_['n_images']} images{', second pass' if tag == 'int8' else ''}"
+              f" ({card})", flush=True)
+    print(f"stage cam_to_ir_label int8 first pass: "
+          f"{first['cam_to_ir_label']['n_images'] / first['cam_to_ir_label']['seconds']:.3f}"
+          f" img/s; native library {native.BUILD_INFO}", flush=True)
+    for tag in ("int8", "dense"):
+        agree = agreement(os.path.join(work, f"ir_{'auto' if tag == 'int8' else tag}"),
+                          os.path.join(work, "ir_native"), names)
+        print(f"stage ir_label agreement device CRF {tag} vs native: min "
+              f"{min(agree):.6f} mean {np.mean(agree):.6f}", flush=True)
+        check(min(agree) >= 0.90, f"device CRF {tag} vs native {agree}")
+    agree = agreement(os.path.join(work, "ir_auto"),
+                      os.path.join(work, "ir_dense"), names)
+    print(f"stage ir_label agreement int8 vs dense: min {min(agree):.6f} "
+          f"mean {np.mean(agree):.6f}", flush=True)
+
+    # make_sem_seg's default walk on make_cam's own CAMs: one K0 per image
+    _build.reset_launches()
+    out = os.path.join(work, "sem_on_made_cams")
+    summ = cli(["--voc12_root", root, "--infer_list", ids, "--train_list", ids,
+                "--cam_out_dir", cams, "--irn_weights_name",
+                stage["cfg"].irn_weights_name,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_sem_cam"),
+                "--sem_seg_out_dir", out, "--make_sem_seg_pass",
+                "--device", str(dev)])["make_sem_seg_labels"]
+    stage["launches"]["default on made cams"] = dict(_build.LAUNCHES)
+    check(summ["n_images"] == len(names)
+          and _build.LAUNCHES["diag_chain"] == len(names)
+          and all(os.path.exists(os.path.join(out, n_ + ".png"))
+                  for n_ in names),
+          f"make_sem_seg on make_cam's CAMs: {summ}, {_build.LAUNCHES}")
+    print(f"stage make_sem_seg (default) on make_cam's CAMs: "
+          f"{summ['n_images'] / summ['seconds']:.3f} img/s, one pass, "
+          f"launches {stage['launches']['default on made cams']}", flush=True)
+    return dict(root=root, ids=ids, cams=cams, weights=weights, work=work,
+                names=names)
+
+
+def _image_size(root: str, name: str) -> tuple:
+    from PIL import Image
+
+    with Image.open(os.path.join(root, "JPEGImages", name + ".jpg")) as im:
+        return im.size[1], im.size[0]
+
+
+def cam_host_checks(dev, cam: dict, crop=(192, 256)) -> None:
+    """One image's make_cam on the host against the card's npy (max-abs
+    < 1e-3), and the device CRF on the card against the host port on one
+    image's top-left ``crop`` (int8: >= 99.9% equal, its products exact
+    integers on both; dense bf16: >= 99.5%)."""
+    from irn_tpu_torch.ops.crf_device import LandmarkCRF
+    from irn_tpu_torch.pipeline import stages_cam
+    from irn_tpu_torch.pipeline.config import Config
+
+    name = cam["names"][0]
+    one = os.path.join(cam["work"], "one.txt")
+    with open(one, "w") as f:
+        f.write(name + "\n")
+    host_dir = os.path.join(cam["work"], "cam_host")
+    cfg = Config(voc12_root=cam["root"], train_list=one, infer_list=one,
+                 cam_weights_name=cam["weights"],
+                 cam_out_dir=host_dir).resolve()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stages_cam.make_cam(cfg, "cpu")
+    seconds = time.perf_counter() - t0
+    got = np.load(os.path.join(cam["cams"], name + ".npy"),
+                  allow_pickle=True).item()
+    want = np.load(os.path.join(host_dir, name + ".npy"),
+                   allow_pickle=True).item()
+    check(np.array_equal(got["keys"], want["keys"]),
+          f"make_cam keys card {got['keys']} host {want['keys']}")
+    errs = {k: float(np.abs(got[k] - want[k]).max(initial=0))
+            for k in ("cam", "high_res")}
+    print(f"make_cam of {name} on the host ({seconds:.2f} s) vs the card: "
+          f"max-abs {errs}", flush=True)
+    check(max(errs.values()) < 1e-3, f"make_cam card vs host {errs}")
+
+    from irn_tpu_torch.data.image_io import imread
+
+    img = imread(os.path.join(cam["root"], "JPEGImages", name + ".jpg"))
+    h, w = crop
+    img = np.ascontiguousarray(img[:h, :w])
+    fg, bg = stages_cam.confident_maps(got["high_res"][:, :h, :w],
+                                       cfg.conf_fg_thres, cfg.conf_bg_thres)
+    n_labels = len(got["keys"]) + 1
+    for store, gate in (("int8", 0.999), ("dense", 0.995)):
+        kw = dict(t=cfg.crf_iters, pad_multiple=cfg.pad_multiple,
+                  kernel_store=store)
+        card_ = LandmarkCRF(device=dev, **kw).pair(img, fg, bg, n_labels)
+        t0 = time.perf_counter()
+        host = LandmarkCRF(device="cpu", **kw).pair(img, fg, bg, n_labels)
+        seconds = time.perf_counter() - t0
+        agree = [float(np.mean(a == b)) for a, b in zip(card_, host)]
+        print(f"device CRF {store} on {name}[:{h}, :{w}]: card vs host "
+              f"({seconds:.2f} s) label agreement fg {agree[0]:.6f} bg "
+              f"{agree[1]:.6f}", flush=True)
+        check(min(agree) >= gate, f"device CRF {store} card vs host {agree}")
+
+
+def cam_layers(dev, cam: dict, card: str) -> None:
+    """Where an image's time goes in make_cam and cam_to_ir_label: each
+    step run alone over the tree's images and ended by a synchronize (host
+    clock), the first pass a warm-up; then the CRF's two library products
+    at the largest bucket of the tree, timed by CUDA events beside their
+    bound."""
+    from collections import defaultdict
+
+    from irn_tpu_torch.data import image_io, voc12
+    from irn_tpu_torch.ops.crf_device import (LandmarkCRF, product_f32,
+                                              product_int8)
+    from irn_tpu_torch.pipeline import stages_cam
+    from irn_tpu_torch.pipeline.config import Config
+
+    cfg = Config(voc12_root=cam["root"], train_list=cam["ids"],
+                 infer_list=cam["ids"], cam_weights_name=cam["weights"],
+                 cam_out_dir=cam["cams"]).resolve()
+    ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
+                                     stages_cam._label_dict(cfg))
+    sp = stages_cam.CAMScalePass(stages_cam.load_cam_net(cfg, dev), dev,
+                                 cfg.rw_grid_cap, 4 * cfg.rw_grid_cap)
+    crfs = {s: LandmarkCRF(t=cfg.crf_iters, pad_multiple=cfg.pad_multiple,
+                           kernel_store=s, device=dev)
+            for s in ("int8", "dense")}
+    ms = defaultdict(float)
+    n = len(ds)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    npy = os.path.join(cam["work"], "layer.npy")
+    png = os.path.join(cam["work"], "layer_ir.png")
+    kernel_bytes = {}
+    with torch.no_grad():
+        for rep in range(2):
+            ms.clear()
+            for i in range(n):
+                sample = timed("make_cam: read image", lambda: ds[i])
+                imgs = sample["img"][None]
+                size = imgs.shape[1:3]
+                s4 = stages_cam.T.get_strided_size(size, 4)
+                su = stages_cam.T.get_strided_up_size(size, 16)
+                s_acc = torch.zeros((1, 20, sp.s4_cap, sp.s4_cap), device=dev)
+                h_acc = torch.zeros((1, 20, sp.su_cap, sp.su_cap), device=dev)
+                for scale in cfg.cam_scales:
+                    padded, sh, sw = timed(
+                        "make_cam: PIL rescale + pad (host)",
+                        lambda: stages_cam.scale_inputs(imgs, scale,
+                                                        cfg.pad_multiple))
+                    x = timed("make_cam: upload",
+                              lambda: torch.from_numpy(padded).to(dev))
+                    vh, vw = -(-sh // 16), -(-sw // 16)
+                    stack = timed("make_cam: normalize + flip stack",
+                                  lambda: sp.prep(x, sh, sw))
+                    maps = timed(f"make_cam: forward at scale {scale}",
+                                 lambda: sp.forward(stack, sh, sw))
+                    s, hr = timed("make_cam: flip fusion + resizes",
+                                  lambda: sp.resize(sp.fuse(maps, vw), vh, vw,
+                                                    s4, su, size))
+                    s_acc += s
+                    h_acc += hr
+                valid = np.nonzero(np.asarray(sample["label"]))[0]
+                timed("make_cam: finalize + npy write", lambda: stages_cam.save_cam(
+                    npy, valid, *stages_cam.finalize(s_acc[0], h_acc[0], valid),
+                    s4, size))
+
+                d = timed("cam_to_ir_label: read npy + confident maps (host)",
+                          lambda: np.load(os.path.join(
+                              cam["cams"], sample["name"] + ".npy"),
+                              allow_pickle=True).item())
+                fg, bg = timed("cam_to_ir_label: read npy + confident maps (host)",
+                               lambda: stages_cam.confident_maps(
+                                   d["high_res"], cfg.conf_fg_thres,
+                                   cfg.conf_bg_thres))
+                keys = np.pad(d["keys"] + 1, (1, 0))
+                for store, crf in crfs.items():
+                    h, w = size
+                    packed = timed(f"cam_to_ir_label {store}: upload",
+                                   lambda: crf.upload(sample["img"], fg, bg))
+                    kern = timed(f"cam_to_ir_label {store}: kernel build",
+                                 lambda: crf.build(packed, h, w))
+                    kernel_bytes[store] = max(kernel_bytes.get(store, 0),
+                                              kern.nbytes())
+                    out = timed(f"cam_to_ir_label {store}: {cfg.crf_iters} "
+                                f"iterations", lambda: crf.iterate(
+                                    kern, packed, len(keys), cfg.crf_gt_prob))
+                    del kern
+                    timed(f"cam_to_ir_label {store}: fetch + PNG write",
+                          lambda: image_io.imwrite(png, stages_cam.combine_conf(
+                              keys[out[0, :h, :w].cpu().numpy()],
+                              keys[out[1, :h, :w].cpu().numpy()])))
+    for name, v in ms.items():
+        print(f"layer {name}: {v:.3f} ms/img ({card})", flush=True)
+    print(f"device CRF landmark kernel at the tree's largest bucket: "
+          f"{kernel_bytes}", flush=True)
+
+    # the iterations' products at the largest bucket of the tree
+    bucket = max((LandmarkCRF(pad_multiple=cfg.pad_multiple)._bucket(
+        *_image_size(cam["root"], n_)) for n_ in cam["names"]),
+        key=lambda b: b[0] * b[1])
+    n_px = bucket[0] * bucket[1]
+    s_land = len(range(2, bucket[0], 4)) * len(range(2, bucket[1], 4))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k8 = torch.randint(0, 128, (n_px, s_land), generator=gen, device=dev,
+                       dtype=torch.int8)
+    q8 = torch.randint(0, 128, (s_land, 42), generator=gen, device=dev,
+                       dtype=torch.int8)
+    t_int8 = cuda_ms(lambda: product_int8(k8, q8), 10)
+    q8_rows = torch.nn.functional.pad(q8, (0, 6))  # row-major right operand
+    check(torch.equal(torch._int_mm(k8, q8_rows)[:, :42],
+                      product_int8(k8, q8)), "int8 product layouts differ")
+    t_int8_rows = cuda_ms(lambda: torch._int_mm(k8, q8_rows), 10)
+    b_int8 = bound(2 * n_px * s_land * 48, n_px * s_land + s_land * 48
+                   + 4 * n_px * 48, PEAK_INT8)
+    del k8
+    kb = torch.rand((n_px, s_land), generator=gen, device=dev).bfloat16()
+    q = torch.rand((s_land, 42), generator=gen, device=dev)
+    t_bf16 = cuda_ms(lambda: product_f32(kb, q), 10)
+    b_bf16 = bound(2 * n_px * s_land * 42, 2 * n_px * s_land + 4 * s_land * 42
+                   + 4 * n_px * 42, PEAK_BF16)
+    del kb
+    print(f"CRF product at the {bucket[0]}x{bucket[1]} bucket (N {n_px}, S "
+          f"{s_land}): torch._int_mm int8 [N, S] @ [S, 48] {t_int8:.4f} ms "
+          f"(right operand column-major; row-major {t_int8_rows:.4f} ms), "
+          f"bound {b_int8['bound_ms']:.4f} ms ({b_int8['bound_by']}); "
+          f"torch.mm bf16 [N, S] @ [S, 42] -> f32 {t_bf16:.4f} ms, bound "
+          f"{b_bf16['bound_ms']:.4f} ms ({b_bf16['bound_by']}) ({card})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -1330,6 +1696,10 @@ def main() -> int:
         phase("layers")
         layer_breakdown(dev, stage, card)
         dense_layers(dev, stage, card)
+        phase("stage: make_cam -> cam_to_ir_label")
+        cam = run_cam_stages(dev, stage, card)
+        cam_host_checks(dev, cam)
+        cam_layers(dev, cam, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -6,9 +6,11 @@ field (their history and measurements on the TPU) stay there; here each
 field says what it sets.
 
 Left out: the JAX class's two JAX-only helpers, ``resolved_crf_backend``
-and ``rw_matmul_jnp_dtype``; no ported stage reads them.
-``crf_backend='auto'`` on CUDA (the device CRF) gets its own resolver with
-the cam_to_ir_label stage (ROADMAP queue 1 item 6).
+and ``rw_matmul_jnp_dtype``. The cam_to_ir_label stage resolves
+``crf_backend`` by the device it runs on
+(:func:`irn_tpu_torch.pipeline.stages_cam.resolve_crf_backend`): ``'auto'``
+is the device landmark CRF on CUDA and the native lattice on the CPU;
+``'tpu'`` keeps the JAX package's name for the device CRF.
 """
 
 from __future__ import annotations

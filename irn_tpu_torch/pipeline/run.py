@@ -4,7 +4,8 @@ same artifacts) plus ``--device`` (default ``cuda``).
 
 Usage:
     python -m irn_tpu_torch.pipeline.run --voc12_root <VOC2012> \
-        --infer_list <ids.txt> --make_sem_seg_pass --eval_sem_seg_pass \
+        --infer_list <ids.txt> --make_cam_pass --eval_cam_pass \
+        --cam_to_ir_label_pass --make_sem_seg_pass --eval_sem_seg_pass \
         [--device cuda|cpu]
 
 Stages not ported yet raise ``NotImplementedError`` naming the ROADMAP
@@ -25,9 +26,10 @@ from irn_tpu_torch.utils.logging import Logger, Timer
 # that ports it
 STAGES = [
     ("train_cam_pass", "ROADMAP queue 1 item 8 (train_cam)"),
-    ("make_cam_pass", "ROADMAP queue 1 item 5 (make_cam)"),
-    ("eval_cam_pass", "ROADMAP queue 1 item 5 (make_cam)"),
-    ("cam_to_ir_label_pass", "ROADMAP queue 1 item 6 (cam_to_ir_label)"),
+    ("make_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "make_cam")),
+    ("eval_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "eval_cam")),
+    ("cam_to_ir_label_pass",
+     ("irn_tpu_torch.pipeline.stages_cam", "cam_to_ir_label")),
     ("train_irn_pass", "ROADMAP queue 1 item 7 (train_irn)"),
     ("make_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
     ("eval_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),

@@ -1,0 +1,388 @@
+"""make_cam, eval_cam and cam_to_ir_label on PyTorch — the counterparts of
+those stages of :mod:`irn_tpu.pipeline.stages_cam` (step/make_cam.py,
+step/eval_cam.py, step/cam_to_ir_label.py of the reference).
+
+Same hyper-parameters and the same artifacts: per image
+``<cam_out_dir>/<id>.npy`` holding a dict {keys, cam, high_res} and
+``<ir_label_out_dir>/<id>.png`` seed maps, so either framework's later
+stages read them. The device is explicit: nothing moves to the CPU because
+no card was found.
+
+make_cam groups images by exact original size and runs up to
+``cam_infer_batch`` of them per scale as one [2k, 3, ph, pw] stack (the
+flip pairs ride the batch), each scale padded to a ``pad_multiple`` bucket
+with the backbone masking beyond the true extent. Since every image of a
+chunk has the same size, the extents are Python ints here (the JAX stage
+passes them as traced scalars to share one program between sizes).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from irn_tpu_torch.data import image_io
+from irn_tpu_torch.data import transforms as T
+from irn_tpu_torch.data import voc12
+from irn_tpu_torch.models.cam import CAMNet
+from irn_tpu_torch.ops.resize import resize_bilinear_dynamic
+from irn_tpu_torch.pipeline import stages_eval
+from irn_tpu_torch.pipeline.config import Config
+from irn_tpu_torch.pipeline.stages_irn import resolve_device
+from irn_tpu_torch.utils.checkpoint import load_checkpoint
+from irn_tpu_torch.utils.weights import cam_from_jax
+
+N_CLS = 20
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _chunk_sizes(m: int, cap: int) -> List[int]:
+    """Decompose ``m`` into chunk sizes <= cap: full ``cap`` chunks, then a
+    power-of-two tail, so the batch shapes a group meets stay O(log cap)."""
+    out = []
+    while m >= cap:
+        out.append(cap)
+        m -= cap
+    while m:
+        k = 1 << (m.bit_length() - 1)
+        out.append(k)
+        m -= k
+    return out
+
+
+def _label_dict(cfg: Config) -> Dict[str, np.ndarray]:
+    if os.path.exists(cfg.cls_labels_path):
+        return voc12.load_label_dict(cfg.cls_labels_path)
+    names = set(voc12.load_img_name_list(cfg.train_list))
+    names |= set(voc12.load_img_name_list(cfg.val_list))
+    names |= set(voc12.load_img_name_list(cfg.infer_list))
+    print("building cls labels from VOC XML annotations ...")
+    return voc12.make_label_dict(sorted(names), cfg.voc12_root)
+
+
+def _no_tf32() -> None:
+    # the reference's numerics are f32: a TF32 conv or matmul is not
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class CAMScalePass:
+    """One scale of the multi-scale flipped CAM pass over k images of one
+    size, on ``device``: normalize and pad-mask the uint8 upload, stack the
+    flip pairs, the CAM forward at the true extent, flip fusion, the two
+    dynamic-extent resizes (stride-4 grid in an ``s4_cap`` buffer,
+    strided-up grid in an ``su_cap`` buffer, cropped to the original size)
+    and the cross-scale sums. Each step is its own method so a caller can
+    time it."""
+
+    def __init__(self, model: CAMNet, device: torch.device, s4_cap: int,
+                 su_cap: int):
+        self.model = model
+        self.device = device
+        self.s4_cap = s4_cap
+        self.su_cap = su_cap
+        self.mean = torch.as_tensor(T.IMAGENET_MEAN, device=device)
+        self.std = torch.as_tensor(T.IMAGENET_STD, device=device)
+
+    def prep(self, img_u8: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
+        """[k, ph, pw, 3] uint8 -> the normalized (images, flips) stack
+        [2k, 3, ph, pw], zero beyond (sh, sw); each flip is rolled so its
+        valid region starts at column 0."""
+        ph, pw = img_u8.shape[1:3]
+        x = (img_u8.float() / 255.0 - self.mean) / self.std
+        rows = torch.arange(ph, device=self.device)[:, None] < sh
+        cols = torch.arange(pw, device=self.device)[None, :] < sw
+        x = torch.where((rows & cols)[None, ..., None], x, 0.0)
+        flip = torch.roll(x.flip(2), -(pw - sw), dims=2)
+        return torch.cat([x, flip]).permute(0, 3, 1, 2)
+
+    def forward(self, stack: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
+        """The CAM maps [2k, 20, ph/16, pw/16] of the stack."""
+        return self.model.cam(stack, extent=(sh, sw))
+
+    @staticmethod
+    def fuse(maps: torch.Tensor, vw: int) -> torch.Tensor:
+        """maps [2k, ...] -> [k, ...]: each image plus its flip's maps
+        flipped back; valid in [0, vh) x [0, vw)."""
+        k = maps.shape[0] // 2
+        w16 = maps.shape[-1]
+        return maps[:k] + torch.roll(maps[k:].flip(-1), -(w16 - vw), dims=-1)
+
+    def resize(self, fused: torch.Tensor, vh: int, vw: int,
+               s4: Tuple[int, int], su: Tuple[int, int],
+               size: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(stride-4 maps [k, 20, s4_cap, s4_cap], strided-up maps
+        [k, 20, su_cap, su_cap]); the strided-up maps are cropped to the
+        original size before the sums, as the reference crops high_res
+        before normalizing (make_cam.py:43)."""
+        s = resize_bilinear_dynamic(fused, (vh, vw), s4,
+                                    (self.s4_cap, self.s4_cap))
+        hr = resize_bilinear_dynamic(fused, (vh, vw), su,
+                                     (self.su_cap, self.su_cap))
+        hr[..., size[0]:, :] = 0.0
+        hr[..., :, size[1]:] = 0.0
+        return s, hr
+
+    @torch.no_grad()
+    def __call__(self, img_u8: torch.Tensor, sh: int, sw: int,
+                 s4: Tuple[int, int], su: Tuple[int, int],
+                 size: Tuple[int, int], s_acc: torch.Tensor,
+                 h_acc: torch.Tensor) -> None:
+        """Add this scale's maps into s_acc and h_acc."""
+        vh, vw = -(-sh // 16), -(-sw // 16)
+        maps = self.forward(self.prep(img_u8, sh, sw), sh, sw)
+        s, hr = self.resize(self.fuse(maps, vw), vh, vw, s4, su, size)
+        s_acc += s
+        h_acc += hr
+
+
+def scale_inputs(imgs: np.ndarray, scale: float,
+                 pad_multiple: int) -> Tuple[np.ndarray, int, int]:
+    """The k images [k, h, w, 3] uint8 at ``scale`` (PIL bicubic), padded
+    to the ``pad_multiple`` bucket: (padded, sh, sw)."""
+    s_imgs = imgs if scale == 1 else np.stack(
+        [T.pil_rescale(im, scale, 3) for im in imgs])
+    sh, sw = s_imgs.shape[1:3]
+    ph, pw = round_up(sh, pad_multiple), round_up(sw, pad_multiple)
+    return np.pad(s_imgs, ((0, 0), (0, ph - sh), (0, pw - sw), (0, 0))), sh, sw
+
+
+def finalize(s_acc: torch.Tensor, h_acc: torch.Tensor,
+             valid_cat: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One image's summed maps [20, ., .] -> the present classes' maps,
+    each max-normalized (+1e-5, make_cam.py:48-52)."""
+    vc = torch.from_numpy(valid_cat).to(s_acc.device)
+    s = s_acc[vc]
+    s = s / (s.amax(dim=(1, 2), keepdim=True) + 1e-5)
+    h = h_acc[vc]
+    h = h / (h.amax(dim=(1, 2), keepdim=True) + 1e-5)
+    return s, h
+
+
+def save_cam(out_path: str, valid_cat: np.ndarray, s: torch.Tensor,
+             h: torch.Tensor, s4: Tuple[int, int],
+             size: Tuple[int, int]) -> None:
+    """The npy dict of make_cam: keys, the stride-4 maps at (s4h, s4w) and
+    the high-res maps at the original size."""
+    np.save(out_path, {
+        "keys": valid_cat,
+        "cam": s[:, : s4[0], : s4[1]].cpu().numpy(),
+        "high_res": h[:, : size[0], : size[1]].cpu().numpy(),
+    })
+
+
+def load_cam_net(cfg: Config, device: torch.device) -> CAMNet:
+    model = CAMNet()
+    model.load_state_dict(cam_from_jax(load_checkpoint(cfg.cam_weights_name)))
+    return model.to(device).eval()
+
+
+def _check_cam_flags(cfg: Config) -> None:
+    if cfg.model_dtype != "float32":
+        raise NotImplementedError(
+            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    if cfg.infer_devices > 1:
+        raise NotImplementedError(
+            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
+            "(Multi-GPU)")
+
+
+def group_by_size(cfg: Config, ds: voc12.ImageDataset):
+    """{(h, w): [(index, out_path)]} of the images still to do (header-only
+    PIL reads), in list order."""
+    from PIL import Image
+
+    groups: Dict[Tuple[int, int], list] = {}
+    for i, name in enumerate(ds.img_name_list):
+        out_path = os.path.join(cfg.cam_out_dir, name + ".npy")
+        if not cfg.overwrite and os.path.exists(out_path):
+            continue
+        with Image.open(voc12.get_img_path(name, cfg.voc12_root)) as im:
+            w, h = im.size
+        groups.setdefault((h, w), []).append((i, out_path))
+    return groups
+
+
+def make_cam(cfg: Config, device="cuda") -> Dict:
+    """Multi-scale flipped CAM inference (step/make_cam.py). Returns a
+    summary: images written and the seconds the image loop took (after the
+    model load; every npy written)."""
+    _check_cam_flags(cfg)
+    dev = resolve_device(device)
+    _no_tf32()
+    ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
+                                     _label_dict(cfg))
+    scale_pass = CAMScalePass(load_cam_net(cfg, dev), dev,
+                              cfg.rw_grid_cap, 4 * cfg.rw_grid_cap)
+    os.makedirs(cfg.cam_out_dir, exist_ok=True)
+    n = len(ds)
+    batch_cap = max(1, cfg.cam_infer_batch)
+    t0 = time.perf_counter()
+    groups = group_by_size(cfg, ds)
+    n_done = 0
+    for size, items in groups.items():
+        s4 = T.get_strided_size(size, 4)
+        su = T.get_strided_up_size(size, 16)
+        if s4[0] > cfg.rw_grid_cap or s4[1] > cfg.rw_grid_cap:
+            raise ValueError(
+                f"{len(items)} image(s) of size {size} exceed the "
+                f"rw_grid_cap={cfg.rw_grid_cap} stride-4 grid "
+                f"({cfg.rw_grid_cap * 4}px); raise --rw_grid_cap")
+        pos = 0
+        for k in _chunk_sizes(len(items), batch_cap):
+            chunk = items[pos:pos + k]
+            pos += k
+            samples = [ds[i] for i, _ in chunk]
+            imgs = np.stack([s_["img"] for s_ in samples]).astype(np.uint8)
+            s_acc = torch.zeros((k, N_CLS, scale_pass.s4_cap,
+                                 scale_pass.s4_cap), device=dev)
+            h_acc = torch.zeros((k, N_CLS, scale_pass.su_cap,
+                                 scale_pass.su_cap), device=dev)
+            for scale in cfg.cam_scales:
+                padded, sh, sw = scale_inputs(imgs, scale, cfg.pad_multiple)
+                scale_pass(torch.from_numpy(padded).to(dev), sh, sw, s4, su,
+                           size, s_acc, h_acc)
+            for j, ((i, out_path), sample) in enumerate(zip(chunk, samples)):
+                valid_cat = np.nonzero(np.asarray(sample["label"]))[0]
+                s, h = finalize(s_acc[j], h_acc[j], valid_cat)
+                save_cam(out_path, valid_cat, s, h, s4, size)
+                n_done += 1
+                if i % max(n // 20, 1) == 0:
+                    print(f"make_cam {i}/{n}", flush=True)
+    return {"n_images": n_done, "seconds": time.perf_counter() - t0}
+
+
+def eval_cam(cfg: Config, device=None, sweep: bool = False) -> Dict:
+    """CAM seed quality at ``cam_eval_thres`` (step/eval_cam.py), a host
+    computation (``device`` is accepted for the uniform stage signature and
+    unused). With ``sweep=True`` also the mIoU over a background-threshold
+    grid."""
+    names = voc12.load_img_name_list(cfg.infer_list)
+    thresholds = [cfg.cam_eval_thres]
+    grid = [round(0.05 * k, 2) for k in range(1, 10)] if sweep else []
+    thresholds += [t for t in grid if t not in thresholds]
+    confs = {t: np.zeros((21, 21), np.int64) for t in thresholds}
+    for name in names:
+        d = np.load(os.path.join(cfg.cam_out_dir, name + ".npy"),
+                    allow_pickle=True).item()
+        gt = image_io.imread(os.path.join(cfg.voc12_root, "SegmentationClass",
+                                          name + ".png"))
+        keys = np.asarray(d["keys"])
+        for t in thresholds:
+            pred = stages_eval.decode_cam_to_labels(d["high_res"], keys, t)
+            stages_eval.accumulate_confusion(confs[t], pred, gt)
+
+    scores = stages_eval.scores_from_confusion(confs[cfg.cam_eval_thres])
+    print({"iou": scores["iou"], "miou": scores["miou"]})
+    if sweep:
+        sweep_scores = {
+            t: stages_eval.scores_from_confusion(confs[t])["miou"]
+            for t in grid
+        }
+        best = max(sweep_scores, key=sweep_scores.get)
+        print("threshold sweep:", sweep_scores)
+        print(f"best cam_eval_thres: {best} (miou {sweep_scores[best]:.4f})")
+        scores["sweep"] = sweep_scores
+    return scores
+
+
+def resolve_crf_backend(cfg: Config, device: torch.device) -> str:
+    """'native' (the host lattice) or 'tpu' (the device landmark CRF; the
+    flag keeps the JAX package's name): 'auto' is the device CRF on CUDA
+    and the lattice on the CPU."""
+    if cfg.crf_backend == "auto":
+        return "tpu" if torch.device(device).type == "cuda" else "native"
+    if cfg.crf_backend not in ("native", "tpu"):
+        raise ValueError(f"crf_backend {cfg.crf_backend!r}: auto | native "
+                         "| tpu")
+    return cfg.crf_backend
+
+
+def confident_maps(cams: np.ndarray, fg_thres: float,
+                   bg_thres: float) -> Tuple[np.ndarray, np.ndarray]:
+    """The fg / bg confident label maps of the high-res CAMs [K, H, W]:
+    argmax with a background plane at each threshold
+    (cam_to_ir_label.py:26-34)."""
+    def decode(thres):
+        return np.argmax(np.pad(cams, ((1, 0), (0, 0), (0, 0)),
+                                constant_values=thres), axis=0).astype(np.int32)
+
+    return decode(fg_thres), decode(bg_thres)
+
+
+def combine_conf(fg_conf: np.ndarray, bg_conf: np.ndarray) -> np.ndarray:
+    """255 = ignore where fg is background, 0 = joint background
+    (cam_to_ir_label.py:36-39)."""
+    conf_map = fg_conf.copy()
+    conf_map[fg_conf == 0] = 255
+    conf_map[bg_conf + fg_conf == 0] = 0
+    return conf_map.astype(np.uint8)
+
+
+def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
+    """CAM -> confident inter-pixel relation seeds through a dense CRF
+    (step/cam_to_ir_label.py). ``native``: the host lattice, whose calls
+    release the GIL, over a thread pool (the OpenMP threads of each call
+    split the cores with the pool). ``tpu``: the landmark CRF on
+    ``device``, the pool's threads then overlapping the host's decode,
+    argmax and PNG write with the device. Returns a summary: images written,
+    the loop's seconds, the backend and the device CRF's kernel store."""
+    from irn_tpu_torch.ops import crf
+    from irn_tpu_torch.ops import native as native_mod
+    from irn_tpu_torch.ops.crf_device import LandmarkCRF
+
+    dev = resolve_device(device)
+    _no_tf32()
+    backend = resolve_crf_backend(cfg, dev)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    os.makedirs(cfg.ir_label_out_dir, exist_ok=True)
+    n = len(ds)
+    n_pool = max(1, cfg.num_workers)
+    if backend == "tpu":
+        refine = LandmarkCRF(
+            stride=cfg.crf_landmark_stride, t=cfg.crf_iters,
+            pad_multiple=cfg.pad_multiple,
+            kernel_store=cfg.crf_kernel_store, device=dev,
+        ).pair
+    else:
+        refine = functools.partial(crf.crf_inference_label_pair,
+                                   t=cfg.crf_iters)
+        native_mod.set_num_threads(max(1, (os.cpu_count() or 1) // n_pool))
+
+    def work(i: int) -> int:
+        # the skip comes before the decode: resuming a partial run pays no
+        # JPEG decode per finished image
+        name = ds.img_name_list[i]
+        out_path = os.path.join(cfg.ir_label_out_dir, name + ".png")
+        if not cfg.overwrite and os.path.exists(out_path):
+            return 0
+        img = ds[i]["img"].astype(np.uint8)
+        cam_dict = np.load(os.path.join(cfg.cam_out_dir, name + ".npy"),
+                           allow_pickle=True).item()
+        keys = np.pad(np.asarray(cam_dict["keys"]) + 1, (1, 0),
+                      mode="constant")
+        fg_map, bg_map = confident_maps(cam_dict["high_res"],
+                                        cfg.conf_fg_thres, cfg.conf_bg_thres)
+        fg_pred, bg_pred = refine(img, fg_map, bg_map,
+                                  n_labels=keys.shape[0],
+                                  gt_prob=cfg.crf_gt_prob)
+        image_io.imwrite(out_path, combine_conf(keys[fg_pred], keys[bg_pred]))
+        if i % max(n // 20, 1) == 0:
+            print(f"cam_to_ir_label {i}/{n}", flush=True)
+        return 1
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=n_pool) as pool:
+        done = sum(pool.map(work, range(n)))
+    return {"n_images": done, "seconds": time.perf_counter() - t0,
+            "backend": backend,
+            "kernel_store": cfg.crf_kernel_store if backend == "tpu" else None}

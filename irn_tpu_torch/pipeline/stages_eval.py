@@ -1,7 +1,8 @@
 """eval_sem_seg for the port: the counterpart of
 ``irn_tpu.pipeline.stages_eval.eval_sem_seg`` (confusion-matrix mIoU), with
-its own copies of the two numpy functions of ``irn_tpu.eval.semseg`` that it
-uses (:func:`accumulate_confusion`, :func:`scores_from_confusion`) and label
+its own copies of the three numpy functions of ``irn_tpu.eval.semseg`` that
+the port's eval stages use (:func:`accumulate_confusion`,
+:func:`scores_from_confusion`, :func:`decode_cam_to_labels`) and label
 PNGs read by Pillow (``image_io``), so it runs on hosts without imageio
 (which the JAX stage module imports)."""
 
@@ -44,6 +45,21 @@ def scores_from_confusion(conf: np.ndarray) -> Dict:
         fp = 1.0 - gtj / denom
         fn = 1.0 - resj / denom
     return {"iou": iou, "miou": float(np.nanmean(iou)), "fp": fp, "fn": fn}
+
+
+def decode_cam_to_labels(high_res_cam: np.ndarray, keys: np.ndarray,
+                         bg_thres: float) -> np.ndarray:
+    """Threshold-pad background, then argmax (eval_cam.py:14-18): [K, H, W]
+    normalized maps of the 0-based classes ``keys`` -> [H, W] labels in
+    {0} | keys + 1. An image whose maps are all zero decodes to
+    background wherever bg_thres > 0."""
+    padded = np.concatenate(
+        [np.full((1,) + high_res_cam.shape[1:], bg_thres, high_res_cam.dtype),
+         high_res_cam],
+        axis=0,
+    )
+    keymap = np.pad(np.asarray(keys) + 1, (1, 0), mode="constant")
+    return keymap[np.argmax(padded, axis=0)]
 
 
 def _gt_ids(cfg: Config):

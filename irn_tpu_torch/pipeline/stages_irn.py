@@ -21,15 +21,12 @@ import torch
 
 from irn_tpu_torch.data import image_io
 from irn_tpu_torch.data import voc12
+from irn_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import random_walk as rw_mod
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils.checkpoint import load_checkpoint
 from irn_tpu_torch.utils.weights import irn_from_jax
-
-# ImageNet normalisation of the backbone's input, as irn_tpu.data.transforms
-IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
-IMAGENET_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
 
 
 def resolve_device(device) -> torch.device:
@@ -253,7 +250,7 @@ def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
 
     runner = _load_irn(cfg, dev)
     walker = RandomWalkRunner(cfg, n_seed_rows=20, device=dev)
-    ds = voc12.RawImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
     os.makedirs(cfg.sem_seg_out_dir, exist_ok=True)
     n = len(ds)
     todo = [

@@ -1,7 +1,9 @@
 """Weights between the two frameworks' layouts, in both directions.
 
-:func:`irn_from_jax` maps JAX variable pytrees to torch state dicts: the
-inverse of ``irn_tpu.utils.weights``. :func:`convert_irn_net` is the port's
+:func:`irn_from_jax` and :func:`cam_from_jax` map JAX variable pytrees
+(IRNet, CAMNet) to torch state dicts: the inverse of
+``irn_tpu.utils.weights``; :func:`cam_to_jax` maps a CAMNet state dict
+back. :func:`convert_irn_net` is the port's
 own copy of that module's numpy-only converter (a torch state dict -> the
 JAX variables: OIHW conv kernels become HWIO, BN running statistics the
 ``stats`` collection, affine weight/bias ``scale``/``bias``), which
@@ -173,3 +175,30 @@ def irn_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return convert_irn_net(
         {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     )
+
+
+# -- CAMNet ----------------------------------------------------------------
+
+def cam_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """CAMNet variables ``{'params', 'stats'}`` (a JAX checkpoint of
+    ``irn_tpu.models.cam.CAMNet``) -> the state dict of
+    :class:`irn_tpu_torch.models.cam.CAMNet`."""
+    params, stats = variables["params"], variables["stats"]
+    sd = resnet50_from_jax(params["resnet50"], stats["resnet50"],
+                           prefix="resnet50.")
+    sd["classifier.weight"] = _kernel(params["classifier"]["kernel"])
+    return sd
+
+
+def cam_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's CAMNet state dict -> JAX variables (the inverse of
+    :func:`cam_from_jax`), a checkpoint the JAX package reads."""
+    backbone = convert_resnet50(state_dict, prefix="resnet50.")
+    return {
+        "params": {
+            "resnet50": backbone["params"],
+            "classifier": {
+                "kernel": _conv_kernel(state_dict["classifier.weight"])},
+        },
+        "stats": {"resnet50": backbone["stats"]},
+    }

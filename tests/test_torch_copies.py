@@ -1,10 +1,13 @@
 """The port's own copies of the JAX package's framework-free code, held to
 their originals on the same inputs: ``Config`` and its CLI parser, the path
-set, the weight converter, the semseg scores and the ImageNet constants.
-The port imports none of the originals (tests/test_torch_imports.py); this
-file imports both sides."""
+set, the weight converter, the semseg scores and the CAM decode, the
+ImageNet constants, the PIL rescale and strided sizes, the VOC label
+dictionaries and datasets, and make_cam's bucketing helpers. The port
+imports none of the originals (tests/test_torch_imports.py); this file
+imports both sides. The CRF copies are held in tests/test_torch_crf.py."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -16,10 +19,11 @@ from irn_tpu.ops import paths as jax_paths
 from irn_tpu.pipeline import run as jax_run
 from irn_tpu.pipeline.config import Config as JaxConfig
 from irn_tpu.utils import weights as jax_weights
+from irn_tpu_torch.data import transforms
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import paths
 from irn_tpu_torch.pipeline import run as port_run
-from irn_tpu_torch.pipeline import stages_eval, stages_irn
+from irn_tpu_torch.pipeline import stages_eval
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils import weights
 
@@ -143,6 +147,121 @@ def test_semseg_scores():
 
 
 def test_imagenet_constants():
-    for port, ref in ((stages_irn.IMAGENET_MEAN, jax_transforms.IMAGENET_MEAN),
-                      (stages_irn.IMAGENET_STD, jax_transforms.IMAGENET_STD)):
+    for port, ref in ((transforms.IMAGENET_MEAN, jax_transforms.IMAGENET_MEAN),
+                      (transforms.IMAGENET_STD, jax_transforms.IMAGENET_STD)):
         assert port.dtype == ref.dtype and np.array_equal(port, ref)
+
+
+@pytest.mark.parametrize("scale,order", [(0.5, 3), (1.5, 3), (2.0, 3),
+                                         (1.0, 3), (0.25, 0), (0.7, 0)])
+def test_pil_rescale(scale, order):
+    g = np.random.default_rng(2)
+    img = g.integers(0, 256, (37, 51, 3)).astype(np.uint8)
+    if order == 0:
+        img = img[..., 0]
+    got = transforms.pil_rescale(img, scale, order)
+    want = jax_transforms.pil_rescale(img, scale, order)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ValueError):
+        transforms.pil_resize(img, (10, 10), 1)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (37, 51), (500, 375), (64, 64)])
+@pytest.mark.parametrize("stride", [4, 16])
+def test_strided_sizes(size, stride):
+    assert transforms.get_strided_size(size, stride) == \
+        jax_transforms.get_strided_size(size, stride)
+    assert transforms.get_strided_up_size(size, stride) == \
+        jax_transforms.get_strided_up_size(size, stride)
+
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_decode_cam_to_labels(k):
+    """Random maps, ties with the background plane and an all-zero image
+    (background wherever bg_thres > 0)."""
+    g = np.random.default_rng(k)
+    cams = g.random((k, 9, 11)).astype(np.float32)
+    if k:
+        cams[0, :3] = 0.15
+    keys = np.sort(g.choice(20, size=k, replace=False))
+    for t in (0.0, 0.15, 0.3):
+        got = stages_eval.decode_cam_to_labels(cams, keys, t)
+        want = jax_semseg.decode_cam_to_labels(cams, keys, t)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    zero = np.zeros_like(cams)
+    assert not stages_eval.decode_cam_to_labels(zero, keys, 0.15).any()
+
+
+def test_round_up_and_chunk_sizes():
+    from irn_tpu.pipeline import common as jax_common
+    from irn_tpu.pipeline import stages_cam as jax_cam
+    from irn_tpu_torch.pipeline import stages_cam
+
+    for x in range(0, 70):
+        for m in (1, 16, 64):
+            assert stages_cam.round_up(x, m) == jax_common.round_up(x, m)
+    for m in range(0, 40):
+        for cap in (1, 4, 8, 32):
+            assert stages_cam._chunk_sizes(m, cap) == \
+                jax_cam._chunk_sizes(m, cap)
+
+
+def test_voc12_sources(tmp_path):
+    """load_label_dict (string and reference-style int keys),
+    ImageDataset and ClassificationDataset with img_normal=False, and
+    _label_dict from cls_labels.npy or, without it, from the XML
+    annotations: the same names, arrays and dtypes as irn_tpu's."""
+    from irn_tpu.data import synthetic as jax_synthetic
+    from irn_tpu.data import voc12 as jax_voc12
+    from irn_tpu.pipeline import stages_cam as jax_cam
+    from irn_tpu_torch.data import voc12
+    from irn_tpu_torch.pipeline import stages_cam
+
+    root = str(tmp_path / "voc")
+    train, _ = jax_synthetic.generate(root, n_images=3, size=24,
+                                      max_side_jitter=6, seed=1)
+    labels = np.load(os.path.join(root, "cls_labels.npy"),
+                     allow_pickle=True).item()
+    int_keys = str(tmp_path / "int_keys.npy")
+    np.save(int_keys, {int(k.replace("_", "")): v for k, v in labels.items()})
+    for path in (os.path.join(root, "cls_labels.npy"), int_keys):
+        got, want = voc12.load_label_dict(path), jax_voc12.load_label_dict(path)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert np.array_equal(got[k], want[k])
+    port = voc12.ClassificationDataset(train, root, labels)
+    ref = jax_voc12.ClassificationDataset(train, root, labels,
+                                          img_normal=False)
+    plain = voc12.ImageDataset(train, root)
+    assert len(port) == len(ref) == len(plain)
+    for i in range(len(ref)):
+        a, b, c = port[i], ref[i], plain[i]
+        assert sorted(a) == sorted(b) and sorted(c) == ["img", "name"]
+        assert a["name"] == b["name"] == c["name"]
+        assert a["img"].dtype == b["img"].dtype == np.uint8
+        assert np.array_equal(a["img"], b["img"])
+        assert np.array_equal(c["img"], b["img"])
+        assert np.array_equal(a["label"], b["label"])
+
+    cfg = Config(voc12_root=root, train_list=train, val_list=train,
+                 infer_list=train).resolve()
+    jcfg = JaxConfig(voc12_root=root, train_list=train, val_list=train,
+                     infer_list=train).resolve()
+    for c, jc in ((cfg, jcfg),
+                  (dataclasses.replace(cfg, cls_labels_path="none.npy"),
+                   dataclasses.replace(jcfg, cls_labels_path="none.npy"))):
+        if c.cls_labels_path == "none.npy":
+            ann = os.path.join(root, "Annotations")
+            os.makedirs(ann, exist_ok=True)
+            for i, name in enumerate(voc12.load_img_name_list(train)):
+                objs = "".join(f"<object><name>{voc12.CAT_LIST[j]}</name>"
+                               f"</object>" for j in (i, 2 * i + 3))
+                with open(os.path.join(ann, name + ".xml"), "w") as f:
+                    f.write(f"<annotation>{objs}<object><name>void</name>"
+                            "</object></annotation>")
+        got, want = stages_cam._label_dict(c), jax_cam._label_dict(jc)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]) and got[k].dtype == \
+                want[k].dtype

@@ -21,8 +21,16 @@ bad = sorted(k for k in sys.modules
                                         'irn_tpu'))
 assert not bad, bad
 assert 'triton' not in sys.modules
+# nothing is built at import: the native CRF library loads at first use
+assert not sys.modules['irn_tpu_torch.ops.native']._loaded
+print(' '.join(names))
 print(len(names))
 """
+
+# the modules of the make_cam / cam_to_ir_label slice
+SLICE = ("irn_tpu_torch.data.transforms", "irn_tpu_torch.models.cam",
+         "irn_tpu_torch.ops.crf", "irn_tpu_torch.ops.crf_device",
+         "irn_tpu_torch.ops.native", "irn_tpu_torch.pipeline.stages_cam")
 
 
 def _run_probe(prelude: str = ""):
@@ -37,7 +45,9 @@ def test_port_imports_without_jax_or_imageio():
     """Also: no module whose top-level name is exactly ``irn_tpu``."""
     proc = _run_probe()
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    lines = proc.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 21
+    assert set(SLICE) <= set(lines[-2].split())
 
 
 def test_import_probe_catches_irn_tpu():
