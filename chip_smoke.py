@@ -45,6 +45,19 @@ rate, a per-step breakdown and the CRF products' times beside their bound.
 These stages launch no hand kernel (their heavy work is cuDNN's and
 cuBLAS's).
 
+The phase ``stage: make_ins_seg -> eval_ins_seg -> make_cocoann`` runs the
+instance stages through the CLI on make_sem_seg's tree, GT cams and
+checkpoint: two passes at the defaults (K11 one launch per image; K12a and
+K12b three launches per call, two calls each per image), eval_ins_seg and
+the rle COCO json, then every flow (host clustering, host split, both, a
+cluster cap of 1, a seed cap of 8) on 4 images with the displacement head
+x2, each writing the default run's dicts; the card's dicts of two images
+against the port on the host (same instances and classes, masks >= 99.9%
+equal, scores within 2e-3), a per-step breakdown and the device's busy
+share. The kernels phase holds K11 (300 steps at the 128x128 cap) and K12
+(the basin plane, a 384x512 label map) to their twins exactly and K0 at
+128 seed rows bit-equal.
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -104,6 +117,10 @@ REPLACES = {
     "banded_chain": "irn_tpu/ops/matpow_pallas.py:457",
     "packed_chain_batched": "irn_tpu/ops/matpow_pallas.py:678",
     "conv3x3": "tools/bench_conv_pallas.py:82",
+    # XLA programs of the instance stage, not Pallas kernels
+    "advect": "irn_tpu/ops/centroids.py:140",
+    "ccl_label": "irn_tpu/ops/ccl_tpu.py:55",
+    "ccl_tables": "irn_tpu/ops/ccl_tpu.py:122",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -116,6 +133,9 @@ SOURCES = {
     "banded_chain": "irn_tpu_torch/csrc/banded_chain.cu",
     "packed_chain_batched": "irn_tpu_torch/csrc/packed_chain_batched.cu",
     "conv3x3": "irn_tpu_torch/csrc/conv3x3.cu",
+    "advect": "irn_tpu_torch/csrc/advect.cu",
+    "ccl_label": "irn_tpu_torch/csrc/ccl.cu",
+    "ccl_tables": "irn_tpu_torch/csrc/ccl.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -124,6 +144,8 @@ HOME_RUN = {
     "apply_banded": "e3", "square_dense": "pure",
     "square_fused_first": "pure", "banded_chain": "library bj",
     "packed_chain_batched": "library batch", "conv3x3": "probe conv",
+    "advect": "ins default", "ccl_label": "ins default",
+    "ccl_tables": "ins default",
 }
 
 
@@ -275,22 +297,24 @@ def hgmma_counts(lib_path: str) -> dict:
     """HGMMA (wgmma) instructions in the built library's SASS per kernel
     source. Every kernel sits in its source's anonymous namespace, whose
     mangled name carries the file name (``_10_conv3x3_cu_`` for
-    conv3x3.cu), so each ``Function :`` block is attributed by that."""
-    from irn_tpu_torch.ops import _build
-
+    conv3x3.cu), so each ``Function :`` block is attributed by that; a
+    kernel that shares its source (K12a and K12b in ccl.cu) reports the
+    source's count."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    tags = {k: f"_{len(k) + 3}_{k}_cu_" for k in _build.KERNELS}
-    counts = {k: 0 for k in _build.KERNELS}
+    stems = {os.path.basename(src)[:-3] for src in SOURCES.values()}
+    tags = {k: f"_{len(k) + 3}_{k}_cu_" for k in stems}
+    per_source = {k: 0 for k in stems}
     owner = None
     for line in sass.splitlines():
         s_ = line.strip()
         if s_.startswith("Function :"):
             owner = next((k for k, tag in tags.items() if tag in s_), None)
         elif "HGMMA" in s_ and owner:
-            counts[owner] += 1
-    return counts
+            per_source[owner] += 1
+    return {k: per_source[os.path.basename(src)[:-3]]
+            for k, src in SOURCES.items()}
 
 
 def build_report(here: str) -> dict:
@@ -493,6 +517,7 @@ def check_kernels(dev, card: str) -> dict:
     check_dense_kernels(dev, geom, edge, x, res)
     check_batched_chain(dev, geom, gen, res)
     check_conv(dev, res)
+    check_instance_kernels(dev, geom, edge, gen, res)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -504,6 +529,136 @@ def check_kernels(dev, card: str) -> dict:
               f"library {lib}, bound {r_['bound_ms']:.4f} ms "
               f"({r_['bound_by']}) ({r_['shape']}; {card})", flush=True)
     return res
+
+
+# the instance stage's main-path shapes: a 375x500 VOC image's stride-4
+# extent in the 128x128 grid cap, its walk at the (96, 128) bucket
+INS_CAP = 128
+INS_EXTENT = (94, 125)
+INS_LABELS = (4 * BUCKET[0], 4 * BUCKET[1])
+# f32 operations per pixel and step of K11: per channel two products and
+# two fused multiply-adds (the rows), two products and a sum (the column);
+# four differences, two sums and four clamps of the position
+ADVECT_OPS = 2 * (2 + 2 * 2 + 3) + 4 + 2 + 4
+
+
+def basin_field(gen, cap: int, hw4: tuple) -> torch.Tensor:
+    """dp [2, cap, cap] pulling toward three centres with noise (a trained
+    field's shape: basins that contract the trajectories), zero beyond the
+    extent."""
+    h4, w4 = hw4
+    yy, xx = torch.meshgrid(torch.arange(cap, dtype=torch.float32),
+                            torch.arange(cap, dtype=torch.float32),
+                            indexing="ij")
+    centres = torch.tensor([[0.3, 0.25], [0.35, 0.75], [0.75, 0.5]]) * \
+        torch.tensor([h4, w4])
+    d2 = (yy[None] - centres[:, 0, None, None]) ** 2 + \
+        (xx[None] - centres[:, 1, None, None]) ** 2
+    near = centres[d2.argmin(0)]
+    dp = torch.stack([(near[..., 0] - yy) * 0.3, (near[..., 1] - xx) * 0.3])
+    dp += torch.randn(dp.shape, generator=gen) * 0.1
+    dp[:, h4:] = 0
+    dp[:, :, w4:] = 0
+    return dp
+
+
+def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
+    """K11 and K12 vs their twins at the instance stage's shapes, and K0 at
+    the instance walk's 128 seed rows."""
+    from irn_tpu_torch.ops import ccl
+    from irn_tpu_torch.ops import centroids
+    from irn_tpu_torch.ops import random_walk as rw
+
+    # K0 at C 128 (ins_seed_cap): several waves of clusters, bit-equal
+    w, inv = rw.build_diag_operator(geom, edge)
+    doffs = rw.diag_offsets(geom)
+    x128 = torch.rand((128, geom.n_pad), generator=gen).to(dev)
+    got = rw.apply_diag_chain(x128, w, inv, doffs, 256)
+    check(torch.equal(got, rw.apply_diag_chain_plain(x128, w, inv, doffs,
+                                                     256)),
+          "diag_chain at C 128 not bit-equal to its twin")
+    c128 = cuda_ms(lambda: rw.apply_diag_chain(x128, w, inv, doffs, 256), 3)
+    res["diag_chain"]["c128_ms"] = c128
+    res["diag_chain"]["shape"] += (
+        f"; at C 128 (ins_seed_cap, plan "
+        f"{rw.card_diag_chain_plan(dev, 128, geom.n_pad, tuple(doffs))}): "
+        f"bit-equal, {c128:.4f} ms")
+    del x128, got
+
+    # K11: 300 steps over the 128x128 cap at a VOC image's extent
+    hw4 = INS_EXTENT
+    n = INS_CAP * INS_CAP
+    dp = basin_field(gen, INS_CAP, hw4).to(dev)
+    cent, basin = centroids.advect(dp, *hw4)
+    want_cent, want_basin = centroids.advect_plain(dp, *hw4)
+    check(torch.equal(cent, want_cent) and torch.equal(basin, want_basin),
+          "advect not bit-equal to its twin")
+    rdp = (torch.randn((2, INS_CAP, INS_CAP), generator=gen) * 3).to(dev)
+    check(all(torch.equal(a, b) for a, b in zip(
+        centroids.advect(rdp, *hw4), centroids.advect_plain(rdp, *hw4))),
+        "advect not bit-equal to its twin on a random field")
+    res["advect"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: centroids.advect(dp, *hw4), 20),
+        plain_ms=cuda_ms(lambda: centroids.advect_plain(dp, *hw4), 2),
+        shape=(f"dp [2, {INS_CAP}, {INS_CAP}] f32, extent {hw4}, 300 steps, "
+               f"one launch; end points and basin bit-equal (a basin field "
+               f"and a random one)"),
+        library_ms=None,
+        **bound(300 * n * ADVECT_OPS, 4 * 2 * n + 4 * 2 * n + n, PEAK_F32),
+    )
+
+    # K12a + K12b on the basin plane: the clusters (k_cap 8)
+    lab = ccl.min_label_plane(basin, *hw4)
+    check(torch.equal(lab.cpu(), ccl.min_label_plane(basin.cpu(), *hw4)),
+          "ccl_label (basin) differs from its twin")
+    masks, n_found = ccl.cluster_masks(lab, cent, *hw4, 8)
+    want_masks, want_n = ccl.cluster_masks_plain(lab, cent, *hw4, 8)
+    check(torch.equal(masks, want_masks) and int(n_found) == int(want_n),
+          "cluster_masks differ from their twin")
+    cluster_ms = cuda_ms(lambda: ccl.cluster_masks(lab, cent, *hw4, 8), 20)
+    basin_ms = cuda_ms(lambda: ccl.min_label_plane(basin, *hw4), 20)
+
+    # K12a + K12b on a decoded label map of the (96, 128) bucket
+    hl, wl = INS_LABELS
+    blocks = torch.randint(0, 9, (hl // 64, wl // 64), generator=gen)
+    labels = torch.kron(blocks, torch.ones((64, 64), dtype=torch.int64))
+    labels = labels.to(torch.int32).to(dev)
+    best = torch.rand((hl, wl), generator=gen).to(dev)
+    minidx = ccl.min_label_plane_multi(labels)
+    check(torch.equal(minidx, ccl.min_label_plane_multi_plain(labels)),
+          "ccl_label (label map) differs from its twin")
+    got = ccl.rank_tables(labels, minidx, best, 128)
+    want = ccl.rank_tables_plain(labels, minidx, best, 128)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "component tables differ from their twin")
+    n_comp = int(got[4])
+    nl = hl * wl
+    res["ccl_label"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ccl.min_label_plane_multi(labels), 20),
+        plain_ms=cuda_ms(lambda: ccl.min_label_plane_multi_plain(labels), 3),
+        shape=(f"label map [{hl}, {wl}] int32, {n_comp} components, three "
+               f"launches (init, merge, compress); equal to the twin; the "
+               f"basin plane [{INS_CAP}, {INS_CAP}] at extent {hw4} "
+               f"{basin_ms:.4f} ms, equal"),
+        library_ms=None,
+        **bound(0, 4 * nl + 4 * nl, PEAK_F32),
+    )
+    res["ccl_tables"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ccl.rank_tables(labels, minidx, best, 128), 20),
+        plain_ms=cuda_ms(lambda: ccl.rank_tables_plain(labels, minidx, best,
+                                                       128), 3),
+        shape=(f"component tables of the [{hl}, {wl}] map, comp_cap 128, "
+               f"{n_comp} components, three launches; all five outputs "
+               f"equal to the twin; cluster masks at the basin plane "
+               f"(k_cap 8, {int(n_found)} found) {cluster_ms:.4f} ms, equal"),
+        library_ms=None,
+        # read labels, minidx and best, write the id map and the tables;
+        # ranking compares each candidate key with every other
+        **bound(n_comp * n_comp, 12 * nl + 4 * nl + 12 * 128, PEAK_F32),
+    )
 
 
 def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -1639,6 +1794,304 @@ def cam_layers(dev, cam: dict, card: str) -> None:
           flush=True)
 
 
+N_INS_FLOWS = 4  # images of each flow run of the instance stage
+INS_FLOWS = {
+    "host_cluster": ("--no-ins_device_ccl",),
+    "host_split": ("--ins_comp_cap", "0"),
+    "host": ("--no-ins_device_ccl", "--ins_comp_cap", "0"),
+    "overflow_redo": ("--ins_cluster_cap", "1"),
+    "chunked": ("--ins_seed_cap", "8"),
+}
+
+
+def _read_ins(out: str, names) -> dict:
+    return {n_: np.load(os.path.join(out, n_ + ".npy"),
+                        allow_pickle=True).item() for n_ in names}
+
+
+def _ins_dicts_equal(a: dict, b: dict) -> bool:
+    return (sorted(a) == sorted(b) and a["size"] == b["size"]
+            and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                    for k in ("score", "mask", "class")))
+
+
+def _scaled_head_checkpoint(src: str, dst: str, scale: float) -> str:
+    """``src`` with the displacement head's last conv scaled: the random
+    field then has several basins per image instead of one."""
+    from irn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    variables = load_checkpoint(src)
+    head = variables["params"]["fc_dp7b"]
+    head["kernel"] = np.asarray(head["kernel"]) * np.float32(scale)
+    save_checkpoint(dst, variables)
+    return dst
+
+
+def run_ins_stages(dev, stage: dict, card: str) -> dict:
+    """make_ins_seg, eval_ins_seg and make_cocoann through the port's CLI
+    on the make_sem_seg phase's tree, GT cams and checkpoint: two passes at
+    the defaults (rle COCO: the card host has no cv2), then each flow on
+    the first N_INS_FLOWS images with the displacement head x2 (|dp| about
+    2.5 cells on average: some images hold two basins, where the seeded
+    head alone gives one and a ten-fold head none), every dict equal to
+    that default run's."""
+    from irn_tpu_torch.ops import _build
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    four = os.path.join(root, "ins_four.txt")
+    with open(four, "w") as f:
+        f.write("\n".join(names[:N_INS_FLOWS]) + "\n")
+    weights = stage["cfg"].irn_weights_name
+    weights2 = _scaled_head_checkpoint(
+        weights, os.path.join(work, "irn_x2.ckpt"), 2.0)
+
+    def argv(out, *extra, ids=ids, weights=weights):
+        return ["--voc12_root", root, "--infer_list", ids,
+                "--train_list", ids, "--cam_out_dir",
+                os.path.join(work, "cam"), "--irn_weights_name", weights,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_ins"),
+                "--ins_seg_out_dir", out,
+                "--coco_ann_path", os.path.join(out, "coco.json"),
+                "--coco_seg_format", "rle", "--device", str(dev), *extra]
+
+    launches = stage["launches"]
+    out = os.path.join(work, "ins_default")
+    torch.backends.cudnn.allow_tf32 = True  # the stage must switch it off
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _build.reset_launches()
+    first = cli(argv(out, "--make_ins_seg_pass", "--eval_ins_seg_pass",
+                     "--make_cocoann_pass"))
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "make_ins_seg left TF32 on")
+    # a second pass over the same images (warm caches): a smoke rate
+    again = cli(argv(out, "--make_ins_seg_pass", "--overwrite"))
+    launches["ins default"] = dict(_build.LAUNCHES)
+    n = len(names)
+    summ, summ1 = again["make_ins_seg_labels"], first["make_ins_seg_labels"]
+    ld = launches["ins default"]
+    # per image: one K11; K12a on the basin and on the label map, K12b's
+    # cluster masks and tables, three launches each
+    check(ld["advect"] == 2 * n and ld["ccl_label"] == 2 * 6 * n
+          and ld["ccl_tables"] == 2 * 6 * n and ld["diag_chain"] >= 2 * n,
+          f"ins default launches {ld}")
+    dicts = _read_ins(out, names)
+    for n_ in names:
+        d = dicts[n_]
+        h, w = _image_size(root, n_)
+        k = len(d["score"])
+        check(sorted(d) == ["class", "mask", "score", "size"]
+              and d["size"] == (h, w) and d["mask"].shape == (k, h, w)
+              and d["mask"].dtype == bool and d["score"].dtype == np.float32
+              and d["class"].dtype == np.int32 and d["class"].shape == (k,)
+              and bool(np.isfinite(d["score"]).all())
+              and bool((d["mask"].sum((1, 2)) > 0).all()),
+              f"ins_seg {n_}: {[(key, getattr(v, 'shape', v)) for key, v in d.items()]}")
+    coco = first["make_cocoann"]
+    n_kept = sum(int((d["score"] >= 1e-5).sum()) for d in dicts.values())
+    check(len(coco["images"]) == n and len(coco["annotations"]) == n_kept
+          and os.path.exists(os.path.join(out, "coco.json")),
+          f"coco: {len(coco['images'])} images, {len(coco['annotations'])} "
+          f"annotations, {n_kept} kept instances")
+    ap = first["eval_ins_seg"]
+    print(f"stage make_ins_seg: {n / summ['seconds']:.3f} img/s second pass "
+          f"({n / summ1['seconds']:.3f} img/s first pass; smoke rates over "
+          f"{n} images 360-500 px), walk modes {summ['modes']}, "
+          f"{sum(len(d['score']) for d in dicts.values())} instances, flows "
+          f"{ {k: v for k, v in summ.items() if k not in ('seconds', 'modes')} } "
+          f"({card})", flush=True)
+    print(f"stage eval_ins_seg: mAP {ap['map']:.4f} (random weights); "
+          f"make_cocoann: {len(coco['annotations'])} rle annotations",
+          flush=True)
+
+    # every flow writes the default flow's dicts (head x2: more basins)
+    ref = os.path.join(work, "ins_x2")
+    _build.reset_launches()
+    ref_summ = cli(argv(ref, "--make_ins_seg_pass", ids=four,
+                        weights=weights2))["make_ins_seg_labels"]
+    launches["ins x2"] = dict(_build.LAUNCHES)
+    want = _read_ins(ref, names[:N_INS_FLOWS])
+    flows = {}
+    for tag, extra in INS_FLOWS.items():
+        fout = os.path.join(work, f"ins_{tag}")
+        _build.reset_launches()
+        flows[tag] = cli(argv(fout, "--make_ins_seg_pass", *extra, ids=four,
+                              weights=weights2))["make_ins_seg_labels"]
+        launches[f"ins {tag}"] = dict(_build.LAUNCHES)
+        got = _read_ins(fout, names[:N_INS_FLOWS])
+        for n_ in names[:N_INS_FLOWS]:
+            check(_ins_dicts_equal(got[n_], want[n_]),
+                  f"ins flow {tag}: {n_} differs from the default flow")
+    lh = launches["ins host"]
+    check(lh["advect"] == N_INS_FLOWS and lh["ccl_label"] == 0
+          and lh["ccl_tables"] == 0, f"ins host launches {lh}")
+    check(flows["chunked"]["chunked"] >= 1,
+          f"no chunked walk at --ins_seed_cap 8: {flows['chunked']}")
+    print(f"stage make_ins_seg flows on {N_INS_FLOWS} images, head x2 "
+          f"({sum(len(d['score']) for d in want.values())} instances; default "
+          f"{ {k: v for k, v in ref_summ.items() if k not in ('seconds', 'modes')} }"
+          f"): every flow's dicts equal the default's; "
+          + "; ".join(
+              f"{tag} {N_INS_FLOWS / f_['seconds']:.3f} img/s, redo "
+              f"{f_['redo']}, chunked {f_['chunked']}"
+              for tag, f_ in flows.items()), flush=True)
+    return dict(out=out, root=root, ids=ids, work=work, names=names,
+                weights=weights)
+
+
+def ins_host_check(dev, ins: dict) -> None:
+    """The card's default dicts of two images against the port on the CPU
+    with the same weights: the same instances and classes, masks >= 99.9%
+    equal, scores within 2e-3."""
+    from irn_tpu_torch.pipeline import stages_irn
+    from irn_tpu_torch.pipeline.config import Config
+
+    names = ins["names"][:2]
+    two = os.path.join(ins["root"], "ins_two.txt")
+    with open(two, "w") as f:
+        f.write("\n".join(names) + "\n")
+    host = os.path.join(ins["work"], "ins_host_cpu")
+    cfg = Config(voc12_root=ins["root"], train_list=two, infer_list=two,
+                 cam_out_dir=os.path.join(ins["work"], "cam"),
+                 irn_weights_name=ins["weights"],
+                 ins_seg_out_dir=host).resolve()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stages_irn.make_ins_seg_labels(cfg, "cpu")
+    seconds = time.perf_counter() - t0
+    card_ = _read_ins(ins["out"], names)
+    cpu = _read_ins(host, names)
+    agree = []
+    for n_ in names:
+        a, b = card_[n_], cpu[n_]
+        check(a["mask"].shape == b["mask"].shape
+              and np.array_equal(a["class"], b["class"]),
+              f"{n_}: card {a['mask'].shape} {a['class']} host "
+              f"{b['mask'].shape} {b['class']}")
+        agree += [float(np.mean(x == y)) for x, y in zip(a["mask"], b["mask"])]
+        err = float(np.abs(a["score"] - b["score"]).max(initial=0))
+        check(err <= 2e-3, f"{n_}: scores card vs host {err}")
+    print(f"make_ins_seg of {len(names)} images on the host ({seconds:.2f} s) "
+          f"vs the card: same instances and classes, mask agreement min "
+          f"{min(agree, default=1.0):.6f}", flush=True)
+    check(min(agree, default=1.0) >= 0.999, f"ins masks card vs host {agree}")
+
+
+def ins_layers(dev, ins: dict, card: str) -> None:
+    """Where an image's time goes in make_ins_seg: each step run alone over
+    the tree's images and ended by a synchronize (host clock; the first
+    pass warms up), then one default pass under torch.profiler for the
+    device's busy share."""
+    from collections import defaultdict
+
+    from irn_tpu_torch.data import voc12
+    from irn_tpu_torch.ops import ccl
+    from irn_tpu_torch.ops import centroids
+    from irn_tpu_torch.ops import random_walk as rw
+    from irn_tpu_torch.pipeline import stages_irn
+    from irn_tpu_torch.pipeline.config import Config
+
+    cfg = Config(voc12_root=ins["root"], train_list=ins["ids"],
+                 infer_list=ins["ids"],
+                 cam_out_dir=os.path.join(ins["work"], "cam"),
+                 irn_weights_name=ins["weights"],
+                 ins_seg_out_dir=os.path.join(ins["work"], "ins_prof")
+                 ).resolve()
+    runner = stages_irn._load_irn(cfg, dev)
+    walker = stages_irn.RandomWalkRunner(cfg, cfg.ins_seed_cap, dev)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ms = defaultdict(float)
+    n = len(ds)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    npy = os.path.join(ins["work"], "layer_ins.npy")
+    for rep in range(2):
+        ms.clear()
+        for i in range(n):
+            sample = timed("read image + cams (host)", lambda: ds[i])
+            img = sample["img"]
+            size = img.shape[:2]
+            (edge, dp, (h4, w4)), = timed(
+                "forward", lambda: runner.batch([img], [size]))
+            cams, keys = timed("read image + cams (host)",
+                               lambda: stages_irn._load_ins_cam(
+                                   cfg, sample["name"]))
+            cent, basin = timed("K11 advection + basin",
+                                lambda: centroids.advect(dp, h4, w4))
+            masks, n_found = timed(
+                "K12 clusters (K12a basin labels, K12b masks)",
+                lambda: ccl.cluster_from_basin(basin, cent, h4, w4,
+                                               cfg.ins_cluster_cap))
+            ch, cw = walker._bucket(h4), walker._bucket(w4)
+            c_pad = stages_irn.pow2_ge(len(cams))
+
+            def seeds_():
+                camp = np.zeros((c_pad, ch, cw), np.float32)
+                camp[: len(cams), :h4, :w4] = cams
+                return stages_irn.seed_build(torch.from_numpy(camp).to(dev),
+                                             masks)
+
+            seeds = timed("seed upload + build", seeds_)
+            pad = walker._row_bucket(len(seeds)) - len(seeds)
+            cam_t = torch.nn.functional.pad(seeds, (0, 0, 0, 0, 0, pad))
+            out = timed("walk (operator build + K0 chain)",
+                        lambda: walker._propagate(cam_t, edge, ch, cw))
+            labels, rw_up, _ = timed(
+                "decode (x4 upsample, argmax)",
+                lambda: rw.upsample_and_decode(out, h4, w4, size[0], size[1],
+                                               cfg.ins_seg_bg_thres))
+            best = rw_up.amax(0)
+            tables = timed("K12 component split (K12a, K12b tables)",
+                           lambda: ccl.component_tables(
+                               labels.to(torch.int32), best,
+                               cfg.ins_comp_cap))
+
+            def save():
+                cmap, rows, sizes, scores, n_comp = (
+                    t.cpu().numpy() for t in tables)
+                n_comp = int(n_comp)
+                keys_pad = np.zeros(c_pad, keys.dtype)
+                keys_pad[: len(keys)] = keys
+                stages_irn.save_detected(
+                    npy, size, cmap, rows[:n_comp], sizes[:n_comp],
+                    np.concatenate([np.zeros(1, np.float32),
+                                    scores[:n_comp]]),
+                    np.repeat(keys_pad, cfg.ins_cluster_cap))
+
+            timed("fetch + npy write (host)", save)
+    for name, v in ms.items():
+        print(f"layer ins {name}: {v:.3f} ms/img ({card})", flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with contextlib.redirect_stdout(io.StringIO()):
+            summ = stages_irn.make_ins_seg_labels(cfg, dev)
+    device_us = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    wall_ms = summ["seconds"] * 1e3
+    if device_us > 0:
+        print(f"profiled make_ins_seg pass: {summ['n_images']} images in "
+              f"{wall_ms:.1f} ms, device busy {device_us / 1e3:.1f} ms "
+              f"({100 * device_us / 1e3 / wall_ms:.1f}% of the loop; "
+              f"profiler on) ({card})", flush=True)
+    else:
+        print("profiled make_ins_seg pass: the profiler saw no device time; "
+              "device busy share not measured", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -1700,6 +2153,10 @@ def main() -> int:
         cam = run_cam_stages(dev, stage, card)
         cam_host_checks(dev, cam)
         cam_layers(dev, cam, card)
+        phase("stage: make_ins_seg -> eval_ins_seg -> make_cocoann")
+        ins = run_ins_stages(dev, stage, card)
+        ins_host_check(dev, ins)
+        ins_layers(dev, ins, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1724,7 +2181,7 @@ def main() -> int:
              library_ms=kernels[k]["library_ms"], hgmma=hgmma[k],
              **{key: kernels[k][key]
                 for key in ("bound_f32_ms", "bound_dense_ms",
-                            "ms_per_application", "occupied_share",
+                            "ms_per_application", "c128_ms", "occupied_share",
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
                             "k13_ms")

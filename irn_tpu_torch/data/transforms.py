@@ -2,8 +2,8 @@
 ``irn_tpu.data.transforms`` that make_cam needs (numpy and PIL only): the
 ImageNet normalisation constants, the PIL rescale (bicubic for images,
 nearest for label maps, as misc/imutils.py of the reference) and the
-strided-size arithmetic. The training augmentations wait for train_cam and
-train_irn."""
+strided-size arithmetic, and make_ins_seg's ``compress_range``. The
+training augmentations wait for train_cam and train_irn."""
 
 from __future__ import annotations
 
@@ -45,3 +45,12 @@ def get_strided_size(size: Tuple[int, int], stride: int) -> Tuple[int, int]:
 def get_strided_up_size(size: Tuple[int, int], stride: int) -> Tuple[int, int]:
     s = get_strided_size(size, stride)
     return s[0] * stride, s[1] * stride
+
+
+def compress_range(arr: np.ndarray) -> np.ndarray:
+    """Renumber labels to a dense 0..K range (imutils.py:182-190)."""
+    uniques = np.unique(arr)
+    remap = np.zeros(int(uniques.max()) + 1, np.int32)
+    remap[uniques] = np.arange(uniques.shape[0])
+    out = remap[arr]
+    return out - out.min()

@@ -11,7 +11,8 @@ Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a chain through K0, K3
 or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
-call is its split pass and its product, 2),
+call is its split pass and its product, 2; one K11 advection 1; one K12a
+labeling or K12b table call 3),
 and :func:`launch` adds that number, so a run can show that its main path
 really went through the kernels.
 """
@@ -43,7 +44,8 @@ NVCC_FLAGS = (
 
 KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
-           "banded_chain", "packed_chain_batched", "conv3x3")
+           "banded_chain", "packed_chain_batched", "conv3x3", "advect",
+           "ccl_label", "ccl_tables")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -166,9 +168,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         n,
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
-    for k in (*KERNELS, "diag_chain_clusters", "square_dense_split",
+    lib.irn_advect.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p, n]
+    lib.irn_ccl_label.argtypes = [p, i, p, i, i, i, i, p, n]
+    lib.irn_cluster_masks.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
+    lib.irn_component_tables.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, p, n,
+    ]
+    for k in (*(k for k in KERNELS if k != "ccl_tables"),
+              "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
-              "packed_chain_occupancy"):
+              "packed_chain_occupancy", "cluster_masks", "component_tables"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

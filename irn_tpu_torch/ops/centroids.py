@@ -1,0 +1,218 @@
+"""Displacement-field instance grouping — the counterpart of
+:mod:`irn_tpu.ops.centroids` (step/make_ins_seg_labels.py:18-105 of the
+reference).
+
+- K11 (:func:`advect`, ``csrc/advect.cu``): every pixel advects a particle
+  through the displacement field for 300 steps with bilinear sampling,
+  clipped to the true extent, and rounds the end point; the same kernel
+  evaluates the ``|dp| < thres`` basin predicate. The JAX package runs the
+  steps as one XLA loop; eager PyTorch would launch ~15 ops per step.
+- The host side (numpy, copied from the JAX module): the union-find
+  clustering of the centroids by basin, the (instance x class) seed rows,
+  the component split of a decoded label map and ``detect_instance``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from irn_tpu_torch.data.transforms import compress_range
+from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops import cc
+
+ITERATIONS = 300
+BASIN_THRES = 2.5
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors with one rounding, as a fused
+    multiply-add (``__fmaf_rn``). The product is exact in f64; the sum is
+    rounded to odd in f64 (``TwoSum`` gives its exact error, and an inexact
+    sum with an even last bit steps one ulp toward the exact value), and
+    the cast to f32 then rounds the exact value correctly (53 >= 24 + 2
+    bits: Boldo and Melquiond's round-to-odd)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.tensor(float("inf"), dtype=s.dtype,
+                                             device=s.device),
+                       torch.tensor(float("-inf"), dtype=s.dtype,
+                                    device=s.device))
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.float()
+
+
+def advect_plain(dp: torch.Tensor, h4: int, w4: int,
+                 iterations: int = ITERATIONS,
+                 thres: float = BASIN_THRES
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11's plain twin: the JAX package's default
+    ``_find_centroids_matmul`` (centroids.py:140-168), step for step in the
+    rounding its CPU build performs. Per step, with ly = floor(y),
+    fy = y - ly (likewise for x): the row interpolation is the two-tap
+    matmul, which XLA's CPU dot accumulates by fused multiply-adds,
+    r(c) = fma(fy, f[ly + 1, c], (1 - fy) * f[ly, c]) at c = lx, lx + 1;
+    the column step is a product and a sum, s = (1 - fx) r(lx) +
+    fx r(lx + 1). Both channels are sampled at the old (y, x) before
+    either moves. A tap past the grid carries weight exactly 0 (an integer
+    position), so its index is clamped and its product is 0, as the
+    matmul form drops it."""
+    _, h, w = dp.shape
+    dev = dp.device
+    ymax = torch.tensor(float(h4 - 1), device=dev)
+    xmax = torch.tensor(float(w4 - 1), device=dev)
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    y = torch.minimum(rows, ymax).expand(h, w).contiguous()
+    x = torch.minimum(cols, xmax).expand(h, w).contiguous()
+    fdy = dp[0].reshape(-1)
+    fdx = dp[1].reshape(-1)
+    zero = torch.zeros((), device=dev)
+    for _ in range(iterations):
+        ly, lx = torch.floor(y), torch.floor(x)
+        fy, fx = y - ly, x - lx
+        gy, gx = 1.0 - fy, 1.0 - fx
+        iy, ix = ly.long(), lx.long()
+        i00 = iy * w + ix
+        i10 = torch.clamp(iy + 1, max=h - 1) * w + ix
+        dx1 = (torch.clamp(ix + 1, max=w - 1) - ix)
+        samples = []
+        for f in (fdy, fdx):
+            r0 = fma_f32(fy, f[i10], gy * f[i00])
+            r1 = fma_f32(fy, f[i10 + dx1], gy * f[i00 + dx1])
+            samples.append(gx * r0 + fx * r1)
+        y = torch.minimum(torch.maximum(y + samples[0], zero), ymax)
+        x = torch.minimum(torch.maximum(x + samples[1], zero), xmax)
+    cent = torch.stack([torch.round(y), torch.round(x)]).to(torch.int32)
+    basin = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1]) < thres
+    return cent, basin
+
+
+def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
+           thres: float = BASIN_THRES) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11: (cent [2, H, W] int32, basin [H, W] bool) from dp [2, H, W]
+    f32 (zero beyond the (h4, w4) extent). Particles start at
+    (min(row, h4 - 1), min(col, w4 - 1)) and stay in [0, h4 - 1] x
+    [0, w4 - 1]; the end points round half to even. basin is
+    ``sqrt(dy^2 + dx^2) < thres`` over the whole grid. One launch on the
+    card, bit-equal to :func:`advect_plain`."""
+    if dp.dim() != 3 or dp.shape[0] != 2:
+        raise ValueError(f"advect: dp must be [2, H, W], got {tuple(dp.shape)}")
+    _, h, w = dp.shape
+    if not (1 <= h4 <= h and 1 <= w4 <= w) or iterations < 0:
+        raise ValueError(f"advect: extent {(h4, w4)} of grid {(h, w)}, "
+                         f"iterations {iterations}")
+    if _build.is_plain(dp):
+        return advect_plain(dp, h4, w4, iterations, thres)
+    _build.check_cuda("advect", dp)
+    cent = torch.empty((2, h, w), dtype=torch.int32, device=dp.device)
+    basin = torch.empty((h, w), dtype=torch.bool, device=dp.device)
+    _build.launch("advect", dp.device, dp.data_ptr(), cent.data_ptr(),
+                  basin.data_ptr(), h, w, h4, w4, iterations, float(thres))
+    return cent, basin
+
+
+def cluster_centroids(centroids: np.ndarray, dp: np.ndarray,
+                      thres: float = BASIN_THRES) -> np.ndarray:
+    """[K, H, W] boolean one-hot instance masks (K includes the 0 bucket of
+    pixels whose centroid escaped every basin)."""
+    strength = np.sqrt(dp[0] ** 2 + dp[1] ** 2)
+    return cluster_centroids_from_basin(
+        centroids, (strength < thres).astype(np.uint8)
+    )
+
+
+def cluster_centroids_from_basin(centroids: np.ndarray,
+                                 basin: np.ndarray) -> np.ndarray:
+    """:func:`cluster_centroids` from a precomputed basin mask: the basin's
+    components (union-find), each pixel labelled by the component its
+    centroid lands on, renumbered densely with the escape bucket first."""
+    h, w = basin.shape
+    basin_labels, _ = cc.label_components(basin.astype(np.uint8))
+    flat = basin_labels.reshape(-1)
+    centroid_flat = (
+        centroids[0].astype(np.int64).reshape(-1) * w
+        + centroids[1].astype(np.int64).reshape(-1)
+    )
+    clusters = flat[centroid_flat].reshape(h, w)
+    cluster_map = compress_range(clusters + 1)
+    return cc.to_one_hot(cluster_map)
+
+
+def mask_scores_by_instance(scores: np.ndarray,
+                            instance_masks: np.ndarray) -> np.ndarray:
+    """[C*K, H, W] per-(instance, class) masked score maps, class-major:
+    [C, 1, H, W] * [1, K, H, W] flattened (make_ins_seg_labels.py:135)."""
+    c = scores.shape[0]
+    k = instance_masks.shape[0]
+    out = scores[:, None] * instance_masks[None].astype(scores.dtype)
+    return out.reshape(c * k, *scores.shape[1:])
+
+
+def split_components(labels_np: np.ndarray, n_rows: int):
+    """Global component map over the per-row masks of a decoded label map.
+
+    Components never cross rows (labels are an argmax), so per-row CC
+    results concatenate into one map. Returns (comp_map [H, W] int32 with
+    ids 1..K, comp_rows [K] the seed row of each component, comp_sizes [K]).
+    """
+    comp_map = np.zeros(labels_np.shape, np.int32)
+    comp_rows = []
+    comp_sizes = []
+    present = np.unique(labels_np)
+    # labels name seed rows 1..n_rows (0 = background)
+    assert present.max(initial=0) <= n_rows, (present.max(), n_rows)
+    offset = 0
+    for row in present:
+        if row == 0:
+            continue
+        mask = labels_np == row
+        lab, k = cc.label_components(mask.astype(np.uint8))
+        comp_map[mask] = lab[mask] + offset
+        sizes = np.bincount(lab.reshape(-1), minlength=k + 1)[1 : k + 1]
+        comp_rows.extend([int(row) - 1] * k)
+        comp_sizes.extend(sizes.tolist())
+        offset += k
+    return comp_map, np.asarray(comp_rows, np.int32), np.asarray(
+        comp_sizes, np.int64
+    )
+
+
+def detect_instance(score_map: np.ndarray, masks: np.ndarray,
+                    class_ids: np.ndarray,
+                    max_fragment_size: float = 0) -> Dict[str, np.ndarray]:
+    """Split winning masks into components, zero-score small fragments
+    (make_ins_seg_labels.py:82-105): score_map [N, H, W], masks [N, H, W]
+    bool, class_ids [N]."""
+    pred_score, pred_label, pred_mask = [], [], []
+    for score, mask, cls in zip(score_map, masks, class_ids):
+        if mask.sum() < 1:
+            continue
+        labels, k = cc.label_components(mask.astype(np.uint8))
+        for comp in range(1, k + 1):
+            seg = labels == comp
+            if seg.sum() < max_fragment_size:
+                pred_score.append(0.0)
+            else:
+                pred_score.append(float(np.max(score * seg)))
+            pred_label.append(int(cls))
+            pred_mask.append(seg)
+    if not pred_mask:
+        h, w = masks.shape[1:]
+        return {
+            "score": np.zeros((0,), np.float32),
+            "mask": np.zeros((0, h, w), bool),
+            "class": np.zeros((0,), np.int32),
+        }
+    return {
+        "score": np.asarray(pred_score, np.float32),
+        "mask": np.stack(pred_mask, 0),
+        "class": np.asarray(pred_label, np.int32),
+    }

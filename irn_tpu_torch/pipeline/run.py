@@ -6,6 +6,7 @@ Usage:
     python -m irn_tpu_torch.pipeline.run --voc12_root <VOC2012> \
         --infer_list <ids.txt> --make_cam_pass --eval_cam_pass \
         --cam_to_ir_label_pass --make_sem_seg_pass --eval_sem_seg_pass \
+        --make_ins_seg_pass --eval_ins_seg_pass --make_cocoann_pass \
         [--device cuda|cpu]
 
 Stages not ported yet raise ``NotImplementedError`` naming the ROADMAP
@@ -31,13 +32,16 @@ STAGES = [
     ("cam_to_ir_label_pass",
      ("irn_tpu_torch.pipeline.stages_cam", "cam_to_ir_label")),
     ("train_irn_pass", "ROADMAP queue 1 item 7 (train_irn)"),
-    ("make_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
-    ("eval_ins_seg_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
+    ("make_ins_seg_pass",
+     ("irn_tpu_torch.pipeline.stages_irn", "make_ins_seg_labels")),
+    ("eval_ins_seg_pass",
+     ("irn_tpu_torch.pipeline.stages_eval", "eval_ins_seg")),
     ("make_sem_seg_pass",
      ("irn_tpu_torch.pipeline.stages_irn", "make_sem_seg_labels")),
     ("eval_sem_seg_pass",
      ("irn_tpu_torch.pipeline.stages_eval", "eval_sem_seg")),
-    ("make_cocoann_pass", "ROADMAP queue 1 item 9 (make_ins_seg)"),
+    ("make_cocoann_pass",
+     ("irn_tpu_torch.pipeline.stages_eval", "make_cocoann")),
 ]
 
 

@@ -1,13 +1,16 @@
-"""eval_sem_seg for the port: the counterpart of
-``irn_tpu.pipeline.stages_eval.eval_sem_seg`` (confusion-matrix mIoU), with
+"""eval_sem_seg, eval_ins_seg and make_cocoann for the port: the
+counterparts of ``irn_tpu.pipeline.stages_eval`` (confusion-matrix mIoU,
+VOC instance AP50, the COCO json), with
 its own copies of the three numpy functions of ``irn_tpu.eval.semseg`` that
 the port's eval stages use (:func:`accumulate_confusion`,
 :func:`scores_from_confusion`, :func:`decode_cam_to_labels`) and label
-PNGs read by Pillow (``image_io``), so it runs on hosts without imageio
-(which the JAX stage module imports)."""
+PNGs read by Pillow (``image_io``), so they run on hosts without imageio
+(which the JAX stage module imports). The AP and the COCO export are the
+port's copies in :mod:`irn_tpu_torch.eval`."""
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict
 
@@ -15,6 +18,7 @@ import numpy as np
 
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.data.image_io import imread
+from irn_tpu_torch.eval import coco, insseg
 from irn_tpu_torch.pipeline.config import Config
 
 
@@ -91,3 +95,55 @@ def eval_sem_seg(cfg: Config, device=None):
     print(np.nanmean(scores["fp"][1:]), np.nanmean(scores["fn"][1:]))
     print({"iou": scores["iou"], "miou": scores["miou"]})
     return scores
+
+
+def eval_ins_seg(cfg: Config, device=None):
+    """VOC instance AP at IoU 0.5 of ``ins_seg_out_dir`` against the
+    SegmentationObject / SegmentationClass ground truth (a host
+    computation, streamed one image at a time; ``device`` is unused)."""
+    names = _gt_ids(cfg)
+
+    def records():
+        for name in names:
+            ins = np.load(os.path.join(cfg.ins_seg_out_dir, name + ".npy"),
+                          allow_pickle=True).item()
+            obj = imread(os.path.join(cfg.voc12_root, "SegmentationObject",
+                                      name + ".png"))
+            cls = imread(os.path.join(cfg.voc12_root, "SegmentationClass",
+                                      name + ".png"))
+            masks, labels = insseg.load_voc_instance_gt(obj, cls)
+            yield (np.asarray(ins["mask"], bool), np.asarray(ins["class"]),
+                   np.asarray(ins["score"]), masks, labels)
+
+    def field(f, k):
+        return (r[k] for r in f)
+
+    # tee'd views over one record generator, zipped in lockstep by the
+    # evaluator, keep one image's masks resident
+    fields = itertools.tee(records(), 5)
+    result = insseg.eval_instance_segmentation_voc(
+        *(field(f, k) for k, f in enumerate(fields)), iou_thresh=0.5
+    )
+    print("0.5iou:", result)
+    return result
+
+
+def make_cocoann(cfg: Config, device=None):
+    """The COCO json of ``ins_seg_out_dir`` at ``coco_ann_path``
+    (``coco_seg_format`` polygon needs OpenCV; rle does not). ``device``
+    is unused."""
+    records = []
+    for name in _gt_ids(cfg):
+        ins = np.load(os.path.join(cfg.ins_seg_out_dir, name + ".npy"),
+                      allow_pickle=True).item()
+        if "size" not in ins:
+            ins["size"] = ins["mask"].shape[1:] if len(ins["mask"]) else (0, 0)
+        ins["name"] = name
+        records.append(ins)
+    os.makedirs(os.path.dirname(cfg.coco_ann_path) or ".", exist_ok=True)
+    out = coco.export_instances(
+        records, cfg.coco_ann_path, segmentation_format=cfg.coco_seg_format
+    )
+    print(f"wrote {cfg.coco_ann_path}: {len(out['images'])} images, "
+          f"{len(out['annotations'])} annotations")
+    return out

@@ -1,10 +1,20 @@
-"""make_sem_seg on PyTorch — the counterpart of the make_sem_seg part of
-:mod:`irn_tpu.pipeline.stages_irn` (split flow).
+"""make_sem_seg and make_ins_seg on PyTorch — the counterparts of those
+parts of :mod:`irn_tpu.pipeline.stages_irn` (split flow).
 
-Per image: the EdgeDisplacement forward over the padded (image, flip) pair,
-the random walk at the image's grid bucket through the hand kernels
-(:mod:`irn_tpu_torch.ops.random_walk`), the x4 decode, and a uint8 PNG in
-``sem_seg_out_dir`` — the artifact layout of step/make_sem_seg_labels.py.
+make_sem_seg, per image: the EdgeDisplacement forward over the padded
+(image, flip) pair, the random walk at the image's grid bucket through the
+hand kernels (:mod:`irn_tpu_torch.ops.random_walk`), the x4 decode, and a
+uint8 PNG in ``sem_seg_out_dir`` — the artifact layout of
+step/make_sem_seg_labels.py.
+
+make_ins_seg, per image: the same forward, then the advection (K11,
+:mod:`irn_tpu_torch.ops.centroids`), the basin clustering (K12,
+:mod:`irn_tpu_torch.ops.ccl`, or the host union-find), the (instance x
+class) walk, the component split and the npy dict of
+step/make_ins_seg_labels.py in ``ins_seg_out_dir``. The JAX stage's
+monolith programs and packed fetches exist for its TPU transport and are
+not ported: the port passes tensors between the steps.
+
 The device is explicit: nothing moves to the CPU because no card was
 found.
 """
@@ -18,11 +28,14 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from irn_tpu_torch.data import image_io
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from irn_tpu_torch.models.irn import IRNet
+from irn_tpu_torch.ops import ccl
+from irn_tpu_torch.ops import centroids
 from irn_tpu_torch.ops import random_walk as rw_mod
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils.checkpoint import load_checkpoint
@@ -193,6 +206,20 @@ class RandomWalkRunner:
             b *= 2
         return min(b, self.n_rows)
 
+    def _propagate(self, cam_t: torch.Tensor, edge: torch.Tensor, ch: int,
+                   cw: int) -> torch.Tensor:
+        """The walk of seed rows ``cam_t`` [R, ch, cw] on the image's edge
+        map at the (ch, cw) bucket, by the resolved route."""
+        edge_b = edge[:ch, :cw]
+        geom = rw_mod.build_geometry(ch, cw, radius=self.radius)
+        sq, banded = self._resolve(geom)
+        self.modes[(ch, cw)] = _mode(sq, banded)
+        if banded:
+            return rw_mod.propagate_banded(geom, cam_t, edge_b, self.beta,
+                                           self.exp_times, square_times=sq)
+        return rw_mod.propagate(geom, cam_t, edge_b, self.beta,
+                                self.exp_times, square_times=sq)
+
     def __call__(self, cam_rows: np.ndarray, edge: torch.Tensor, h4: int,
                  w4: int, size: Tuple[int, int], bg_thres: float):
         """cam_rows [K, h4, w4] seeds (K <= n_seed_rows); edge [cap, cap].
@@ -205,20 +232,96 @@ class RandomWalkRunner:
         cam = np.zeros((self._row_bucket(k), ch, cw), np.float32)
         cam[:k, :h4, :w4] = cam_rows
         cam_t = torch.from_numpy(cam).to(self.device)
-        edge_b = edge[:ch, :cw]
-        geom = rw_mod.build_geometry(ch, cw, radius=self.radius)
-        sq, banded = self._resolve(geom)
-        self.modes[(ch, cw)] = _mode(sq, banded)
-        if banded:
-            rw = rw_mod.propagate_banded(geom, cam_t, edge_b, self.beta,
-                                         self.exp_times, square_times=sq)
-        else:
-            rw = rw_mod.propagate(geom, cam_t, edge_b, self.beta,
-                                  self.exp_times, square_times=sq)
+        rw = self._propagate(cam_t, edge, ch, cw)
         labels, _, _ = rw_mod.upsample_and_decode(
             rw, h4, w4, size[0], size[1], bg_thres
         )
         return labels
+
+    def walk(self, seeds: torch.Tensor, edge: torch.Tensor, h4: int,
+             w4: int, size: Tuple[int, int], bg_thres: float):
+        """One walk of device seed rows ``seeds`` [K, ch, cw] at the image's
+        bucket (K <= n_seed_rows; zero rows pad K to its row bucket).
+        Returns (labels [4ch, 4cw] int32, best [4ch, 4cw] f32): best is
+        the max over rows of the max-normalized upsampled scores, the
+        winning row's score wherever a row wins (JAX stages_irn.py:
+        558-564)."""
+        ch, cw = self._bucket(h4), self._bucket(w4)
+        k = seeds.shape[0]
+        if k > self.n_rows or tuple(seeds.shape[1:]) != (ch, cw):
+            raise ValueError(f"seeds {tuple(seeds.shape)} vs bucket "
+                             f"{(ch, cw)} and {self.n_rows} rows")
+        pad = self._row_bucket(k) - k
+        cam_t = F.pad(seeds, (0, 0, 0, 0, 0, pad)) if pad else seeds
+        rw = self._propagate(cam_t, edge, ch, cw)
+        labels, rw_up, _ = rw_mod.upsample_and_decode(
+            rw, h4, w4, size[0], size[1], bg_thres
+        )
+        return labels.to(torch.int32), rw_up.amax(0)
+
+    def propagate_all(self, seeds: torch.Tensor, edge: torch.Tensor,
+                      h4: int, w4: int, size: Tuple[int, int],
+                      bg_thres: float):
+        """:meth:`walk` for any number of seed rows (JAX stages_irn.py:
+        633-818). Up to ``n_seed_rows`` rows it is :meth:`walk`; past it
+        the operator is built once from the edge map, fixed chunks of
+        ``n_seed_rows`` rows each run the chain and the x4 upsample, and
+        the chunks combine into a running (max value, argmax row) with a
+        strict ``>`` (lower rows win ties). The decode divides by the
+        global max: ``norm = best_val / max(gmax, 1e-12)``, labels
+        ``best_row + 1`` where ``norm > bg_thres``. Returns (labels int32,
+        norm) as :meth:`walk`."""
+        k = seeds.shape[0]
+        if k <= self.n_rows:
+            return self.walk(seeds, edge, h4, w4, size, bg_thres)
+        ch, cw = self._bucket(h4), self._bucket(w4)
+        if tuple(seeds.shape[1:]) != (ch, cw):
+            raise ValueError(f"seeds {tuple(seeds.shape)} vs bucket {(ch, cw)}")
+        edge_b = edge[:ch, :cw]
+        geom = rw_mod.build_geometry(ch, cw, radius=self.radius)
+        sq, banded = self._resolve(geom)
+        self.modes[(ch, cw)] = _mode(sq, banded)
+        n_apply = 1 << (self.exp_times - sq)
+        if banded and sq == 0:
+            w, inv = rw_mod.build_diag_operator(geom, edge_b, self.beta)
+            doffs = rw_mod.diag_offsets(geom)
+
+            def apply(cam):
+                x = rw_mod._flat_seeds(geom, cam, edge_b)
+                return rw_mod._unflatten_rw(geom, rw_mod.apply_diag_chain(
+                    x, w, inv, doffs, n_apply))
+        elif banded:
+            t, band = rw_mod.build_transition_banded(geom, edge_b,
+                                                     self.beta, sq)
+
+            def apply(cam):
+                return rw_mod.apply_transition_banded(geom, cam, edge_b, t,
+                                                      band, n_apply)
+        else:
+            t = rw_mod.build_transition(geom, edge_b, self.beta, sq)
+
+            def apply(cam):
+                return rw_mod.propagate_with_transition(geom, cam, edge_b,
+                                                        t, n_apply)
+
+        best_val = torch.zeros((4 * ch, 4 * cw), device=self.device)
+        best_row = torch.zeros((4 * ch, 4 * cw), dtype=torch.int64,
+                               device=self.device)
+        gmax = torch.zeros((), device=self.device)
+        for row0 in range(0, k, self.n_rows):
+            cam = seeds[row0 : row0 + self.n_rows]
+            cam = F.pad(cam, (0, 0, 0, 0, 0, self.n_rows - cam.shape[0]))
+            rw_up = rw_mod.upsample_scores(apply(cam), h4, w4, size[0],
+                                           size[1])
+            v = rw_up.amax(0)
+            take = v > best_val
+            best_val = torch.where(take, v, best_val)
+            best_row = torch.where(take, torch.argmax(rw_up, 0) + row0,
+                                   best_row)
+            gmax = torch.maximum(gmax, rw_up.max())
+        norm = best_val / torch.clamp(gmax, min=1e-12)
+        labels = torch.where(norm > bg_thres, best_row + 1, 0)
+        return labels.to(torch.int32), norm
 
 
 def _load_irn(cfg: Config, device: torch.device) -> EdgeDisplacementRunner:
@@ -302,4 +405,227 @@ def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
         "modes": {f"{h}x{w}": m for (h, w), m in sorted(walker.modes.items())},
         "edge_mean": float(edge_sum.item()) / cells,
         "edge_saturated": float(edge_sat.item()) / cells,
+    }
+
+
+def pow2_ge(x: int) -> int:
+    """Smallest power of two >= max(x, 1): the seed-row shape bucket of the
+    class and instance counts (JAX stages_irn.py:1451)."""
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def seed_build(cams: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """(instance x class) seed rows, class-major: cams [C, ch, cw] f32 times
+    masks [K, >= ch, >= cw] uint8 (cropped to the bucket) -> [C*K, ch, cw],
+    row c * K + k (JAX ``_seed_build`` / ``_seed_build_cropped``,
+    stages_irn.py:1471-1491)."""
+    ch, cw = cams.shape[1], cams.shape[2]
+    seeds = cams[:, None] * masks[None, :, :ch, :cw].to(cams.dtype)
+    return seeds.reshape(-1, ch, cw)
+
+
+def _load_ins_cam(cfg: Config, name: str):
+    """(cams [C, h4, w4] f32, keys [C] 0-based classes) of one image."""
+    cam_dict = np.load(os.path.join(cfg.cam_out_dir, name + ".npy"),
+                       allow_pickle=True).item()
+    return (np.asarray(cam_dict["cam"], np.float32),
+            np.asarray(cam_dict["keys"]))
+
+
+def save_detected(out_path: str, size: Tuple[int, int], comp_map: np.ndarray,
+                  comp_rows: np.ndarray, comp_sizes: np.ndarray,
+                  scores_all: np.ndarray, instance_class_id: np.ndarray
+                  ) -> Dict:
+    """The ins_seg npy dict (JAX ``_save_detected``, stages_irn.py:
+    1552-1586): one mask per component of ``comp_map`` [>= h, >= w] (ids
+    1..K), scored by ``scores_all[k]``, or 0 for a fragment under 1% of
+    the image; class ``instance_class_id[row]``."""
+    k_comps = comp_rows.shape[0]
+    max_fragment = size[0] * size[1] * 0.01
+    crop = comp_map[: size[0], : size[1]]
+    pred_score, pred_mask, pred_class = [], [], []
+    for k in range(1, k_comps + 1):
+        pred_score.append(0.0 if comp_sizes[k - 1] < max_fragment
+                          else float(scores_all[k]))
+        pred_mask.append(crop == k)
+        pred_class.append(int(instance_class_id[comp_rows[k - 1]]))
+    if pred_mask:
+        detected = {
+            "score": np.asarray(pred_score, np.float32),
+            "mask": np.stack(pred_mask, 0),
+            "class": np.asarray(pred_class, np.int32),
+        }
+    else:
+        detected = {
+            "score": np.zeros((0,), np.float32),
+            "mask": np.zeros((0, int(size[0]), int(size[1])), bool),
+            "class": np.zeros((0,), np.int32),
+        }
+    detected["size"] = (int(size[0]), int(size[1]))
+    np.save(out_path, detected)
+    return detected
+
+
+class InstanceTail:
+    """make_ins_seg after the forward, for one image: K11 advection and
+    basin, the clustering (K12a + K12b on the card, or the host
+    union-find), the (instance x class) seeds, the walk (chunked past
+    ``ins_seed_cap`` rows), and the component split (K12a + K12b, or the
+    host). :meth:`run` queues the device work and returns a record;
+    :meth:`finish` fetches it, redoes the image through the host flow when
+    a device cap overflowed, and writes the npy."""
+
+    def __init__(self, cfg: Config, walker: RandomWalkRunner):
+        self.cfg = cfg
+        self.walker = walker
+        self.k_cap = cfg.ins_cluster_cap
+        self.comp_cap = cfg.ins_comp_cap
+        self.counts = {"device_ccl": 0, "host_cluster": 0,
+                       "device_split": 0, "host_split": 0, "chunked": 0,
+                       "redo": 0}
+
+    def run(self, name: str, size: Tuple[int, int], edge: torch.Tensor,
+            dp: torch.Tensor, h4: int, w4: int, host: bool = False,
+            advected=None) -> Dict:
+        """Queue one image's device work; ``host`` takes the exact host
+        flow (host clustering and host split) whatever the config;
+        ``advected`` is the image's (cent, basin) when K11 already ran."""
+        walker, dev = self.walker, self.walker.device
+        cams, keys = _load_ins_cam(self.cfg, name)
+        ch, cw = walker._bucket(h4), walker._bucket(w4)
+        c_pad = pow2_ge(cams.shape[0])
+        camp = np.zeros((c_pad, ch, cw), np.float32)
+        camp[: cams.shape[0], :h4, :w4] = cams
+        cent, basin = advected or centroids.advect(dp, h4, w4)
+        n_found = None
+        if self.cfg.ins_device_ccl and not host:
+            self.counts["device_ccl"] += 1
+            masks, n_found = ccl.cluster_from_basin(basin, cent, h4, w4,
+                                                    self.k_cap)
+            k = self.k_cap
+        else:
+            self.counts["host_cluster"] += 1
+            inst = centroids.cluster_centroids_from_basin(
+                cent[:, :h4, :w4].cpu().numpy(),
+                basin[:h4, :w4].cpu().numpy())
+            k = pow2_ge(inst.shape[0])
+            maskp = np.zeros((k, ch, cw), np.uint8)
+            maskp[: inst.shape[0], :h4, :w4] = inst
+            masks = torch.from_numpy(maskp).to(dev)
+        seeds = seed_build(torch.from_numpy(camp).to(dev), masks)
+        if seeds.shape[0] > walker.n_rows:
+            self.counts["chunked"] += 1
+        labels, best = walker.propagate_all(seeds, edge, h4, w4, size,
+                                            self.cfg.ins_seg_bg_thres)
+        tables = None
+        if self.comp_cap > 0 and not host:
+            self.counts["device_split"] += 1
+            tables = ccl.component_tables(labels, best, self.comp_cap)
+        keys_pad = np.zeros(c_pad, keys.dtype)
+        keys_pad[: keys.shape[0]] = keys
+        return dict(name=name, size=size, edge=edge, dp=dp, hw4=(h4, w4),
+                    advected=(cent, basin), class_ids=np.repeat(keys_pad, k),
+                    n_found=n_found, labels=labels, best=best, tables=tables)
+
+    def finish(self, rec: Dict, out_path: str) -> Dict:
+        """Fetch one image's record and write its npy dict."""
+        size = rec["size"]
+        class_ids = rec["class_ids"]
+        if rec["n_found"] is not None and int(rec["n_found"]) > self.k_cap:
+            return self._redo(rec, out_path)
+        if rec["tables"] is not None:
+            comp_map, rows, sizes, scores, n_comp = (
+                t.cpu().numpy() for t in rec["tables"])
+            n_comp = int(n_comp)
+            if n_comp > self.comp_cap:
+                return self._redo(rec, out_path)
+            scores_all = np.concatenate([np.zeros(1, np.float32),
+                                         scores[:n_comp]])
+            return save_detected(out_path, size, comp_map, rows[:n_comp],
+                                 sizes[:n_comp], scores_all, class_ids)
+        self.counts["host_split"] += 1
+        labels = rec["labels"].cpu().numpy()
+        best = rec["best"].cpu().numpy()
+        comp_map, comp_rows, comp_sizes = centroids.split_components(
+            labels, class_ids.shape[0])
+        scores_all = np.zeros(comp_rows.shape[0] + 1, np.float32)
+        np.maximum.at(scores_all, comp_map.reshape(-1), best.reshape(-1))
+        return save_detected(out_path, size, comp_map, comp_rows, comp_sizes,
+                             scores_all, class_ids)
+
+    def _redo(self, rec: Dict, out_path: str) -> Dict:
+        """A device cap overflowed: the image again through the exact host
+        flow, from its own (deterministic) forward's edge and its K11 end
+        points and basin."""
+        self.counts["redo"] += 1
+        again = self.run(rec["name"], rec["size"], rec["edge"], rec["dp"],
+                         *rec["hw4"], host=True, advected=rec["advected"])
+        return self.finish(again, out_path)
+
+
+def make_ins_seg_labels(cfg: Config, device="cuda") -> Dict:
+    """Instance pseudo masks (step/make_ins_seg_labels.py): per image the
+    forward, then :class:`InstanceTail`, the npy dict of the JAX stage
+    (``score`` f32 [K], ``mask`` bool [K, H, W], ``class`` int32 [K],
+    ``size``) in ``ins_seg_out_dir``.
+
+    Returns a summary: images written, the seconds the image loop took
+    (after the model load; every npy written), the walk mode per grid
+    bucket, and how many images took each flow (device or host
+    clustering, device or host split), the chunked walk and the host
+    redo."""
+    check_slice_flags(cfg)
+    if cfg.infer_devices > 1:
+        raise NotImplementedError(
+            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
+            "(Multi-GPU)")
+    dev = resolve_device(device)
+    # the reference's numerics are f32: a TF32 conv or matmul is not
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    runner = _load_irn(cfg, dev)
+    walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap, device=dev)
+    tail = InstanceTail(cfg, walker)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    os.makedirs(cfg.ins_seg_out_dir, exist_ok=True)
+    n = len(ds)
+    todo = [
+        i for i in range(n)
+        if cfg.overwrite or not os.path.exists(
+            os.path.join(cfg.ins_seg_out_dir, ds.img_name_list[i] + ".npy"))
+    ]
+    pending = deque()  # (i, out_path, record of queued device work)
+
+    def finish(item):
+        i, out_path, rec = item
+        tail.finish(rec, out_path)
+        if i % max(n // 20, 1) == 0:
+            print(f"make_ins_seg {i}/{n}", flush=True)
+
+    bsz = runner.batch_size
+    t0 = time.perf_counter()
+    for c0 in range(0, len(todo), bsz):
+        block = todo[c0 : c0 + bsz]
+        samples = [ds[i] for i in block]
+        imgs = [s["img"].astype(np.uint8) for s in samples]
+        sizes = [im.shape[:2] for im in imgs]
+        for i, sample, size, (edge, dp, (h4, w4)) in zip(
+            block, samples, sizes, runner.batch(imgs, sizes)
+        ):
+            out_path = os.path.join(cfg.ins_seg_out_dir,
+                                    sample["name"] + ".npy")
+            rec = tail.run(sample["name"], size, edge, dp, h4, w4)
+            pending.append((i, out_path, rec))
+            # the host writes image i-1 while the device works on image i
+            while len(pending) > 1:
+                finish(pending.popleft())
+    while pending:
+        finish(pending.popleft())
+    seconds = time.perf_counter() - t0
+    return {
+        "n_images": len(todo),
+        "seconds": seconds,
+        "modes": {f"{h}x{w}": m for (h, w), m in sorted(walker.modes.items())},
+        **tail.counts,
     }

@@ -2,7 +2,9 @@
 their originals on the same inputs: ``Config`` and its CLI parser, the path
 set, the weight converter, the semseg scores and the CAM decode, the
 ImageNet constants, the PIL rescale and strided sizes, the VOC label
-dictionaries and datasets, and make_cam's bucketing helpers. The port
+dictionaries and datasets, make_cam's bucketing helpers, and the instance
+stage's connected components, RLE, ``compress_range``, centroid host
+functions, instance AP and COCO export. The port
 imports none of the originals (tests/test_torch_imports.py); this file
 imports both sides. The CRF copies are held in tests/test_torch_crf.py."""
 
@@ -265,3 +267,132 @@ def test_voc12_sources(tmp_path):
         for k in want:
             assert np.array_equal(got[k], want[k]) and got[k].dtype == \
                 want[k].dtype
+
+
+# -- the instance stage's copies ---------------------------------------------
+
+
+def _blob_masks(seed):
+    rng = np.random.default_rng(seed)
+    return {p: rng.random((23, 31)) < p for p in (0.2, 0.5, 0.8)}
+
+
+@pytest.mark.parametrize("p", [0.2, 0.5, 0.8])
+def test_label_components_and_one_hot(p):
+    """cc.label_components (the port's native build) and to_one_hot equal
+    irn_tpu.ops.cc's; compress_range equals the transforms original."""
+    from irn_tpu.ops import cc as jax_cc
+    from irn_tpu_torch.ops import cc
+
+    mask = _blob_masks(3)[p]
+    lab, k = cc.label_components(mask)
+    want_lab, want_k = jax_cc.label_components(mask)
+    assert k == want_k and lab.dtype == want_lab.dtype == np.int32
+    np.testing.assert_array_equal(lab, want_lab)
+    np.testing.assert_array_equal(cc.to_one_hot(lab), jax_cc.to_one_hot(lab))
+    np.testing.assert_array_equal(cc.to_one_hot(lab, k + 3),
+                                  jax_cc.to_one_hot(lab, k + 3))
+    sparse = lab * 7 + 3
+    np.testing.assert_array_equal(transforms.compress_range(sparse),
+                                  jax_transforms.compress_range(sparse))
+
+
+@pytest.mark.parametrize("case", ["random", "starts_on", "empty", "full"])
+def test_rle_encode_decode(case):
+    from irn_tpu.ops import cc as jax_cc
+    from irn_tpu_torch.ops import cc
+
+    mask = {"random": _blob_masks(4)[0.5],
+            "starts_on": np.eye(9, 13, dtype=bool),
+            "empty": np.zeros((5, 6), bool),
+            "full": np.ones((5, 6), bool)}[case]
+    rle = cc.rle_encode(mask)
+    assert rle == jax_cc.rle_encode(mask)
+    np.testing.assert_array_equal(cc.rle_decode(rle), mask.astype(np.uint8))
+    np.testing.assert_array_equal(cc.rle_decode(rle), jax_cc.rle_decode(rle))
+
+
+def test_centroids_host_functions(rng):
+    """cluster_centroids(_from_basin), mask_scores_by_instance,
+    split_components and detect_instance equal irn_tpu.ops.centroids'."""
+    from irn_tpu.ops import centroids as jax_centroids
+    from irn_tpu_torch.ops import centroids
+
+    dp = (rng.standard_normal((2, 20, 24)) * 2).astype(np.float32)
+    cent = np.stack([rng.integers(0, 20, (20, 24)),
+                     rng.integers(0, 24, (20, 24))]).astype(np.int32)
+    inst = centroids.cluster_centroids(cent, dp)
+    np.testing.assert_array_equal(inst,
+                                  jax_centroids.cluster_centroids(cent, dp))
+    basin = (rng.random((20, 24)) < 0.4).astype(np.uint8)
+    np.testing.assert_array_equal(
+        centroids.cluster_centroids_from_basin(cent, basin),
+        jax_centroids.cluster_centroids_from_basin(cent, basin))
+    cams = rng.random((3, 20, 24)).astype(np.float32)
+    np.testing.assert_array_equal(
+        centroids.mask_scores_by_instance(cams, inst),
+        jax_centroids.mask_scores_by_instance(cams, inst))
+    labels = np.kron(rng.integers(0, 5, (5, 6)), np.ones((4, 4), int))
+    for got, want in zip(centroids.split_components(labels, 4),
+                         jax_centroids.split_components(labels, 4)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    scores = rng.random((3, 20, 24)).astype(np.float32)
+    masks = np.stack([labels == v for v in (1, 2, 3)])
+    got = centroids.detect_instance(scores, masks, np.array([4, 0, 7]), 9)
+    want = jax_centroids.detect_instance(scores, masks, np.array([4, 0, 7]), 9)
+    for key in ("score", "mask", "class"):
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_instance_ap_and_gt(rng):
+    """eval_instance_segmentation_voc (matches, misses, duplicates, an
+    image without predictions) and load_voc_instance_gt equal
+    irn_tpu.eval.insseg's."""
+    from irn_tpu.eval import insseg as jax_insseg
+    from irn_tpu_torch.eval import insseg
+
+    obj = np.kron(rng.integers(0, 4, (4, 5)), np.ones((6, 6), np.uint8))
+    obj[0, :3] = 255
+    cls = np.where(obj > 0, obj * 3 % 20 + 1, 0).astype(np.uint8)
+    cls[obj == 255] = 255
+    gm, gl = insseg.load_voc_instance_gt(obj, cls)
+    want_gm, want_gl = jax_insseg.load_voc_instance_gt(obj, cls)
+    np.testing.assert_array_equal(gm, want_gm)
+    np.testing.assert_array_equal(gl, want_gl)
+    preds = []
+    for _ in range(3):
+        n = int(rng.integers(0, 5))
+        pm = np.stack([gm[int(rng.integers(0, len(gm)))] ^ (
+            rng.random(gm.shape[1:]) < 0.05) for _ in range(n)]) if n else (
+            np.zeros((0,) + gm.shape[1:], bool))
+        preds.append((pm, rng.integers(0, 12, n), rng.random(n)))
+    args = ([p[0] for p in preds], [p[1] for p in preds],
+            [p[2] for p in preds], [gm] * 3, [gl] * 3)
+    got = insseg.eval_instance_segmentation_voc(*args)
+    want = jax_insseg.eval_instance_segmentation_voc(*args)
+    np.testing.assert_array_equal(got["ap"], want["ap"])
+    assert got["map"] == want["map"]
+
+
+@pytest.mark.parametrize("fmt", ["rle", "polygon"])
+def test_coco_export(tmp_path, rng, fmt):
+    """export_instances writes irn_tpu.eval.coco's json (polygons traced by
+    OpenCV, as the original; the card host has no cv2 and exports rle)."""
+    from irn_tpu.eval import coco as jax_coco
+    from irn_tpu_torch.eval import coco
+
+    mask = np.zeros((40, 50), bool)
+    mask[5:30, 8:40] = True
+    mask[12:20, 15:30] = False
+    recs = [{"name": "2007_000456", "size": (40, 50),
+             "score": np.array([0.9, 1e-6, 0.4]),
+             "mask": np.stack([mask, mask, rng.random((40, 50)) < 0.3]),
+             "class": np.array([2, 3, 19])}]
+    got = coco.export_instances(recs, str(tmp_path / "port.json"),
+                                segmentation_format=fmt)
+    want = jax_coco.export_instances(recs, str(tmp_path / "jax.json"),
+                                     segmentation_format=fmt)
+    assert got == want and len(got["annotations"]) == 2
+    assert (tmp_path / "port.json").read_text() == (
+        tmp_path / "jax.json").read_text()

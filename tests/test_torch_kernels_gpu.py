@@ -602,3 +602,165 @@ def test_check_cuda_dtype(cuda):
                                         device=cuda), w, w[0],
                             rw.diag_offsets(geom), 2)
     assert sum(v for k_, v in _build.LAUNCHES.items() if k_ != "conv3x3") == 0
+
+
+# -- K0 at the instance walk's row counts ----------------------------------
+
+
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_diag_chain_many_rows(cuda, c):
+    """K0 at the instance walk's seed rows (up to ins_seed_cap 128 at the
+    128x128 bucket): several waves of clusters, bit-equal to its twin."""
+    geom = rw.build_geometry(128, 128, radius=5)
+    g = np.random.default_rng(c)
+    edge = torch.from_numpy(g.random((128, 128), dtype=np.float32)).to(cuda)
+    w, inv = rw.build_diag_operator(geom, edge)
+    x = torch.from_numpy(g.random((c, geom.n_pad), dtype=np.float32)).to(cuda)
+    doffs = rw.diag_offsets(geom)
+    got = rw.apply_diag_chain(x, w, inv, doffs, 32)
+    want = rw.apply_diag_chain_plain(x, w, inv, doffs, 32)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["diag_chain"] == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# -- K11 and K12 ------------------------------------------------------------
+
+
+def _dp_field(kind, grid, hw4, seed=0):
+    """A random field or a basin field (two attractors plus noise), zero
+    beyond the (h4, w4) extent, as the forward hands it over."""
+    g = np.random.default_rng(seed)
+    h, w = grid
+    if kind == "random":
+        dp = (g.standard_normal((2, h, w)) * 3.0).astype(np.float32)
+    else:
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        left = xx < hw4[1] / 2
+        cy = np.where(left, hw4[0] * 0.3, hw4[0] * 0.7)
+        cx = np.where(left, hw4[1] * 0.25, hw4[1] * 0.75)
+        dp = np.stack([(cy - yy) * 0.3, (cx - xx) * 0.3]).astype(np.float32)
+        dp += (g.standard_normal(dp.shape) * 0.05).astype(np.float32)
+    dp[:, hw4[0]:] = 0
+    dp[:, :, hw4[1]:] = 0
+    return torch.from_numpy(dp)
+
+
+@pytest.mark.parametrize("kind", ["random", "basin"])
+@pytest.mark.parametrize("grid,hw4", [((128, 128), (128, 128)),
+                                      ((128, 128), (97, 128)),
+                                      ((32, 32), (19, 27))])
+def test_advect_bit_equal(cuda, kind, grid, hw4):
+    """K11: end points and basin bit-equal to the twin after 300 steps, in
+    one launch."""
+    from irn_tpu_torch.ops import centroids
+
+    dp = _dp_field(kind, grid, hw4).to(cuda)
+    cent, basin = centroids.advect(dp, *hw4)
+    want_cent, want_basin = centroids.advect_plain(dp, *hw4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["advect"] == 1
+    assert torch.equal(cent, want_cent) and torch.equal(basin, want_basin)
+    assert int(cent[0].max()) < hw4[0] and int(cent[1].max()) < hw4[1]
+
+
+def _spiral(h):
+    mask = np.zeros((h, h), bool)
+    top, bot, lef, rig = 0, h - 1, 0, h - 1
+    while top <= bot and lef <= rig:
+        mask[top, lef : rig + 1] = True
+        mask[top : bot + 1, rig] = True
+        mask[bot, lef : rig + 1] = True
+        mask[top + 2 : bot + 1, lef] = True
+        top, bot, lef, rig = top + 2, bot - 2, lef + 2, rig - 2
+    return mask
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense", "spiral", "extent"])
+def test_ccl_label_masks(cuda, case):
+    """K12a on 128x128 masks (the basin plane) equals its twin, the extent
+    cut included."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(1)
+    mask = {"sparse": g.random((128, 128)) < 0.3,
+            "dense": g.random((128, 128)) < 0.6,
+            "spiral": _spiral(128),
+            "extent": g.random((128, 128)) < 0.55}[case]
+    hw = (97, 113) if case == "extent" else (128, 128)
+    m = torch.from_numpy(mask).to(cuda)
+    got = ccl.min_label_plane(m, *hw)
+    want = ccl.min_label_plane(m.cpu(), *hw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_label"] == 3
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["blobby", "speckle", "spiral_touching"])
+def test_ccl_label_maps(cuda, case):
+    """K12a on 512x512 label maps (the decoded walk at the 128x128 bucket):
+    same-value components only, equal to its twin."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(2)
+    labels = {
+        "blobby": np.kron(g.integers(0, 9, (32, 32)), np.ones((16, 16), int)),
+        "speckle": g.integers(0, 4, (512, 512)),
+        "spiral_touching": np.where(_spiral(512), 1, 2),
+    }[case].astype(np.int32)
+    t = torch.from_numpy(labels).to(cuda)
+    got = ccl.min_label_plane_multi(t)
+    want = ccl.min_label_plane_multi_plain(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["random", "overflow", "escape", "empty"])
+def test_cluster_masks_exact(cuda, case):
+    """K12b cluster masks and n_found at the basin plane (128x128, k_cap 8)
+    equal the twin's, overflow (n_found = k_cap + 1) included."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(3)
+    h4, w4 = 97, 121
+    basin = g.random((128, 128)) < {"random": 0.3, "overflow": 0.05,
+                                     "escape": 0.02, "empty": 0.0}[case]
+    if case == "random":  # a few large basins
+        basin = np.kron(g.random((8, 8)) < 0.4, np.ones((16, 16), bool))
+    cent = np.stack([g.integers(0, h4, (128, 128)),
+                     g.integers(0, w4, (128, 128))]).astype(np.int32)
+    b, c = torch.from_numpy(basin).to(cuda), torch.from_numpy(cent).to(cuda)
+    masks, n_found = ccl.cluster_from_basin(b, c, h4, w4, 8)
+    want_masks, want_n = ccl.cluster_from_basin(b.cpu(), c.cpu(), h4, w4, 8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_tables"] == 3
+    assert torch.equal(masks.cpu(), want_masks)
+    assert int(n_found) == int(want_n)
+    if case == "overflow":
+        assert int(n_found) == 9
+
+
+@pytest.mark.parametrize("case,cap", [("blobby", 128), ("blobby", 8),
+                                      ("speckle", 128), ("empty", 128)])
+def test_component_tables_exact(cuda, case, cap):
+    """K12b component tables at 512x512: all five outputs equal the twin's,
+    overflow (cap 8 on the blobby map, 128 on speckle) included."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(4)
+    labels = {
+        "blobby": np.kron(g.integers(0, 5, (16, 16)), np.ones((32, 32), int)),
+        "speckle": g.integers(0, 4, (512, 512)),
+        "empty": np.zeros((512, 512), int),
+    }[case].astype(np.int32)
+    best = g.random((512, 512), dtype=np.float32)
+    lt, bt = torch.from_numpy(labels).to(cuda), torch.from_numpy(best).to(cuda)
+    got = ccl.component_tables(lt, bt, cap)
+    want = ccl.component_tables_plain(lt, bt, cap)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("comp_map", "rows", "sizes", "scores", "n_comp"),
+                          got, want):
+        assert a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+    if case != "empty" and not (case == "blobby" and cap == 128):
+        assert int(got[4]) == cap + 1
