@@ -45,6 +45,22 @@ rate, a per-step breakdown and the CRF products' times beside their bound.
 These stages launch no hand kernel (their heavy work is cuDNN's and
 cuBLAS's).
 
+The phase ``stage: train_irn`` trains IRNet through the CLI at its
+defaults (crop 512, batch 32, path radius 10, lr 0.1) with a seeded random
+backbone on the cam phase's ir labels (the 8 images 8 times: 2 steps per
+epoch): 2 epochs, then the same run at 3 epochs resumed from its
+``.train`` file (2 more steps), TF32 switched on before and required off
+inside; one K13a and one K13b launch per step (6 and 6); every loss
+finite, the backbone bit-equal to its initial values, every head tensor
+moved, dp_mean a finite pair; make_sem_seg and make_ins_seg on the trained
+checkpoint. It holds one step at batch 4 on the card to the port on the
+host (losses within 1e-3, head updates within 1e-2 in norm) and prints
+the step time (median after the first, batch 32), img/s, a per-step
+breakdown, the device's busy share over a step and the peak memory. The
+kernels phase holds K13a and K13b to their twins bit for bit at the
+default shapes (a sigmoid map and the same map quantized to 8 levels) and
+an odd small shape.
+
 The phase ``stage: make_ins_seg -> eval_ins_seg -> make_cocoann`` runs the
 instance stages through the CLI on make_sem_seg's tree, GT cams and
 checkpoint: two passes at the defaults (K11 one launch per image; K12a and
@@ -121,6 +137,9 @@ REPLACES = {
     "advect": "irn_tpu/ops/centroids.py:140",
     "ccl_label": "irn_tpu/ops/ccl_tpu.py:55",
     "ccl_tables": "irn_tpu/ops/ccl_tpu.py:122",
+    # train_irn's path max and its custom VJP (XLA programs)
+    "path_max_fwd": "irn_tpu/ops/affinity.py:41",
+    "path_max_bwd": "irn_tpu/ops/affinity.py:87",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -136,6 +155,8 @@ SOURCES = {
     "advect": "irn_tpu_torch/csrc/advect.cu",
     "ccl_label": "irn_tpu_torch/csrc/ccl.cu",
     "ccl_tables": "irn_tpu_torch/csrc/ccl.cu",
+    "path_max_fwd": "irn_tpu_torch/csrc/path_max.cu",
+    "path_max_bwd": "irn_tpu_torch/csrc/path_max.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -145,7 +166,8 @@ HOME_RUN = {
     "square_fused_first": "pure", "banded_chain": "library bj",
     "packed_chain_batched": "library batch", "conv3x3": "probe conv",
     "advect": "ins default", "ccl_label": "ins default",
-    "ccl_tables": "ins default",
+    "ccl_tables": "ins default", "path_max_fwd": "train irn",
+    "path_max_bwd": "train irn",
 }
 
 
@@ -518,6 +540,7 @@ def check_kernels(dev, card: str) -> dict:
     check_batched_chain(dev, geom, gen, res)
     check_conv(dev, res)
     check_instance_kernels(dev, geom, edge, gen, res)
+    check_path_max_kernels(dev, gen, res)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -659,6 +682,72 @@ def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
         # ranking compares each candidate key with every other
         **bound(n_comp * n_comp, 12 * nl + 4 * nl + 12 * 128, PEAK_F32),
     )
+
+
+# train_irn's main-path shapes: batch 32 of 512 px crops (a 128x128 grid),
+# path radius 10 (152 pairs, 2,134 cells)
+TRAIN_BATCH = 32
+TRAIN_GRID = 128
+TRAIN_RADIUS = 10
+
+
+def check_path_max_kernels(dev, gen, res: dict) -> None:
+    """K13a and K13b vs their twins, bit for bit (values, winners, edge
+    gradient): at the default shapes on a sigmoid edge map and on the same
+    map quantized to 8 levels (ties), and on an odd small shape."""
+    from irn_tpu_torch.ops import affinity
+    from irn_tpu_torch.ops import paths
+
+    table = affinity.path_table(paths.build_path_set(TRAIN_RADIUS))
+    shape = (TRAIN_BATCH, TRAIN_GRID, TRAIN_GRID)
+    edge = torch.sigmoid(torch.randn(shape, generator=gen)).to(dev)
+    cases = (("default", edge), ("ties", torch.round(edge * 7) / 7),
+             ("odd", torch.sigmoid(torch.randn((3, 37, 29),
+                                               generator=gen)).to(dev)))
+    for tag, e in cases:
+        maxed, winner = affinity.path_max_fwd(e, table)
+        want_m, want_w = affinity.path_max_plain(e, table)
+        g = torch.randn(tuple(maxed.shape), generator=gen).to(dev)
+        got_g = affinity.path_max_bwd(g, winner, table, tuple(e.shape[1:]))
+        want_g = affinity.path_max_bwd_plain(g, want_w, table,
+                                             tuple(e.shape[1:]))
+        check(torch.equal(maxed, want_m) and torch.equal(winner, want_w),
+              f"path_max_fwd ({tag}) not bit-equal to its twin")
+        check(torch.equal(got_g, want_g),
+              f"path_max_bwd ({tag}) not bit-equal to its twin")
+        del maxed, winner, want_m, want_w, got_g, want_g
+    maxed, winner = affinity.path_max_fwd(edge, table)
+    g = torch.randn(tuple(maxed.shape), generator=gen).to(dev)
+    hw = tuple(edge.shape[1:])
+    n_edge, n_out = edge.numel(), maxed.numel()
+    cells = sum(len(c) for c in table.cells)
+    desc = (f"edge [{TRAIN_BATCH}, {TRAIN_GRID}, {TRAIN_GRID}] f32, radius "
+            f"{TRAIN_RADIUS} ({table.n_pairs} pairs, {cells} cells), one "
+            f"launch; bit-equal to the twin on a sigmoid map, the map "
+            f"quantized to 8 levels (ties) and an odd [3, 37, 29] map")
+    res["path_max_fwd"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: affinity.path_max_fwd(edge, table), 20),
+        plain_ms=cuda_ms(lambda: affinity.path_max_plain(edge, table), 2),
+        shape=desc + f"; writes maxed f32 + winner int8 [{TRAIN_BATCH}, "
+                     f"{table.n_pairs}, {maxed.shape[2]}, {maxed.shape[3]}]",
+        library_ms=None,
+        # one compare per path cell per output pixel
+        **bound(cells * TRAIN_BATCH * maxed.shape[2] * maxed.shape[3],
+                4 * n_edge + 5 * n_out, PEAK_F32),
+    )
+    res["path_max_bwd"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: affinity.path_max_bwd(g, winner, table, hw), 20),
+        plain_ms=cuda_ms(lambda: affinity.path_max_bwd_plain(
+            g, winner, table, hw), 2),
+        shape=desc + "; reads g f32 + winner int8, writes d_edge; no atomics",
+        library_ms=None,
+        # one add per (cell, pixel) of the paths' cotangents
+        **bound(cells * TRAIN_BATCH * maxed.shape[2] * maxed.shape[3],
+                5 * n_out + 4 * n_edge, PEAK_F32),
+    )
+    del maxed, winner, g, edge
 
 
 def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -942,9 +1031,10 @@ def check_conv(dev, res: dict) -> None:
     )
 
 
-def cli(argv) -> dict:
+def cli(argv, log: list = None) -> dict:
     """The port's CLI (``irn_tpu_torch.pipeline.run.main``) with its
-    config and progress prints captured, and shown only if it raises."""
+    config and progress prints captured, and shown only if it raises (or
+    appended to ``log``)."""
     from irn_tpu_torch.pipeline import run as port_run
 
     buf = io.StringIO()
@@ -954,6 +1044,9 @@ def cli(argv) -> dict:
     except BaseException:
         print(buf.getvalue()[-8000:], flush=True)
         raise
+    finally:
+        if log is not None:
+            log.append(buf.getvalue())
 
 
 def agreement(dir_a: str, dir_b: str, names) -> list:
@@ -1794,6 +1887,343 @@ def cam_layers(dev, cam: dict, card: str) -> None:
           flush=True)
 
 
+TRAIN_REPEAT = 8  # the train list: the tree's 8 images, 8 times each
+HOST_BATCH = 4  # the card-vs-host train step
+
+
+def _head_names(sd) -> list:
+    return [k for k in sd if not k.startswith(("resnet50.", "mean_shift."))]
+
+
+def run_train_stage(dev, stage: dict, card: str) -> dict:
+    """train_irn through the port's CLI at its defaults (crop 512, batch 32,
+    radius 10, lr 0.1) on the ir labels of the cam phase, with a seeded
+    random backbone: 2 epochs of 2 steps, then the same run at 3 epochs,
+    resumed from ``.train`` (2 more steps); then make_sem_seg and
+    make_ins_seg on the trained checkpoint. TF32 is switched on before the
+    runs: the stage must switch it off."""
+    from irn_tpu_torch.models.irn import IRNet
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import common
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.train import irn_train
+    from irn_tpu_torch.utils.checkpoint import load_checkpoint
+    from irn_tpu_torch.utils.weights import irn_from_jax
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    train_ids = os.path.join(root, "train64.txt")
+    with open(train_ids, "w") as f:
+        f.write("\n".join(names * TRAIN_REPEAT) + "\n")
+    weights = os.path.join(work, "irn_trained.ckpt")
+
+    def argv(*extra):
+        return ["--voc12_root", root, "--train_list", train_ids,
+                "--infer_list", ids,
+                "--ir_label_out_dir", os.path.join(work, "ir_auto"),
+                "--cam_out_dir", os.path.join(work, "cam"),
+                "--irn_weights_name", weights,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_train"),
+                "--device", str(dev), *extra]
+
+    tf32 = []
+    make_step = irn_train.make_train_step
+
+    def make_step_seen(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def seen(*x):
+            tf32.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return step(*x)
+        return seen
+
+    logs = []
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    irn_train.make_train_step = make_step_seen
+    try:
+        _build.reset_launches()
+        first = cli(argv("--train_irn_pass", "--irn_num_epoches", "2"),
+                    logs)["train_irn"]
+        resumed = cli(argv("--train_irn_pass", "--irn_num_epoches", "3"),
+                      logs)["train_irn"]
+        stage["launches"]["train irn"] = dict(_build.LAUNCHES)
+    finally:
+        irn_train.make_train_step = make_step
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for text in logs:
+        for line in text.splitlines():
+            if line.startswith(("WARNING", "Epoch", "step:", "resumed",
+                                "saved", "Analyzing")):
+                print(f"  train_irn: {line}", flush=True)
+    check(len(tf32) == 6 and not any(a or b for a, b in tf32),
+          f"TF32 inside train_irn's steps: {tf32}")
+    check(any("WARNING: no pretrained_backbone" in t for t in logs),
+          "train_irn printed no random-backbone warning")
+    lt = stage["launches"]["train irn"]
+    check((first["n_steps"], resumed["n_steps"], resumed["start_epoch"])
+          == (4, 2, 2), f"train runs {first['n_steps']} + "
+          f"{resumed['n_steps']} steps from epoch {resumed['start_epoch']}")
+    # one K13a and one K13b per step, nothing else
+    check(lt["path_max_fwd"] == 6 and lt["path_max_bwd"] == 6
+          and sum(lt.values()) == 12, f"train launches {lt}")
+    losses = first["losses"] + resumed["losses"]
+    check(len(losses) == 6 and all(np.isfinite(v) for row in losses
+                                   for v in row.values()),
+          f"train losses {losses}")
+    print(f"train losses per step (pos_aff, neg_aff, dp_fg, dp_bg, total): "
+          + "; ".join(", ".join(f"{row[k]:.4f}" for k in (
+              "loss_pos_aff", "loss_neg_aff", "loss_dp_fg", "loss_dp_bg",
+              "loss")) for row in losses), flush=True)
+
+    # the backbone is the seeded initial one bit for bit; every head
+    # tensor moved; dp_mean is a finite pair
+    cfg, _ = port_run.parse(argv())
+    with contextlib.redirect_stdout(io.StringIO()):
+        init = common.init_model_variables(IRNet(), cfg).state_dict()
+    saved = load_checkpoint(weights)
+    final = irn_from_jax(saved)
+    check(all(torch.equal(final[k], v) for k, v in init.items()
+              if k.startswith("resnet50.")),
+          "the trained backbone differs from its initial values")
+    still = [k for k in _head_names(init) if torch.equal(final[k], init[k])]
+    check(not still, f"head tensors unchanged by training: {still}")
+    dp_mean = np.asarray(saved["stats"]["dp_mean"])
+    check(dp_mean.shape == (2,) and bool(np.isfinite(dp_mean).all()),
+          f"dp_mean {dp_mean}")
+    rate = [r["n_steps"] * cfg.irn_batch_size / r["seconds"]
+            for r in (first, resumed)]
+    print(f"stage train_irn: {rate[0]:.2f} img/s over the first run's "
+          f"{first['n_steps']} steps, {rate[1]:.2f} img/s over the resumed "
+          f"run's {resumed['n_steps']} (epoch loops incl. loader and .train "
+          f"saves; smoke rates, batch {cfg.irn_batch_size}, crop "
+          f"{cfg.irn_crop_size}); dp_mean {dp_mean.tolist()}; launches {lt} "
+          f"({card})", flush=True)
+
+    # both make stages on the trained checkpoint
+    sem = cli(argv("--make_sem_seg_pass", "--sem_seg_out_dir",
+                   os.path.join(work, "sem_trained")))["make_sem_seg_labels"]
+    ins_out = os.path.join(work, "ins_trained")
+    ins = cli(argv("--make_ins_seg_pass", "--ins_seg_out_dir",
+                   ins_out))["make_ins_seg_labels"]
+    check(sem["n_images"] == ins["n_images"] == len(names)
+          and all(os.path.exists(os.path.join(work, "sem_trained", n_ + ".png"))
+                  and os.path.exists(os.path.join(ins_out, n_ + ".npy"))
+                  for n_ in names),
+          f"make stages on the trained checkpoint: {sem} {ins}")
+    print(f"stage make_sem_seg / make_ins_seg on the trained checkpoint: "
+          f"{sem['n_images'] / sem['seconds']:.3f} / "
+          f"{ins['n_images'] / ins['seconds']:.3f} img/s, one pass each "
+          f"({card})", flush=True)
+    return dict(cfg=cfg, root=root, train_ids=train_ids, work=work,
+                rate=rate, first=first, resumed=resumed)
+
+
+def _train_loader(cfg, batch: int):
+    """The stage's loader of the train list at ``batch``."""
+    from irn_tpu_torch.data import loader as loader_mod
+    from irn_tpu_torch.data import voc12
+
+    ds = voc12.AffinityDataset(
+        cfg.train_list, label_dir=cfg.ir_label_out_dir,
+        crop_size=cfg.irn_crop_size, voc12_root=cfg.voc12_root,
+        rescale=(0.5, 1.5), hor_flip=True, crop_method="random")
+    return loader_mod.BatchLoader(ds, batch, shuffle=True, drop_last=True,
+                                  num_workers=cfg.num_workers)
+
+
+def _train_model(cfg, dev, max_step: int):
+    """The stage's seeded initial model on ``dev``, its optimizer and the
+    path table."""
+    from irn_tpu_torch.models.irn import IRNet
+    from irn_tpu_torch.pipeline import common
+    from irn_tpu_torch.train import irn_train, optim
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        model = common.init_model_variables(IRNet(), cfg).to(dev)
+    opt = optim.poly_sgd(model.named_parameters(), cfg.irn_learning_rate,
+                         max_step=max_step, power=0.9,
+                         momentum=cfg.irn_weight_decay,
+                         weight_decay=cfg.irn_weight_decay,
+                         mult_fn=optim.irn_lr_mult)
+    table = irn_train.build_train_geometry(cfg.irn_crop_size,
+                                           cfg.path_radius)
+    return model, opt, table
+
+
+def _batch_to(batch, dev):
+    img = torch.from_numpy(batch["img"]).to(dev).permute(0, 3, 1, 2)
+    return (img.contiguous(),
+            torch.from_numpy(batch["reduced_label"]).to(dev))
+
+
+def train_host_check(dev, train: dict) -> None:
+    """One train step at batch 4, crop 512, from the same initial weights
+    and batch: the card with its kernels against the port on the host with
+    the twins. The losses within 1e-3 relative, each head tensor's update
+    within 1e-2 relative in norm (f32 on cuDNN against oneDNN; a K13a
+    winner may flip where two edges nearly tie)."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.train import irn_train
+
+    cfg = train["cfg"]
+    dl = _train_loader(cfg, HOST_BATCH)
+    batch = next(iter(dl))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        model, opt, table = _train_model(cfg, d,
+                                         len(dl) * cfg.irn_num_epoches)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        n0 = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        metrics = irn_train.make_train_step(model, opt, table)(
+            *_batch_to(batch, d))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        runs.append((metrics, before, {
+            k: v.detach().cpu() for k, v in model.state_dict().items()},
+            time.perf_counter() - t0,
+            {k: _build.LAUNCHES[k] - n0[k] for k in n0}))
+        del model, opt
+    (m_c, b_c, a_c, t_c, l_c), (m_h, b_h, a_h, t_h, l_h) = runs
+    check(l_c["path_max_fwd"] == 1 and l_c["path_max_bwd"] == 1
+          and not any(l_h.values()),
+          f"host check launches: card {l_c}, host {l_h}")
+    loss_err = max(abs(m_c[k] - m_h[k]) / max(abs(m_h[k]), 1e-30)
+                   for k in m_h)
+    upd_err = {}
+    for k in _head_names(b_h):
+        dh, dc = a_h[k] - b_h[k], a_c[k] - b_c[k]
+        upd_err[k] = float((dc - dh).norm() / max(float(dh.norm()), 1e-30))
+    worst = max(upd_err, key=upd_err.get)
+    print(f"train step card vs host (batch {HOST_BATCH}, crop "
+          f"{cfg.irn_crop_size}): losses card {m_c}, host {m_h}, worst "
+          f"relative loss difference {loss_err:.3e}; head updates: worst "
+          f"{worst} {upd_err[worst]:.3e}, median "
+          f"{float(np.median(list(upd_err.values()))):.3e} (relative, in "
+          f"norm); step {t_c * 1e3:.1f} ms card (first call), "
+          f"{t_h * 1e3:.1f} ms host", flush=True)
+    check(loss_err <= 1e-3, f"card vs host losses {m_c} {m_h}")
+    check(upd_err[worst] <= 1e-2, f"card vs host head updates {upd_err}")
+    check(all(torch.equal(a_c[k], b_c[k]) for k in b_c
+              if k.startswith("resnet50.")), "the card step moved the backbone")
+
+
+TRAIN_TIMED_STEPS = 5
+
+
+def train_layers(dev, train: dict, card: str) -> None:
+    """Step ms (median over the steps after the first, each ended by a
+    synchronize) and img/s at batch 32; a per-step breakdown, each part
+    run alone and ended by a synchronize; the device's busy share over one
+    step under torch.profiler; the peak memory allocated."""
+    from collections import defaultdict
+
+    from irn_tpu_torch.ops import affinity
+    from irn_tpu_torch.train import irn_train
+
+    cfg = train["cfg"]
+    dl = _train_loader(cfg, cfg.irn_batch_size)
+    model, opt, table = _train_model(cfg, dev, len(dl) * cfg.irn_num_epoches)
+    step_fn = irn_train.make_train_step(model, opt, table)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    while len(steps) < TRAIN_TIMED_STEPS:
+        dl.set_epoch(len(steps))
+        for batch in dl:
+            x, red = _batch_to(batch, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(x, red)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            if len(steps) == TRAIN_TIMED_STEPS:
+                break
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = float(np.median(steps[1:]))
+    print(f"train step at batch {cfg.irn_batch_size}, crop "
+          f"{cfg.irn_crop_size}, radius {cfg.path_radius}: "
+          f"{step_ms:.2f} ms median over {len(steps) - 1} steps after the "
+          f"first ({', '.join(f'{t:.2f}' for t in steps)}), "
+          f"{cfg.irn_batch_size / step_ms * 1e3:.1f} img/s; peak memory "
+          f"allocated {peak / 2**30:.2f} GiB ({card})", flush=True)
+
+    ms = defaultdict(float)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    reps = 3
+    path_set = table.path_set
+    it = iter(dl)
+    for rep in range(reps + 1):
+        if rep == 1:
+            ms.clear()  # the first pass warms up
+        batch = timed("loader wait (host)", lambda: next(it, None))
+        if batch is None:
+            dl.set_epoch(rep)
+            it = iter(dl)
+            batch = timed("loader wait (host)", lambda: next(it))
+        x, red = timed("upload", lambda: _batch_to(batch, dev))
+        feats = timed("backbone forward (no autograd)",
+                      lambda: model.features(x))
+
+        def heads_loss():
+            with torch.no_grad():
+                masks = affinity.affinity_labels_2d(red, path_set)
+            edge_logit, dp = model.heads(feats)
+            maps = affinity.affinity_displacement_loss_maps(edge_logit, dp,
+                                                            table)
+            return edge_logit, affinity.irn_total_loss(maps, *masks)[0]
+
+        edge_logit, loss = timed("heads + labels + loss forward (incl. K13a)",
+                                 heads_loss)
+        edge = torch.sigmoid(edge_logit[:, 0]).detach().contiguous()
+        maxed, winner = timed("K13a alone", lambda: affinity.path_max_fwd(
+            edge, table))
+        opt.zero_grad()
+        timed("backward (incl. K13b)", loss.backward)
+        g = torch.ones_like(maxed)
+        timed("K13b alone", lambda: affinity.path_max_bwd(
+            g, winner, table, tuple(edge.shape[1:])))
+        timed("optimizer", opt.step)
+        del maxed, winner, g, loss, edge_logit, feats
+    for name, v in ms.items():
+        print(f"layer train {name}: {v / reps:.3f} ms/step ({card})",
+              flush=True)
+
+    x, red = _batch_to(batch, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step_fn(x, red)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    if device_us > 0:
+        print(f"profiled train step: {wall_ms:.1f} ms, device busy "
+              f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}"
+              f"% of the step; profiler on) ({card})", flush=True)
+    else:
+        print("profiled train step: the profiler saw no device time; device "
+              "busy share not measured", flush=True)
+
+
 N_INS_FLOWS = 4  # images of each flow run of the instance stage
 INS_FLOWS = {
     "host_cluster": ("--no-ins_device_ccl",),
@@ -2153,6 +2583,10 @@ def main() -> int:
         cam = run_cam_stages(dev, stage, card)
         cam_host_checks(dev, cam)
         cam_layers(dev, cam, card)
+        phase("stage: train_irn")
+        train = run_train_stage(dev, stage, card)
+        train_host_check(dev, train)
+        train_layers(dev, train, card)
         phase("stage: make_ins_seg -> eval_ins_seg -> make_cocoann")
         ins = run_ins_stages(dev, stage, card)
         ins_host_check(dev, ins)

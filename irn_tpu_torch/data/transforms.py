@@ -1,13 +1,17 @@
 """The port's copies of the host-side image helpers of
-``irn_tpu.data.transforms`` that make_cam needs (numpy and PIL only): the
-ImageNet normalisation constants, the PIL rescale (bicubic for images,
-nearest for label maps, as misc/imutils.py of the reference) and the
-strided-size arithmetic, and make_ins_seg's ``compress_range``. The
-training augmentations wait for train_cam and train_irn."""
+``irn_tpu.data.transforms`` (numpy and PIL only, HWC): the ImageNet
+normalisation constants, the PIL rescale (bicubic for images, nearest for
+label maps, as misc/imutils.py of the reference), the strided-size
+arithmetic, make_ins_seg's ``compress_range``, and train_irn's
+augmentations (random scale, left-right flip, random crop into a padded
+canvas, top-left crop, normalisation), whose randomness flows through an
+explicit ``np.random.Generator``: the same generator state gives the same
+arrays as the JAX package. ``random_resize_long`` and ``center_crop`` wait
+for train_cam."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 
@@ -36,6 +40,101 @@ def pil_rescale(img: np.ndarray, scale: float, order: int) -> np.ndarray:
     return pil_resize(
         img, (int(np.round(h * scale)), int(np.round(w * scale))), order
     )
+
+
+def random_scale(
+    arrays: Union[np.ndarray, Sequence[np.ndarray]],
+    scale_range: Tuple[float, float],
+    orders: Union[int, Sequence[int]],
+    rng: np.random.Generator,
+):
+    """Rescale one array, or several by one draw (one order each)."""
+    scale = scale_range[0] + rng.random() * (scale_range[1] - scale_range[0])
+    if isinstance(arrays, np.ndarray):
+        return pil_rescale(arrays, scale, orders)  # type: ignore[arg-type]
+    return tuple(pil_rescale(a, scale, o) for a, o in zip(arrays, orders))
+
+
+def random_lr_flip(
+    arrays: Union[np.ndarray, Sequence[np.ndarray]], rng: np.random.Generator
+):
+    if rng.integers(0, 2) == 0:
+        return arrays
+    if isinstance(arrays, np.ndarray):
+        return np.fliplr(arrays)
+    return tuple(np.fliplr(a) for a in arrays)
+
+
+def random_crop_box(
+    imgsize: Tuple[int, int], cropsize: int, rng: np.random.Generator
+):
+    """(cont_top, cont_bot, cont_left, cont_right, img_top, img_bot,
+    img_left, img_right) — container and source windows for a random crop
+    into a padded canvas (imutils.py:55-78)."""
+    h, w = imgsize
+    ch = min(cropsize, h)
+    cw = min(cropsize, w)
+    w_space = w - cropsize
+    h_space = h - cropsize
+
+    if w_space > 0:
+        cont_left = 0
+        img_left = int(rng.integers(0, w_space + 1))
+    else:
+        cont_left = int(rng.integers(0, -w_space + 1))
+        img_left = 0
+    if h_space > 0:
+        cont_top = 0
+        img_top = int(rng.integers(0, h_space + 1))
+    else:
+        cont_top = int(rng.integers(0, -h_space + 1))
+        img_top = 0
+    return (cont_top, cont_top + ch, cont_left, cont_left + cw,
+            img_top, img_top + ch, img_left, img_left + cw)
+
+
+def _canvas(img: np.ndarray, cropsize: int, fill) -> np.ndarray:
+    if img.ndim == 3:
+        return np.full((cropsize, cropsize, img.shape[2]), fill, img.dtype)
+    return np.full((cropsize, cropsize), fill, img.dtype)
+
+
+def crop_with_box(img: np.ndarray, box, cropsize: int, fill) -> np.ndarray:
+    out = _canvas(img, cropsize, fill)
+    out[box[0]:box[1], box[2]:box[3]] = img[box[4]:box[5], box[6]:box[7]]
+    return out
+
+
+def random_crop(
+    arrays: Union[np.ndarray, Sequence[np.ndarray]],
+    cropsize: int,
+    fills,
+    rng: np.random.Generator,
+):
+    """Crop one array, or several through one box (one fill each)."""
+    single = isinstance(arrays, np.ndarray)
+    if single:
+        arrays = (arrays,)
+        fills = (fills,)
+    box = random_crop_box(arrays[0].shape[:2], cropsize, rng)
+    outs = tuple(crop_with_box(a, box, cropsize, f)
+                 for a, f in zip(arrays, fills))
+    return outs[0] if single else outs
+
+
+def top_left_crop(img: np.ndarray, cropsize: int, fill) -> np.ndarray:
+    h, w = img.shape[:2]
+    ch, cw = min(cropsize, h), min(cropsize, w)
+    out = _canvas(img, cropsize, fill)
+    out[:ch, :cw] = img[:ch, :cw]
+    return out
+
+
+def normalize(img: np.ndarray,
+              mean: np.ndarray = IMAGENET_MEAN,
+              std: np.ndarray = IMAGENET_STD) -> np.ndarray:
+    """uint8 HWC -> float32 normalized (voc12/dataloader.py:65-78)."""
+    return ((img.astype(np.float32) / 255.0) - mean) / std
 
 
 def get_strided_size(size: Tuple[int, int], stride: int) -> Tuple[int, int]:

@@ -73,10 +73,17 @@ class IRNet(nn.Module):
         )
         self.mean_shift = MeanShift(2)
 
-    def forward(self, x: torch.Tensor, apply_mean_shift: bool = False):
-        """x: [B, 3, H, W] -> (edge logit [B, 1, h4, w4],
-        displacement [B, 2, h4, w4])."""
-        f = self.resnet50(x)
+    def features(self, x: torch.Tensor):
+        """The backbone's stage features, computed without autograd: the
+        backbone is fully frozen (JAX ``stop_grad_after="c5"``), so
+        training keeps none of its activations."""
+        with torch.no_grad():
+            return self.resnet50(x)
+
+    def heads(self, f, apply_mean_shift: bool = False):
+        """Stage features -> (edge logit [B, 1, h4, w4], displacement
+        [B, 2, h4, w4]); MeanShift only when ``apply_mean_shift`` (never in
+        training)."""
         x1, x2, x3, x4, x5 = f["stem"], f["c2"], f["c3"], f["c4"], f["c5"]
 
         e2 = self.fc_edge2(x2)
@@ -98,6 +105,11 @@ class IRNet(nn.Module):
         if apply_mean_shift:
             dp = self.mean_shift(dp)
         return edge, dp
+
+    def forward(self, x: torch.Tensor, apply_mean_shift: bool = False):
+        """x: [B, 3, H, W] -> (edge logit [B, 1, h4, w4],
+        displacement [B, 2, h4, w4])."""
+        return self.heads(self.features(x), apply_mean_shift)
 
 
 @torch.no_grad()

@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
            "banded_chain", "packed_chain_batched", "conv3x3", "advect",
-           "ccl_label", "ccl_tables")
+           "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -173,6 +173,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_cluster_masks.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
     lib.irn_component_tables.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, p, n,
+    ]
+    lib.irn_path_max_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, n]
+    lib.irn_path_max_bwd.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, p, n,
     ]
     for k in (*(k for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",

@@ -4,13 +4,14 @@ same artifacts) plus ``--device`` (default ``cuda``).
 
 Usage:
     python -m irn_tpu_torch.pipeline.run --voc12_root <VOC2012> \
-        --infer_list <ids.txt> --make_cam_pass --eval_cam_pass \
-        --cam_to_ir_label_pass --make_sem_seg_pass --eval_sem_seg_pass \
-        --make_ins_seg_pass --eval_ins_seg_pass --make_cocoann_pass \
-        [--device cuda|cpu]
+        --train_list <ids.txt> --infer_list <ids.txt> --make_cam_pass \
+        --eval_cam_pass --cam_to_ir_label_pass --train_irn_pass \
+        --make_sem_seg_pass --eval_sem_seg_pass --make_ins_seg_pass \
+        --eval_ins_seg_pass --make_cocoann_pass [--device cuda|cpu]
 
-Stages not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; none is skipped silently."""
+Every stage but train_cam is ported; ``--train_cam_pass`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it, so no stage
+is skipped silently."""
 
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ STAGES = [
     ("eval_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "eval_cam")),
     ("cam_to_ir_label_pass",
      ("irn_tpu_torch.pipeline.stages_cam", "cam_to_ir_label")),
-    ("train_irn_pass", "ROADMAP queue 1 item 7 (train_irn)"),
+    ("train_irn_pass", ("irn_tpu_torch.pipeline.stages_irn", "train_irn")),
     ("make_ins_seg_pass",
      ("irn_tpu_torch.pipeline.stages_irn", "make_ins_seg_labels")),
     ("eval_ins_seg_pass",

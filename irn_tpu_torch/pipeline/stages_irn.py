@@ -15,6 +15,13 @@ step/make_ins_seg_labels.py in ``ins_seg_out_dir``. The JAX stage's
 monolith programs and packed fetches exist for its TPU transport and are
 not ported: the port passes tensors between the steps.
 
+train_irn: the epoch loop over the ``ir_label`` crops (AffinityDataset,
+BatchLoader), one train step per batch through the path max kernels (K13a,
+K13b; :mod:`irn_tpu_torch.train.irn_train`), a ``.train`` checkpoint per
+epoch to resume from, the displacement-mean calibration over
+``infer_list`` and the final checkpoint in the JAX layout, which both
+frameworks' make stages read.
+
 The device is explicit: nothing moves to the CPU because no card was
 found.
 """
@@ -31,15 +38,19 @@ import torch
 import torch.nn.functional as F
 
 from irn_tpu_torch.data import image_io
+from irn_tpu_torch.data import loader as loader_mod
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import ccl
 from irn_tpu_torch.ops import centroids
 from irn_tpu_torch.ops import random_walk as rw_mod
+from irn_tpu_torch.pipeline import common
 from irn_tpu_torch.pipeline.config import Config
-from irn_tpu_torch.utils.checkpoint import load_checkpoint
-from irn_tpu_torch.utils.weights import irn_from_jax
+from irn_tpu_torch.train import irn_train, optim
+from irn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from irn_tpu_torch.utils.logging import DeviceMeter, Timer
+from irn_tpu_torch.utils.weights import irn_from_jax, irn_to_jax
 
 
 def resolve_device(device) -> torch.device:
@@ -75,6 +86,118 @@ def check_slice_flags(cfg: Config) -> None:
             "sem_monolith: the relay-transport monolith is not ported "
             "(ROADMAP queue 1, 'Not ported')"
         )
+
+
+def _images(batch: Dict, dev: torch.device) -> torch.Tensor:
+    """A batch's normalized HWC images as [B, 3, H, W] f32 on ``dev``."""
+    img = torch.from_numpy(batch["img"]).to(dev)
+    return img.permute(0, 3, 1, 2).contiguous()
+
+
+def train_irn(cfg: Config, device="cuda") -> Dict:
+    """Train IRNet's heads over a frozen backbone (step/train_irn.py): poly
+    SGD, the four affinity / displacement losses through K13a and K13b, a
+    ``.train`` checkpoint per epoch (resumed from when ``cfg.resume``),
+    then the displacement-mean calibration and ``cfg.irn_weights_name``.
+
+    Returns a summary: the steps this run took, the seconds its epoch loop
+    took (every step finished), each step's losses, the epoch it started
+    from, max_step and the calibrated dp_mean."""
+    if cfg.model_dtype != "float32":
+        raise NotImplementedError(
+            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
+        raise NotImplementedError(
+            "data-parallel or multi-process training is ROADMAP queue 1 "
+            "item 10 (Multi-GPU)")
+    dev = resolve_device(device)
+    # the reference's numerics are f32: a TF32 conv or matmul is not
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    ds = voc12.AffinityDataset(
+        cfg.train_list, label_dir=cfg.ir_label_out_dir,
+        crop_size=cfg.irn_crop_size, voc12_root=cfg.voc12_root,
+        rescale=(0.5, 1.5), hor_flip=True, crop_method="random",
+    )
+    dl = loader_mod.BatchLoader(ds, cfg.irn_batch_size, shuffle=True,
+                                drop_last=True, num_workers=cfg.num_workers)
+    max_step = (len(ds) // cfg.irn_batch_size) * cfg.irn_num_epoches
+
+    model = common.init_model_variables(IRNet(), cfg).to(dev)
+    table = irn_train.build_train_geometry(cfg.irn_crop_size,
+                                           cfg.path_radius)
+    opt = optim.poly_sgd(
+        model.named_parameters(), cfg.irn_learning_rate, max_step=max_step,
+        power=0.9, momentum=cfg.irn_weight_decay,
+        weight_decay=cfg.irn_weight_decay, mult_fn=optim.irn_lr_mult,
+    )
+
+    train_ckpt_path = cfg.irn_weights_name + ".train"
+    start_epoch = 0
+    if cfg.resume and os.path.exists(train_ckpt_path):
+        start_epoch = irn_train.load_train_state(
+            model, opt, load_checkpoint(train_ckpt_path), train_ckpt_path)
+        print(f"resumed {train_ckpt_path} at epoch {start_epoch}")
+
+    step_fn = irn_train.make_train_step(model, opt, table)
+    meter = DeviceMeter()
+    timer = Timer()
+    steps_per_epoch = len(dl)
+    history: List[Dict[str, torch.Tensor]] = []
+    t0 = time.perf_counter()
+    for ep in range(start_epoch, cfg.irn_num_epoches):
+        print(f"Epoch {ep + 1}/{cfg.irn_num_epoches}")
+        # pin the loader's RNG stream to the true epoch, so a resumed run
+        # continues the shuffle and augmentation sequence
+        dl.set_epoch(ep)
+        for it, batch in enumerate(dl):
+            metrics = step_fn(
+                _images(batch, dev),
+                torch.from_numpy(batch["reduced_label"]).to(dev))
+            meter.add(metrics)
+            history.append(metrics)
+            gstep = ep * steps_per_epoch + it + 1
+            if (gstep - 1) % 50 == 0:
+                losses = (
+                    meter.pop("loss_pos_aff"), meter.pop("loss_neg_aff"),
+                    meter.pop("loss_dp_fg"), meter.pop("loss_dp_bg"),
+                )
+                timer.update_progress(gstep / max_step)
+                print(
+                    f"step:{gstep - 1:5d}/{max_step:5d}",
+                    "loss:%.4f %.4f %.4f %.4f" % losses,
+                    f"imps:{(it + 1) * cfg.irn_batch_size / timer.get_stage_elapsed():.1f}",
+                    f"etc:{timer.str_estimated_complete()}",
+                    flush=True,
+                )
+        timer.reset_stage()
+        save_checkpoint(train_ckpt_path,
+                        irn_train.train_state(model, opt, ep + 1))
+    seconds = time.perf_counter() - t0
+
+    # displacement mean calibration (train_irn.py:87-107)
+    infer_ds = voc12.ImageDataset(
+        cfg.infer_list, cfg.voc12_root, img_normal=True,
+        crop_size=cfg.irn_crop_size, crop_method="top_left",
+    )
+    infer_dl = loader_mod.BatchLoader(infer_ds, cfg.irn_batch_size,
+                                      num_workers=cfg.num_workers)
+    dp_step = irn_train.make_dp_mean_step(model)
+    print("Analyzing displacements mean ... ", end="", flush=True)
+    means = [dp_step(_images(b, dev)) for b in infer_dl]
+    irn_train.calibrate_mean_shift(model, means)
+    print("done.")
+
+    save_checkpoint(cfg.irn_weights_name, irn_to_jax(model.state_dict()))
+    print(f"saved {cfg.irn_weights_name}")
+    keys = list(history[0]) if history else []
+    rows = (torch.stack([torch.stack([m[k] for k in keys])
+                         for m in history]).tolist() if history else [])
+    return dict(n_steps=len(history), seconds=seconds,
+                losses=[dict(zip(keys, r)) for r in rows],
+                start_epoch=start_epoch, max_step=max_step,
+                dp_mean=model.mean_shift.running_mean.cpu().tolist())
 
 
 class EdgeDisplacementRunner:

@@ -396,3 +396,127 @@ def test_coco_export(tmp_path, rng, fmt):
     assert got == want and len(got["annotations"]) == 2
     assert (tmp_path / "port.json").read_text() == (
         tmp_path / "jax.json").read_text()
+
+
+# -- train_irn's copies -------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_augmentations(seed):
+    """random_scale, random_lr_flip, random_crop (image and label through
+    one box, with fills) and top_left_crop under the same seeded
+    generators: the same arrays and the same generator state after."""
+    g = np.random.default_rng(seed + 10)
+    img = g.integers(0, 256, (45, 61, 3)).astype(np.uint8)
+    lab = g.integers(0, 21, (45, 61)).astype(np.uint8)
+    for crop in (32, 80):
+        ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+        a = transforms.random_scale((img, lab), (0.5, 1.5), (3, 0), rng=ra)
+        b = jax_transforms.random_scale((img, lab), (0.5, 1.5), (3, 0),
+                                        rng=rb)
+        a = transforms.random_lr_flip(a, rng=ra)
+        b = jax_transforms.random_lr_flip(b, rng=rb)
+        a = transforms.random_crop(a, crop, (0, 255), rng=ra)
+        b = jax_transforms.random_crop(b, crop, (0, 255), rng=rb)
+        single = transforms.random_crop(transforms.normalize(img), crop, 0,
+                                        rng=ra)
+        want = jax_transforms.random_crop(jax_transforms.normalize(img),
+                                          crop, 0, rng=rb)
+        for x, y in zip((*a, single), (*b, want)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+        assert ra.random() == rb.random()
+        for arr, fill in ((img, 0), (lab, 255)):
+            assert np.array_equal(transforms.top_left_crop(arr, crop, fill),
+                                  jax_transforms.top_left_crop(arr, crop,
+                                                               fill))
+        assert transforms.random_crop_box((45, 61), crop, np.random.default_rng(
+            seed)) == jax_transforms.random_crop_box(
+                (45, 61), crop, np.random.default_rng(seed))
+
+
+def test_train_datasets_and_loader(tmp_path):
+    """AffinityDataset and ImageDataset (the calibration's top-left crops)
+    items, and BatchLoader batches (shuffled, drop_last, threads, over two
+    epochs through set_epoch), equal to irn_tpu's for the same seed."""
+    from irn_tpu.data import loader as jax_loader
+    from irn_tpu.data import synthetic as jax_synthetic
+    from irn_tpu.data import voc12 as jax_voc12
+    from irn_tpu_torch.data import loader, voc12
+
+    root = str(tmp_path / "voc")
+    train, _ = jax_synthetic.generate(root, n_images=6, size=40,
+                                      max_side_jitter=30, seed=2)
+    with open(train, "w") as f:
+        f.write("\n".join(f"2007_{i:06d}" for i in range(6)) + "\n")
+    label_dir = os.path.join(root, "SegmentationClass")
+    kw = dict(crop_size=32, rescale=(0.5, 1.5), hor_flip=True,
+              crop_method="random")
+    port = voc12.AffinityDataset(train, label_dir, voc12_root=root, **kw)
+    ref = jax_voc12.AffinityDataset(train, label_dir, voc12_root=root, **kw)
+    pairs = [
+        (port, ref),
+        (voc12.ImageDataset(train, root, img_normal=True, crop_size=32,
+                            crop_method="top_left"),
+         jax_voc12.ImageDataset(train, root, crop_size=32,
+                                crop_method="top_left")),
+        (voc12.ImageDataset(train, root, img_normal=True, rescale=(0.5, 1.5),
+                            hor_flip=True, crop_size=32,
+                            crop_method="random", seed=3),
+         jax_voc12.ImageDataset(train, root, rescale=(0.5, 1.5),
+                                hor_flip=True, crop_size=32,
+                                crop_method="random", seed=3)),
+    ]
+    for p, r in pairs:
+        for epoch in (0, 1):
+            p.set_epoch(epoch)
+            r.set_epoch(epoch)
+            for i in range(len(r)):
+                a, b = p[i], r[i]
+                assert sorted(a) == sorted(b)
+                for k in b:
+                    if isinstance(b[k], np.ndarray):
+                        assert a[k].dtype == b[k].dtype, k
+                        assert np.array_equal(a[k], b[k]), (epoch, i, k)
+                    else:
+                        assert a[k] == b[k]
+
+    dl = loader.BatchLoader(port, 4, shuffle=True, drop_last=True,
+                            num_workers=3)
+    jdl = jax_loader.BatchLoader(ref, 4, shuffle=True, drop_last=True,
+                                 num_workers=3)
+    assert len(dl) == len(jdl) == 1
+    for epoch in (0, 1):
+        dl.set_epoch(epoch)
+        jdl.set_epoch(epoch)
+        got, want = list(dl), list(jdl)
+        assert len(got) == len(want) == 1
+        for k in want[0]:
+            if isinstance(want[0][k], np.ndarray):
+                assert np.array_equal(got[0][k], want[0][k]), k
+            else:
+                assert got[0][k] == want[0][k]
+    tail = loader.BatchLoader(port, 4, drop_last=False, num_workers=2)
+    assert [len(b["name"]) for b in tail] == [4, 2]
+    assert loader.collate([{"a": np.zeros(2), "n": "x"},
+                           {"a": np.ones(2), "n": "y"}])["n"] == ["x", "y"]
+    assert np.array_equal(loader.shard_indices(10, 1, 3),
+                          jax_loader.shard_indices(10, 1, 3))
+
+
+def test_average_meter():
+    from irn_tpu.utils.logging import AverageMeter as JaxMeter
+    from irn_tpu_torch.utils.logging import AverageMeter, DeviceMeter
+
+    a, b = AverageMeter("x"), JaxMeter("x")
+    for m in (a, b):
+        m.add({"x": 1.5, "y": 2})
+        m.add({"x": 2.5})
+    assert (a.get("x"), a.get("y")) == (b.get("x"), b.get("y")) == (2.0, 2.0)
+    assert a.pop("x") == b.pop("x") == 2.0
+    assert a.get("x") == b.get("x") == 0.0
+    a.pop()
+    assert a.get("y") == 0.0
+    d = DeviceMeter()
+    d.add({"x": torch.tensor(1.0)})
+    d.add({"x": torch.tensor(2.0)})
+    assert d.pop("x") == 1.5 and d.pop("x") == 0.0

@@ -34,7 +34,10 @@ SLICE = ("irn_tpu_torch.data.transforms", "irn_tpu_torch.models.cam",
          # the make_ins_seg / eval_ins_seg / make_cocoann slice
          "irn_tpu_torch.ops.cc", "irn_tpu_torch.ops.centroids",
          "irn_tpu_torch.ops.ccl", "irn_tpu_torch.eval.insseg",
-         "irn_tpu_torch.eval.coco")
+         "irn_tpu_torch.eval.coco",
+         # the train_irn slice
+         "irn_tpu_torch.data.loader", "irn_tpu_torch.train.optim",
+         "irn_tpu_torch.train.irn_train", "irn_tpu_torch.pipeline.common")
 
 
 def _run_probe(prelude: str = ""):

@@ -764,3 +764,62 @@ def test_component_tables_exact(cuda, case, cap):
         assert torch.equal(a, b), name
     if case != "empty" and not (case == "blobby" and cap == 128):
         assert int(got[4]) == cap + 1
+
+
+def _edge_map(kind, shape, seed=0):
+    """An edge map in [0, 1]: a sigmoid of normals, the same quantized to 8
+    levels (ties everywhere), or exact zeros."""
+    g = np.random.default_rng(seed)
+    e = 1.0 / (1.0 + np.exp(-g.standard_normal(shape)))
+    if kind == "quantized":
+        e = np.round(e * 7) / 7
+    elif kind == "zeros":
+        e = np.zeros(shape)
+    return torch.from_numpy(e.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["sigmoid", "quantized", "zeros"])
+@pytest.mark.parametrize("radius,shape", [(10, (2, 32, 32)),
+                                          (5, (3, 37, 29)),
+                                          (4, (1, 16, 40)),
+                                          (10, (2, 128, 128))])
+def test_path_max_bit_equal(cuda, kind, radius, shape):
+    """K13a's values and winners and K13b's gradient bit-equal to their
+    twins, one launch each: ties (the quantized map, all-zero map) keep the
+    first cell, odd shapes leave ragged blocks."""
+    from irn_tpu_torch.ops import affinity, paths
+
+    table = affinity.path_table(paths.build_path_set(radius))
+    edge = _edge_map(kind, shape, seed=radius)
+    maxed, winner = affinity.path_max_fwd(edge.to(cuda), table)
+    want_m, want_w = affinity.path_max_plain(edge, table)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tuple(want_m.shape)).astype(np.float32))
+    got_g = affinity.path_max_bwd(g.to(cuda), winner, table, shape[1:])
+    want_g = affinity.path_max_bwd_plain(g, want_w, table, shape[1:])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["path_max_fwd"] == 1
+    assert _build.LAUNCHES["path_max_bwd"] == 1
+    assert torch.equal(maxed.cpu(), want_m)
+    assert torch.equal(winner.cpu(), want_w)
+    assert torch.equal(got_g.cpu(), want_g)
+
+
+def test_path_max_autograd(cuda):
+    """The autograd Function on the card: one K13a in the forward, one K13b
+    in the backward, the edge gradient bit-equal to the host's."""
+    from irn_tpu_torch.ops import affinity, paths
+
+    table = affinity.path_table(paths.build_path_set(5))
+    edge = _edge_map("quantized", (2, 24, 30), seed=3)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, table.n_pairs, 20, 22)).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        e = edge.to(dev).requires_grad_(True)
+        (affinity.path_max(e, table) * g.to(dev)).sum().backward()
+        grads.append(e.grad.cpu())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["path_max_fwd"] == 1
+    assert _build.LAUNCHES["path_max_bwd"] == 1
+    assert torch.equal(grads[0], grads[1])
