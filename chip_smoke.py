@@ -61,6 +61,25 @@ kernels phase holds K13a and K13b to their twins bit for bit at the
 default shapes (a sigmoid map and the same map quantized to 8 levels) and
 an odd small shape.
 
+The phase ``stage: train_cam`` trains the CAM classifier through the CLI
+at its defaults (crop 512, batch 16, lr 0.1, ``cam_stop_grad`` c3, the
+frozen batch norms calibrated from one batch, no pretrained backbone) on
+the tree's 8 images 4 times (2 steps per epoch; the val list is the 8
+images, one tail batch): 2 epochs with ``--profile_dir``, then the same run
+at 3 epochs resumed from its ``.train`` file (2 more steps), TF32 switched
+on before and required off inside; no hand kernel launched; every loss and
+validate loss finite; the stem and layers 1-2 bit-equal to their initial
+values while every statistic was calibrated; every layer3, layer4 and head
+tensor moved; one trace under ``<profile_dir>/train_cam``; make_cam and
+eval_cam on the trained checkpoint, one image's make_cam on the host
+(max-abs < 1e-3) and the trained head's maps before the ReLU, card vs
+host. It holds one step at batch 4 on the card to the port on the host
+and to the same step in f64 on the card (loss within 1e-3; the update in
+norm within 2e-3 of the host's and no farther from f64 than 1.25x the
+host's) and prints the step time at batch 16, img/s, a per-step breakdown
+(loader, upload, stem..c3 forward without autograd, c4..head forward +
+loss, backward, optimizer), the device's busy share and the peak memory.
+
 The phase ``stage: make_ins_seg -> eval_ins_seg -> make_cocoann`` runs the
 instance stages through the CLI on make_sem_seg's tree, GT cams and
 checkpoint: two passes at the defaults (K11 one launch per image; K12a and
@@ -1697,12 +1716,10 @@ def _image_size(root: str, name: str) -> tuple:
         return im.size[1], im.size[0]
 
 
-def cam_host_checks(dev, cam: dict, crop=(192, 256)) -> None:
-    """One image's make_cam on the host against the card's npy (max-abs
-    < 1e-3), and the device CRF on the card against the host port on one
-    image's top-left ``crop`` (int8: >= 99.9% equal, its products exact
-    integers on both; dense bf16: >= 99.5%)."""
-    from irn_tpu_torch.ops.crf_device import LandmarkCRF
+def make_cam_host_check(cam: dict, tag: str = "cam_host") -> tuple:
+    """One image's make_cam on the host against the card's npy in
+    ``cam['cams']`` (same keys, max-abs < 1e-3); returns (the image's name,
+    the card's npy dict, the host's Config)."""
     from irn_tpu_torch.pipeline import stages_cam
     from irn_tpu_torch.pipeline.config import Config
 
@@ -1710,7 +1727,7 @@ def cam_host_checks(dev, cam: dict, crop=(192, 256)) -> None:
     one = os.path.join(cam["work"], "one.txt")
     with open(one, "w") as f:
         f.write(name + "\n")
-    host_dir = os.path.join(cam["work"], "cam_host")
+    host_dir = os.path.join(cam["work"], tag)
     cfg = Config(voc12_root=cam["root"], train_list=one, infer_list=one,
                  cam_weights_name=cam["weights"],
                  cam_out_dir=host_dir).resolve()
@@ -1726,9 +1743,21 @@ def cam_host_checks(dev, cam: dict, crop=(192, 256)) -> None:
           f"make_cam keys card {got['keys']} host {want['keys']}")
     errs = {k: float(np.abs(got[k] - want[k]).max(initial=0))
             for k in ("cam", "high_res")}
-    print(f"make_cam of {name} on the host ({seconds:.2f} s) vs the card: "
-          f"max-abs {errs}", flush=True)
+    print(f"make_cam of {name} on the host ({seconds:.2f} s) vs the card "
+          f"({cam['weights']}): max-abs {errs}", flush=True)
     check(max(errs.values()) < 1e-3, f"make_cam card vs host {errs}")
+    return name, got, cfg
+
+
+def cam_host_checks(dev, cam: dict, crop=(192, 256)) -> None:
+    """One image's make_cam on the host against the card's npy (max-abs
+    < 1e-3), and the device CRF on the card against the host port on one
+    image's top-left ``crop`` (int8: >= 99.9% equal, its products exact
+    integers on both; dense bf16: >= 99.5%)."""
+    from irn_tpu_torch.ops.crf_device import LandmarkCRF
+    from irn_tpu_torch.pipeline import stages_cam
+
+    name, got, cfg = make_cam_host_check(cam)
 
     from irn_tpu_torch.data.image_io import imread
 
@@ -2224,6 +2253,403 @@ def train_layers(dev, train: dict, card: str) -> None:
               "busy share not measured", flush=True)
 
 
+CAM_TRAIN_REPEAT = 4  # the train list: the tree's 8 images, 4 times each
+CAM_FROZEN = ("resnet50.conv1.", "resnet50.bn1.", "resnet50.layer1.",
+              "resnet50.layer2.")
+
+
+def _cam_stats_names(sd) -> list:
+    return [k for k in sd if k.endswith(("running_mean", "running_var"))]
+
+
+def run_train_cam_stage(dev, stage: dict, card: str) -> dict:
+    """train_cam through the port's CLI at its defaults (crop 512, batch 16,
+    lr 0.1, cam_stop_grad c3, calibration on, no pretrained backbone) on
+    the tree's 8 images 4 times (2 steps per epoch; the val list is the 8
+    images, one tail batch): 2 epochs with ``--profile_dir``, then the same
+    run at 3 epochs resumed from ``.train`` (2 more steps); then make_cam
+    and eval_cam on the trained checkpoint. TF32 is switched on before the
+    runs: the stage must switch it off."""
+    from irn_tpu_torch.models.cam import CAMNet
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import common
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.train import cam_train
+    from irn_tpu_torch.utils.checkpoint import load_checkpoint
+    from irn_tpu_torch.utils.weights import cam_from_jax
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    train_ids = os.path.join(root, "train_cam32.txt")
+    with open(train_ids, "w") as f:
+        f.write("\n".join(names * CAM_TRAIN_REPEAT) + "\n")
+    weights = os.path.join(work, "cam_trained.ckpt")
+    prof_dir = os.path.join(work, "prof")
+    cams = os.path.join(work, "cam_trained")
+
+    def argv(*extra):
+        return ["--voc12_root", root, "--train_list", train_ids,
+                "--val_list", ids, "--infer_list", ids,
+                "--cam_weights_name", weights, "--cam_out_dir", cams,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_train_cam"),
+                "--device", str(dev), *extra]
+
+    tf32 = []
+    make_step = cam_train.make_train_step
+
+    def make_step_seen(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def seen(*x):
+            tf32.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return step(*x)
+        return seen
+
+    logs = []
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cam_train.make_train_step = make_step_seen
+    try:
+        _build.reset_launches()
+        first = cli(argv("--train_cam_pass", "--cam_num_epoches", "2",
+                         "--profile_dir", prof_dir), logs)["train_cam"]
+        after_first = load_checkpoint(weights + ".train")
+        resumed = cli(argv("--train_cam_pass", "--cam_num_epoches", "3"),
+                      logs)["train_cam"]
+        stage["launches"]["train cam"] = dict(_build.LAUNCHES)
+    finally:
+        cam_train.make_train_step = make_step
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for text in logs:
+        for line in text.splitlines():
+            if line.startswith(("WARNING", "calibrated", "Epoch", "step:",
+                                "validate", "resumed", "saved")):
+                print(f"  train_cam: {line}", flush=True)
+    cfg, _ = port_run.parse(argv())
+    check(len(tf32) == 6 and not any(a or b for a, b in tf32),
+          f"TF32 inside train_cam's steps: {tf32}")
+    check(any("calibrated frozen-BN statistics" in t for t in logs),
+          "train_cam did not calibrate its batch norms")
+    lt = stage["launches"]["train cam"]
+    check(not any(lt.values()), f"train_cam launched hand kernels: {lt}")
+    saved_train = load_checkpoint(weights + ".train")
+    check((first["n_steps"], resumed["n_steps"], resumed["start_epoch"],
+           int(after_first["step"]), int(saved_train["step"]),
+           int(saved_train["epoch"])) == (4, 2, 2, 4, 6, 3),
+          f"train_cam runs {first['n_steps']} + {resumed['n_steps']} steps "
+          f"from epoch {resumed['start_epoch']}, .train steps "
+          f"{int(after_first['step'])} then {int(saved_train['step'])}")
+    losses = first["losses"] + resumed["losses"]
+    val = first["val_losses"] + resumed["val_losses"]
+    check(len(losses) == 6 and len(val) == 3
+          and all(np.isfinite(losses + val)),
+          f"train_cam losses {losses}, validate {val}")
+    print("train_cam losses per step: "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; validate per epoch: "
+          + ", ".join(f"{v:.4f}" for v in val), flush=True)
+    traces = os.listdir(os.path.join(prof_dir, "train_cam"))
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"),
+          f"--profile_dir traces {traces}")
+    trace_mb = os.path.getsize(
+        os.path.join(prof_dir, "train_cam", traces[0])) / 2**20
+
+    # frozen parameters bit-equal to the seeded init while the calibration
+    # wrote every statistic; every trained tensor moved
+    with contextlib.redirect_stdout(io.StringIO()):
+        init = common.init_model_variables(CAMNet(), cfg).state_dict()
+    final = cam_from_jax(load_checkpoint(weights))
+    params = [k for k in init if k not in _cam_stats_names(init)]
+    frozen = [k for k in params if k.startswith(CAM_FROZEN)]
+    trained = [k for k in params if k not in frozen]
+    check(len(frozen) == 72 and len(trained) == 88,
+          f"{len(frozen)} frozen, {len(trained)} trained tensors")
+    check(all(torch.equal(final[k], init[k]) for k in frozen),
+          "train_cam moved a frozen parameter")
+    still = [k for k in _cam_stats_names(init) + trained
+             if torch.equal(final[k], init[k])]
+    check(not still, f"tensors left at their initial values: {still}")
+    rate = [r["n_steps"] * cfg.cam_batch_size / r["seconds"]
+            for r in (first, resumed)]
+    print(f"stage train_cam: {rate[0]:.2f} img/s over the first run's "
+          f"{first['n_steps']} steps, {rate[1]:.2f} img/s over the resumed "
+          f"run's {resumed['n_steps']} (epoch loops incl. loader, validation "
+          f"and .train saves; smoke rates, batch {cfg.cam_batch_size}, crop "
+          f"{cfg.cam_crop_size}; the first run profiles steps [2, 4): trace "
+          f"{trace_mb:.1f} MiB); launches {lt} ({card})", flush=True)
+
+    # make_cam and eval_cam on the trained checkpoint, then one image on
+    # the host
+    out = cli(argv("--make_cam_pass", "--eval_cam_pass"))
+    mc = out["make_cam"]
+    check(mc["n_images"] == len(names)
+          and all(os.path.exists(os.path.join(cams, n_ + ".npy"))
+                  for n_ in names), f"make_cam on the trained checkpoint {mc}")
+    print(f"stage make_cam / eval_cam on the trained checkpoint: "
+          f"{mc['n_images'] / mc['seconds']:.3f} img/s, mIoU "
+          f"{out['eval_cam']['miou']:.4f} ({card})", flush=True)
+    tc = dict(cfg=cfg, root=root, work=work, names=names, weights=weights,
+              cams=cams, rate=rate, first=first, resumed=resumed)
+    name, got, _ = make_cam_host_check(tc, "cam_trained_host")
+
+    # make_cam's maps are the head's after a ReLU, zero where it is negative
+    # everywhere: the trained head's maps before it, card against host, at
+    # 1e-3 of their largest magnitude
+    from irn_tpu_torch.data import transforms
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.pipeline import stages_cam
+
+    img = imread(os.path.join(root, "JPEGImages", name + ".jpg"))
+    x = torch.from_numpy(transforms.normalize(img)).permute(2, 0, 1)[None]
+    maps = []
+    for d in (dev, torch.device("cpu")):
+        net = stages_cam.load_cam_net(cfg, d)
+        with torch.no_grad():
+            maps.append(net.classifier(net.resnet50(x.to(d))["c5"]).cpu())
+    err = float((maps[0] - maps[1]).abs().max() / maps[1].abs().max())
+    present = maps[1][0, torch.from_numpy(got["keys"])]
+    print(f"trained head's maps of {name} before the ReLU, card vs host: "
+          f"{err:.3e} of the largest |value|; {100 * float((present > 0).float().mean()):.1f}% "
+          f"positive in the present classes {got['keys'].tolist()}, "
+          f"make_cam high_res max {float(got['high_res'].max(initial=0)):.4f}",
+          flush=True)
+    check(err <= 1e-3, f"trained head's maps card vs host {err}")
+    return tc
+
+
+def _cam_train_loader(cfg, batch: int):
+    """The stage's train loader at ``batch``."""
+    from irn_tpu_torch.data import loader as loader_mod
+    from irn_tpu_torch.data import voc12
+    from irn_tpu_torch.pipeline import stages_cam
+
+    ds = voc12.ClassificationDataset(
+        cfg.train_list, cfg.voc12_root, stages_cam._label_dict(cfg),
+        resize_long=(320, 640), img_normal=True, hor_flip=True,
+        crop_size=cfg.cam_crop_size, crop_method="random")
+    return loader_mod.BatchLoader(ds, batch, shuffle=True, drop_last=True,
+                                  num_workers=cfg.num_workers)
+
+
+def _cam_batch_to(batch, dev, dtype=torch.float32):
+    img = torch.from_numpy(batch["img"]).to(dev).permute(0, 3, 1, 2)
+    return (img.contiguous().to(dtype),
+            torch.from_numpy(batch["label"]).to(dev).to(dtype))
+
+
+def _cam_train_model(cfg, state: dict, dev, max_step: int, dtype):
+    """A CAMNet holding ``state`` on ``dev`` at ``dtype`` and the stage's
+    optimizer."""
+    from irn_tpu_torch.models.cam import CAMNet
+    from irn_tpu_torch.train import optim
+
+    model = CAMNet(stop_grad_at=cfg.cam_stop_grad or None)
+    model.load_state_dict(state)
+    model = model.to(device=dev, dtype=dtype)
+    opt = optim.poly_sgd(model.named_parameters(), cfg.cam_learning_rate,
+                         max_step=max_step, power=0.9,
+                         momentum=cfg.cam_weight_decay,
+                         weight_decay=cfg.cam_weight_decay,
+                         mult_fn=optim.cam_lr_mult)
+    return model, opt
+
+
+def _calibrated_state(cfg, batch, dev) -> dict:
+    """The stage's seeded initial CAMNet calibrated on ``batch`` on
+    ``dev``, as a host state dict: one start for the steps that follow."""
+    from irn_tpu_torch.models.cam import CAMNet
+    from irn_tpu_torch.pipeline import common
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        model = common.init_model_variables(CAMNet(), cfg).to(dev)
+    model.calibrate_stats(_cam_batch_to(batch, dev)[0])
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def train_cam_host_check(dev, tc: dict) -> None:
+    """One train step at batch 4, crop 512, from the same calibrated
+    weights and batch: the card (f32, TF32 off) against the port on the
+    host (f32), and both against the same step in f64 on the card. The
+    loss within 1e-3 relative; the trained tensors' update in norm: the
+    card's distance from the f64 step within 1.25x the host's (each f32
+    step is as far from f64 as the two are from each other, CPU tests in
+    tests/test_torch_cam_train_steps.py), and the card's from the host's
+    within 2e-3 (measured: 7.3e-4, H100 80GB HBM3 at 700 W)."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.train import cam_train
+
+    cfg = tc["cfg"]
+    dl = _cam_train_loader(cfg, HOST_BATCH)
+    batch = next(iter(dl))
+    state = _calibrated_state(cfg, batch, dev)
+    max_step = len(dl) * cfg.cam_num_epoches
+    runs = {}
+    for tag, d, dtype in (("card", dev, torch.float32),
+                          ("host", torch.device("cpu"), torch.float32),
+                          ("card f64", dev, torch.float64)):
+        model, opt = _cam_train_model(cfg, state, d, max_step, dtype)
+        n0 = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = float(cam_train.make_train_step(model, opt)(
+            *_cam_batch_to(batch, d, dtype)))
+        seconds = time.perf_counter() - t0
+        after = {k: v.detach().cpu().double() for k, v in
+                 model.state_dict().items()}
+        runs[tag] = (loss, after, seconds,
+                     {k: _build.LAUNCHES[k] - n0[k] for k in n0})
+        del model, opt
+    trained = [k for k in state if k not in _cam_stats_names(state)
+               and not k.startswith(CAM_FROZEN)]
+
+    def dist(a: str, b: str) -> float:
+        num = den = 0.0
+        for k in trained:
+            wa, wb = runs[a][1][k], runs[b][1][k]
+            num += float(((wa - wb) ** 2).sum())
+            den += float(((wb - state[k].double()) ** 2).sum())
+        return (num / den) ** 0.5
+
+    check(not any(v for r in runs.values() for v in r[3].values()),
+          f"host check launches {[r[3] for r in runs.values()]}")
+    loss_err = abs(runs["card"][0] - runs["host"][0]) / abs(runs["host"][0])
+    d_ch, d_c64, d_h64 = (dist("card", "host"), dist("card", "card f64"),
+                          dist("host", "card f64"))
+    print(f"train_cam step card vs host (batch {HOST_BATCH}, crop "
+          f"{cfg.cam_crop_size}, from one calibrated state): loss card "
+          f"{runs['card'][0]:.6f}, host {runs['host'][0]:.6f}, card f64 "
+          f"{runs['card f64'][0]:.6f}, relative difference {loss_err:.3e}; "
+          f"trained tensors' update in norm: card vs host {d_ch:.3e}, card "
+          f"vs f64 {d_c64:.3e}, host vs f64 {d_h64:.3e}; step "
+          f"{runs['card'][2] * 1e3:.1f} ms card (first call), "
+          f"{runs['host'][2] * 1e3:.1f} ms host", flush=True)
+    check(loss_err <= 1e-3, f"card vs host loss {loss_err}")
+    check(d_c64 <= 1.25 * d_h64, f"card step {d_c64} from f64, host {d_h64}")
+    check(d_ch <= 2e-3, f"card vs host update {d_ch}")
+    check(all(torch.equal(runs["card"][1][k], state[k].double())
+              for k in state if k.startswith(CAM_FROZEN)),
+          "the card step moved a frozen parameter")
+
+
+def train_cam_layers(dev, tc: dict, card: str) -> None:
+    """5 synchronized steps at batch 16 (median after the first) and
+    img/s; a per-step breakdown, each part run alone and ended by a
+    synchronize: loader wait, upload, stem..c3 forward without autograd,
+    c4..head forward + loss, backward, optimizer; the device's busy share
+    over one profiled step; the peak memory allocated."""
+    from collections import defaultdict
+
+    import torch.nn.functional as F
+
+    from irn_tpu_torch.models.cam import multilabel_soft_margin_loss
+    from irn_tpu_torch.train import cam_train
+
+    cfg = tc["cfg"]
+    dl = _cam_train_loader(cfg, cfg.cam_batch_size)
+    max_step = len(dl) * cfg.cam_num_epoches
+    state = _calibrated_state(cfg, next(iter(dl)), dev)
+    model, opt = _cam_train_model(cfg, state, dev, max_step, torch.float32)
+    step_fn = cam_train.make_train_step(model, opt)
+    r = model.resnet50
+
+    def front(x):
+        with torch.no_grad():
+            x = F.max_pool2d(F.relu(r.bn1(r.conv1(x))), 3, stride=2,
+                             padding=1)
+            return r.layer2(r.layer1(x))
+
+    def back(c3, labels):
+        c5 = r.layer4(r.layer3(c3))
+        logits = model.classifier(c5.mean(dim=(2, 3), keepdim=True))
+        return multilabel_soft_margin_loss(logits.flatten(1), labels)
+
+    # the split forward of the breakdown is the model's forward
+    x, y = _cam_batch_to(next(iter(dl)), dev)
+    with torch.no_grad():
+        split = float(back(front(x), y))
+        whole = float(multilabel_soft_margin_loss(model(x, train=False), y))
+    check(abs(split - whole) <= 1e-6 * abs(whole),
+          f"the timed split forward's loss {split}, the model's {whole}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    while len(steps) < TRAIN_TIMED_STEPS:
+        dl.set_epoch(len(steps))
+        for batch in dl:
+            x, y = _cam_batch_to(batch, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(x, y)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            if len(steps) == TRAIN_TIMED_STEPS:
+                break
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = float(np.median(steps[1:]))
+    print(f"train_cam step at batch {cfg.cam_batch_size}, crop "
+          f"{cfg.cam_crop_size}: {step_ms:.2f} ms median over "
+          f"{len(steps) - 1} steps after the first "
+          f"({', '.join(f'{t:.2f}' for t in steps)}), "
+          f"{cfg.cam_batch_size / step_ms * 1e3:.1f} img/s; peak memory "
+          f"allocated {peak / 2**30:.2f} GiB ({card})", flush=True)
+
+
+    ms = defaultdict(float)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    reps = 3
+    it = iter(dl)
+    for rep in range(reps + 1):
+        if rep == 1:
+            ms.clear()  # the first pass warms up
+        batch = timed("loader wait (host)", lambda: next(it, None))
+        if batch is None:
+            dl.set_epoch(rep)
+            it = iter(dl)
+            batch = timed("loader wait (host)", lambda: next(it))
+        x, y = timed("upload", lambda: _cam_batch_to(batch, dev))
+        c3 = timed("stem..c3 forward (no autograd)", lambda: front(x))
+        loss = timed("c4..head forward + loss", lambda: back(c3, y))
+        opt.zero_grad()
+        timed("backward", loss.backward)
+        timed("optimizer", opt.step)
+        del loss, c3
+    for name, v in ms.items():
+        print(f"layer train_cam {name}: {v / reps:.3f} ms/step ({card})",
+              flush=True)
+
+    x, y = _cam_batch_to(batch, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step_fn(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    if device_us > 0:
+        print(f"profiled train_cam step: {wall_ms:.1f} ms, device busy "
+              f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}"
+              f"% of the step; profiler on) ({card})", flush=True)
+    else:
+        print("profiled train_cam step: the profiler saw no device time; "
+              "device busy share not measured", flush=True)
+
+
 N_INS_FLOWS = 4  # images of each flow run of the instance stage
 INS_FLOWS = {
     "host_cluster": ("--no-ins_device_ccl",),
@@ -2587,6 +3013,10 @@ def main() -> int:
         train = run_train_stage(dev, stage, card)
         train_host_check(dev, train)
         train_layers(dev, train, card)
+        phase("stage: train_cam")
+        tc = run_train_cam_stage(dev, stage, card)
+        train_cam_host_check(dev, tc)
+        train_cam_layers(dev, tc, card)
         phase("stage: make_ins_seg -> eval_ins_seg -> make_cocoann")
         ins = run_ins_stages(dev, stage, card)
         ins_host_check(dev, ins)

@@ -17,13 +17,18 @@ Subpackages
                               (``csrc/``) with their plain PyTorch twins.
 - ``irn_tpu_torch.models``    ResNet-50 (frozen BN), CAMNet and IRNet, NCHW.
 - ``irn_tpu_torch.pipeline``  the CLI (``python -m
-                              irn_tpu_torch.pipeline.run``) and stages:
-                              make_cam, eval_cam, cam_to_ir_label,
-                              make_sem_seg, eval_sem_seg.
-- ``irn_tpu_torch.data``      image I/O, transforms, VOC sources, synthetic
-                              tree.
+                              irn_tpu_torch.pipeline.run``) and the ten
+                              stages: train_cam, make_cam, eval_cam,
+                              cam_to_ir_label, train_irn, make_sem_seg,
+                              eval_sem_seg, make_ins_seg, eval_ins_seg,
+                              make_cocoann.
+- ``irn_tpu_torch.train``     poly SGD and the ``.train`` state, the CAMNet
+                              and IRNet train steps.
+- ``irn_tpu_torch.data``      image I/O, transforms, VOC sources, the batch
+                              loader, synthetic tree.
 - ``irn_tpu_torch.utils``     checkpoint pickle I/O, weights between the
-                              JAX and torch layouts.
+                              JAX and torch layouts, logging, the profiler
+                              window.
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,12 @@
 ``irn_tpu.data.transforms`` (numpy and PIL only, HWC): the ImageNet
 normalisation constants, the PIL rescale (bicubic for images, nearest for
 label maps, as misc/imutils.py of the reference), the strided-size
-arithmetic, make_ins_seg's ``compress_range``, and train_irn's
-augmentations (random scale, left-right flip, random crop into a padded
-canvas, top-left crop, normalisation), whose randomness flows through an
-explicit ``np.random.Generator``: the same generator state gives the same
-arrays as the JAX package. ``random_resize_long`` and ``center_crop`` wait
-for train_cam."""
+arithmetic, make_ins_seg's ``compress_range``, and the train stages'
+augmentations (train_cam's random long-side resize, random scale,
+left-right flip, random crop into a padded canvas, top-left and centre
+crops, normalisation), whose randomness flows through an explicit
+``np.random.Generator``: the same generator state gives the same arrays as
+the JAX package."""
 
 from __future__ import annotations
 
@@ -40,6 +40,17 @@ def pil_rescale(img: np.ndarray, scale: float, order: int) -> np.ndarray:
     return pil_resize(
         img, (int(np.round(h * scale)), int(np.round(w * scale))), order
     )
+
+
+def random_resize_long(
+    img: np.ndarray, min_long: int, max_long: int, rng: np.random.Generator
+) -> np.ndarray:
+    """Bicubic rescale so the long side is a draw from [min_long,
+    max_long]."""
+    target = int(rng.integers(min_long, max_long + 1))
+    h, w = img.shape[:2]
+    scale = target / max(h, w)
+    return pil_rescale(img, scale, 3)
 
 
 def random_scale(
@@ -127,6 +138,22 @@ def top_left_crop(img: np.ndarray, cropsize: int, fill) -> np.ndarray:
     ch, cw = min(cropsize, h), min(cropsize, w)
     out = _canvas(img, cropsize, fill)
     out[:ch, :cw] = img[:ch, :cw]
+    return out
+
+
+def center_crop(img: np.ndarray, cropsize: int, fill=0) -> np.ndarray:
+    """The centred ``cropsize`` window, or the image centred in a
+    ``fill`` canvas along a side shorter than it."""
+    h, w = img.shape[:2]
+    ch, cw = min(cropsize, h), min(cropsize, w)
+    sh, sw = h - cropsize, w - cropsize
+    cont_top = 0 if sh > 0 else int(round(-sh / 2))
+    img_top = int(round(sh / 2)) if sh > 0 else 0
+    cont_left = 0 if sw > 0 else int(round(-sw / 2))
+    img_left = int(round(sw / 2)) if sw > 0 else 0
+    out = _canvas(img, cropsize, fill)
+    out[cont_top:cont_top + ch, cont_left:cont_left + cw] = \
+        img[img_top:img_top + ch, img_left:img_left + cw]
     return out
 
 

@@ -1,15 +1,16 @@
 """PASCAL VOC 2012 sources of the port: the counterparts of
 ``irn_tpu.data.voc12``'s id lists, class-label dictionaries,
-``ImageDataset``, ``ClassificationDataset``, ``SegmentationDataset`` and
-``AffinityDataset``, on the port's image I/O (Pillow, which is imageio's
+``ImageDataset`` (with train_cam's ``resize_long``),
+``ClassificationDataset``, ``MultiScaleDataset``, ``SegmentationDataset``
+and ``AffinityDataset``, on the port's image I/O (Pillow, which is imageio's
 own JPEG/PNG plugin: the same pixels). The augmenting datasets derive each
 sample's generator from (seed, epoch, index) as the JAX ones do
 (:class:`EpochSeeded`), so the same seed and epoch give the same arrays.
 
 One default differs: the port's ``ImageDataset`` does not normalise unless
 asked (``img_normal=False``; the inference stages upload uint8 and
-normalise on the device), where the JAX class normalises by default.
-``MultiScaleDataset`` and the ``resize_long`` option wait for train_cam.
+normalise on the device), where the JAX class normalises by default, so
+train_cam passes ``img_normal=True`` to both of its datasets.
 """
 
 from __future__ import annotations
@@ -108,11 +109,13 @@ class EpochSeeded:
 
 class ImageDataset(EpochSeeded):
     """Indexable {name, img [H, W, 3]} over an id list: uint8 unless
-    ``img_normal``, then scaled (``rescale``), normalised, flipped
-    (``hor_flip``) and cropped (``crop_size``; ``crop_method`` "random",
-    else top-left) in the JAX class's order."""
+    ``img_normal``, then resized to a random long side (``resize_long``),
+    scaled (``rescale``), normalised, flipped (``hor_flip``) and cropped
+    (``crop_size``; ``crop_method`` "random", else top-left) in the JAX
+    class's order."""
 
     def __init__(self, img_name_list_path: str, voc12_root: str,
+                 resize_long: Optional[Tuple[int, int]] = None,
                  rescale: Optional[Tuple[float, float]] = None,
                  img_normal: bool = False, hor_flip: bool = False,
                  crop_size: Optional[int] = None,
@@ -120,6 +123,7 @@ class ImageDataset(EpochSeeded):
         super().__init__(seed)
         self.img_name_list = load_img_name_list(img_name_list_path)
         self.voc12_root = voc12_root
+        self.resize_long = resize_long
         self.rescale = rescale
         self.img_normal = img_normal
         self.hor_flip = hor_flip
@@ -136,6 +140,8 @@ class ImageDataset(EpochSeeded):
         name = self.img_name_list[idx]
         rng = self.sample_rng(idx)
         img = self.read_image(name)
+        if self.resize_long:
+            img = T.random_resize_long(img, *self.resize_long, rng=rng)
         if self.rescale:
             img = T.random_scale(img, self.rescale, 3, rng=rng)
         if self.img_normal:
@@ -162,6 +168,29 @@ class ClassificationDataset(ImageDataset):
         out = super().__getitem__(idx)
         out["label"] = self.label_list[idx]
         return out
+
+
+class MultiScaleDataset(ClassificationDataset):
+    """Per-image multi-scale (image, flip) stacks of normalised images
+    (dataloader.py:175-205): ``img`` is a list of [2, H_s, W_s, 3], one
+    per scale, and ``size`` the original (H, W)."""
+
+    def __init__(self, img_name_list_path: str, voc12_root: str,
+                 label_dict: Dict[str, np.ndarray],
+                 scales: Sequence[float] = (1.0,)):
+        super().__init__(img_name_list_path, voc12_root, label_dict)
+        self.scales = tuple(scales)
+
+    def __getitem__(self, idx: int) -> Dict:
+        name = self.img_name_list[idx]
+        img = self.read_image(name)
+        ms = []
+        for s in self.scales:
+            s_img = img if s == 1 else T.pil_rescale(img, s, 3)
+            s_img = T.normalize(s_img)
+            ms.append(np.stack([s_img, np.fliplr(s_img)], axis=0))
+        return {"name": name, "img": ms, "size": (img.shape[0], img.shape[1]),
+                "label": self.label_list[idx]}
 
 
 class SegmentationDataset(EpochSeeded):

@@ -5,10 +5,15 @@
 - Bottleneck [3, 4, 6, 3]; per-layer strides and dilations; the first block
   of every layer ignores the layer dilation (reference resnet50.py:86).
 - Batch norm always normalizes with the stored running statistics, eps
-  1e-5, in the JAX package's arithmetic (x * inv + shift).
+  1e-5, in the JAX package's arithmetic (x * inv + shift). Its calibrate
+  mode (train_cam without a pretrained backbone) first writes the batch
+  mean and population variance into those statistics.
 - Optional extent masking: activations beyond a true (h, w) extent are
   zeroed before every spatial op, so a padded buffer reproduces an
   exact-size run inside the extent (make_cam needs it; IRNet does not).
+- ``stop_grad_after`` names the last feature through which no gradient
+  flows (``"c3"``: the CAM net's detach after layer2); the layers up to it
+  run without autograd, which keeps none of their activations.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ from torch import nn
 import torch.nn.functional as F
 
 Extent = Optional[Tuple[int, int]]
+
+# Feature names in forward order; ``stop_grad_after`` refers to these.
+FEATURE_NAMES = ("stem", "c2", "c3", "c4", "c5")
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -34,7 +42,19 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, calibrate: bool = False
+                ) -> torch.Tensor:
+        """``calibrate``: write the batch's per-channel mean and population
+        variance (over N, H, W, in f32) into the running statistics first,
+        so this forward and every later one normalize with them."""
+        if calibrate:
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = (xf - mean[None, :, None, None]).square().mean(
+                    dim=(0, 2, 3))
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
         rs = torch.rsqrt(self.running_var + self.eps)
         inv = self.weight * rs
         shift = self.bias - self.running_mean * self.weight * rs
@@ -85,12 +105,16 @@ class Bottleneck(nn.Module):
             if project else None
         )
 
-    def forward(self, x: torch.Tensor, extent: Extent = None) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, extent: Extent = None,
+                calibrate: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), calibrate))
         out = _extent_mask(out, extent)  # before the spatial conv
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn2(self.conv2(out), calibrate))
+        out = self.bn3(self.conv3(out), calibrate)
+        residual = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            residual = bn(conv(x), calibrate)
         return F.relu(out + residual)
 
 
@@ -122,19 +146,32 @@ class ResNet50(nn.Module):
                 cin = planes[li] * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
 
-    def forward(self, x: torch.Tensor, extent: Extent = None):
+    def forward(self, x: torch.Tensor, extent: Extent = None,
+                stop_grad_after: Optional[str] = None,
+                calibrate: bool = False):
+        """``stop_grad_after``: a feature of :data:`FEATURE_NAMES`; it and
+        every feature before it are computed without autograd.
+        ``calibrate``: every batch norm writes this batch's statistics
+        before it normalizes (see :class:`FrozenBatchNorm2d`)."""
+        if stop_grad_after is not None and stop_grad_after not in FEATURE_NAMES:
+            raise ValueError(f"unknown feature {stop_grad_after!r}")
+        cut = (FEATURE_NAMES.index(stop_grad_after)
+               if stop_grad_after is not None else -1)
+        grad = torch.is_grad_enabled()
         feats = {}
-        x = F.relu(self.bn1(self.conv1(x)))
-        if self.strides[0] == 2:
-            extent = _halve_extent(extent)
-        x = _extent_mask(x, extent)  # before the spatial maxpool
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        with torch.set_grad_enabled(grad and cut < 0):
+            x = F.relu(self.bn1(self.conv1(x), calibrate))
+            if self.strides[0] == 2:
+                extent = _halve_extent(extent)
+            x = _extent_mask(x, extent)  # before the spatial maxpool
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
         extent = _halve_extent(extent)
         feats["stem"] = x
-        for li, name in enumerate(("c2", "c3", "c4", "c5")):
-            for block in getattr(self, f"layer{li + 1}"):
-                x = block(x, extent)
-                if block.stride == 2:
-                    extent = _halve_extent(extent)
+        for li, name in enumerate(FEATURE_NAMES[1:]):
+            with torch.set_grad_enabled(grad and li + 1 > cut):
+                for block in getattr(self, f"layer{li + 1}"):
+                    x = block(x, extent, calibrate)
+                    if block.stride == 2:
+                        extent = _halve_extent(extent)
             feats[name] = x
         return feats

@@ -9,9 +9,9 @@ Usage:
         --make_sem_seg_pass --eval_sem_seg_pass --make_ins_seg_pass \
         --eval_ins_seg_pass --make_cocoann_pass [--device cuda|cpu]
 
-Every stage but train_cam is ported; ``--train_cam_pass`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it, so no stage
-is skipped silently."""
+All ten stages are ported (``--train_cam_pass`` too). A flag whose code
+path is not ported (multi-GPU, bf16 models) raises ``NotImplementedError``
+naming the ROADMAP item that ports it, so nothing is skipped silently."""
 
 from __future__ import annotations
 
@@ -24,10 +24,9 @@ from typing import Dict, Optional, Sequence
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils.logging import Logger, Timer
 
-# flag -> (module, function(cfg, device)) of the port, or the ROADMAP item
-# that ports it
+# flag -> (module, function(cfg, device)) of the port
 STAGES = [
-    ("train_cam_pass", "ROADMAP queue 1 item 8 (train_cam)"),
+    ("train_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "train_cam")),
     ("make_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "make_cam")),
     ("eval_cam_pass", ("irn_tpu_torch.pipeline.stages_cam", "eval_cam")),
     ("cam_to_ir_label_pass",
@@ -98,11 +97,6 @@ def run_pipeline(cfg: Config, device: str) -> Dict:
         raise NotImplementedError(
             "multi-process runs are ROADMAP queue 1 item 10 (Multi-GPU)"
         )
-    for flag, target in STAGES:
-        if getattr(cfg, flag) and isinstance(target, str):
-            raise NotImplementedError(
-                f"--{flag} is not ported to irn_tpu_torch yet: {target}"
-            )
     results = {}
     for flag, target in STAGES:
         if not getattr(cfg, flag):

@@ -1,12 +1,20 @@
-"""make_cam, eval_cam and cam_to_ir_label on PyTorch — the counterparts of
-those stages of :mod:`irn_tpu.pipeline.stages_cam` (step/make_cam.py,
-step/eval_cam.py, step/cam_to_ir_label.py of the reference).
+"""train_cam, make_cam, eval_cam and cam_to_ir_label on PyTorch — the
+counterparts of :mod:`irn_tpu.pipeline.stages_cam` (step/train_cam.py,
+step/make_cam.py, step/eval_cam.py, step/cam_to_ir_label.py of the
+reference).
 
-Same hyper-parameters and the same artifacts: per image
+Same hyper-parameters and the same artifacts: ``cam_weights_name`` in the
+JAX layout (plus a ``.train`` file per epoch to resume from), per image
 ``<cam_out_dir>/<id>.npy`` holding a dict {keys, cam, high_res} and
 ``<ir_label_out_dir>/<id>.png`` seed maps, so either framework's later
 stages read them. The device is explicit: nothing moves to the CPU because
 no card was found.
+
+train_cam: the epoch loop over random long-side resized, flipped 512 px
+crops (ClassificationDataset, BatchLoader), one train step per batch
+(:mod:`irn_tpu_torch.train.cam_train`), the validate loss over
+``val_list`` after every epoch. Without a pretrained backbone, one batch
+first calibrates every frozen batch norm's statistics.
 
 make_cam groups images by exact original size and runs up to
 ``cam_infer_batch`` of them per scale as one [2k, 3, ph, pw] stack (the
@@ -28,15 +36,20 @@ import numpy as np
 import torch
 
 from irn_tpu_torch.data import image_io
+from irn_tpu_torch.data import loader as loader_mod
 from irn_tpu_torch.data import transforms as T
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.models.cam import CAMNet
 from irn_tpu_torch.ops.resize import resize_bilinear_dynamic
+from irn_tpu_torch.pipeline import common
 from irn_tpu_torch.pipeline import stages_eval
 from irn_tpu_torch.pipeline.config import Config
-from irn_tpu_torch.pipeline.stages_irn import resolve_device
-from irn_tpu_torch.utils.checkpoint import load_checkpoint
-from irn_tpu_torch.utils.weights import cam_from_jax
+from irn_tpu_torch.pipeline.stages_irn import _images, resolve_device
+from irn_tpu_torch.train import cam_train, optim
+from irn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from irn_tpu_torch.utils.logging import AverageMeter, DeviceMeter, Timer
+from irn_tpu_torch.utils.profiling import StageProfiler
+from irn_tpu_torch.utils.weights import cam_from_jax, cam_to_jax
 
 N_CLS = 20
 
@@ -73,6 +86,128 @@ def _no_tf32() -> None:
     # the reference's numerics are f32: a TF32 conv or matmul is not
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def train_cam(cfg: Config, device="cuda") -> Dict:
+    """Train the CAM classifier (step/train_cam.py): poly SGD with a 10x
+    head, the stem and layers 1-2 frozen under ``cam_stop_grad`` "c3", the
+    frozen batch norms calibrated from one batch when there is no
+    pretrained backbone, the validate loss and a ``.train`` checkpoint
+    (resumed from when ``cfg.resume``) after every epoch, then
+    ``cfg.cam_weights_name`` in the JAX layout.
+
+    Returns a summary: the steps this run took, the seconds its epoch loop
+    took (every step and validation finished), each step's loss, each
+    epoch's validate loss, the epoch it started from and max_step."""
+    if cfg.model_dtype != "float32":
+        raise NotImplementedError(
+            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
+        raise NotImplementedError(
+            "data-parallel or multi-process training is ROADMAP queue 1 "
+            "item 10 (Multi-GPU)")
+    dev = resolve_device(device)
+    _no_tf32()
+
+    labels = _label_dict(cfg)
+    train_ds = voc12.ClassificationDataset(
+        cfg.train_list, cfg.voc12_root, labels, resize_long=(320, 640),
+        img_normal=True, hor_flip=True, crop_size=cfg.cam_crop_size,
+        crop_method="random")
+    val_ds = voc12.ClassificationDataset(
+        cfg.val_list, cfg.voc12_root, labels, img_normal=True,
+        crop_size=cfg.cam_crop_size)
+    train_dl = loader_mod.BatchLoader(
+        train_ds, cfg.cam_batch_size, shuffle=True, drop_last=True,
+        num_workers=cfg.num_workers)
+    # drop_last=False: the reference's validate loader keeps the tail batch
+    # (step/train_cam.py:24-27)
+    val_dl = loader_mod.BatchLoader(
+        val_ds, cfg.cam_batch_size, shuffle=False, drop_last=False,
+        num_workers=cfg.num_workers)
+    max_step = (len(train_ds) // cfg.cam_batch_size) * cfg.cam_num_epoches
+
+    model = common.init_model_variables(
+        CAMNet(stop_grad_at=cfg.cam_stop_grad or None), cfg).to(dev)
+    if cfg.calibrate_bn and not cfg.pretrained_backbone:
+        # no ImageNet running statistics exist: calibrate the frozen BN
+        # statistics from one real batch so a from-scratch backbone is
+        # trainable (this pass advances the loader's epoch; set_epoch below
+        # puts every epoch back on its own stream)
+        model.calibrate_stats(_images(next(iter(train_dl)), dev))
+        print("calibrated frozen-BN statistics from one batch")
+
+    # the reference's effective hypers: real weight decay + stray momentum
+    # of the same value (misc/torchutils.py:10)
+    opt = optim.poly_sgd(
+        model.named_parameters(), cfg.cam_learning_rate, max_step=max_step,
+        power=0.9, momentum=cfg.cam_weight_decay,
+        weight_decay=cfg.cam_weight_decay,
+        mult_fn=(optim.cam_lr_mult if cfg.cam_stop_grad
+                 else optim.cam_lr_mult_full),
+    )
+
+    train_ckpt_path = cfg.cam_weights_name + ".train"
+    start_epoch = 0
+    if cfg.resume and os.path.exists(train_ckpt_path):
+        start_epoch = optim.load_train_state(
+            model, opt, load_checkpoint(train_ckpt_path), train_ckpt_path,
+            cam_from_jax)
+        print(f"resumed {train_ckpt_path} at epoch {start_epoch}")
+
+    step_fn = cam_train.make_train_step(model, opt)
+    eval_fn = cam_train.make_eval_step(model)
+    prof = StageProfiler(cfg.profile_dir, "train_cam", device=dev)
+    meter = DeviceMeter()
+    timer = Timer()
+    steps_per_epoch = len(train_dl)
+    history: List[torch.Tensor] = []
+    val_losses: List[float] = []
+    t0 = time.perf_counter()
+    try:
+        for ep in range(start_epoch, cfg.cam_num_epoches):
+            print(f"Epoch {ep + 1}/{cfg.cam_num_epoches}")
+            # pin the loader's RNG stream to the true epoch, so a resumed
+            # run continues the shuffle and augmentation sequence
+            train_dl.set_epoch(ep)
+            for it, batch in enumerate(train_dl):
+                loss = step_fn(
+                    _images(batch, dev),
+                    torch.from_numpy(batch["label"]).to(dev))
+                prof.tick()
+                meter.add({"loss1": loss})
+                history.append(loss)
+                gstep = ep * steps_per_epoch + it + 1
+                if (gstep - 1) % 100 == 0:
+                    timer.update_progress(gstep / max_step)
+                    print(
+                        f"step:{gstep - 1:5d}/{max_step:5d}",
+                        f"loss:{meter.pop('loss1'):.4f}",
+                        f"imps:{(it + 1) * cfg.cam_batch_size / timer.get_stage_elapsed():.1f}",
+                        f"etc:{timer.str_estimated_complete()}",
+                        flush=True,
+                    )
+            # validation (train_cam.py:14-36)
+            val_meter = AverageMeter()
+            for batch in val_dl:
+                val_meter.add({"loss": float(eval_fn(
+                    _images(batch, dev),
+                    torch.from_numpy(batch["label"]).to(dev)))})
+            val_losses.append(val_meter.get("loss"))
+            print(f"validate loss: {val_losses[-1]:.4f}")
+            timer.reset_stage()
+            save_checkpoint(train_ckpt_path, optim.train_state(
+                model, opt, ep + 1, cam_to_jax))
+    finally:
+        prof.close()
+    seconds = time.perf_counter() - t0
+
+    save_checkpoint(cfg.cam_weights_name, cam_to_jax(model.state_dict()))
+    print(f"saved {cfg.cam_weights_name}")
+    return dict(n_steps=len(history), seconds=seconds,
+                losses=torch.stack(history).tolist() if history else [],
+                val_losses=val_losses, start_epoch=start_epoch,
+                max_step=max_step)
 
 
 class CAMScalePass:

@@ -17,10 +17,10 @@ not ported: the port passes tensors between the steps.
 
 train_irn: the epoch loop over the ``ir_label`` crops (AffinityDataset,
 BatchLoader), one train step per batch through the path max kernels (K13a,
-K13b; :mod:`irn_tpu_torch.train.irn_train`), a ``.train`` checkpoint per
-epoch to resume from, the displacement-mean calibration over
-``infer_list`` and the final checkpoint in the JAX layout, which both
-frameworks' make stages read.
+K13b; :mod:`irn_tpu_torch.train.irn_train`), a ``profile_dir`` trace of
+steps [2, 5), a ``.train`` checkpoint per epoch to resume from, the
+displacement-mean calibration over ``infer_list`` and the final checkpoint
+in the JAX layout, which both frameworks' make stages read.
 
 The device is explicit: nothing moves to the CPU because no card was
 found.
@@ -50,6 +50,7 @@ from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.train import irn_train, optim
 from irn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from irn_tpu_torch.utils.logging import DeviceMeter, Timer
+from irn_tpu_torch.utils.profiling import StageProfiler
 from irn_tpu_torch.utils.weights import irn_from_jax, irn_to_jax
 
 
@@ -86,6 +87,10 @@ def check_slice_flags(cfg: Config) -> None:
             "sem_monolith: the relay-transport monolith is not ported "
             "(ROADMAP queue 1, 'Not ported')"
         )
+    if cfg.infer_devices > 1:
+        raise NotImplementedError(
+            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
+            "(Multi-GPU)")
 
 
 def _images(batch: Dict, dev: torch.device) -> torch.Tensor:
@@ -136,44 +141,50 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
     train_ckpt_path = cfg.irn_weights_name + ".train"
     start_epoch = 0
     if cfg.resume and os.path.exists(train_ckpt_path):
-        start_epoch = irn_train.load_train_state(
-            model, opt, load_checkpoint(train_ckpt_path), train_ckpt_path)
+        start_epoch = optim.load_train_state(
+            model, opt, load_checkpoint(train_ckpt_path), train_ckpt_path,
+            irn_from_jax)
         print(f"resumed {train_ckpt_path} at epoch {start_epoch}")
 
     step_fn = irn_train.make_train_step(model, opt, table)
+    prof = StageProfiler(cfg.profile_dir, "train_irn", device=dev)
     meter = DeviceMeter()
     timer = Timer()
     steps_per_epoch = len(dl)
     history: List[Dict[str, torch.Tensor]] = []
     t0 = time.perf_counter()
-    for ep in range(start_epoch, cfg.irn_num_epoches):
-        print(f"Epoch {ep + 1}/{cfg.irn_num_epoches}")
-        # pin the loader's RNG stream to the true epoch, so a resumed run
-        # continues the shuffle and augmentation sequence
-        dl.set_epoch(ep)
-        for it, batch in enumerate(dl):
-            metrics = step_fn(
-                _images(batch, dev),
-                torch.from_numpy(batch["reduced_label"]).to(dev))
-            meter.add(metrics)
-            history.append(metrics)
-            gstep = ep * steps_per_epoch + it + 1
-            if (gstep - 1) % 50 == 0:
-                losses = (
-                    meter.pop("loss_pos_aff"), meter.pop("loss_neg_aff"),
-                    meter.pop("loss_dp_fg"), meter.pop("loss_dp_bg"),
-                )
-                timer.update_progress(gstep / max_step)
-                print(
-                    f"step:{gstep - 1:5d}/{max_step:5d}",
-                    "loss:%.4f %.4f %.4f %.4f" % losses,
-                    f"imps:{(it + 1) * cfg.irn_batch_size / timer.get_stage_elapsed():.1f}",
-                    f"etc:{timer.str_estimated_complete()}",
-                    flush=True,
-                )
-        timer.reset_stage()
-        save_checkpoint(train_ckpt_path,
-                        irn_train.train_state(model, opt, ep + 1))
+    try:
+        for ep in range(start_epoch, cfg.irn_num_epoches):
+            print(f"Epoch {ep + 1}/{cfg.irn_num_epoches}")
+            # pin the loader's RNG stream to the true epoch, so a resumed
+            # run continues the shuffle and augmentation sequence
+            dl.set_epoch(ep)
+            for it, batch in enumerate(dl):
+                metrics = step_fn(
+                    _images(batch, dev),
+                    torch.from_numpy(batch["reduced_label"]).to(dev))
+                prof.tick()
+                meter.add(metrics)
+                history.append(metrics)
+                gstep = ep * steps_per_epoch + it + 1
+                if (gstep - 1) % 50 == 0:
+                    losses = (
+                        meter.pop("loss_pos_aff"), meter.pop("loss_neg_aff"),
+                        meter.pop("loss_dp_fg"), meter.pop("loss_dp_bg"),
+                    )
+                    timer.update_progress(gstep / max_step)
+                    print(
+                        f"step:{gstep - 1:5d}/{max_step:5d}",
+                        "loss:%.4f %.4f %.4f %.4f" % losses,
+                        f"imps:{(it + 1) * cfg.irn_batch_size / timer.get_stage_elapsed():.1f}",
+                        f"etc:{timer.str_estimated_complete()}",
+                        flush=True,
+                    )
+            timer.reset_stage()
+            save_checkpoint(train_ckpt_path,
+                            optim.train_state(model, opt, ep + 1, irn_to_jax))
+    finally:
+        prof.close()
     seconds = time.perf_counter() - t0
 
     # displacement mean calibration (train_irn.py:87-107)
@@ -698,10 +709,6 @@ def make_ins_seg_labels(cfg: Config, device="cuda") -> Dict:
     clustering, device or host split), the chunked walk and the host
     redo."""
     check_slice_flags(cfg)
-    if cfg.infer_devices > 1:
-        raise NotImplementedError(
-            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
-            "(Multi-GPU)")
     dev = resolve_device(device)
     # the reference's numerics are f32: a TF32 conv or matmul is not
     torch.backends.cudnn.allow_tf32 = False

@@ -5,21 +5,19 @@ The affinity label masks are computed on the device from the reduced
 label map; the four masked affinity / displacement losses with the
 reference's weighting go through the path max kernels (K13a forward, K13b
 backward); after training, the displacement mean calibrates MeanShift
-(train_irn.py:95-107). The ``.train`` checkpoint keeps the weights and the
-SGD momentum buffers in the JAX layout."""
+(train_irn.py:95-107). The stage's ``.train`` checkpoint is
+:func:`irn_tpu_torch.train.optim.train_state`'s."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import affinity
 from irn_tpu_torch.ops import paths
 from irn_tpu_torch.train.optim import PolySGD
-from irn_tpu_torch.utils.weights import irn_from_jax, irn_to_jax
 
 
 def build_train_geometry(crop_size: int = 512, radius: int = 10
@@ -77,40 +75,3 @@ def calibrate_mean_shift(model: IRNet, dp_means) -> None:
     of the JAX layout)."""
     mean = torch.stack(list(dp_means)).mean(0)
     model.mean_shift.running_mean.copy_(mean.float())
-
-
-def train_state(model: IRNet, optimizer: PolySGD, epoch: int) -> Dict:
-    """The ``.train`` checkpoint: params and stats in the JAX layout, the
-    SGD momentum buffers under the JAX param paths of their parameters
-    (numpy; zeros where no step has made one yet), ``step`` and
-    ``epoch``."""
-    variables = irn_to_jax(model.state_dict())
-    bufs = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
-    for name, p in model.named_parameters():
-        buf = optimizer.momentum_buffer(p)
-        if buf is not None:
-            bufs[name] = buf
-    momentum = {k: v for k, v in irn_to_jax(bufs)["params"].items()
-                if k != "resnet50"}
-    return {"params": variables["params"], "stats": variables["stats"],
-            "momentum": momentum, "step": optimizer.step_count,
-            "epoch": epoch}
-
-
-def load_train_state(model: IRNet, optimizer: PolySGD, saved: Dict,
-                     path: str) -> int:
-    """Restore :func:`train_state`'s checkpoint into ``model`` and
-    ``optimizer``; returns the epoch to start from."""
-    if not {"params", "stats", "momentum", "step", "epoch"} <= set(saved):
-        raise ValueError(f"{path}: not a train checkpoint of irn_tpu_torch "
-                         f"(keys {sorted(saved)})")
-    device = next(model.parameters()).device
-    model.load_state_dict(irn_from_jax(saved))
-    params = dict(saved["params"], **saved["momentum"])
-    bufs = irn_from_jax({"params": params, "stats": saved["stats"]})
-    trained = {p for g in optimizer.sgd.param_groups for p in g["params"]}
-    for name, p in model.named_parameters():
-        if p in trained:
-            optimizer.set_momentum_buffer(p, bufs[name].to(device))
-    optimizer.step_count = int(np.asarray(saved["step"]))
-    return int(np.asarray(saved["epoch"]))

@@ -2,9 +2,10 @@
 their originals on the same inputs: ``Config`` and its CLI parser, the path
 set, the weight converter, the semseg scores and the CAM decode, the
 ImageNet constants, the PIL rescale and strided sizes, the VOC label
-dictionaries and datasets, make_cam's bucketing helpers, and the instance
+dictionaries and datasets, make_cam's bucketing helpers, the instance
 stage's connected components, RLE, ``compress_range``, centroid host
-functions, instance AP and COCO export. The port
+functions, instance AP and COCO export, and train_cam's augmentations
+and datasets. The port
 imports none of the originals (tests/test_torch_imports.py); this file
 imports both sides. The CRF copies are held in tests/test_torch_crf.py."""
 
@@ -501,6 +502,76 @@ def test_train_datasets_and_loader(tmp_path):
                            {"a": np.ones(2), "n": "y"}])["n"] == ["x", "y"]
     assert np.array_equal(loader.shard_indices(10, 1, 3),
                           jax_loader.shard_indices(10, 1, 3))
+
+
+# -- train_cam's copies -------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resize_long_and_center_crop(seed):
+    """random_resize_long under the same seeded generators (the same array
+    and generator state after), and center_crop on images larger and
+    smaller than the crop along each side, with fills."""
+    g = np.random.default_rng(seed + 20)
+    img = g.integers(0, 256, (45, 61, 3)).astype(np.uint8)
+    ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+    for lo, hi in ((320, 640), (20, 90)):
+        a = transforms.random_resize_long(img, lo, hi, rng=ra)
+        b = jax_transforms.random_resize_long(img, lo, hi, rng=rb)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert lo <= max(a.shape[:2]) <= hi + 1
+    assert ra.random() == rb.random()
+    lab = g.integers(0, 21, (45, 61)).astype(np.uint8)
+    for crop in (32, 50, 80):
+        for arr, fill in ((img, 0), (lab, 255), (img[:, :30], 7)):
+            assert np.array_equal(transforms.center_crop(arr, crop, fill),
+                                  jax_transforms.center_crop(arr, crop, fill))
+
+
+def test_train_cam_datasets(tmp_path):
+    """ClassificationDataset with train_cam's options (resize_long,
+    normalisation, flip, random crop; and the validate set's top-left
+    crop) over two epochs, and MultiScaleDataset: the same items as
+    irn_tpu's."""
+    from irn_tpu.data import synthetic as jax_synthetic
+    from irn_tpu.data import voc12 as jax_voc12
+    from irn_tpu_torch.data import voc12
+
+    root = str(tmp_path / "voc")
+    train, _ = jax_synthetic.generate(root, n_images=3, size=40,
+                                      max_side_jitter=20, seed=4)
+    labels = voc12.load_label_dict(os.path.join(root, "cls_labels.npy"))
+    kw = dict(resize_long=(60, 90), hor_flip=True, crop_size=48,
+              crop_method="random")
+    pairs = [
+        (voc12.ClassificationDataset(train, root, labels, img_normal=True,
+                                     **kw),
+         jax_voc12.ClassificationDataset(train, root, labels, **kw)),
+        (voc12.ClassificationDataset(train, root, labels, img_normal=True,
+                                     crop_size=48),
+         jax_voc12.ClassificationDataset(train, root, labels, crop_size=48)),
+        (voc12.MultiScaleDataset(train, root, labels, scales=(1.0, 0.5)),
+         jax_voc12.MultiScaleDataset(train, root, labels,
+                                     scales=(1.0, 0.5))),
+    ]
+    for p, r in pairs:
+        for epoch in (0, 1):
+            p.set_epoch(epoch)
+            r.set_epoch(epoch)
+            for i in range(len(r)):
+                a, b = p[i], r[i]
+                assert sorted(a) == sorted(b)
+                assert a["name"] == b["name"]
+                assert np.array_equal(a["label"], b["label"])
+                imgs_a, imgs_b = a["img"], b["img"]
+                if isinstance(imgs_b, np.ndarray):
+                    imgs_a, imgs_b = [imgs_a], [imgs_b]
+                else:
+                    assert a["size"] == b["size"]
+                assert len(imgs_a) == len(imgs_b)
+                for x, y in zip(imgs_a, imgs_b):
+                    assert x.dtype == y.dtype == np.float32
+                    assert np.array_equal(x, y), (epoch, i)
 
 
 def test_average_meter():

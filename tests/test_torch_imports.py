@@ -37,7 +37,9 @@ SLICE = ("irn_tpu_torch.data.transforms", "irn_tpu_torch.models.cam",
          "irn_tpu_torch.eval.coco",
          # the train_irn slice
          "irn_tpu_torch.data.loader", "irn_tpu_torch.train.optim",
-         "irn_tpu_torch.train.irn_train", "irn_tpu_torch.pipeline.common")
+         "irn_tpu_torch.train.irn_train", "irn_tpu_torch.pipeline.common",
+         # the train_cam slice
+         "irn_tpu_torch.train.cam_train", "irn_tpu_torch.utils.profiling")
 
 
 def _run_probe(prelude: str = ""):

@@ -169,9 +169,10 @@ def test_walk_modes():
 
 @pytest.mark.parametrize("flags", [
     ("--rw_mesh_model", "2"), ("--rw_matmul_dtype", "bfloat16"),
-    ("--sem_monolith",), ("--train_cam_pass",),
+    ("--sem_monolith",), ("--train_cam_pass", "--mesh_data", "2"),
     ("--make_cam_pass", "--infer_devices", "2"),
     ("--train_irn_pass", "--mesh_data", "2"),
+    ("--infer_devices", "2"),
 ])
 def test_unported_flags_raise(tree, tmp_path, flags):
     _, cfg, _, _ = tree
