@@ -30,6 +30,15 @@ conv) and ``tools.bench_banded``'s batched sweep at B 1, 2, 4 (K8); the
 pure route of one image through the plain twins on the card, one image's
 default walk through the twins on the host, and a per-layer breakdown.
 
+The default walk is three hand-kernel launches per image and pass: K10
+builds the operator (``csrc/diag_operator.cu``, one launch), K0 runs the
+chain, K15 decodes (``csrc/decode.cu``: the x4 upsample and global max,
+then the normalize and argmax, two launches); the default runs count them
+per walk, and the kernels phase holds K10 (the three buckets, a sigmoid
+map, its 8-level ties and all ones, beta 1 and 10) and K15 (C 8 and 128,
+odd extents, zeros, planted ties) to their twins bit for bit. The host
+twin walk of one image equals the card's, label for label.
+
 The phase ``stage: make_cam -> cam_to_ir_label`` runs the front of the
 pipeline through the CLI on the same tree with a seeded random CAMNet
 (saved through ``cam_to_jax``): make_cam (four scales, cam_infer_batch 32)
@@ -159,6 +168,11 @@ REPLACES = {
     # train_irn's path max and its custom VJP (XLA programs)
     "path_max_fwd": "irn_tpu/ops/affinity.py:41",
     "path_max_bwd": "irn_tpu/ops/affinity.py:87",
+    # the default walk's operator build (band_values :144 and affinity.py
+    # path_affinity :130 under it) and its decode (upsample_scores :851
+    # with it), XLA programs
+    "diag_operator": "irn_tpu/ops/random_walk.py:187",
+    "decode": "irn_tpu/ops/random_walk.py:873",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -176,6 +190,8 @@ SOURCES = {
     "ccl_tables": "irn_tpu_torch/csrc/ccl.cu",
     "path_max_fwd": "irn_tpu_torch/csrc/path_max.cu",
     "path_max_bwd": "irn_tpu_torch/csrc/path_max.cu",
+    "diag_operator": "irn_tpu_torch/csrc/diag_operator.cu",
+    "decode": "irn_tpu_torch/csrc/decode.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -186,7 +202,8 @@ HOME_RUN = {
     "packed_chain_batched": "library batch", "conv3x3": "probe conv",
     "advect": "ins default", "ccl_label": "ins default",
     "ccl_tables": "ins default", "path_max_fwd": "train irn",
-    "path_max_bwd": "train irn",
+    "path_max_bwd": "train irn", "diag_operator": "default",
+    "decode": "default",
 }
 
 
@@ -235,6 +252,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call that the card itself spends on ``fn``'s
+    kernels, copies and memsets (torch.profiler's device time over ``reps``
+    calls after a warm-up), apart from the host's time to launch them, which
+    ``cuda_ms`` includes when a call's device work is shorter."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def bound(ops: float, nbytes: float, peak: float) -> dict:
@@ -560,6 +596,7 @@ def check_kernels(dev, card: str) -> dict:
     check_conv(dev, res)
     check_instance_kernels(dev, geom, edge, gen, res)
     check_path_max_kernels(dev, gen, res)
+    check_walk_kernels(dev, gen, res)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -767,6 +804,144 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
                 5 * n_out + 4 * n_edge, PEAK_F32),
     )
     del maxed, winner, g, edge
+
+
+# K10 at the three buckets of the default 128 x 128 grid cap (radius 5)
+WALK_BUCKETS = ((96, 128), (128, 96), (128, 128))
+WALK_ROWS = (8, 128)  # K15: make_sem_seg's seed rows, ins_seed_cap
+
+
+def _pow_mults(beta: int) -> int:
+    """Multiplies of pow_int's binary exponentiation."""
+    return bin(beta).count("1") - 1 + beta.bit_length() - 1
+
+
+def _walk_edge(gen, kind: str, cap: tuple) -> torch.Tensor:
+    """A capped edge map: a sigmoid of normals, the same quantized to 8
+    levels (ties along every path), or all ones (w 0, inv 1)."""
+    if kind == "ones":
+        return torch.ones(cap)
+    e = torch.sigmoid(torch.randn(cap, generator=gen))
+    return torch.round(e * 7) / 7 if kind == "ties" else e
+
+
+def _decode_scores(gen, kind: str, c: int) -> tuple:
+    """(rw [C, 96, 128], h4, w4, h0, w0, bg_thres) at the main path's
+    bucket with odd extents: random rows, all zeros, or planted ties: rows
+    0 and 1 equal on the left half (the first wins), row 2 at exactly
+    bg_thres once normalized (the background wins on the right half), row
+    3 on a block (the max)."""
+    ch, cw = BUCKET
+    h4, w4 = ch - 3, cw - 5
+    rw_ = torch.zeros((c, ch, cw))
+    bg = 0.35
+    if kind == "random":
+        rw_[:, :h4, :w4] = torch.rand((c, h4, w4), generator=gen)
+    elif kind == "ties":
+        rw_[0, :h4, : w4 // 2] = 1 + torch.rand((h4, w4 // 2),
+                                                generator=gen)
+        rw_[1] = rw_[0]
+        rw_[2, :h4, :w4] = 0.25
+        rw_[3, ch // 8 : ch // 2, 5 * cw // 8 : 7 * cw // 8] = 4.0
+        bg = 0.0625  # row 2 normalized: 0.25 / 4.0 exactly
+    return rw_, h4, w4, 4 * h4 - 2, 4 * w4 - 3, bg
+
+
+def check_walk_kernels(dev, gen, res: dict) -> None:
+    """K10 and K15 vs their twins on the card, bit for bit: K10 at the
+    three buckets on a sigmoid map, its 8-level ties and all ones, at beta
+    1 and 10; K15 at C 8 and 128 on odd extents, zero scores and planted
+    ties (every output: labels, max, normalized scores, best)."""
+    from irn_tpu_torch.ops import random_walk as rw
+
+    for cap in WALK_BUCKETS:
+        geom = rw.build_geometry(*cap, radius=5)
+        for kind in ("sigmoid", "ties", "ones"):
+            edge = _walk_edge(gen, kind, cap).to(dev)
+            for beta in (1, 10):
+                got = rw.build_diag_operator(geom, edge, beta)
+                want = rw.build_diag_operator_plain(geom, edge, beta)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"diag_operator {cap} {kind} beta {beta} not "
+                      f"bit-equal to its twin")
+    geom = rw.build_geometry(*BUCKET, radius=5)
+    edge = _walk_edge(gen, "sigmoid", BUCKET).to(dev)
+    n, n_pairs = geom.n_pad, geom.path_set.n_pairs
+    cells = int(geom.path_set.lengths.sum())
+    window = (geom.padded[0] - geom.path_set.radius_floor) * (
+        geom.padded[1] - 2 * geom.path_set.radius_floor)
+    dev_ms = device_ms(lambda: rw.build_diag_operator(geom, edge), 20)
+    res["diag_operator"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: rw.build_diag_operator(geom, edge), 20),
+        device_ms=dev_ms,
+        plain_ms=cuda_ms(lambda: rw.build_diag_operator_plain(geom, edge),
+                         3),
+        shape=(f"edge {BUCKET} f32 -> w [{n_pairs}, {n}], inv [{n}], radius "
+               f"5 ({cells} path cells), beta 10, one launch; the card's own "
+               f"time per call (profiler: the kernel and the two table "
+               f"copies) {dev_ms:.4f} ms; bit-equal to "
+               f"the twin at the buckets {WALK_BUCKETS} on a sigmoid map, its "
+               f"8-level ties and all ones, beta 1 and 10"),
+        library_ms=None,
+        # the path max's compares, 1 - m and the powers once per (pair,
+        # window cell); two adds per (pair, column), an add and a division
+        # per column
+        **bound(cells * window + n_pairs * window * (1 + _pow_mults(10))
+                + 2 * n_pairs * n + 2 * n,
+                4 * (edge.numel() + n_pairs * n + n), PEAK_F32),
+    )
+
+    for c in WALK_ROWS:
+        for kind in ("random", "zeros", "ties"):
+            x, h4, w4, h0, w0, bg = _decode_scores(gen, kind, c)
+            x = x.to(dev)
+            got = rw.decode(x, h4, w4, h0, w0, bg, scores=True, best=True)
+            want = rw.decode_plain(x, h4, w4, h0, w0, bg, scores=True,
+                                   best=True)
+            lean = rw.decode(x, h4, w4, h0, w0, bg, best=True)
+            up = rw.upsample_scores(x, h4, w4, h0, w0)
+            check(all(torch.equal(a, b) for a, b in zip(got, want))
+                  and torch.equal(lean.labels, want.labels)
+                  and torch.equal(lean.best, want.best)
+                  and torch.equal(up, rw.upsample_scores_plain(
+                      x, h4, w4, h0, w0)),
+                  f"decode C {c} {kind} not bit-equal to its twin")
+            if kind == "ties":
+                seen = torch.unique(want.labels[:h0, :w0]).tolist()
+                check(seen == [0, 1, 4], f"decode C {c}: planted ties "
+                      f"decoded to {seen}")
+    x, h4, w4, h0, w0, bg = _decode_scores(gen, "random", 8)
+    x = x.to(dev)
+    hw = 16 * x.shape[1] * x.shape[2]
+    x128 = _decode_scores(gen, "random", 128)[0].to(dev)
+    full_ms = cuda_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg, scores=True,
+                                        best=True), 20)
+    c128_ms = cuda_ms(lambda: rw.decode(x128, h4, w4, h0, w0, bg,
+                                        best=True), 20)
+    up_ms = cuda_ms(lambda: rw.upsample_scores(x, h4, w4, h0, w0), 20)
+    dev_ms = device_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg), 20)
+    res["decode"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg), 20),
+        device_ms=dev_ms,
+        plain_ms=cuda_ms(lambda: rw.decode_plain(x, h4, w4, h0, w0, bg), 5),
+        shape=(f"rw [8, {BUCKET[0]}, {BUCKET[1]}] f32 -> labels "
+               f"[{4 * BUCKET[0]}, {4 * BUCKET[1]}] int64 (make_sem_seg's "
+               f"call), two launches; the card's own time per call "
+               f"(profiler: both passes and the key's memset) {dev_ms:.4f} "
+               f"ms; bit-equal to the twin at C 8 and 128 on "
+               f"odd extents, zeros and planted ties; with the scores and "
+               f"best {full_ms:.4f} ms; C 128 with best (the instance walk) "
+               f"{c128_ms:.4f} ms; the upsample alone (one launch) "
+               f"{up_ms:.4f} ms"),
+        library_ms=None,
+        # per value the masked taps (4), the bilinear (9), the quotient and
+        # the pixel mask (2), the normalization and the compare (2); per
+        # pixel the mask's bilinear (9)
+        **bound(hw * (17 * 8 + 9), 4 * x.numel() + 8 * hw, PEAK_F32),
+    )
+    del x, x128
 
 
 def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -1188,11 +1363,17 @@ def run_stage(dev, work: str) -> dict:
     check(lp["square_fused_first"] == 2 * N_PURE
           and lp["square_dense"] == 2 * 7 * N_PURE,
           f"pure launches {lp}")
-    # K0 is one launch per walk: two passes over the tree, then one
-    check(launches["default"]["diag_chain"] == 2 * N_IMAGES
-          and launches["e3_diag"]["diag_chain"] == N_IMAGES,
-          f"K0 launches default {launches['default']['diag_chain']}, "
-          f"e3_diag {launches['e3_diag']['diag_chain']}")
+    # the default walk is K10 -> K0 -> K15 (one K10 launch, one K0 launch,
+    # two K15 launches per walk): two passes over the tree, then one
+    for tag, walks in (("default", 2 * N_IMAGES), ("e3_diag", N_IMAGES)):
+        l_ = launches[tag]
+        check(l_["diag_operator"] == walks and l_["diag_chain"] == walks
+              and l_["decode"] == 2 * walks,
+              f"{tag} launches K10 {l_['diag_operator']}, K0 "
+              f"{l_['diag_chain']}, K15 {l_['decode']} for {walks} walks")
+    check(launches["banded"]["decode"] == 2 * 2 * N_IMAGES
+          and launches["banded"]["diag_operator"] == 0,
+          f"banded launches {launches['banded']}")
     check(le["apply_banded"] == N_IMAGES
           and le["square_banded"] == 2 * 3 * N_IMAGES,
           f"e3 launches {le}")
@@ -1237,8 +1418,8 @@ def _labels_agree(cfg, rw_capped, hw4, size, keys, png: str) -> float:
     from irn_tpu_torch.data.image_io import imread
     from irn_tpu_torch.ops import random_walk as rw
 
-    labels, _, _ = rw.upsample_and_decode(rw_capped, hw4[0], hw4[1], size[0],
-                                          size[1], cfg.sem_seg_bg_thres)
+    labels = rw.decode(rw_capped, hw4[0], hw4[1], size[0], size[1],
+                       cfg.sem_seg_bg_thres).labels
     pred = keys[labels.cpu().numpy()[: size[0], : size[1]]]
     return float(np.mean(pred == imread(png)))
 
@@ -1379,8 +1560,9 @@ def pure_twin_check(dev, stage: dict) -> None:
 
 
 def cpu_walk_check(dev, stage: dict) -> float:
-    """One image's walk through the plain twins on CPU tensors vs the
-    card's default-configuration labels, from the same edge map."""
+    """One image's walk through the plain twins on CPU tensors vs the same
+    walk on the card (K10 -> K0 -> K15) from the same edge map: equal
+    labels; and vs the default run's PNG."""
     from irn_tpu_torch.data import voc12
     from irn_tpu_torch.data.image_io import imread
     from irn_tpu_torch.pipeline import stages_irn
@@ -1396,6 +1578,13 @@ def cpu_walk_check(dev, stage: dict) -> float:
     t0 = time.perf_counter()
     labels = walker(cams, edge.cpu(), h4, w4, size, cfg.sem_seg_bg_thres)
     seconds = time.perf_counter() - t0
+    on_card = stages_irn.RandomWalkRunner(cfg, 20, dev)(
+        cams, edge, h4, w4, size, cfg.sem_seg_bg_thres).cpu()
+    same = float((on_card == labels).float().mean())
+    print(f"default walk of {sample['name']} on the card (K10 -> K0 -> K15) "
+          f"vs the host twins from the same edge map: {same:.6f} of the "
+          f"labels equal", flush=True)
+    check(torch.equal(on_card, labels), f"card vs host twin walk {same}")
     pred = keys[labels.numpy()[: size[0], : size[1]]]
     card = imread(os.path.join(cfg.sem_seg_out_dir,
                                        sample["name"] + ".png"))
@@ -1458,6 +1647,8 @@ def layer_breakdown(dev, stage: dict, card: str) -> None:
             cam_t = timed("seed upload", upload)
             w, inv = timed("default: operator build (band values, diag T)",
                            lambda: rw.build_diag_operator(geom, edge_b))
+            timed("default: operator build, plain twin (eager torch)",
+                  lambda: rw.build_diag_operator_plain(geom, edge_b))
             x = rw._flat_seeds(geom, cam_t, edge_b)
             y = timed("default: K0 chain (256 applications)",
                       lambda: rw.apply_diag_chain(
@@ -1472,10 +1663,13 @@ def layer_breakdown(dev, stage: dict, card: str) -> None:
             timed("banded: K3 chain (128 applications)",
                   lambda: mk.packed_chain(xb, tp, 128))
             del t, tp
+            y = rw._unflatten_rw(geom, y)
             labels = timed("decode (x4 upsample, argmax)",
-                           lambda: rw.upsample_and_decode(
-                               rw._unflatten_rw(geom, y), h4, w4, size[0],
-                               size[1], cfg.sem_seg_bg_thres)[0])
+                           lambda: rw.decode(y, h4, w4, size[0], size[1],
+                                             cfg.sem_seg_bg_thres).labels)
+            timed("decode, plain twin (eager torch)",
+                  lambda: rw.decode_plain(y, h4, w4, size[0], size[1],
+                                          cfg.sem_seg_bg_thres))
             timed("fetch labels + PNG write", lambda: image_io.imwrite(
                 out_png, keys[labels.cpu().numpy()[: size[0], : size[1]]]
                 .astype(np.uint8)))
@@ -1686,7 +1880,7 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
     print(f"stage ir_label agreement int8 vs dense: min {min(agree):.6f} "
           f"mean {np.mean(agree):.6f}", flush=True)
 
-    # make_sem_seg's default walk on make_cam's own CAMs: one K0 per image
+    # make_sem_seg's default walk on make_cam's own CAMs: K10, K0, K15
     _build.reset_launches()
     out = os.path.join(work, "sem_on_made_cams")
     summ = cli(["--voc12_root", root, "--infer_list", ids, "--train_list", ids,
@@ -1698,7 +1892,9 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
                 "--device", str(dev)])["make_sem_seg_labels"]
     stage["launches"]["default on made cams"] = dict(_build.LAUNCHES)
     check(summ["n_images"] == len(names)
+          and _build.LAUNCHES["diag_operator"] == len(names)
           and _build.LAUNCHES["diag_chain"] == len(names)
+          and _build.LAUNCHES["decode"] == 2 * len(names)
           and all(os.path.exists(os.path.join(out, n_ + ".png"))
                   for n_ in names),
           f"make_sem_seg on make_cam's CAMs: {summ}, {_build.LAUNCHES}")
@@ -2730,10 +2926,19 @@ def run_ins_stages(dev, stage: dict, card: str) -> dict:
     summ, summ1 = again["make_ins_seg_labels"], first["make_ins_seg_labels"]
     ld = launches["ins default"]
     # per image: one K11; K12a on the basin and on the label map, K12b's
-    # cluster masks and tables, three launches each
+    # cluster masks and tables, three launches each; per walk (an image's,
+    # and a redo's) one K10, then one K0 and two K15 (upsample, argmax), or
+    # past ins_seed_cap one K0 and one K15 upsample per chunk
     check(ld["advect"] == 2 * n and ld["ccl_label"] == 2 * 6 * n
-          and ld["ccl_tables"] == 2 * 6 * n and ld["diag_chain"] >= 2 * n,
-          f"ins default launches {ld}")
+          and ld["ccl_tables"] == 2 * 6 * n, f"ins default launches {ld}")
+    walks = 2 * n + summ1["redo"] + summ["redo"]
+    chunked = summ1["chunked"] + summ["chunked"]
+    check(ld["diag_operator"] == walks
+          and (ld["diag_chain"] == walks and ld["decode"] == 2 * walks
+               if not chunked else
+               ld["diag_chain"] > walks and ld["decode"] >= walks),
+          f"ins default walk launches {ld} for {walks} walks, {chunked} "
+          f"chunked")
     dicts = _read_ins(out, names)
     for n_ in names:
         d = dicts[n_]
@@ -2902,11 +3107,10 @@ def ins_layers(dev, ins: dict, card: str) -> None:
             cam_t = torch.nn.functional.pad(seeds, (0, 0, 0, 0, 0, pad))
             out = timed("walk (operator build + K0 chain)",
                         lambda: walker._propagate(cam_t, edge, ch, cw))
-            labels, rw_up, _ = timed(
+            labels, _, _, best = timed(
                 "decode (x4 upsample, argmax)",
-                lambda: rw.upsample_and_decode(out, h4, w4, size[0], size[1],
-                                               cfg.ins_seg_bg_thres))
-            best = rw_up.amax(0)
+                lambda: rw.decode(out, h4, w4, size[0], size[1],
+                                  cfg.ins_seg_bg_thres, best=True))
             tables = timed("K12 component split (K12a, K12b tables)",
                            lambda: ccl.component_tables(
                                labels.to(torch.int32), best,
@@ -3045,7 +3249,8 @@ def main() -> int:
              library_ms=kernels[k]["library_ms"], hgmma=hgmma[k],
              **{key: kernels[k][key]
                 for key in ("bound_f32_ms", "bound_dense_ms",
-                            "ms_per_application", "c128_ms", "occupied_share",
+                            "ms_per_application", "c128_ms", "device_ms",
+                            "occupied_share",
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
                             "k13_ms")

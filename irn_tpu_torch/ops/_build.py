@@ -11,8 +11,9 @@ Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a chain through K0, K3
 or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
-call is its split pass and its product, 2; one K11 advection 1; one K12a
-labeling or K12b table call 3),
+call is its split pass and its product, 2; one K10 operator build 1; one
+K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
+its upsample pass and its argmax pass, or 1 for the upsample alone),
 and :func:`launch` adds that number, so a run can show that its main path
 really went through the kernels.
 """
@@ -45,7 +46,8 @@ NVCC_FLAGS = (
 KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
            "banded_chain", "packed_chain_batched", "conv3x3", "advect",
-           "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd")
+           "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd",
+           "diag_operator", "decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -178,10 +180,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_path_max_bwd.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, p, n,
     ]
+    lib.irn_diag_operator.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                      p, n]
+    lib.irn_upsample_scores.argtypes = [p, p, i, i, i, i, i, i, i, p, n]
+    lib.irn_decode.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p, n,
+    ]
     for k in (*(k for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
-              "packed_chain_occupancy", "cluster_masks", "component_tables"):
+              "packed_chain_occupancy", "cluster_masks", "component_tables",
+              "upsample_scores"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

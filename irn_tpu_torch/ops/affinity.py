@@ -189,7 +189,7 @@ def path_max_bwd_plain(g: torch.Tensor, winner: torch.Tensor,
     return grad
 
 
-def _check_table(table: PathTable) -> None:
+def check_table(table: PathTable) -> None:
     n_cells = sum(len(p) for p in table.cells)
     if (n_cells > MAX_CELLS or table.n_pairs > MAX_PAIRS
             or len(table.by_cell) > MAX_UNIQUE):
@@ -212,7 +212,7 @@ def path_max_fwd(edge: torch.Tensor, table: PathTable
     if _build.is_plain(edge):
         return path_max_plain(edge, table)
     _build.check_cuda("path_max_fwd", edge)
-    _check_table(table)
+    check_table(table)
     cells, starts = table.tables(edge.device)[:2]
     maxed = torch.empty((b, table.n_pairs, ch, cw), device=edge.device)
     winner = torch.empty((b, table.n_pairs, ch, cw), dtype=torch.int8,
@@ -239,7 +239,7 @@ def path_max_bwd(g: torch.Tensor, winner: torch.Tensor, table: PathTable,
         return path_max_bwd_plain(g, winner, table, edge_hw)
     _build.check_cuda("path_max_bwd", g)
     _build.check_cuda("path_max_bwd", winner, dtype=torch.int8)
-    _check_table(table)
+    check_table(table)
     ucells, ustarts, entries = table.tables(g.device)[2:]
     d_edge = torch.empty((g.shape[0], h, w), device=g.device)
     _build.launch("path_max_bwd", g.device, g.data_ptr(), winner.data_ptr(),

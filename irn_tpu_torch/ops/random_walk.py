@@ -24,6 +24,10 @@ environment switches):
 :func:`propagate_banded_batch` takes the same routes for B images of one
 bucket; on the banded route their application chains run together (K8).
 
+The default route's operator build, :func:`build_diag_operator`, is K10
+(one launch) and the decode, :func:`decode`, is K15 (two launches), so
+make_sem_seg's walk is K10 -> K0 -> K15 on the card.
+
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
 """
@@ -33,7 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +47,8 @@ from irn_tpu_torch.ops import _build
 from irn_tpu_torch.ops import matpow
 from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops import paths
-from irn_tpu_torch.ops.affinity import path_affinity
+from irn_tpu_torch.ops.affinity import check_table, path_affinity, path_table
 from irn_tpu_torch.ops.matpow_kernels import normalize_transition, pow_int
-from irn_tpu_torch.ops.resize import resize_bilinear
 
 
 def _round_up(x: int, m: int) -> int:
@@ -126,17 +129,45 @@ def _shift_r(v: torch.Tensor, d: int) -> torch.Tensor:
     return F.pad(v, (d, 0))[..., :-d]
 
 
-def build_diag_operator(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
-                        beta: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
-    """T as its nonzero diagonals: (w [n_pairs, n_pad], inv [n_pad]) with
-    T[c-d, c] = w[k, c-d], T[c+d, c] = w[k, c], T[c, c] = 1, all divided by
-    colsum[c] = 1 + sum_k (w[k, c-d_k] + w[k, c])."""
+def build_diag_operator_plain(geom: RandomWalkGeometry,
+                              edge_capped: torch.Tensor, beta: int = 10
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's plain twin: the JAX function term for term (the where-chain
+    path affinity, ``pow_int``, the shifted column sums)."""
     vs, doffs = band_values(geom, edge_capped)
     w = pow_int(vs, beta)
     total = torch.zeros_like(w[0])
     for k, d in enumerate(doffs):  # Python sum()'s order in the JAX source
         total = total + (_shift_r(w[k], d) + w[k])
     return w, 1.0 / (1.0 + total)
+
+
+def build_diag_operator(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
+                        beta: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T as its nonzero diagonals: (w [n_pairs, n_pad], inv [n_pad]) with
+    T[c-d, c] = w[k, c-d], T[c+d, c] = w[k, c], T[c, c] = 1, all divided by
+    colsum[c] = 1 + sum_k (w[k, c-d_k] + w[k, c]). ``edge_capped``:
+    [cap_h, cap_w] f32. On the card one launch (K10,
+    ``csrc/diag_operator.cu``), bit-equal to
+    :func:`build_diag_operator_plain`."""
+    if tuple(edge_capped.shape) != geom.cap or beta < 1:
+        raise ValueError(f"diag_operator: edge {tuple(edge_capped.shape)} "
+                         f"for the {geom.cap} grid, beta {beta} (>= 1)")
+    if _build.is_plain(edge_capped):
+        return build_diag_operator_plain(geom, edge_capped, beta)
+    edge = edge_capped.contiguous()
+    _build.check_cuda("diag_operator", edge)
+    table = path_table(geom.path_set)
+    check_table(table)
+    cells, starts = table.tables(edge.device)[:2]
+    n_pairs, n = geom.path_set.n_pairs, geom.n_pad
+    w = torch.empty((n_pairs, n), device=edge.device)
+    inv = torch.empty((n,), device=edge.device)
+    _build.launch("diag_operator", edge.device, edge.data_ptr(), w.data_ptr(),
+                  inv.data_ptr(), cells.data_ptr(), starts.data_ptr(),
+                  geom.cap[0], geom.cap[1], geom.radius, table.rf, n, n_pairs,
+                  cells.shape[0], beta)
+    return w, inv
 
 
 def apply_diag_chain_plain(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
@@ -515,32 +546,65 @@ def pick_square_times(n_pad: int, exp_times: int) -> int:
     )
 
 
-def upsample_scores(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
-                    w0: int) -> torch.Tensor:
-    """x4 bilinear upsample with true extents: mask-normalized bilinear
-    over the (h4, w4) valid cells, zero beyond the (h0, w0) pixels.
-    Returns [C, 4H, 4W]."""
+def _taps(n_out: int, n_in: int, device):
+    """One axis of the x4 half-pixel bilinear (align_corners=False): taps
+    i0, i1 and weights l0, l1, computed in f32 as K15 computes them."""
+    src = torch.clamp((torch.arange(n_out, dtype=torch.float32, device=device)
+                       + 0.5) * 0.25 - 0.5, min=0.0)
+    i0 = torch.floor(src)
+    lam = src - i0
+    i0 = i0.long()
+    return i0, torch.clamp(i0 + 1, max=n_in - 1), 1.0 - lam, lam
+
+
+def _upsample4(x: torch.Tensor, ty, tx) -> torch.Tensor:
+    """x4 bilinear of [..., h, w] by explicit gathers, combined as
+    h0l (w0l x00 + w1l x01) + h1l (w0l x10 + w1l x11)."""
+    (y0, y1, hl0, hl1), (x0, x1, wl0, wl1) = ty, tx
+    r0, r1 = x[..., y0, :], x[..., y1, :]
+    hl0, hl1 = hl0[:, None], hl1[:, None]
+    return (hl0 * (wl0 * r0[..., x0] + wl1 * r0[..., x1])
+            + hl1 * (wl0 * r1[..., x0] + wl1 * r1[..., x1]))
+
+
+def upsample_scores_plain(rw_capped: torch.Tensor, h4: int, w4: int,
+                          h0: int, w0: int) -> torch.Tensor:
+    """K15 pass 1's plain twin, in the kernel's operation order: the
+    mask-normalized x4 bilinear over the (h4, w4) valid cells, zero beyond
+    the (h0, w0) pixels. Returns [C, 4H, 4W]."""
     c, ch, cw = rw_capped.shape
     dev = rw_capped.device
     m4 = _extent_mask(h4, w4, (ch, cw), dev)
-    rw_up = resize_bilinear(rw_capped * m4[None], (4 * ch, 4 * cw))
-    m_up = resize_bilinear(m4, (4 * ch, 4 * cw))
+    ty, tx = _taps(4 * ch, ch, dev), _taps(4 * cw, cw, dev)
+    rw_up = _upsample4(rw_capped * m4[None], ty, tx)
+    m_up = _upsample4(m4, ty, tx)
     rw_up = torch.where(m_up > 1e-6, rw_up / torch.clamp(m_up, min=1e-6),
                         torch.zeros((), device=dev))
     pix = _extent_mask(h0, w0, (4 * ch, 4 * cw), dev)
     return rw_up * pix[None]
 
 
-def upsample_and_decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
-                        w0: int, bg_thres: float):
-    """x4 upsample, max-normalize, bg-threshold plane, argmax
-    (step/make_sem_seg_labels.py:44-47). Returns (labels [4H, 4W] int64,
-    0 = background and k >= 1 = seed row k-1; rw_up [C, 4H, 4W]
-    max-normalized scores; max_score). Out-of-extent pixels are
-    background."""
+class Decoded(NamedTuple):
+    """:func:`decode`'s outputs: labels [4H, 4W] int64 (0 = background, k
+    >= 1 = seed row k-1, 0 beyond the pixel extent); the max-normalized
+    scores [C, 4H, 4W] (None unless asked); the global max of the
+    un-normalized scores (0-dim); best [4H, 4W], the max over rows of the
+    normalized scores (None unless asked)."""
+
+    labels: torch.Tensor
+    scores: Optional[torch.Tensor]
+    max_score: torch.Tensor
+    best: Optional[torch.Tensor]
+
+
+def decode_plain(rw_capped: torch.Tensor, h4: int, w4: int, h0: int, w0: int,
+                 bg_thres: float, scores: bool = False,
+                 best: bool = False) -> Decoded:
+    """K15's plain twin: :func:`upsample_scores_plain`, max-normalize, the
+    bg-threshold plane, argmax (step/make_sem_seg_labels.py:44-47)."""
     c, ch, cw = rw_capped.shape
     dev = rw_capped.device
-    rw_up = upsample_scores(rw_capped, h4, w4, h0, w0)
+    rw_up = upsample_scores_plain(rw_capped, h4, w4, h0, w0)
     pix = _extent_mask(h0, w0, (4 * ch, 4 * cw), dev)
     max_score = torch.max(rw_up)
     rw_up = rw_up / torch.clamp(max_score, min=1e-12)
@@ -551,4 +615,71 @@ def upsample_and_decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
     labels = torch.argmax(stacked, dim=0)
     labels = torch.where(pix > 0, labels, torch.zeros((), dtype=labels.dtype,
                                                        device=dev))
+    return Decoded(labels, rw_up if scores else None, max_score,
+                   rw_up.amax(0) if best else None)
+
+
+def _decode_input(rw_capped: torch.Tensor) -> torch.Tensor:
+    """K15's input: a contiguous f32 CUDA [C, H, W] tensor."""
+    if rw_capped.dim() != 3 or 0 in rw_capped.shape:
+        raise ValueError(f"decode: scores must be [C, H, W], got "
+                         f"{tuple(rw_capped.shape)}")
+    rw = rw_capped.contiguous()
+    _build.check_cuda("decode", rw)
+    return rw
+
+
+def upsample_scores(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
+                    w0: int) -> torch.Tensor:
+    """x4 bilinear upsample with true extents: mask-normalized bilinear
+    over the (h4, w4) valid cells, zero beyond the (h0, w0) pixels.
+    Returns [C, 4H, 4W]. On the card K15's pass 1 alone (one launch),
+    bit-equal to :func:`upsample_scores_plain`."""
+    if _build.is_plain(rw_capped):
+        return upsample_scores_plain(rw_capped, h4, w4, h0, w0)
+    rw = _decode_input(rw_capped)
+    c, ch, cw = rw.shape
+    out = torch.empty((c, 4 * ch, 4 * cw), device=rw.device)
+    _build.launch("decode", rw.device, rw.data_ptr(), out.data_ptr(), c, ch,
+                  cw, h4, w4, h0, w0, entry="upsample_scores")
+    return out
+
+
+def decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int, w0: int,
+           bg_thres: float, scores: bool = False,
+           best: bool = False) -> Decoded:
+    """x4 upsample, max-normalize, bg-threshold plane, argmax of the walk's
+    [C, H, W] scores; ``scores`` / ``best`` ask for those outputs. On the
+    card two launches (K15, ``csrc/decode.cu``), bit-equal to
+    :func:`decode_plain`; without ``scores`` the [C, 4H, 4W] tensor is
+    never written."""
+    if _build.is_plain(rw_capped):
+        return decode_plain(rw_capped, h4, w4, h0, w0, bg_thres, scores,
+                            best)
+    rw = _decode_input(rw_capped)
+    c, ch, cw = rw.shape
+    dev = rw.device
+    key = torch.empty((1,), dtype=torch.int32, device=dev)
+    max_score = torch.empty((), device=dev)
+    labels = torch.empty((4 * ch, 4 * cw), dtype=torch.int64, device=dev)
+    rw_up = (torch.empty((c, 4 * ch, 4 * cw), device=dev) if scores
+             else None)
+    top = torch.empty((4 * ch, 4 * cw), device=dev) if best else None
+    _build.launch("decode", dev, rw.data_ptr(), key.data_ptr(),
+                  max_score.data_ptr(), labels.data_ptr(),
+                  top.data_ptr() if best else None,
+                  rw_up.data_ptr() if scores else None, c, ch, cw, h4, w4,
+                  h0, w0, ctypes.c_float(bg_thres))
+    return Decoded(labels, rw_up, max_score, top)
+
+
+def upsample_and_decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
+                        w0: int, bg_thres: float):
+    """x4 upsample, max-normalize, bg-threshold plane, argmax
+    (step/make_sem_seg_labels.py:44-47). Returns (labels [4H, 4W] int64,
+    0 = background and k >= 1 = seed row k-1; rw_up [C, 4H, 4W]
+    max-normalized scores; max_score). Out-of-extent pixels are
+    background. :func:`decode` with the scores."""
+    labels, rw_up, max_score, _ = decode(rw_capped, h4, w4, h0, w0, bg_thres,
+                                         scores=True)
     return labels, rw_up, max_score

@@ -3,9 +3,9 @@ parts of :mod:`irn_tpu.pipeline.stages_irn` (split flow).
 
 make_sem_seg, per image: the EdgeDisplacement forward over the padded
 (image, flip) pair, the random walk at the image's grid bucket through the
-hand kernels (:mod:`irn_tpu_torch.ops.random_walk`), the x4 decode, and a
-uint8 PNG in ``sem_seg_out_dir`` — the artifact layout of
-step/make_sem_seg_labels.py.
+hand kernels (:mod:`irn_tpu_torch.ops.random_walk`; by default the operator
+build K10 and the chain K0), the x4 decode (K15), and a uint8 PNG in
+``sem_seg_out_dir`` — the artifact layout of step/make_sem_seg_labels.py.
 
 make_ins_seg, per image: the same forward, then the advection (K11,
 :mod:`irn_tpu_torch.ops.centroids`), the basin clustering (K12,
@@ -367,10 +367,7 @@ class RandomWalkRunner:
         cam[:k, :h4, :w4] = cam_rows
         cam_t = torch.from_numpy(cam).to(self.device)
         rw = self._propagate(cam_t, edge, ch, cw)
-        labels, _, _ = rw_mod.upsample_and_decode(
-            rw, h4, w4, size[0], size[1], bg_thres
-        )
-        return labels
+        return rw_mod.decode(rw, h4, w4, size[0], size[1], bg_thres).labels
 
     def walk(self, seeds: torch.Tensor, edge: torch.Tensor, h4: int,
              w4: int, size: Tuple[int, int], bg_thres: float):
@@ -388,10 +385,9 @@ class RandomWalkRunner:
         pad = self._row_bucket(k) - k
         cam_t = F.pad(seeds, (0, 0, 0, 0, 0, pad)) if pad else seeds
         rw = self._propagate(cam_t, edge, ch, cw)
-        labels, rw_up, _ = rw_mod.upsample_and_decode(
-            rw, h4, w4, size[0], size[1], bg_thres
-        )
-        return labels.to(torch.int32), rw_up.amax(0)
+        out = rw_mod.decode(rw, h4, w4, size[0], size[1], bg_thres,
+                            best=True)
+        return out.labels.to(torch.int32), out.best
 
     def propagate_all(self, seeds: torch.Tensor, edge: torch.Tensor,
                       h4: int, w4: int, size: Tuple[int, int],

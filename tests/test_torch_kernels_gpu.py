@@ -823,3 +823,101 @@ def test_path_max_autograd(cuda):
     assert _build.LAUNCHES["path_max_fwd"] == 1
     assert _build.LAUNCHES["path_max_bwd"] == 1
     assert torch.equal(grads[0], grads[1])
+
+
+def _walk_edge(kind, shape, seed):
+    """A capped edge map for K10: a sigmoid of normals, the same quantized
+    to 8 levels (ties along every path), or all ones (w 0, inv 1)."""
+    if kind == "ones":
+        return torch.ones(shape)
+    return _edge_map(kind, shape, seed)
+
+
+@pytest.mark.parametrize("beta", [1, 3, 10])
+@pytest.mark.parametrize("kind", ["sigmoid", "quantized", "ones"])
+@pytest.mark.parametrize("radius,cap", [(5, (96, 128)), (5, (128, 96)),
+                                        (5, (128, 128)), (5, (20, 28)),
+                                        (2, (24, 24)), (10, (32, 40))])
+def test_diag_operator_bit_equal(cuda, radius, cap, kind, beta):
+    """K10 bit-equal to its twin on the card and on the host, one launch:
+    the three buckets of the default grid cap, an odd small grid, radius 2
+    and 10, ties, beta a run-time integer; the edge passed as the stage's
+    non-contiguous slice."""
+    geom = rw.build_geometry(*cap, radius=radius)
+    full = torch.ones((cap[0] + 3, cap[1] + 5))
+    full[: cap[0], : cap[1]] = _walk_edge(kind, cap, seed=cap[0] + beta)
+    edge = full.to(cuda)[: cap[0], : cap[1]]
+    w, inv = rw.build_diag_operator(geom, edge, beta)
+    want_w, want_inv = rw.build_diag_operator_plain(geom, edge.contiguous(),
+                                                    beta)
+    host_w, host_inv = rw.build_diag_operator_plain(
+        geom, full[: cap[0], : cap[1]], beta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["diag_operator"] == 1
+    assert torch.equal(w, want_w) and torch.equal(inv, want_inv)
+    assert torch.equal(w.cpu(), host_w) and torch.equal(inv.cpu(), host_inv)
+
+
+def _decode_case(case, c, shape=(96, 128), seed=0):
+    """(rw [C, ch, cw], h4, w4, h0, w0, bg_thres): random scores at odd
+    extents, all zeros, equal leading rows (the first wins), or a row at
+    exactly bg_thres after the normalization (the background wins)."""
+    g = np.random.default_rng(seed)
+    ch, cw = shape
+    h4, w4 = ch - 3, cw - 5
+    h0, w0 = 4 * h4 - 2, 4 * w4 - 3
+    rw_ = np.zeros((c, ch, cw), np.float32)
+    bg = 0.35
+    if case == "random":
+        rw_[:, :h4, :w4] = g.random((c, h4, w4))
+    elif case == "equal_rows":
+        rw_[:, :h4, :w4] = g.random((c, h4, w4)) * 0.5
+        rw_[1, :h4, :w4] = rw_[0, :h4, :w4] = 1 + g.random((h4, w4))
+    elif case == "bg_tie":
+        bg = 0.25
+        rw_[0, :h4, :w4] = 0.25
+        rw_[-1, 10:40, 20:60] = 1.0
+    return torch.from_numpy(rw_), h4, w4, h0, w0, bg
+
+
+@pytest.mark.parametrize("case", ["random", "zeros", "equal_rows",
+                                  "bg_tie"])
+@pytest.mark.parametrize("c", [8, 128])
+def test_decode_bit_equal(cuda, c, case):
+    """K15 bit-equal to its twin on the card (labels, max, normalized
+    scores, best) in two launches, and its labels equal to the host's; the
+    upsample alone in one launch; without scores no [C, 4H, 4W] tensor."""
+    x, h4, w4, h0, w0, bg = _decode_case(case, c)
+    xd = x.to(cuda)
+    full = rw.decode(xd, h4, w4, h0, w0, bg, scores=True, best=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode"] == 2
+    want = rw.decode_plain(xd, h4, w4, h0, w0, bg, scores=True, best=True)
+    for got, exp in zip(full, want):
+        assert torch.equal(got, exp)
+    lean = rw.decode(xd, h4, w4, h0, w0, bg, best=True)
+    assert lean.scores is None
+    assert torch.equal(lean.labels, want.labels)
+    assert torch.equal(lean.best, want.best)
+    host = rw.decode_plain(x, h4, w4, h0, w0, bg)
+    assert torch.equal(lean.labels.cpu(), host.labels)
+    up = rw.upsample_scores(xd, h4, w4, h0, w0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode"] == 5
+    assert torch.equal(up, rw.upsample_scores_plain(xd, h4, w4, h0, w0))
+    if case == "equal_rows":
+        assert not (want.labels == 2).any()
+    if case == "bg_tie":
+        assert not (want.labels == 1).any()
+
+
+def test_walk_kernels_refuse(cuda):
+    """K10 and K15 take f32 only; a CUDA tensor never reaches a twin."""
+    geom = rw.build_geometry(24, 24, radius=5)
+    with pytest.raises(TypeError):
+        rw.build_diag_operator(geom, torch.ones((24, 24), dtype=torch.float64,
+                                                device=cuda))
+    with pytest.raises(TypeError):
+        rw.decode(torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda),
+                  8, 8, 32, 32, 0.3)
+    assert not any(_build.LAUNCHES.values())
