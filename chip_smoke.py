@@ -50,9 +50,15 @@ launch per image). It holds one image's make_cam on the card to the port
 on the host (max-abs < 1e-3), the device CRF on the card to the host port
 on one image's crop (int8 >= 99.9% equal labels, dense bf16 >= 99.5%) and
 to the native lattice (>= 90% per image), and prints each stage's smoke
-rate, a per-step breakdown and the CRF products' times beside their bound.
-These stages launch no hand kernel (their heavy work is cuDNN's and
-cuBLAS's).
+rate, a per-step breakdown (with the kernel build's peak memory above the
+stored kernel) and the CRF products' times beside their bound. The device
+CRF builds its landmark kernel in one K14 launch per image
+(``csrc/crf_landmark.cu``): 16 over the two int8 passes, 8 in the dense
+run, none under the native lattice, and no other hand kernel in these
+stages (the rest of their work is cuDNN's and cuBLAS's). The kernels phase
+holds K14 to its twin bit for bit, store and row sums, at the 512x512
+bucket and an odd 92x84 one (S 483) with each store, on a scene, an
+all-black and a uniform image, a row range and the sums alone.
 
 The phase ``stage: train_irn`` trains IRNet through the CLI at its
 defaults (crop 512, batch 32, path radius 10, lr 0.1) with a seeded random
@@ -173,6 +179,9 @@ REPLACES = {
     # with it), XLA programs
     "diag_operator": "irn_tpu/ops/random_walk.py:187",
     "decode": "irn_tpu/ops/random_walk.py:873",
+    # the device CRF's landmark-kernel build (crf_pair_program's build_chunk,
+    # mapped over 4096-row chunks), an XLA program
+    "crf_landmark": "irn_tpu/ops/crf_tpu.py:196",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -192,6 +201,7 @@ SOURCES = {
     "path_max_bwd": "irn_tpu_torch/csrc/path_max.cu",
     "diag_operator": "irn_tpu_torch/csrc/diag_operator.cu",
     "decode": "irn_tpu_torch/csrc/decode.cu",
+    "crf_landmark": "irn_tpu_torch/csrc/crf_landmark.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -203,7 +213,7 @@ HOME_RUN = {
     "advect": "ins default", "ccl_label": "ins default",
     "ccl_tables": "ins default", "path_max_fwd": "train irn",
     "path_max_bwd": "train irn", "diag_operator": "default",
-    "decode": "default",
+    "decode": "default", "crf_landmark": "cam stages",
 }
 
 
@@ -213,6 +223,9 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 HBM_BYTES_S = 3.35e12
+# exponentials per second on the SFUs: 16 per SM and clock, 132 SMs at the
+# 1.98 GHz boost clock
+SFU_EXP_S = 132 * 16 * 1.98e9
 
 # kernels that must run on wgmma: the build phase fails if their SASS holds
 # no HGMMA instruction or ptxas reports a spill in their source
@@ -597,6 +610,7 @@ def check_kernels(dev, card: str) -> dict:
     check_instance_kernels(dev, geom, edge, gen, res)
     check_path_max_kernels(dev, gen, res)
     check_walk_kernels(dev, gen, res)
+    check_crf_landmark(dev, gen, res)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -942,6 +956,100 @@ def check_walk_kernels(dev, gen, res: dict) -> None:
         **bound(hw * (17 * 8 + 9), 4 * x.numel() + 8 * hw, PEAK_F32),
     )
     del x, x128
+
+
+# K14 at the smoke tree's largest cam_to_ir_label bucket (its 128x128-grid
+# images pad to 512x512 at pad_multiple 64), and an odd bucket whose S (23 x
+# 21 = 483 landmarks) leaves int8 and bf16 rows off 16-byte alignment and the
+# last tile ragged
+CRF_BUCKET, CRF_EXTENT = (512, 512), (500, 497)
+CRF_ODD, CRF_ODD_EXTENT = (92, 84), (89, 81)
+CRF_STORES = {"int8": torch.int8, "bf16": torch.bfloat16,
+              "f32": torch.float32}
+
+
+def _crf_planes(gen, kind: str, bucket: tuple) -> torch.Tensor:
+    """[3, h, w] uint8 image planes: color regions with noise (k over all
+    of [0, 1]), all black, or uniform (d2 <= 0 at every landmark's own
+    pixel)."""
+    h, w = bucket
+    if kind == "black":
+        return torch.zeros((3, h, w), dtype=torch.uint8)
+    if kind == "uniform":
+        return torch.full((3, h, w), 128, dtype=torch.uint8)
+    img = torch.full((3, h, w), 60.0)
+    img[:, :, : w // 2] = torch.tensor([190.0, 70.0, 60.0])[:, None, None]
+    img[:, h // 2:, w // 2:] = torch.tensor([70.0, 170.0, 90.0])[:, None, None]
+    img += 8 * torch.randn((3, h, w), generator=gen)
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def check_crf_landmark(dev, gen, res: dict) -> None:
+    """K14 vs its twin on the card: at the largest bucket and the odd one,
+    on a scene, an all-black and a uniform image, with each store (int8,
+    bf16, f32), the store and the row sums bit-equal (the dense sums too:
+    the twin adds in the kernel's lane order); on the odd bucket also a row
+    range and the sums alone. Timed at the largest bucket, int8 (the stage's
+    default store)."""
+    from irn_tpu_torch.ops import crf_device as cd
+
+    cases = [("scene", CRF_BUCKET, CRF_EXTENT), ("scene", CRF_ODD,
+                                                 CRF_ODD_EXTENT),
+             ("black", CRF_BUCKET, CRF_EXTENT), ("uniform", CRF_BUCKET,
+                                                 CRF_BUCKET),
+             ("black", CRF_ODD, CRF_ODD_EXTENT)]
+    for kind, bucket, extent in cases:
+        planes = _crf_planes(gen, kind, bucket).to(dev)
+        n = bucket[0] * bucket[1]
+        modes = [{}]
+        if bucket == CRF_ODD:
+            modes += [dict(rows=(37, n - 5)), dict(sums_only=True)]
+        for name, store in CRF_STORES.items():
+            for mode in modes:
+                got = cd.landmark_rows(planes, *extent, store=store, **mode)
+                want = cd.landmark_rows_plain(planes, *extent, store=store,
+                                              **mode)
+                check(torch.equal(got[1], want[1])
+                      and (got[0] is None if mode.get("sums_only")
+                           else torch.equal(got[0], want[0])),
+                      f"crf_landmark {kind} {bucket} {extent} {name} {mode} "
+                      f"not bit-equal to its twin")
+                del got, want
+            torch.cuda.empty_cache()
+    planes = _crf_planes(gen, "scene", CRF_BUCKET).to(dev)
+    n = CRF_BUCKET[0] * CRF_BUCKET[1]
+    s_land = len(range(2, CRF_BUCKET[0], 4)) * len(range(2, CRF_BUCKET[1], 4))
+    store_ms = {name: cuda_ms(lambda: cd.landmark_rows(
+        planes, *CRF_EXTENT, store=store), 10)
+        for name, store in CRF_STORES.items()}
+    torch.cuda.empty_cache()
+    sums_ms = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
+                                               sums_only=True), 10)
+    plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 2)
+    exps = n * s_land
+    res["crf_landmark"] = dict(
+        max_abs_err=0.0,
+        ms=store_ms["int8"],
+        plain_ms=plain_ms,
+        exps=exps,
+        exp_sfu_ms=exps / SFU_EXP_S * 1e3,
+        shape=(f"image [3, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] uint8, extent "
+               f"{CRF_EXTENT} -> int8 store [{n}, {s_land}] "
+               f"({n * s_land / 1e9:.2f} GB) + f32 row sums, one launch; "
+               f"bf16 store {store_ms['bf16']:.4f} ms, f32 store "
+               f"{store_ms['f32']:.4f} ms, the sums alone {sums_ms:.4f} ms; "
+               f"{exps:.3e} exps ({exps / SFU_EXP_S * 1e3:.4f} ms on the "
+               f"SFUs); store and sums bit-equal to the twin (every store; "
+               f"{CRF_BUCKET} and {CRF_ODD} extent {CRF_ODD_EXTENT}; a scene, "
+               f"all black, uniform; a row range, the sums alone)"),
+        library_ms=None,
+        # per entry the five-term dot (9), 2x, the two sums, the clamp, the
+        # -0.5, v and the 127 scale (16, the exp counted as one); the image
+        # read once, the store and the sums written once
+        **bound(16 * exps, 3 * n + n * s_land + 4 * n, PEAK_F32),
+    )
+    del planes
+    torch.cuda.empty_cache()
 
 
 def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -1818,11 +1926,15 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
         again = cli(argv("--make_cam_pass", "--cam_to_ir_label_pass",
                          "--overwrite"))
         stage["launches"]["cam stages"] = dict(_build.LAUNCHES)
+        _build.reset_launches()
         runs["native"] = cli(argv("--cam_to_ir_label_pass", "--crf_backend",
                                   "native", ir="ir_native"))["cam_to_ir_label"]
+        stage["launches"]["cam native"] = dict(_build.LAUNCHES)
+        _build.reset_launches()
         runs["dense"] = cli(argv("--cam_to_ir_label_pass", "--crf_backend",
                                  "tpu", "--crf_kernel_store", "dense",
                                  ir="ir_dense"))["cam_to_ir_label"]
+        stage["launches"]["cam dense"] = dict(_build.LAUNCHES)
     finally:
         stages_cam.CAMScalePass.forward = forward
         crf_device.LandmarkKernel = build
@@ -1830,9 +1942,16 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     check(tf32 and not any(a or b for _, a, b in tf32),
           f"TF32 on inside a stage: {sorted(set(tf32))}")
-    check(not any(stage["launches"]["cam stages"].values()),
-          f"the CAM stages launched hand kernels: "
-          f"{stage['launches']['cam stages']}")
+    # K14: one launch per image and device-CRF pass (two int8 passes, one
+    # dense); no other hand kernel, none under the native lattice
+    for run, per_image in (("cam stages", 2), ("cam native", 0),
+                           ("cam dense", 1)):
+        counts = stage["launches"][run]
+        check(counts["crf_landmark"] == per_image * len(names)
+              and not any(v for k, v in counts.items()
+                          if k != "crf_landmark"),
+              f"{run}: launches {counts}, expected crf_landmark "
+              f"{per_image * len(names)} and nothing else")
     for n_ in names:
         d = np.load(os.path.join(cams, n_ + ".npy"), allow_pickle=True).item()
         h, w = _image_size(root, n_)
@@ -2014,7 +2133,7 @@ def cam_layers(dev, cam: dict, card: str) -> None:
 
     npy = os.path.join(cam["work"], "layer.npy")
     png = os.path.join(cam["work"], "layer_ir.png")
-    kernel_bytes = {}
+    kernel_bytes, build_peak = {}, {}
     with torch.no_grad():
         for rep in range(2):
             ms.clear()
@@ -2061,10 +2180,16 @@ def cam_layers(dev, cam: dict, card: str) -> None:
                     h, w = size
                     packed = timed(f"cam_to_ir_label {store}: upload",
                                    lambda: crf.upload(sample["img"], fg, bg))
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    base = torch.cuda.memory_allocated(dev)
                     kern = timed(f"cam_to_ir_label {store}: kernel build",
                                  lambda: crf.build(packed, h, w))
                     kernel_bytes[store] = max(kernel_bytes.get(store, 0),
                                               kern.nbytes())
+                    # what the build held beyond what it keeps
+                    build_peak[store] = max(build_peak.get(store, 0),
+                                            torch.cuda.max_memory_allocated(dev)
+                                            - base - kern.nbytes())
                     out = timed(f"cam_to_ir_label {store}: {cfg.crf_iters} "
                                 f"iterations", lambda: crf.iterate(
                                     kern, packed, len(keys), cfg.crf_gt_prob))
@@ -2076,7 +2201,8 @@ def cam_layers(dev, cam: dict, card: str) -> None:
     for name, v in ms.items():
         print(f"layer {name}: {v:.3f} ms/img ({card})", flush=True)
     print(f"device CRF landmark kernel at the tree's largest bucket: "
-          f"{kernel_bytes}", flush=True)
+          f"{kernel_bytes} bytes; the build's peak memory above it "
+          f"{build_peak} bytes", flush=True)
 
     # the iterations' products at the largest bucket of the tree
     bucket = max((LandmarkCRF(pad_multiple=cfg.pad_multiple)._bucket(
@@ -3253,7 +3379,7 @@ def main() -> int:
                             "occupied_share",
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
-                            "k13_ms")
+                            "k13_ms", "exps", "exp_sfu_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -13,9 +13,11 @@ or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
 call is its split pass and its product, 2; one K10 operator build 1; one
 K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
-its upsample pass and its argmax pass, or 1 for the upsample alone),
-and :func:`launch` adds that number, so a run can show that its main path
-really went through the kernels.
+its upsample pass and its argmax pass, or 1 for the upsample alone; one
+K14 landmark-kernel build 1, whatever its row range), and :func:`launch`
+adds that number under a lock (the stages call kernels from a thread
+pool), so a run can show that its main path really went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -47,10 +49,11 @@ KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
            "banded_chain", "packed_chain_batched", "conv3x3", "advect",
            "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd",
-           "diag_operator", "decode")
+           "diag_operator", "decode", "crf_landmark")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
@@ -186,6 +189,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_decode.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p, n,
     ]
+    lib.irn_crf_landmark.argtypes = [
+        p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
+        ctypes.c_float, p, n,
+    ]
     for k in (*(k for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
@@ -236,7 +243,8 @@ def launch(name: str, device: torch.device, *args,
         raise RuntimeError(
             f"{name}: CUDA launch failed with cudaError {status}"
         )
-    LAUNCHES[name] += launched.value
+    with _count_lock:
+        LAUNCHES[name] += launched.value
 
 
 def is_plain(t: torch.Tensor) -> bool:

@@ -12,12 +12,14 @@ the host backend):
   mask.
 - **Bilateral kernel (sxy 50, srgb 5, compat 10): landmark subgrid.**
   Every pixel exchanges messages with a stride-``s`` subgrid of landmark
-  pixels; the 5-D kernel to each landmark is evaluated exactly (one
-  [N, 5] @ [5, S] product, then one exp), built in chunks of at most 4096
-  rows. Each mean-field iteration is then one [N, S] @ [S, 2L] product:
-  bf16 storage with f32 accumulation (``kernel_store='dense'``), or int8
-  storage with int32 accumulation (``'int8'``, the activations quantized
-  per column on the fly, the row sums taken from the quantized kernel).
+  pixels; the 5-D kernel to each landmark is evaluated exactly and stored
+  with its row sums by :func:`landmark_rows`: on the card one launch per
+  image (K14, ``csrc/crf_landmark.cu``), on the CPU its plain twin
+  :func:`landmark_rows_plain` in chunks of at most 4096 rows. Each
+  mean-field iteration is then one [N, S] @ [S, 2L] product: bf16 storage
+  with f32 accumulation (``kernel_store='dense'``), or int8 storage with
+  int32 accumulation (``'int8'``, the activations quantized per column on
+  the fly, the row sums taken from the quantized kernel).
 
 DenseCRF v2 conventions as the JAX module: unit-variance kernels on 1/sxy-
 and 1/srgb-scaled features, symmetric D^-1/2 K D^-1/2 normalisation, self
@@ -35,13 +37,17 @@ the CPU the same ``torch._int_mm``, and the bf16 product upcast to f32
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from irn_tpu_torch.ops import _build
+
 CHUNK_ROWS = 4096
 KERNEL_STORES = ("dense", "int8")
+# K14's stores on the card (the twin takes any float dtype as well)
+LANDMARK_STORES = (torch.int8, torch.bfloat16, torch.float32)
 
 
 def _toeplitz(n: int, taps: torch.Tensor) -> torch.Tensor:
@@ -61,10 +67,160 @@ def _sep_gauss(x: torch.Tensor, th: torch.Tensor,
     return torch.matmul(th.t(), torch.matmul(x, tw))
 
 
-def _chunk(n: int) -> int:
-    """The largest divisor of n that is <= CHUNK_ROWS (never n itself for
-    a large n, which would materialize the full [N, S] f32 build)."""
-    return max(c for c in range(1, min(CHUNK_ROWS, n) + 1) if n % c == 0)
+def landmark_grid(h: int, w: int, stride: int) -> Tuple[int, int]:
+    """Rows and columns of the landmark subgrid of an [h, w] bucket: the
+    pixels (off + stride i, off + stride j), off = stride // 2."""
+    off = stride // 2
+    return len(range(off, h, stride)), len(range(off, w, stride))
+
+
+def landmark_columns(n_land: int, store: torch.dtype) -> int:
+    """Columns of the stored kernel: the int8 product wants S in multiples
+    of 8, so int8 pads with zero landmarks (v 0, zero columns)."""
+    return n_land + (-n_land) % 8 if store == torch.int8 else n_land
+
+
+def _check_rows(planes: torch.Tensor, rows, stride: int) -> Tuple[int, int]:
+    if planes.dim() != 3 or planes.shape[0] != 3 or planes.dtype != torch.uint8:
+        raise ValueError(f"crf_landmark: image planes [3, H, W] uint8, got "
+                         f"{tuple(planes.shape)} {planes.dtype}")
+    n = planes.shape[1] * planes.shape[2]
+    r0, r1 = (0, n) if rows is None else rows
+    if not 0 <= r0 < r1 <= n or stride < 1 or n >= 2 ** 31:
+        raise ValueError(f"crf_landmark: rows [{r0}, {r1}) of {n}, stride "
+                         f"{stride}")
+    return r0, r1
+
+
+def _sq5(f) -> torch.Tensor:
+    """|f|^2 of five feature tensors, left to right, one op at a time."""
+    s = f[0] * f[0]
+    for x in f[1:]:
+        s = s + x * x
+    return s
+
+
+def _lane_sums(k: torch.Tensor, v: int) -> torch.Tensor:
+    """Row sums of k [rows, S] f32 in K14's order: lane l of 32 adds the
+    columns j with (j // v) % 32 == l from 0 in increasing j, then the lane
+    sums are added pairwise (l, l + o) for o = 16, 8, 4, 2, 1 (a warp's
+    butterfly, read at lane 0). Zero columns pad S to a tile: adding +0
+    changes no sum."""
+    rows, s = k.shape
+    tile = 32 * v
+    k = torch.nn.functional.pad(k, (0, (-s) % tile)).view(rows, -1, 32, v)
+    acc = torch.zeros((rows, 32), dtype=torch.float32, device=k.device)
+    for i in range(k.shape[1]):
+        for j in range(v):
+            acc = acc + k[:, i, :, j]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[:, :o] + acc[:, o:2 * o]
+    return acc[:, 0]
+
+
+def landmark_rows_plain(planes: torch.Tensor, eh: int, ew: int, *,
+                        stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
+                        store: torch.dtype = torch.int8,
+                        rows: Optional[Tuple[int, int]] = None,
+                        sums_only: bool = False):
+    """K14's plain twin, in the kernel's order of operations (see
+    :func:`landmark_rows`), built in chunks of CHUNK_ROWS rows. The
+    divisions take a tensor divisor: a CUDA tensor divided by a Python
+    number is a product with its reciprocal in torch, not a division."""
+    r0, r1 = _check_rows(planes, rows, stride)
+    _, h, w = planes.shape
+    dev = planes.device
+    sxy_t = torch.full((), sxy, dtype=torch.float32, device=dev)
+    srgb_t = torch.full((), srgb, dtype=torch.float32, device=dev)
+    flat = planes.reshape(3, -1)
+
+    def features(ys, xs):
+        p = ys * w + xs
+        return [xs.float() / sxy_t, ys.float() / sxy_t,
+                *(flat[c, p].float() / srgb_t for c in range(3))]
+
+    lh, lw = landmark_grid(h, w, stride)
+    off = stride // 2
+    jy, jx = torch.meshgrid(torch.arange(lh, device=dev) * stride + off,
+                            torch.arange(lw, device=dev) * stride + off,
+                            indexing="ij")
+    jy, jx = jy.reshape(-1), jx.reshape(-1)
+    s_cols = landmark_columns(lh * lw, store)
+    pad = s_cols - lh * lw
+    f_land = [torch.nn.functional.pad(f, (0, pad))
+              for f in features(jy, jx)]
+    v_land = torch.nn.functional.pad(((jy < eh) & (jx < ew)).float(),
+                                     (0, pad))
+    sq_land = _sq5(f_land)
+    lanes = 16 // store.itemsize
+    out = None if sums_only else torch.empty((r1 - r0, s_cols), dtype=store,
+                                             device=dev)
+    sums = torch.empty(r1 - r0, dtype=torch.float32, device=dev)
+    for a in range(r0, r1, CHUNK_ROWS):
+        b = min(a + CHUNK_ROWS, r1)
+        p = torch.arange(a, b, device=dev)
+        f_pix = features(p // w, p % w)
+        cross = f_pix[0][:, None] * f_land[0][None, :]
+        for fp, fl in zip(f_pix[1:], f_land[1:]):
+            cross = cross + fp[:, None] * fl[None, :]
+        d2 = (_sq5(f_pix)[:, None] + sq_land[None, :]) - 2.0 * cross
+        k = torch.exp(-0.5 * d2.clamp_min(0.0)) * v_land[None, :]
+        if store == torch.int8:
+            # entries live in [0, 1]: symmetric scale 127; the row sums
+            # come from the quantized values, the kernel actually applied
+            k = torch.round(k * 127.0)
+            sums[a - r0:b - r0] = k.sum(1) * np.float32(1.0 / 127.0)
+        else:
+            sums[a - r0:b - r0] = _lane_sums(k, lanes)
+        if out is not None:
+            out[a - r0:b - r0] = k.to(store)
+    return out, sums
+
+
+def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
+                  stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
+                  store: torch.dtype = torch.int8,
+                  rows: Optional[Tuple[int, int]] = None,
+                  sums_only: bool = False):
+    """The bilateral landmark kernel of one image and its f32 row sums:
+    (store [r1 - r0, S'] or None, sums [r1 - r0]) for the pixel rows
+    [r0, r1) (default all) of the image planes [3, H, W] uint8 (the packed
+    upload's first three), true extent (eh, ew).
+
+    Pixel p = y W + x has the f32 features f_p = (x / sxy, y / sxy,
+    r / srgb, g / srgb, b / srgb); landmark j is the pixel (off + stride
+    (j // lw), off + stride (j % lw)), valid (v_j 1) inside (eh, ew); under
+    int8 S is padded to S' (a multiple of 8) with zero landmarks. Each
+    entry is k = exp(-0.5 max(d2, 0)) v_j with d2 = (|f_p|^2 + |l_j|^2) -
+    2 <f_p, l_j> (five-term sums left to right), stored as int8
+    round(127 k), bf16 or f32 (``store``); the row sums are taken over the
+    stored values, sum(round(127 k)) / 127 under int8, the f32 k otherwise
+    (in K14's lane order, :func:`_lane_sums`). ``sums_only`` drops the
+    store.
+
+    On the card one launch of K14 (``csrc/crf_landmark.cu``), bit-equal to
+    :func:`landmark_rows_plain`; on the CPU the twin."""
+    if _build.is_plain(planes):
+        return landmark_rows_plain(planes, eh, ew, stride=stride, sxy=sxy,
+                                   srgb=srgb, store=store, rows=rows,
+                                   sums_only=sums_only)
+    r0, r1 = _check_rows(planes, rows, stride)
+    if store not in LANDMARK_STORES:
+        raise TypeError(f"crf_landmark: stores {LANDMARK_STORES}, got {store}")
+    _build.check_cuda("crf_landmark", planes, dtype=torch.uint8)
+    _, h, w = planes.shape
+    dev = planes.device
+    lh, lw = landmark_grid(h, w, stride)
+    s_cols = landmark_columns(lh * lw, store)
+    out = None if sums_only else torch.empty((r1 - r0, s_cols), dtype=store,
+                                             device=dev)
+    sums = torch.empty(r1 - r0, dtype=torch.float32, device=dev)
+    _build.launch("crf_landmark", dev, planes.data_ptr(),
+                  None if out is None else out.data_ptr(), sums.data_ptr(),
+                  h, w, eh, ew, stride, lw, lh * lw, s_cols,
+                  store.itemsize, r0, r1,
+                  sxy, srgb)
+    return out, sums
 
 
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -125,37 +281,20 @@ class LandmarkKernel:
         xs = torch.arange(w, device=dev)[None, :].expand(h, w)
         self.valid = ((ys < eh) & (xs < ew)).float()
 
-        # bilateral landmark kernel
-        feats = torch.cat([
-            (xs / sxy_bilateral).float()[..., None],
-            (ys / sxy_bilateral).float()[..., None],
-            img_u8.float() / srgb_bilateral,
-        ], dim=-1)                                            # [H, W, 5]
-        off = self.off
-        f_land = feats[off::stride, off::stride].reshape(-1, 5)
-        v_land = self.valid[off::stride, off::stride].reshape(-1)
-        self.n_land = f_land.shape[0]
+        # bilateral landmark kernel: K14 on the card, its twin on the CPU
+        self.n_land = math.prod(landmark_grid(h, w, stride))
         if self.int8 and self.n_land * 127 * 127 >= 2 ** 31:
             raise ValueError(f"{self.n_land} landmarks overflow the int32 "
                              "accumulator of the int8 store")
-        # int8 products need S in multiples of 8: zero landmarks (v 0) add
-        # zero columns and change nothing
-        s_pad = (-self.n_land) % 8 if self.int8 else 0
-        self.f_land = _pad_rows(f_land, 8) if s_pad else f_land
-        self.v_land = torch.nn.functional.pad(v_land, (0, s_pad))
-        self.sq_land = (self.f_land ** 2).sum(1)
-        chunk = _chunk(self.n)
-        self.f_chunks = feats.reshape(-1, chunk, 5)
-        # only the stored kernel [N, S] and the f32 row sums stay; the f32
-        # intermediates live one chunk at a time
-        d_b = torch.empty(self.n, device=dev)
-        self.k_land = None if stream_kernel else torch.empty(
-            (self.n, self.f_land.shape[0]),
-            dtype=torch.int8 if self.int8 else self.mdt, device=dev)
-        for i, f in enumerate(self.f_chunks):
-            k, d_b[i * chunk:(i + 1) * chunk] = self.build_chunk(f)
-            if self.k_land is not None:
-                self.k_land[i * chunk:(i + 1) * chunk] = k
+        self.planes = img_u8.permute(2, 0, 1).contiguous()
+        self.extent = (eh, ew)
+        self.bilateral_hypers = dict(stride=stride, sxy=sxy_bilateral,
+                                     srgb=srgb_bilateral,
+                                     store=torch.int8 if self.int8
+                                     else self.mdt)
+        # only the stored kernel [N, S] and the f32 row sums stay (none of
+        # the kernel when streaming)
+        self.k_land, d_b = self.landmark_rows(sums_only=stream_kernel)
         self.nr_b = torch.rsqrt(d_b.clamp_min(1e-12)).reshape(h, w) * self.valid
 
         # gaussian separable kernel
@@ -167,26 +306,22 @@ class LandmarkKernel:
         d_g = _sep_gauss(self.valid[None], self.th, self.tw)[0]
         self.nr_g = torch.rsqrt(d_g.clamp_min(1e-12)) * self.valid
 
-    def build_chunk(self, f_c: torch.Tensor):
-        """(kernel rows in storage dtype, their f32 row sums) for the
-        feature rows f_c [chunk, 5]."""
-        cross = torch.mm(f_c, self.f_land.t())
-        d2 = (f_c ** 2).sum(1)[:, None] + self.sq_land[None, :] - 2.0 * cross
-        k = torch.exp(-0.5 * d2.clamp_min(0.0)) * self.v_land[None, :]
-        if self.int8:
-            # entries live in [0, 1]: symmetric scale 127; the row sums
-            # come from the quantized values, the kernel actually applied
-            kq = torch.round(k * 127.0)
-            return kq.to(torch.int8), kq.sum(1) * np.float32(1.0 / 127.0)
-        return k.to(self.mdt), k.sum(1)
+    def landmark_rows(self, rows: Optional[Tuple[int, int]] = None,
+                      sums_only: bool = False):
+        """(stored kernel rows or None, their f32 row sums) for the pixel
+        rows [r0, r1) (default all): :func:`landmark_rows`."""
+        return landmark_rows(self.planes, *self.extent, rows=rows,
+                             sums_only=sums_only, **self.bilateral_hypers)
 
     def bilateral(self, q_land: torch.Tensor) -> torch.Tensor:
         """[N, 2L] f32 = K @ q_land^T for landmark activations q_land
         [2L, S]."""
         qlT = q_land.t()
         if self.stream:
-            return torch.cat([product_f32(self.build_chunk(f)[0], qlT)
-                              for f in self.f_chunks])
+            return torch.cat([
+                product_f32(self.landmark_rows(
+                    (a, min(a + CHUNK_ROWS, self.n)))[0], qlT)
+                for a in range(0, self.n, CHUNK_ROWS)])
         if self.int8:
             # the activations are nonnegative, so one max per column is an
             # exact symmetric scale; the kernel carries the static 1/127

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops import crf_device
 from irn_tpu_torch.ops import matpow
 from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops import random_walk as rw
@@ -920,4 +921,71 @@ def test_walk_kernels_refuse(cuda):
     with pytest.raises(TypeError):
         rw.decode(torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda),
                   8, 8, 32, 32, 0.3)
+    assert not any(_build.LAUNCHES.values())
+
+
+def _crf_image(kind, h, w, seed=0):
+    """[3, h, w] uint8: color regions with noise, all black, or uniform."""
+    if kind == "black":
+        return torch.zeros((3, h, w), dtype=torch.uint8)
+    if kind == "uniform":
+        return torch.full((3, h, w), 128, dtype=torch.uint8)
+    g = np.random.default_rng(seed)
+    img = np.full((3, h, w), 60.0)
+    img[:, :, : w // 2] = np.array([190, 70, 60])[:, None, None]
+    img[:, h // 2:, w // 2:] = np.array([70, 170, 90])[:, None, None]
+    img = np.clip(img + g.normal(0, 8, img.shape), 0, 255)
+    return torch.from_numpy(img.astype(np.uint8))
+
+
+CRF_STORES = {"int8": torch.int8, "bf16": torch.bfloat16,
+              "f32": torch.float32}
+
+
+@pytest.mark.parametrize("mode", ["full", "rows", "sums"])
+@pytest.mark.parametrize("store", sorted(CRF_STORES))
+@pytest.mark.parametrize("kind,bucket,extent", [
+    ("scene", (64, 128), (64, 128)), ("scene", (92, 84), (89, 81)),
+    ("scene", (24, 28), (21, 25)), ("black", (64, 64), (61, 57)),
+    ("uniform", (64, 64), (64, 64))])
+def test_crf_landmark_bit_equal(cuda, kind, bucket, extent, store, mode):
+    """K14 bit-equal to its twin on the card in one launch, store and row
+    sums (int8 and dense): a full bucket, odd extents whose S (483, 42)
+    leaves int8 and bf16 rows off 16-byte alignment and a ragged last tile,
+    an all-black and a uniform image (d2 <= 0 at the landmarks' own
+    pixels); all rows, an odd row range, or the sums alone. The f32 store
+    within 1e-6 of the host twin (exp differs by an ulp there)."""
+    planes = _crf_image(kind, *bucket)
+    n = bucket[0] * bucket[1]
+    kw = dict(store=CRF_STORES[store])
+    if mode == "rows":
+        kw["rows"] = (37, n - 5)
+    if mode == "sums":
+        kw["sums_only"] = True
+    got_k, got_d = crf_device.landmark_rows(planes.to(cuda), *extent, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["crf_landmark"] == 1
+    want_k, want_d = crf_device.landmark_rows_plain(planes.to(cuda), *extent,
+                                                    **kw)
+    assert torch.equal(got_d, want_d)
+    if mode == "sums":
+        assert got_k is None and want_k is None
+        return
+    assert torch.equal(got_k, want_k)
+    if store == "f32":
+        host_k, _ = crf_device.landmark_rows_plain(planes, *extent, **kw)
+        torch.testing.assert_close(got_k.cpu(), host_k, rtol=1e-6,
+                                   atol=1e-30)
+
+
+def test_crf_landmark_refuses(cuda):
+    """K14 stores int8, bf16 or f32; the planes are [3, H, W] uint8; a CUDA
+    tensor never reaches the twin."""
+    planes = torch.zeros((3, 24, 28), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        crf_device.landmark_rows(planes, 24, 28, store=torch.float16)
+    with pytest.raises(ValueError):
+        crf_device.landmark_rows(planes.float(), 24, 28)
+    with pytest.raises(ValueError):
+        crf_device.landmark_rows(planes, 24, 28, rows=(3, 3))
     assert not any(_build.LAUNCHES.values())
