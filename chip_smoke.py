@@ -3,7 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
-count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill), checks each
+count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill, K13's
+``path_max.cu`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -231,6 +232,8 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 # no HGMMA instruction or ptxas reports a spill in their source
 WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
                  "square_fused_first")
+# other sources whose build fails on a register spill
+SPILL_CHECKED = ("path_max",)
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -410,7 +413,7 @@ def hgmma_counts(lib_path: str) -> dict:
 def build_report(here: str) -> dict:
     """Build the kernels; print each source's ptxas register and spill
     lines and each kernel's HGMMA count; fail if a wgmma kernel shows no
-    HGMMA or any spill."""
+    HGMMA, or a wgmma kernel's or a SPILL_CHECKED source spills."""
     from irn_tpu_torch.ops import _build
 
     _build.load()
@@ -421,7 +424,7 @@ def build_report(here: str) -> dict:
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "wgmma" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
-        if src in WGMMA_KERNELS:
+        if src in WGMMA_KERNELS + SPILL_CHECKED:
             spills = [ln.strip() for ln in log.splitlines()
                       if any(int(v) for v in re.findall(
                           r"(\d+) bytes spill (?:stores|loads)", ln))]
@@ -761,46 +764,120 @@ TRAIN_GRID = 128
 TRAIN_RADIUS = 10
 
 
+def _special_g(shape, gen) -> torch.Tensor:
+    """A cotangent of normals with a fifth signed zeros, +-inf on a tenth
+    and one NaN."""
+    g = torch.randn(shape, generator=gen)
+    u = torch.rand(shape, generator=gen)
+    g[u < 0.1] = 0.0
+    g[(u >= 0.1) & (u < 0.2)] = -0.0
+    g[(u >= 0.2) & (u < 0.25)] = float("inf")
+    g[(u >= 0.25) & (u < 0.3)] = -float("inf")
+    g.view(-1)[g.numel() // 3] = float("nan")
+    return g
+
+
+def _winner_targets(winner: torch.Tensor, table, hw) -> torch.Tensor:
+    """The flat d_edge index each (pair, pixel) cotangent routes to: its
+    winning cell's edge pixel."""
+    h, w = hw
+    b, n, ch, cw = winner.shape
+    dev = winner.device
+    cells = torch.zeros((n, max(len(c) for c in table.cells), 2),
+                        dtype=torch.long)
+    for p, path in enumerate(table.cells):
+        cells[p, : len(path)] = torch.tensor(path)
+    cells = cells.to(dev)
+    pidx = torch.arange(n, device=dev)[None, :, None, None]
+    wl = winner.long()
+    y = torch.arange(ch, device=dev)[:, None] + cells[..., 0][pidx, wl]
+    x = torch.arange(cw, device=dev) + table.rf + cells[..., 1][pidx, wl]
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    return ((bi * h + y) * w + x).reshape(-1)
+
+
 def check_path_max_kernels(dev, gen, res: dict) -> None:
     """K13a and K13b vs their twins, bit for bit (values, winners, edge
-    gradient): at the default shapes on a sigmoid edge map and on the same
-    map quantized to 8 levels (ties), and on an odd small shape."""
+    gradient): at the default shapes on a sigmoid edge map, on the same map
+    quantized to 8 levels (ties) and with NaN and -inf planted; at radii 5
+    and 4 at the default batch and grid; at B 1; on an odd small shape and
+    a window narrower than one tile; and K13b on a cotangent with signed
+    zeros, +-inf and a NaN (compared with equal NaNs). K13b's library
+    yardstick: ``index_add_`` of the cotangents into their winners' pixels
+    (atomics in no fixed order: not bit-equal)."""
     from irn_tpu_torch.ops import affinity
     from irn_tpu_torch.ops import paths
 
-    table = affinity.path_table(paths.build_path_set(TRAIN_RADIUS))
+    def tab(radius):
+        return affinity.path_table(paths.build_path_set(radius))
+
+    table = tab(TRAIN_RADIUS)
     shape = (TRAIN_BATCH, TRAIN_GRID, TRAIN_GRID)
     edge = torch.sigmoid(torch.randn(shape, generator=gen)).to(dev)
-    cases = (("default", edge), ("ties", torch.round(edge * 7) / 7),
-             ("odd", torch.sigmoid(torch.randn((3, 37, 29),
-                                               generator=gen)).to(dev)))
-    for tag, e in cases:
-        maxed, winner = affinity.path_max_fwd(e, table)
-        want_m, want_w = affinity.path_max_plain(e, table)
-        g = torch.randn(tuple(maxed.shape), generator=gen).to(dev)
-        got_g = affinity.path_max_bwd(g, winner, table, tuple(e.shape[1:]))
-        want_g = affinity.path_max_bwd_plain(g, want_w, table,
-                                             tuple(e.shape[1:]))
-        check(torch.equal(maxed, want_m) and torch.equal(winner, want_w),
+    planted = edge.clone()
+    planted.view(-1)[::37] = float("nan")
+    planted.view(-1)[5::41] = -float("inf")
+
+    def sig(s_):
+        return torch.sigmoid(torch.randn(s_, generator=gen)).to(dev)
+
+    cases = (("default", table, edge),
+             ("ties", table, torch.round(edge * 7) / 7),
+             ("NaN and -inf in the map", table, planted),
+             ("radius 5", tab(5), sig(shape)),
+             ("radius 4", tab(4), sig(shape)),
+             ("B 1", table, sig((1, TRAIN_GRID, TRAIN_GRID))),
+             ("odd", tab(5), sig((3, 37, 29))),
+             ("window narrower than a tile", table, sig((2, 40, 40))))
+    for tag, tb, e in cases:
+        hw = tuple(e.shape[1:])
+        maxed, winner = affinity.path_max_fwd(e, tb)
+        want_m, want_w = affinity.path_max_plain(e, tb)
+        check(torch.equal(maxed.view(torch.int32), want_m.view(torch.int32))
+              and torch.equal(winner, want_w),
               f"path_max_fwd ({tag}) not bit-equal to its twin")
-        check(torch.equal(got_g, want_g),
+        g = torch.randn(tuple(maxed.shape), generator=gen).to(dev)
+        check(torch.equal(affinity.path_max_bwd(g, winner, tb, hw),
+                          affinity.path_max_bwd_plain(g, want_w, tb, hw)),
               f"path_max_bwd ({tag}) not bit-equal to its twin")
-        del maxed, winner, want_m, want_w, got_g, want_g
+        g = _special_g(tuple(maxed.shape), gen).to(dev)
+        torch.testing.assert_close(
+            affinity.path_max_bwd(g, winner, tb, hw),
+            affinity.path_max_bwd_plain(g, want_w, tb, hw), rtol=0, atol=0,
+            equal_nan=True,
+            msg=lambda m: f"path_max_bwd ({tag}, signed zeros, inf, NaN): "
+                          f"{m}")
+        del maxed, winner, want_m, want_w, g
     maxed, winner = affinity.path_max_fwd(edge, table)
     g = torch.randn(tuple(maxed.shape), generator=gen).to(dev)
     hw = tuple(edge.shape[1:])
+    target = _winner_targets(winner, table, hw)
+    gflat = g.reshape(-1)
+    d_lib = torch.zeros(edge.numel(), device=dev)
+
+    def library():
+        d_lib.zero_().index_add_(0, target, gflat)
+
+    library_ms = cuda_ms(library, 20)
+    library()
+    lib_err = float((d_lib.view(shape) - affinity.path_max_bwd(
+        g, winner, table, hw)).abs().max())
     n_edge, n_out = edge.numel(), maxed.numel()
     cells = sum(len(c) for c in table.cells)
+    bt = table.bwd_tables(edge.device)
     desc = (f"edge [{TRAIN_BATCH}, {TRAIN_GRID}, {TRAIN_GRID}] f32, radius "
             f"{TRAIN_RADIUS} ({table.n_pairs} pairs, {cells} cells), one "
             f"launch; bit-equal to the twin on a sigmoid map, the map "
-            f"quantized to 8 levels (ties) and an odd [3, 37, 29] map")
+            f"quantized to 8 levels (ties), NaN and -inf planted, radii 5 "
+            f"and 4, B 1, an odd [3, 37, 29] map and a [2, 40, 40] map "
+            f"(window narrower than a tile)")
     res["path_max_fwd"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: affinity.path_max_fwd(edge, table), 20),
         plain_ms=cuda_ms(lambda: affinity.path_max_plain(edge, table), 2),
         shape=desc + f"; writes maxed f32 + winner int8 [{TRAIN_BATCH}, "
-                     f"{table.n_pairs}, {maxed.shape[2]}, {maxed.shape[3]}]",
+                     f"{table.n_pairs}, {maxed.shape[2]}, {maxed.shape[3]}]; "
+                     f"{table.stack_levels()} stack levels of suffix pairs",
         library_ms=None,
         # one compare per path cell per output pixel
         **bound(cells * TRAIN_BATCH * maxed.shape[2] * maxed.shape[3],
@@ -811,13 +888,18 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
         ms=cuda_ms(lambda: affinity.path_max_bwd(g, winner, table, hw), 20),
         plain_ms=cuda_ms(lambda: affinity.path_max_bwd_plain(
             g, winner, table, hw), 2),
-        shape=desc + "; reads g f32 + winner int8, writes d_edge; no atomics",
-        library_ms=None,
-        # one add per (cell, pixel) of the paths' cotangents
-        **bound(cells * TRAIN_BATCH * maxed.shape[2] * maxed.shape[3],
-                5 * n_out + 4 * n_edge, PEAK_F32),
+        shape=desc + f"; also equal (NaN as NaN) with signed zeros, +-inf "
+                     f"and a NaN in g; reads g f32 + winner int8, writes "
+                     f"d_edge; no atomics; tile rows {bt.tile_rows}; "
+                     f"library: index_add_ of g into its winners' pixels "
+                     f"(atomics, no fixed order; max abs diff {lib_err:.3e})",
+        library_ms=library_ms,
+        # one add per cotangent (each lands in one pixel) and one per
+        # (unique cell, pixel) group
+        **bound(n_out + len(table.by_cell) * n_edge, 5 * n_out + 4 * n_edge,
+                PEAK_F32),
     )
-    del maxed, winner, g, edge
+    del maxed, winner, g, edge, target, gflat, d_lib
 
 
 # K10 at the three buckets of the default 128 x 128 grid cap (radius 5)

@@ -179,9 +179,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_component_tables.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, p, n,
     ]
-    lib.irn_path_max_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, n]
+    lib.irn_path_max_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
     lib.irn_path_max_bwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, p, n,
+        p, p, p, p, p, i, i, i, i, i, i, i, i, p, n,
     ]
     lib.irn_diag_operator.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                       p, n]

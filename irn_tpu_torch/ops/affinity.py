@@ -30,7 +30,8 @@ import torch
 from irn_tpu_torch.ops import _build
 from irn_tpu_torch.ops.paths import PathSet, build_path_set
 
-# the sizes of path_max.cu's constant tables
+# the path sets the kernels take: path_max.cu's constant buffer holds two
+# words per cell, diag_operator.cu's tables these sizes
 MAX_CELLS = 6144
 MAX_PAIRS = 1024
 MAX_UNIQUE = 1024
@@ -74,6 +75,27 @@ def path_affinity(edge2d: torch.Tensor, path_set: PathSet) -> torch.Tensor:
 
 # -- K13a / K13b: the path max with its winner-take-all gradient -----------
 
+# K13b: a block of BWD_THREADS threads owns BWD_LANES x tile_rows edge
+# pixels, one thread per output position that can reach them; tile_rows is
+# the first of BWD_TILE_ROWS whose positions fit the block and whose sums
+# fit SMEM_MAX (path_max.cu's kBwdLanes, kBwdThreads, kSmemMax)
+BWD_LANES = 32
+BWD_THREADS = 1024
+BWD_TILE_ROWS = (8, 4, 2, 1)
+SMEM_MAX = 232448
+
+
+class BwdTables(NamedTuple):
+    """K13b's ``cells`` int32 [n_cells] (per pair, per position, as
+    ``PathTable.cells``: the cell's offset in the block's sums for tile
+    pixel (0, 0), u * tile_rows * BWD_LANES + dy * BWD_LANES + dx + rf, |
+    dy << 20 | (dx + rf) << 25, u its index in ``by_cell``), for blocks of
+    ``tile_rows``."""
+
+    cells: torch.Tensor
+    tile_rows: int
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class PathTable:
     """A path set's cells as :func:`path_max` walks them.
@@ -81,12 +103,19 @@ class PathTable:
     ``cells``: per pair, its (dy, dx) cells (true length, destination
     first). ``by_cell``: each unique cell with its (pair, position) list,
     in the order JAX's ``_path_max_bwd`` builds its ``by_cell`` dict (pairs
-    ascending, then positions): the backward's sum order. ``packed``
-    caches the kernels' tables per device."""
+    ascending, then positions): the backward's sum order. ``suffix``: per
+    pair, the pair whose whole path is the longest proper tail of its own
+    (at the same offsets), or -1; ``order``: the pairs depth first over
+    those links (roots, then each pair's extensions ascending), so a suffix
+    comes before every pair that extends it; ``depth``: links to a root.
+    ``packed`` caches the kernels' tables per device."""
 
     path_set: PathSet
     cells: Tuple[Tuple[Tuple[int, int], ...], ...]
     by_cell: Tuple[Tuple[Tuple[int, int], Tuple[Tuple[int, int], ...]], ...]
+    suffix: Tuple[int, ...]
+    order: Tuple[int, ...]
+    depth: Tuple[int, ...]
     packed: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -97,23 +126,89 @@ class PathTable:
     def n_pairs(self) -> int:
         return len(self.cells)
 
+    def head_length(self, p: int) -> int:
+        """Cells of pair ``p`` before its suffix pair's path begins."""
+        s = self.suffix[p]
+        return len(self.cells[p]) - (len(self.cells[s]) if s >= 0 else 0)
+
+    def stack_levels(self) -> int:
+        """K13a's stack depth: one level per depth that has a pair with
+        extensions."""
+        parents = {s for s in self.suffix if s >= 0}
+        return 1 + max((self.depth[p] for p in parents), default=-1)
+
     def tables(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """(cells int8 [n_cells, 2], pair_start int32 [n_pairs + 1], ucells
-        int8 [n_unique, 2], ucell_start int32 [n_unique + 1], entries int32
-        [n_cells] = p << 8 | l) on ``device``, built once."""
+        """(cells int8 [n_cells, 2], pair_start int32 [n_pairs + 1], fwd
+        int32) on ``device``, built once. ``fwd`` is K13a's schedule: per
+        pair in ``order`` (pair, first head cell, end of its head cells,
+        depth | has a suffix << 8 | has extensions << 9), then the head
+        cells, dy << 16 | (dx + rf)."""
         key = str(device)
         if key not in self.packed:
             flat = [c for path in self.cells for c in path]
             starts = np.cumsum([0] + [len(p) for p in self.cells])
-            ucells = [c for c, _ in self.by_cell]
-            ustarts = np.cumsum([0] + [len(pl) for _, pl in self.by_cell])
-            entries = [p << 8 | l for _, pl in self.by_cell for p, l in pl]
+            parents = {s for s in self.suffix if s >= 0}
+            nodes, heads = [], []
+            for p in self.order:
+                begin = len(heads)
+                heads += [dy << 16 | (dx + self.rf)
+                          for dy, dx in self.cells[p][: self.head_length(p)]]
+                nodes.append((p, begin, len(heads),
+                              self.depth[p] | (self.suffix[p] >= 0) << 8
+                              | (p in parents) << 9))
+            fwd = np.concatenate([np.asarray(nodes, np.int64).reshape(-1),
+                                  np.asarray(heads, np.int64)])
             self.packed[key] = tuple(
                 torch.from_numpy(np.asarray(a, dt)).to(device)
                 for a, dt in ((flat, np.int8), (starts, np.int32),
-                              (ucells, np.int8), (ustarts, np.int32),
-                              (entries, np.int32)))
+                              (fwd, np.int32)))
         return self.packed[key]
+
+    def bwd_tables(self, device: torch.device) -> BwdTables:
+        """K13b's tables on ``device``, built once (see :class:`BwdTables`).
+        Raises if no block shape holds the path set."""
+        key = (str(device), "bwd")
+        if key not in self.packed:
+            rf, n_unique = self.rf, len(self.by_cell)
+            n_cells = sum(len(p) for p in self.cells)
+            tile_rows = next(
+                (t for t in BWD_TILE_ROWS
+                 if (t + rf) * (BWD_LANES + 2 * rf) <= BWD_THREADS
+                 and 4 * (n_unique * t * BWD_LANES + n_cells) <= SMEM_MAX),
+                None)
+            if tile_rows is None:
+                raise ValueError(f"path_max_bwd: radius floor {rf} with "
+                                 f"{n_unique} unique cells fits no block")
+            index = {c: u for u, (c, _) in enumerate(self.by_cell)}
+            cells = [(index[(dy, dx)] * tile_rows + dy) * BWD_LANES + dx + rf
+                     | dy << 20 | (dx + rf) << 25
+                     for path in self.cells for dy, dx in path]
+            self.packed[key] = BwdTables(
+                torch.from_numpy(np.asarray(cells, np.int32)).to(device),
+                tile_rows)
+        return self.packed[key]
+
+
+def _suffix_links(cells) -> Tuple[Tuple[int, ...], Tuple[int, ...],
+                                  Tuple[int, ...]]:
+    """(suffix, order, depth) of :class:`PathTable`."""
+    index = {path: p for p, path in enumerate(cells)}
+    suffix = tuple(
+        next((index[path[k:]] for k in range(1, len(path))
+              if path[k:] in index), -1)
+        for path in cells)
+    children: Dict[int, list] = {}
+    for p, s in enumerate(suffix):
+        children.setdefault(s, []).append(p)
+    order, depth = [], [0] * len(cells)
+    stack = list(reversed(children.get(-1, [])))
+    while stack:
+        p = stack.pop()
+        order.append(p)
+        if suffix[p] >= 0:
+            depth[p] = depth[suffix[p]] + 1
+        stack += reversed(children.get(p, []))
+    return suffix, tuple(order), tuple(depth)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,7 +226,8 @@ def _path_table(radius: int) -> PathTable:
         for l, c in enumerate(path):
             by_cell.setdefault(c, []).append((p, l))
     return PathTable(path_set, cells,
-                     tuple((c, tuple(pl)) for c, pl in by_cell.items()))
+                     tuple((c, tuple(pl)) for c, pl in by_cell.items()),
+                     *_suffix_links(cells))
 
 
 def path_table(path_set: PathSet) -> PathTable:
@@ -213,14 +309,14 @@ def path_max_fwd(edge: torch.Tensor, table: PathTable
         return path_max_plain(edge, table)
     _build.check_cuda("path_max_fwd", edge)
     check_table(table)
-    cells, starts = table.tables(edge.device)[:2]
+    fwd = table.tables(edge.device)[2]
     maxed = torch.empty((b, table.n_pairs, ch, cw), device=edge.device)
     winner = torch.empty((b, table.n_pairs, ch, cw), dtype=torch.int8,
                          device=edge.device)
     _build.launch("path_max_fwd", edge.device, edge.data_ptr(),
-                  maxed.data_ptr(), winner.data_ptr(), cells.data_ptr(),
-                  starts.data_ptr(), b, h, w, table.rf, table.n_pairs,
-                  cells.shape[0])
+                  maxed.data_ptr(), winner.data_ptr(), fwd.data_ptr(), b, h,
+                  w, table.rf, table.n_pairs, fwd.shape[0],
+                  table.stack_levels())
     return maxed, winner
 
 
@@ -240,12 +336,17 @@ def path_max_bwd(g: torch.Tensor, winner: torch.Tensor, table: PathTable,
     _build.check_cuda("path_max_bwd", g)
     _build.check_cuda("path_max_bwd", winner, dtype=torch.int8)
     check_table(table)
-    ucells, ustarts, entries = table.tables(g.device)[2:]
+    if table.n_pairs * ch * cw >= 2 ** 31:
+        raise ValueError(f"path_max_bwd: {table.n_pairs} pairs of a {ch} x "
+                         f"{cw} window overflow the kernel's int32 offsets")
+    starts = table.tables(g.device)[1]
+    tab = table.bwd_tables(g.device)
     d_edge = torch.empty((g.shape[0], h, w), device=g.device)
     _build.launch("path_max_bwd", g.device, g.data_ptr(), winner.data_ptr(),
-                  d_edge.data_ptr(), ucells.data_ptr(), ustarts.data_ptr(),
-                  entries.data_ptr(), g.shape[0], h, w, table.rf,
-                  table.n_pairs, ucells.shape[0], entries.shape[0])
+                  d_edge.data_ptr(), starts.data_ptr(),
+                  tab.cells.data_ptr(), g.shape[0], h, w, table.rf,
+                  table.n_pairs, tab.cells.shape[0], len(table.by_cell),
+                  tab.tile_rows)
     return d_edge
 
 

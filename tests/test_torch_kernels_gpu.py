@@ -769,25 +769,39 @@ def test_component_tables_exact(cuda, case, cap):
 
 def _edge_map(kind, shape, seed=0):
     """An edge map in [0, 1]: a sigmoid of normals, the same quantized to 8
-    levels (ties everywhere), or exact zeros."""
+    levels (ties everywhere), exact zeros, or the sigmoid with NaN and -inf
+    planted."""
     g = np.random.default_rng(seed)
     e = 1.0 / (1.0 + np.exp(-g.standard_normal(shape)))
     if kind == "quantized":
         e = np.round(e * 7) / 7
     elif kind == "zeros":
         e = np.zeros(shape)
+    elif kind == "nan":
+        e.flat[::37] = np.nan
+        e.flat[5::41] = -np.inf
     return torch.from_numpy(e.astype(np.float32))
 
 
-@pytest.mark.parametrize("kind", ["sigmoid", "quantized", "zeros"])
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["sigmoid", "quantized", "zeros", "nan"])
 @pytest.mark.parametrize("radius,shape", [(10, (2, 32, 32)),
                                           (5, (3, 37, 29)),
                                           (4, (1, 16, 40)),
-                                          (10, (2, 128, 128))])
+                                          (10, (2, 128, 128)),
+                                          (5, (32, 128, 128)),
+                                          (4, (32, 128, 128)),
+                                          (10, (1, 128, 128)),
+                                          (10, (2, 40, 40))])
 def test_path_max_bit_equal(cuda, kind, radius, shape):
     """K13a's values and winners and K13b's gradient bit-equal to their
     twins, one launch each: ties (the quantized map, all-zero map) keep the
-    first cell, odd shapes leave ragged blocks."""
+    first cell, NaN and -inf in the map, odd shapes leave ragged blocks,
+    radii 5 and 4 at train_irn's batch and grid, B 1, and a window
+    narrower than one tile."""
     from irn_tpu_torch.ops import affinity, paths
 
     table = affinity.path_table(paths.build_path_set(radius))
@@ -801,9 +815,37 @@ def test_path_max_bit_equal(cuda, kind, radius, shape):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["path_max_fwd"] == 1
     assert _build.LAUNCHES["path_max_bwd"] == 1
-    assert torch.equal(maxed.cpu(), want_m)
+    assert torch.equal(_bits(maxed.cpu()), _bits(want_m))
     assert torch.equal(winner.cpu(), want_w)
     assert torch.equal(got_g.cpu(), want_g)
+
+
+@pytest.mark.parametrize("radius,shape", [(10, (2, 128, 128)),
+                                          (5, (3, 37, 29)),
+                                          (10, (2, 40, 40))])
+def test_path_max_bwd_special_values(cuda, radius, shape):
+    """K13b with signed zeros, +-inf and a planted NaN in the cotangent:
+    the misses it skips do not show (NaN compared as NaN)."""
+    from irn_tpu_torch.ops import affinity, paths
+
+    table = affinity.path_table(paths.build_path_set(radius))
+    _, winner = affinity.path_max_plain(_edge_map("quantized", shape), table)
+    r = np.random.default_rng(2)
+    g = r.standard_normal(tuple(winner.shape))
+    u = r.random(g.shape)
+    g[u < 0.1] = 0.0
+    g[(u >= 0.1) & (u < 0.2)] = -0.0
+    g[(u >= 0.2) & (u < 0.25)] = np.inf
+    g[(u >= 0.25) & (u < 0.3)] = -np.inf
+    g.flat[g.size // 3] = np.nan
+    g = torch.from_numpy(g.astype(np.float32))
+    got = affinity.path_max_bwd(g.to(cuda), winner.to(cuda), table,
+                                shape[1:])
+    want = affinity.path_max_bwd_plain(g, winner, table, shape[1:])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["path_max_bwd"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)
 
 
 def test_path_max_autograd(cuda):
