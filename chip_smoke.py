@@ -800,8 +800,8 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
     """K13a and K13b vs their twins, bit for bit (values, winners, edge
     gradient): at the default shapes on a sigmoid edge map, on the same map
     quantized to 8 levels (ties) and with NaN and -inf planted; at radii 5
-    and 4 at the default batch and grid; at B 1; on an odd small shape and
-    a window narrower than one tile; and K13b on a cotangent with signed
+    and 4 at the default batch and grid; at B 1; on an odd small shape
+    (radii 10 and 5) and a window narrower than one tile; and K13b on a cotangent with signed
     zeros, +-inf and a NaN (compared with equal NaNs). K13b's library
     yardstick: ``index_add_`` of the cotangents into their winners' pixels
     (atomics in no fixed order: not bit-equal)."""
@@ -827,7 +827,8 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
              ("radius 5", tab(5), sig(shape)),
              ("radius 4", tab(4), sig(shape)),
              ("B 1", table, sig((1, TRAIN_GRID, TRAIN_GRID))),
-             ("odd", tab(5), sig((3, 37, 29))),
+             ("odd", table, sig((3, 37, 29))),
+             ("odd, radius 5", tab(5), sig((3, 37, 29))),
              ("window narrower than a tile", table, sig((2, 40, 40))))
     for tag, tb, e in cases:
         hw = tuple(e.shape[1:])
@@ -864,20 +865,20 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
         g, winner, table, hw)).abs().max())
     n_edge, n_out = edge.numel(), maxed.numel()
     cells = sum(len(c) for c in table.cells)
-    bt = table.bwd_tables(edge.device)
     desc = (f"edge [{TRAIN_BATCH}, {TRAIN_GRID}, {TRAIN_GRID}] f32, radius "
             f"{TRAIN_RADIUS} ({table.n_pairs} pairs, {cells} cells), one "
             f"launch; bit-equal to the twin on a sigmoid map, the map "
             f"quantized to 8 levels (ties), NaN and -inf planted, radii 5 "
-            f"and 4, B 1, an odd [3, 37, 29] map and a [2, 40, 40] map "
-            f"(window narrower than a tile)")
+            f"and 4, B 1, an odd [3, 37, 29] map (radii 10 and 5) and a "
+            f"[2, 40, 40] map (window narrower than a tile)")
     res["path_max_fwd"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: affinity.path_max_fwd(edge, table), 20),
         plain_ms=cuda_ms(lambda: affinity.path_max_plain(edge, table), 2),
         shape=desc + f"; writes maxed f32 + winner int8 [{TRAIN_BATCH}, "
                      f"{table.n_pairs}, {maxed.shape[2]}, {maxed.shape[3]}]; "
-                     f"{table.stack_levels()} stack levels of suffix pairs",
+                     f"{table.tables(dev).levels} stack levels of suffix "
+                     f"pairs",
         library_ms=None,
         # one compare per path cell per output pixel
         **bound(cells * TRAIN_BATCH * maxed.shape[2] * maxed.shape[3],
@@ -890,7 +891,7 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
             g, winner, table, hw), 2),
         shape=desc + f"; also equal (NaN as NaN) with signed zeros, +-inf "
                      f"and a NaN in g; reads g f32 + winner int8, writes "
-                     f"d_edge; no atomics; tile rows {bt.tile_rows}; "
+                     f"d_edge; no atomics; "
                      f"library: index_add_ of g into its winners' pixels "
                      f"(atomics, no fixed order; max abs diff {lib_err:.3e})",
         library_ms=library_ms,

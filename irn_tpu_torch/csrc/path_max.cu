@@ -86,6 +86,7 @@
 // position) of the window.
 // Bound: bytes, ~320 MB read (g, winners) over 3.35 TB/s = 0.096 ms.
 
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -239,7 +240,16 @@ path_max_bwd_kernel(const float* __restrict__ g,
   const int Y0 = blockIdx.y * tile_rows;
   const int t = threadIdx.x;
   for (int i = t; i < n_unique * tp; i += kBwdThreads) sums[i] = 0.f;
-  for (int i = t; i < n_cells; i += kBwdThreads) cell[i] = __ldg(cells + i);
+  for (int i = t; i < n_cells; i += kBwdThreads) {
+    // u << 16 | dy << 8 | (dx + rf) -> the cell's sum offset for tile pixel
+    // (0, 0), S[u][dy][dx + rf] (< 2^20: the sums fit shared memory), | dy
+    // << 20 | (dx + rf) << 25
+    const int c = __ldg(cells + i);
+    const int dy = c >> 8 & 0xff;
+    const int dxr = c & 0xff;
+    cell[i] = ((c >> 16) * tile_rows + dy) * kBwdLanes + dxr | dy << 20 |
+              dxr << 25;
+  }
   __syncthreads();
   // this thread's output position (Y0 + sy, X0 + sx): cell (dy, dx) takes
   // it to tile pixel (sy + dy, sx + rf + dx)
@@ -274,8 +284,7 @@ path_max_bwd_kernel(const float* __restrict__ g,
     float v[kBwdGroup];
 #pragma unroll
     for (int q = 0; q < kBwdGroup; ++q) {
-      // the winner's cell: its S offset for tile pixel (0, 0) | dy << 20
-      // | (dx + rf) << 25
+      // the winner's cell
       const int p = p0 + q;
       const int c = cell[(p < n_pairs ? c_tab[p] : 0) + w[q]];
       const int dy = c >> 20 & 0x1f;
@@ -319,6 +328,24 @@ bool bad_geometry(int B, int H, int W, int rf) {
   return B < 1 || rf < 0 || H - rf < 1 || W - 2 * rf < 1;
 }
 
+// Lets both kernels take up to kSmemMax of dynamic shared memory: set once
+// per kernel and device, as each launch's own size is at most that.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (set.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemMax);
+  if (e == cudaSuccess) set.fetch_or(bit);
+  return e;
+}
+
+std::atomic<unsigned long long> fwd_smem_set{0};
+std::atomic<unsigned long long> bwd_smem_set{0};
+
 }  // namespace
 
 // edge [B, H, W] -> maxed, winner [B, n_pairs, H - rf, W - 2 rf]; tab int32
@@ -337,8 +364,7 @@ IRN_API int irn_path_max_fwd(const float* edge, float* maxed, int8_t* winner,
   cudaError_t e = cudaMemcpyToSymbolAsync(c_tab, tab, 4 * n_words, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(path_max_fwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = allow_smem(path_max_fwd_kernel, fwd_smem_set);
   if (e != cudaSuccess) return (int)e;
   const int ch = H - rf;
   const int cw = W - 2 * rf;
@@ -352,33 +378,35 @@ IRN_API int irn_path_max_fwd(const float* edge, float* maxed, int8_t* winner,
 
 // g [B, n_pairs, H - rf, W - 2 rf] f32 and its winners -> d_edge [B, H, W];
 // starts int32 [n_pairs] (PathTable.tables' pair starts) and cells int32
-// [n_cells] (PathTable.bwd_tables) on the device, a block of 32 x
-// tile_rows pixels.
+// [n_cells] (PathTable.tables' bwd) on the device. A block owns 32 x
+// tile_rows pixels, tile_rows the first of 8, 4, 2, 1 whose window
+// positions fit the block and whose sums and cells fit shared memory.
 IRN_API int irn_path_max_bwd(const float* g, const int8_t* winner,
                              float* d_edge, const int* starts,
                              const int* cells, int B, int H, int W, int rf,
                              int n_pairs, int n_cells, int n_unique,
-                             int tile_rows, cudaStream_t stream,
-                             int* launched) {
-  const long long smem =
-      4LL * ((long long)n_unique * tile_rows * kBwdLanes + n_cells);
+                             cudaStream_t stream, int* launched) {
   if (bad_geometry(B, H, W, rf) || n_pairs < 1 || n_pairs > kMaxPairs ||
-      n_cells < n_pairs || n_unique < 1 || tile_rows < 1 || rf > 31 ||
-      (tile_rows + rf) * (kBwdLanes + 2 * rf) > kBwdThreads ||
-      (long long)n_unique * tile_rows * kBwdLanes >= (1 << 20) ||
-      smem > kSmemMax ||
-      (long long)n_pairs * (H - rf) * (W - 2 * rf) >= (1LL << 31))
+      n_cells < n_pairs || n_unique < 1 || n_unique > (1 << 15) ||
+      rf > 31 || (long long)n_pairs * (H - rf) * (W - 2 * rf) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  int tile_rows = 8;
+  auto smem = [&](int t) {
+    return 4LL * ((long long)n_unique * t * kBwdLanes + n_cells);
+  };
+  while (tile_rows > 0 &&
+         ((tile_rows + rf) * (kBwdLanes + 2 * rf) > kBwdThreads ||
+          smem(tile_rows) > kSmemMax))
+    tile_rows /= 2;
+  if (tile_rows == 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemcpyToSymbolAsync(c_tab, starts, 4 * n_pairs, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(path_max_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  e = allow_smem(path_max_bwd_kernel, bwd_smem_set);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((W + kBwdLanes - 1) / kBwdLanes,
                   (H + tile_rows - 1) / tile_rows, B);
-  path_max_bwd_kernel<<<grid, kBwdThreads, (int)smem, stream>>>(
+  path_max_bwd_kernel<<<grid, kBwdThreads, (int)smem(tile_rows), stream>>>(
       g, winner, d_edge, cells, H, W, rf, n_pairs, n_cells, n_unique,
       tile_rows);
   IRN_CHECK_LAUNCH(launched);

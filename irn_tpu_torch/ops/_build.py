@@ -180,9 +180,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, p, i, i, i, p, n,
     ]
     lib.irn_path_max_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
-    lib.irn_path_max_bwd.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, i, i, p, n,
-    ]
+    lib.irn_path_max_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p,
+                                     n]
     lib.irn_diag_operator.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                       p, n]
     lib.irn_upsample_scores.argtypes = [p, p, i, i, i, i, i, i, i, p, n]

@@ -75,25 +75,23 @@ def path_affinity(edge2d: torch.Tensor, path_set: PathSet) -> torch.Tensor:
 
 # -- K13a / K13b: the path max with its winner-take-all gradient -----------
 
-# K13b: a block of BWD_THREADS threads owns BWD_LANES x tile_rows edge
-# pixels, one thread per output position that can reach them; tile_rows is
-# the first of BWD_TILE_ROWS whose positions fit the block and whose sums
-# fit SMEM_MAX (path_max.cu's kBwdLanes, kBwdThreads, kSmemMax)
-BWD_LANES = 32
-BWD_THREADS = 1024
-BWD_TILE_ROWS = (8, 4, 2, 1)
-SMEM_MAX = 232448
+class PackedTables(NamedTuple):
+    """A :class:`PathTable` on one device, as the kernels take it.
 
-
-class BwdTables(NamedTuple):
-    """K13b's ``cells`` int32 [n_cells] (per pair, per position, as
-    ``PathTable.cells``: the cell's offset in the block's sums for tile
-    pixel (0, 0), u * tile_rows * BWD_LANES + dy * BWD_LANES + dx + rf, |
-    dy << 20 | (dx + rf) << 25, u its index in ``by_cell``), for blocks of
-    ``tile_rows``."""
+    ``cells`` int8 [n_cells, 2] and ``starts`` int32 [n_pairs + 1]: every
+    pair's (dy, dx) cells, flat. ``fwd`` int32: K13a's schedule, per pair in
+    ``order`` (pair, first head cell, end of its head cells, depth | has a
+    suffix << 8 | has extensions << 9), then the head cells, dy << 16 | (dx
+    + rf). ``levels``: K13a's stack depth, one level per depth that has a
+    pair with extensions. ``bwd`` int32 [n_cells]: K13b's cells, per pair
+    and position, u << 16 | dy << 8 | (dx + rf), u the cell's index in
+    ``by_cell``."""
 
     cells: torch.Tensor
-    tile_rows: int
+    starts: torch.Tensor
+    fwd: torch.Tensor
+    levels: int
+    bwd: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -131,61 +129,36 @@ class PathTable:
         s = self.suffix[p]
         return len(self.cells[p]) - (len(self.cells[s]) if s >= 0 else 0)
 
-    def stack_levels(self) -> int:
-        """K13a's stack depth: one level per depth that has a pair with
-        extensions."""
-        parents = {s for s in self.suffix if s >= 0}
-        return 1 + max((self.depth[p] for p in parents), default=-1)
-
-    def tables(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """(cells int8 [n_cells, 2], pair_start int32 [n_pairs + 1], fwd
-        int32) on ``device``, built once. ``fwd`` is K13a's schedule: per
-        pair in ``order`` (pair, first head cell, end of its head cells,
-        depth | has a suffix << 8 | has extensions << 9), then the head
-        cells, dy << 16 | (dx + rf)."""
+    def tables(self, device: torch.device) -> PackedTables:
+        """The kernels' tables on ``device``, built once (see
+        :class:`PackedTables`)."""
         key = str(device)
         if key not in self.packed:
+            rf = self.rf
             flat = [c for path in self.cells for c in path]
             starts = np.cumsum([0] + [len(p) for p in self.cells])
             parents = {s for s in self.suffix if s >= 0}
             nodes, heads = [], []
             for p in self.order:
                 begin = len(heads)
-                heads += [dy << 16 | (dx + self.rf)
+                heads += [dy << 16 | (dx + rf)
                           for dy, dx in self.cells[p][: self.head_length(p)]]
                 nodes.append((p, begin, len(heads),
                               self.depth[p] | (self.suffix[p] >= 0) << 8
                               | (p in parents) << 9))
             fwd = np.concatenate([np.asarray(nodes, np.int64).reshape(-1),
                                   np.asarray(heads, np.int64)])
-            self.packed[key] = tuple(
-                torch.from_numpy(np.asarray(a, dt)).to(device)
-                for a, dt in ((flat, np.int8), (starts, np.int32),
-                              (fwd, np.int32)))
-        return self.packed[key]
-
-    def bwd_tables(self, device: torch.device) -> BwdTables:
-        """K13b's tables on ``device``, built once (see :class:`BwdTables`).
-        Raises if no block shape holds the path set."""
-        key = (str(device), "bwd")
-        if key not in self.packed:
-            rf, n_unique = self.rf, len(self.by_cell)
-            n_cells = sum(len(p) for p in self.cells)
-            tile_rows = next(
-                (t for t in BWD_TILE_ROWS
-                 if (t + rf) * (BWD_LANES + 2 * rf) <= BWD_THREADS
-                 and 4 * (n_unique * t * BWD_LANES + n_cells) <= SMEM_MAX),
-                None)
-            if tile_rows is None:
-                raise ValueError(f"path_max_bwd: radius floor {rf} with "
-                                 f"{n_unique} unique cells fits no block")
             index = {c: u for u, (c, _) in enumerate(self.by_cell)}
-            cells = [(index[(dy, dx)] * tile_rows + dy) * BWD_LANES + dx + rf
-                     | dy << 20 | (dx + rf) << 25
-                     for path in self.cells for dy, dx in path]
-            self.packed[key] = BwdTables(
-                torch.from_numpy(np.asarray(cells, np.int32)).to(device),
-                tile_rows)
+            bwd = [index[c] << 16 | c[0] << 8 | (c[1] + rf) for c in flat]
+
+            def put(a, dt):
+                return torch.from_numpy(np.asarray(a, dt)).to(device)
+
+            self.packed[key] = PackedTables(
+                put(flat, np.int8), put(starts, np.int32),
+                put(fwd, np.int32),
+                1 + max((self.depth[p] for p in parents), default=-1),
+                put(bwd, np.int32))
         return self.packed[key]
 
 
@@ -309,14 +282,13 @@ def path_max_fwd(edge: torch.Tensor, table: PathTable
         return path_max_plain(edge, table)
     _build.check_cuda("path_max_fwd", edge)
     check_table(table)
-    fwd = table.tables(edge.device)[2]
+    tab = table.tables(edge.device)
     maxed = torch.empty((b, table.n_pairs, ch, cw), device=edge.device)
     winner = torch.empty((b, table.n_pairs, ch, cw), dtype=torch.int8,
                          device=edge.device)
     _build.launch("path_max_fwd", edge.device, edge.data_ptr(),
-                  maxed.data_ptr(), winner.data_ptr(), fwd.data_ptr(), b, h,
-                  w, table.rf, table.n_pairs, fwd.shape[0],
-                  table.stack_levels())
+                  maxed.data_ptr(), winner.data_ptr(), tab.fwd.data_ptr(), b,
+                  h, w, table.rf, table.n_pairs, tab.fwd.shape[0], tab.levels)
     return maxed, winner
 
 
@@ -339,14 +311,12 @@ def path_max_bwd(g: torch.Tensor, winner: torch.Tensor, table: PathTable,
     if table.n_pairs * ch * cw >= 2 ** 31:
         raise ValueError(f"path_max_bwd: {table.n_pairs} pairs of a {ch} x "
                          f"{cw} window overflow the kernel's int32 offsets")
-    starts = table.tables(g.device)[1]
-    tab = table.bwd_tables(g.device)
+    tab = table.tables(g.device)
     d_edge = torch.empty((g.shape[0], h, w), device=g.device)
     _build.launch("path_max_bwd", g.device, g.data_ptr(), winner.data_ptr(),
-                  d_edge.data_ptr(), starts.data_ptr(),
-                  tab.cells.data_ptr(), g.shape[0], h, w, table.rf,
-                  table.n_pairs, tab.cells.shape[0], len(table.by_cell),
-                  tab.tile_rows)
+                  d_edge.data_ptr(), tab.starts.data_ptr(),
+                  tab.bwd.data_ptr(), g.shape[0], h, w, table.rf,
+                  table.n_pairs, tab.bwd.shape[0], len(table.by_cell))
     return d_edge
 
 

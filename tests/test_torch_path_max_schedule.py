@@ -1,12 +1,12 @@
 """The schedules of K13a and K13b (``csrc/path_max.cu``) on the CPU.
 
 ``PathTable`` builds the suffix links and the depth-first pair order that
-K13a walks, and the per-pair boxes and cell offsets that K13b's pair-major
-sums use. The kernels run
-only on the card; here each schedule runs as a pure-torch emulation that
-decodes the very tables the kernels get, in the kernels' order, and is held
-bit for bit to the unchanged plain twins ``path_max_plain`` and
-``path_max_bwd_plain`` (which tests/test_torch_train_irn.py holds to JAX)."""
+K13a walks, and the cell words (unique cell, dy, dx) that K13b's pair-major
+sums use. The kernels run only on the card; here each schedule runs as a
+pure-torch emulation that decodes the very tables the kernels get, in the
+kernels' order, and is held bit for bit to the unchanged plain twins
+``path_max_plain`` and ``path_max_bwd_plain`` (which
+tests/test_torch_train_irn.py holds to JAX)."""
 
 import numpy as np
 import pytest
@@ -48,7 +48,7 @@ def emulate_fwd(edge, table):
     head's strict-> chain started at max(destination, -inf), one compare
     against its suffix pair's (m, a) from the stack, NaN destinations
     written as they are."""
-    words = table.tables(CPU)[2].numpy()
+    words = table.tables(CPU).fwd.numpy()
     n, rf = table.n_pairs, table.rf
     b, h, w = edge.shape
     ch, cw = h - rf, w - 2 * rf
@@ -83,18 +83,17 @@ def emulate_fwd(edge, table):
     return maxed, winner
 
 
-def emulate_bwd(g, winner, table, hw):
-    """K13b's order: every block of 32 x tile_rows pixels keeps a sum per
+def emulate_bwd(g, winner, table, hw, rows_t=8, lanes=32):
+    """K13b's order: every block of lanes x rows_t pixels keeps a sum per
     (unique cell u, pixel) from +0.0; the pairs in ascending order, each
     output position of the block's window reads its winner, decodes the
     cell's sum offset, and on a hit (the pixel in the tile) adds its
     cotangent there; then each pixel adds its sums in u order."""
     h, w = hw
-    rf, lanes = table.rf, affinity.BWD_LANES
+    rf, n_unique = table.rf, len(table.by_cell)
     ch, cw = h - rf, w - 2 * rf
-    tab = table.bwd_tables(CPU)
-    rows_t, n_unique = tab.tile_rows, len(table.by_cell)
-    starts, cells = table.tables(CPU)[1].long(), tab.cells.long()
+    tab = table.tables(CPU)
+    starts, cells = tab.starts.long(), tab.bwd.long()
     b = g.shape[0]
     nby, nbx = -(-h // rows_t), -(-w // lanes)
     # window positions (sy, sx) of every block, relative to its (Y0, X0)
@@ -113,10 +112,11 @@ def emulate_bwd(g, winner, table, hw):
     for p in range(table.n_pairs):
         wl = winner[:, p].long()[:, yc, xc]  # [b, nby, nbx, ., .]
         c = cells[int(starts[p]) + torch.where(inside, wl, 0)]
-        dy, dxr = c >> 20 & 0x1F, c >> 25
+        dy, dxr = c >> 8 & 0xFF, c & 0xFF
         hit = (inside & (sy + dy >= 0) & (sy + dy < rows_t)
                & (sx + dxr >= 0) & (sx + dxr < lanes))
-        at = ((c & 0xFFFFF) + sy * lanes + sx + base).expand_as(hit)
+        at = ((c >> 16) * tp + dy * lanes + dxr + sy * lanes + sx
+              + base).expand_as(hit)
         gv = g[:, p][:, yc, xc]
         bb = bi.expand_as(hit)
         flat[bb[hit], at[hit]] = flat[bb[hit], at[hit]] + gv[hit]
@@ -205,16 +205,65 @@ def test_bwd_schedule_inf_nan(radius, shape):
 
 
 def test_bwd_tables_fit():
-    """Every radius whose table check_table admits fits one block: its
-    window positions one thread each, its sums and cells in shared memory
-    (the deepest at fewer tile rows)."""
+    """Every radius whose table check_table admits packs K13b's cell words
+    without loss: each (pair, position) decodes to its cell's index in
+    by_cell and its (dy, dx + rf)."""
     for radius in range(2, 15):
         table = _table(radius)
         affinity.check_table(table)
-        tab = table.bwd_tables(CPU)
-        rf, rows_t = table.rf, tab.tile_rows
-        assert ((rows_t + rf) * (affinity.BWD_LANES + 2 * rf)
-                <= affinity.BWD_THREADS)
-        assert 4 * (len(table.by_cell) * rows_t * affinity.BWD_LANES
-                    + tab.cells.shape[0]) <= affinity.SMEM_MAX
-    assert _table(10).bwd_tables(CPU).tile_rows == 8
+        words = table.tables(CPU).bwd.tolist()
+        flat = [c for path in table.cells for c in path]
+        assert len(words) == len(flat)
+        for word, (dy, dx) in zip(words, flat):
+            u = word >> 16
+            assert table.by_cell[u][0] == (dy, dx)
+            assert (word >> 8 & 0xFF, word & 0xFF) == (dy, dx + table.rf)
+
+
+@pytest.mark.parametrize("tile", [(32, 4), (64, 8), (128, 4)])
+@pytest.mark.parametrize("radius,shape", [(4, (2, 16, 40)), (5, (3, 37, 29)),
+                                          (10, (2, 40, 52))])
+def test_staged_probe_tables(radius, shape, tile):
+    """The staged K13b probe's tables (tools/probe_path_max_bwd.py): for
+    every entry and every in-window pixel of every block, the window byte
+    the kernel reads is the one its loader staged from winner[b, p, y - dy,
+    x - rf - dx], and the cotangent offset points at the same output; each
+    cell's last entry carries the flag, in by_cell order."""
+    from irn_tpu_torch.tools.probe_path_max_bwd import staged_tables
+
+    table = _table(radius)
+    b_n, h, w = shape
+    rf, n = table.rf, table.n_pairs
+    ch, cw = h - rf, w - 2 * rf
+    tx_t, ty_t = tile
+    words, n_ent, _, smem = staged_tables(table, tx_t, ty_t, (h, w))
+    ent = words[: 3 * n_ent].reshape(n_ent, 3).astype(np.int64)
+    a = ent[:, 0] & 0xFFFFFFFF
+    pair = words[3 * n_ent :].reshape(n, 2).astype(np.int64)
+    flat = [(p, l, c) for c, plist in table.by_cell for p, l in plist]
+    p = np.array([f[0] for f in flat])
+    dy = np.array([f[2][0] for f in flat])
+    dxr = np.array([f[2][1] + rf for f in flat])
+    assert np.array_equal(a >> 24 & 127, [f[1] for f in flat])
+    lasts = np.cumsum([len(pl) for _, pl in table.by_cell]) - 1
+    assert np.array_equal(np.flatnonzero(a >> 31), lasts)
+    woff, rw = pair[p, 0] & 0xFFFF, pair[p, 0] >> 16
+    dy1, dx1r = pair[p, 1] & 0xFF, pair[p, 1] >> 8 & 0xFF
+    assert 4 * (woff + (pair[p, 1] >> 24) * rw).max() <= smem
+    for b in range(b_n):
+        for y in range(h):
+            for x in range(0, w, 4):
+                y0, x0 = y - y % ty_t, x - x % tx_t
+                ty, tx = y - y0, x - x0
+                oy, ox = y - dy, x - dxr
+                sh = (b * n * ch * cw + x0 + y * cw) & 0xFFFFFFFF
+                byte = ((a & 0x3FFFF) + ty * (a >> 16 & 0xFC)
+                        + ((sh + ent[:, 2]) & 3) + tx)
+                r, q = np.divmod(byte - 4 * woff, 4 * rw)
+                gs = ((b * n + p) * ch + y0 - dy1 + r) * cw + x0 - dx1r
+                staged = gs - (gs & 3) + q
+                want = ((b * n + p) * ch + oy) * cw + ox
+                inside = (oy >= 0) & (oy < ch) & (ox >= 0) & (ox + 3 < cw)
+                assert np.array_equal(staged[inside], want[inside])
+                g_at = b * n * ch * cw + y * cw + x + ent[:, 1]
+                assert np.array_equal(g_at[inside], want[inside])
