@@ -4,7 +4,7 @@
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
 count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill, K13's
-``path_max.cu`` without a spill), checks each
+``path_max.cu`` and K14's ``crf_landmark.cu`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -53,13 +53,17 @@ on one image's crop (int8 >= 99.9% equal labels, dense bf16 >= 99.5%) and
 to the native lattice (>= 90% per image), and prints each stage's smoke
 rate, a per-step breakdown (with the kernel build's peak memory above the
 stored kernel) and the CRF products' times beside their bound. The device
-CRF builds its landmark kernel in one K14 launch per image
-(``csrc/crf_landmark.cu``): 16 over the two int8 passes, 8 in the dense
-run, none under the native lattice, and no other hand kernel in these
-stages (the rest of their work is cuDNN's and cuBLAS's). The kernels phase
-holds K14 to its twin bit for bit, store and row sums, at the 512x512
-bucket and an odd 92x84 one (S 483) with each store, on a scene, an
-all-black and a uniform image, a row range and the sums alone.
+CRF builds its landmark kernel in two K14 launches per image, its table
+pass and its rows (``csrc/crf_landmark.cu``): 32 over the two int8
+passes, 16 in the dense run, none under the native lattice, and no other
+hand kernel in these stages (the rest of their work is cuDNN's and
+cuBLAS's). The kernels phase holds K14 to its twin bit for bit, store and
+row sums, at the 512x512 bucket and an odd 92x84 one (S 483) with each
+store, on a scene, an all-black and a uniform image, a row range and the
+sums alone, its table pass to the table's twin, and times K14 beside its
+first design (``irn_tpu_torch/tools/crf_landmark_ieee.cu``, held within
+one int8 step of it) with the SASS instructions per entry of both int8
+row loops.
 
 The phase ``stage: train_irn`` trains IRNet through the CLI at its
 defaults (crop 512, batch 32, path radius 10, lr 0.1) with a seeded random
@@ -233,7 +237,7 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
                  "square_fused_first")
 # other sources whose build fails on a register spill
-SPILL_CHECKED = ("path_max",)
+SPILL_CHECKED = ("path_max", "crf_landmark")
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -368,34 +372,13 @@ def chain_stats(stats: torch.Tensor, occupied: list, entries: list, plan,
                 held_share=sum(held) / max(sum(entries), 1))
 
 
-def _cuobjdump() -> str:
-    """The toolkit's cuobjdump, or Triton's copy of it."""
-    cands = [os.path.join(os.environ.get(v, ""), "bin", "cuobjdump")
-             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
-    cands += [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
-    try:
-        import triton
-
-        cands.append(os.path.join(os.path.dirname(triton.__file__),
-                                  "backends", "nvidia", "bin", "cuobjdump"))
-    except ImportError:
-        pass
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("cuobjdump not found (toolkit or triton)")
-
-
-def hgmma_counts(lib_path: str) -> dict:
-    """HGMMA (wgmma) instructions in the built library's SASS per kernel
-    source. Every kernel sits in its source's anonymous namespace, whose
-    mangled name carries the file name (``_10_conv3x3_cu_`` for
+def hgmma_counts(sass: str) -> dict:
+    """HGMMA (wgmma) instructions in the built library's SASS listing per
+    kernel source. Every kernel sits in its source's anonymous namespace,
+    whose mangled name carries the file name (``_10_conv3x3_cu_`` for
     conv3x3.cu), so each ``Function :`` block is attributed by that; a
     kernel that shares its source (K12a and K12b in ccl.cu) reports the
     source's count."""
-    sass = subprocess.run([_cuobjdump(), "-sass", lib_path],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     stems = {os.path.basename(src)[:-3] for src in SOURCES.values()}
     tags = {k: f"_{len(k) + 3}_{k}_cu_" for k in stems}
     per_source = {k: 0 for k in stems}
@@ -410,11 +393,13 @@ def hgmma_counts(lib_path: str) -> dict:
             for k, src in SOURCES.items()}
 
 
-def build_report(here: str) -> dict:
+def build_report(here: str) -> tuple:
     """Build the kernels; print each source's ptxas register and spill
     lines and each kernel's HGMMA count; fail if a wgmma kernel shows no
-    HGMMA, or a wgmma kernel's or a SPILL_CHECKED source spills."""
+    HGMMA, or a wgmma kernel's or a SPILL_CHECKED source spills. Returns
+    (the HGMMA counts, the library's SASS listing)."""
     from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.tools.probe_crf_landmark import cuobjdump_sass
 
     _build.load()
     info = _build.BUILD_INFO
@@ -429,14 +414,15 @@ def build_report(here: str) -> dict:
                       if any(int(v) for v in re.findall(
                           r"(\d+) bytes spill (?:stores|loads)", ln))]
             check(not spills, f"{src}: register spills {spills}")
-    counts = hgmma_counts(info["path"])
+    sass = cuobjdump_sass(info["path"])
+    counts = hgmma_counts(sass)
     print(f"HGMMA instructions per kernel source: {counts}", flush=True)
     for k in WGMMA_KERNELS:
         check(counts[k] > 0, f"{k}: no HGMMA instruction in its SASS")
-    return counts
+    return counts, sass
 
 
-def check_kernels(dev, card: str) -> dict:
+def check_kernels(dev, card: str, sass: str) -> dict:
     """K0-K3 vs their plain twins at the main path's shapes (K0 also under
     each plan of DIAG_PLANS)."""
     from irn_tpu_torch.ops import matpow_kernels as mk
@@ -613,7 +599,7 @@ def check_kernels(dev, card: str) -> dict:
     check_instance_kernels(dev, geom, edge, gen, res)
     check_path_max_kernels(dev, gen, res)
     check_walk_kernels(dev, gen, res)
-    check_crf_landmark(dev, gen, res)
+    check_crf_landmark(dev, gen, res, sass)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -1067,14 +1053,20 @@ def _crf_planes(gen, kind: str, bucket: tuple) -> torch.Tensor:
     return img.clamp(0, 255).to(torch.uint8)
 
 
-def check_crf_landmark(dev, gen, res: dict) -> None:
+def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     """K14 vs its twin on the card: at the largest bucket and the odd one,
     on a scene, an all-black and a uniform image, with each store (int8,
     bf16, f32), the store and the row sums bit-equal (the dense sums too:
-    the twin adds in the kernel's lane order); on the odd bucket also a row
-    range and the sums alone. Timed at the largest bucket, int8 (the stage's
-    default store)."""
+    the twin adds in the kernel's lane order), the table pass alone equal
+    to its twin; on the odd bucket also a row range and the sums alone.
+    Timed at the largest bucket with each store, the sums alone and the
+    rows plan not chosen, beside K14's first design
+    (``tools/crf_landmark_ieee.cu``, built on its own, its int8 store held
+    within one step of the port's), and both designs' SASS instructions
+    per entry of their int8 row loops."""
+    from irn_tpu_torch.ops import _build
     from irn_tpu_torch.ops import crf_device as cd
+    from irn_tpu_torch.tools import probe_crf_landmark as probe
 
     cases = [("scene", CRF_BUCKET, CRF_EXTENT), ("scene", CRF_ODD,
                                                  CRF_ODD_EXTENT),
@@ -1084,6 +1076,10 @@ def check_crf_landmark(dev, gen, res: dict) -> None:
     for kind, bucket, extent in cases:
         planes = _crf_planes(gen, kind, bucket).to(dev)
         n = bucket[0] * bucket[1]
+        check(torch.equal(cd.landmark_table(planes, *extent),
+                          cd.landmark_table_plain(planes, *extent)),
+              f"crf_landmark table {kind} {bucket} {extent} not equal to "
+              f"its twin")
         modes = [{}]
         if bucket == CRF_ODD:
             modes += [dict(rows=(37, n - 5)), dict(sums_only=True)]
@@ -1102,29 +1098,62 @@ def check_crf_landmark(dev, gen, res: dict) -> None:
     planes = _crf_planes(gen, "scene", CRF_BUCKET).to(dev)
     n = CRF_BUCKET[0] * CRF_BUCKET[1]
     s_land = len(range(2, CRF_BUCKET[0], 4)) * len(range(2, CRF_BUCKET[1], 4))
-    store_ms = {name: cuda_ms(lambda: cd.landmark_rows(
-        planes, *CRF_EXTENT, store=store), 10)
-        for name, store in CRF_STORES.items()}
+    ieee_path, ieee_ptxas = probe.build(_build)
+    ieee = probe.load(ieee_path)
+    differ = probe.hold_ieee(ieee, planes, CRF_EXTENT)
     torch.cuda.empty_cache()
+    # the designs in turns: port, first design, port
+    store_ms, parent_ms = {}, {}
+    for name, store in CRF_STORES.items():
+        t0 = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
+                                              store=store), 10)
+        parent_ms[name] = cuda_ms(lambda: probe.ieee_rows(
+            ieee, planes, *CRF_EXTENT, store), 10)
+        store_ms[name] = min(t0, cuda_ms(lambda: cd.landmark_rows(
+            planes, *CRF_EXTENT, store=store), 10))
+        torch.cuda.empty_cache()
     sums_ms = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
                                                sums_only=True), 10)
+    chosen = cd.ROWS_PLAN[1]
+    other = (not chosen[0], chosen[1])
+    other_ms = cuda_ms(lambda: cd.landmark_rows(
+        planes, *CRF_EXTENT, plan=other), 10)
     plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 2)
+    per_entry, _ = probe.sass_per_entry(sass, probe.NEW_KERNEL)
+    parent_per_entry, _ = probe.sass_per_entry(
+        probe.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)
     exps = n * s_land
+    route = {True: "staged ring", False: "registers"}
     res["crf_landmark"] = dict(
         max_abs_err=0.0,
         ms=store_ms["int8"],
         plain_ms=plain_ms,
         exps=exps,
         exp_sfu_ms=exps / SFU_EXP_S * 1e3,
+        store_ms=store_ms,
+        sums_only_ms=sums_ms,
+        parent_ms=parent_ms["int8"],
+        parent_store_ms=parent_ms,
+        sass_per_entry=per_entry,
+        parent_sass_per_entry=parent_per_entry,
+        other_plan_ms=other_ms,
         shape=(f"image [3, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] uint8, extent "
                f"{CRF_EXTENT} -> int8 store [{n}, {s_land}] "
-               f"({n * s_land / 1e9:.2f} GB) + f32 row sums, one launch; "
-               f"bf16 store {store_ms['bf16']:.4f} ms, f32 store "
-               f"{store_ms['f32']:.4f} ms, the sums alone {sums_ms:.4f} ms; "
-               f"{exps:.3e} exps ({exps / SFU_EXP_S * 1e3:.4f} ms on the "
-               f"SFUs); store and sums bit-equal to the twin (every store; "
-               f"{CRF_BUCKET} and {CRF_ODD} extent {CRF_ODD_EXTENT}; a scene, "
-               f"all black, uniform; a row range, the sums alone)"),
+               f"({n * s_land / 1e9:.2f} GB) + f32 row sums, two launches "
+               f"(table, rows: table read into {route[chosen[0]]}, "
+               f"{chosen[1]} rows per warp; {route[other[0]]} "
+               f"{other_ms:.4f} ms); bf16 store {store_ms['bf16']:.4f} ms, "
+               f"f32 store {store_ms['f32']:.4f} ms, the sums alone "
+               f"{sums_ms:.4f} ms; the first design int8 "
+               f"{parent_ms['int8']:.4f}, bf16 {parent_ms['bf16']:.4f}, f32 "
+               f"{parent_ms['f32']:.4f} ms ({differ:.2e} of its int8 entries "
+               f"one step off; {ieee_ptxas['registers']}); SASS per int8 "
+               f"entry {per_entry:.3f} (first design {parent_per_entry:.3f});"
+               f" {exps:.3e} exps ({exps / SFU_EXP_S * 1e3:.4f} ms on the "
+               f"SFUs); store and sums bit-equal to the twin, the table "
+               f"equal (every store; {CRF_BUCKET} and {CRF_ODD} extent "
+               f"{CRF_ODD_EXTENT}; a scene, all black, uniform; a row range, "
+               f"the sums alone)"),
         library_ms=None,
         # per entry the five-term dot (9), 2x, the two sums, the clamp, the
         # -0.5, v and the 127 scale (16, the exp counted as one); the image
@@ -1592,7 +1621,8 @@ def _walk_inputs(cfg, dev, index: int):
 
     runner = stages_irn._load_irn(cfg, dev)
     walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
-    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)[index]
+    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root,
+                             img_normal=False)[index]
     img = sample["img"]
     size = img.shape[:2]
     (edge, _, (h4, w4)), = runner.batch([img], [size])
@@ -1760,7 +1790,8 @@ def cpu_walk_check(dev, stage: dict) -> float:
 
     cfg = stage["cfg"]
     runner = stages_irn._load_irn(cfg, dev)
-    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)[0]
+    sample = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root,
+                             img_normal=False)[0]
     img = sample["img"]
     size = img.shape[:2]
     (edge, _, (h4, w4)), = runner.batch([img], [size])
@@ -1802,7 +1833,8 @@ def layer_breakdown(dev, stage: dict, card: str) -> None:
     cfg = stage["cfg"]
     runner = stages_irn._load_irn(cfg, dev)
     walker = stages_irn.RandomWalkRunner(cfg, 20, dev)
-    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root,
+                             img_normal=False)
     ms = defaultdict(float)
 
     def timed(name, fn):
@@ -2025,10 +2057,11 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     check(tf32 and not any(a or b for _, a, b in tf32),
           f"TF32 on inside a stage: {sorted(set(tf32))}")
-    # K14: one launch per image and device-CRF pass (two int8 passes, one
-    # dense); no other hand kernel, none under the native lattice
-    for run, per_image in (("cam stages", 2), ("cam native", 0),
-                           ("cam dense", 1)):
+    # K14: two launches (its table pass and its rows) per image and
+    # device-CRF pass (two int8 passes, one dense); no other hand kernel,
+    # none under the native lattice
+    for run, per_image in (("cam stages", 4), ("cam native", 0),
+                           ("cam dense", 2)):
         counts = stage["launches"][run]
         check(counts["crf_landmark"] == per_image * len(names)
               and not any(v for k, v in counts.items()
@@ -2197,7 +2230,8 @@ def cam_layers(dev, cam: dict, card: str) -> None:
                  infer_list=cam["ids"], cam_weights_name=cam["weights"],
                  cam_out_dir=cam["cams"]).resolve()
     ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
-                                     stages_cam._label_dict(cfg))
+                                     stages_cam._label_dict(cfg),
+                                     img_normal=False)
     sp = stages_cam.CAMScalePass(stages_cam.load_cam_net(cfg, dev), dev,
                                  cfg.rw_grid_cap, 4 * cfg.rw_grid_cap)
     crfs = {s: LandmarkCRF(t=cfg.crf_iters, pad_multiple=cfg.pad_multiple,
@@ -3272,7 +3306,8 @@ def ins_layers(dev, ins: dict, card: str) -> None:
                  ).resolve()
     runner = stages_irn._load_irn(cfg, dev)
     walker = stages_irn.RandomWalkRunner(cfg, cfg.ins_seed_cap, dev)
-    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root,
+                             img_normal=False)
     ms = defaultdict(float)
     n = len(ds)
 
@@ -3394,10 +3429,10 @@ def main() -> int:
     phase("build")
     from irn_tpu_torch.ops import _build
 
-    hgmma = build_report(here)
+    hgmma, sass = build_report(here)
 
     phase("kernels vs plain twins")
-    kernels = check_kernels(dev, card)
+    kernels = check_kernels(dev, card, sass)
 
     phase("stage: make_sem_seg")
     work = tempfile.mkdtemp(prefix="irn_smoke_")
@@ -3462,7 +3497,10 @@ def main() -> int:
                             "occupied_share",
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
-                            "k13_ms", "exps", "exp_sfu_ms")
+                            "k13_ms", "exps", "exp_sfu_ms", "store_ms",
+                            "sums_only_ms", "parent_ms", "parent_store_ms",
+                            "sass_per_entry", "parent_sass_per_entry",
+                            "other_plan_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -1,5 +1,6 @@
 // K14 crf_landmark: the device CRF's bilateral landmark kernel [N, S] and its
-// f32 row sums, built in one launch per image.
+// f32 row sums, built in two launches per call: a table pass over the
+// landmarks, then the rows.
 //
 // Replaces: irn_tpu/ops/crf_tpu.py crf_pair_program's build_chunk (:196),
 // mapped over 4096-row chunks with jax.lax.map (:211, :226, :228): one XLA
@@ -8,256 +9,386 @@
 // at S 16384).
 //
 // For the pixel rows p in [r0, r1) of the [ph, pw] bucket (p = y pw + x) and
-// the landmark columns j in [0, s_cols):
+// the landmark columns j in [0, s_cols), all in f32 with round to nearest:
 //
 //   f_p = (x / sxy, y / sxy, r / srgb, g / srgb, b / srgb)  IEEE divisions
-//   l_j = f at the pixel (off + s (j / lw), off + s (j % lw)), off = s / 2;
-//         v_j = 1 when that pixel lies inside the true extent (eh, ew), and
-//         columns j >= n_land are zero landmarks (v 0: int8's padding of S
-//         to a multiple of 8)
-//   d2  = (|f_p|^2 + |l_j|^2) - 2 <f_p, l_j>   five-term sums left to right
-//   k   = exp(-0.5 max(d2, 0)) v_j
+//   F_p = RN(kSigma f_p), kSigma = f32(sqrt(log2(e) / 2)) = 0x3f596d27
+//   chain(P, Q) = fma(P4, Q4, fma(P3, Q3, fma(P2, Q2, fma(P1, Q1,
+//                 RN(P0 Q0)))))                       each fma rounded once
+//   landmark j = the pixel (off + s (j / lw), off + s (j % lw)), off = s / 2
+//   a_p = chain(F_p, F_p);  b_j = chain(F_j, F_j), or +inf when landmark j
+//         lies outside the true extent (eh, ew) or j >= n_land (int8's
+//         padding of S to a multiple of 8)
+//   u   = min(RN(2 c - RN(a_p + b_j)), 0), c = chain(F_p, F_j)  (one fma:
+//         2c is exact)
+//   k   = exp2(u)  (= exp(-|f_p - f_j|^2 / 2) up to rounding; u = -inf
+//         gives +0)
 //   store[p - r0, j] = rint(127 k) (int8, round half to even), RN(k) (bf16)
 //         or k (f32); nothing in the sums-only mode
 //   sums[p - r0] = (sum_j rint(127 k)) * f32(1/127) (int8), else the f32 k
 //         summed in the order below
 //
-// Design: a block of 4 warps owns 64 consecutive pixel rows, 16 per warp,
-// so every row sum is one warp's and needs no atomics. The block walks the
-// landmark columns in tiles of 32 V (V = 16 / bytes per entry: 16 int8, 8
-// bf16, 4 f32). For each tile it stages the landmarks' five features and
-// |l|^2 in shared memory (laid out so that lane l's V columns are
-// conflict-free words), each lane loads its V landmarks into registers and
-// reuses them for the warp's 16 rows, whose features were computed once into
-// shared memory when the block started. Lane l owns the columns tile0 + l V
-// .. + V - 1 of each row: one 16-byte store per lane and row, consecutive
-// lanes on consecutive 16 bytes, so the [N, S] store is written once and
-// coalesced (a row whose start is not 16-byte aligned, or the ragged last
-// tile, is written byte by byte). No f32 intermediate reaches device memory.
-// An invalid or padded landmark gets |l|^2 = +inf: d2 = +inf and
-// exp(-inf) = +0, the bits of the twin's exp(...) * 0.
+// Launch 1, the table: one thread per landmark column writes [F_0 .. F_4,
+// b] to a [6, s_tab] f32 buffer (s_tab: S padded to a multiple of 512, the
+// padding F = 0, b = +inf; 393 KB at S 16,384, resident in L2), so each
+// landmark's divisions and |F|^2 are computed once per call instead of once
+// per block.
 //
-// Bit-equality: every product, sum and difference is written with __fmul_rn
-// / __fadd_rn / __fsub_rn in the twin's order (nvcc contracts nothing), the
-// exponential is expf (not __expf), rint(127 k) is the round-to-nearest-even
-// of 127 k + 1.5 * 2^23 (exact for 0 <= 127 k < 2^22), bf16 is
-// __floats2bfloat162_rn: the store is bit-equal to
-// crf_device.landmark_rows_plain on the card. The int8 row sums are exact
-// integers before the scale, equal in any order. A dense row sum is lane l's
-// running sum over its columns in increasing order (from 0), then lane 0's
-// butterfly over the 32 lane sums (l + (l ^ o) for o = 16, 8, 4, 2, 1): the
-// twin adds in that order too, so the dense sums are bit-equal as well.
+// Launch 2, the rows: a block of 4 warps owns 4 R consecutive pixel rows, R
+// per warp (warp_rows, a run-time plan), so every row sum is one warp's and
+// needs no atomics; at its start the block computes its rows' F_p and a_p
+// into shared memory. The warps walk the landmark columns in tiles of 32 V
+// (V = 16 / bytes per entry: 16 int8, 8 bf16, 4 f32): lane l owns the
+// columns tile0 + l V .. + V - 1, holds their six table values in registers
+// (96 at V 16) and reuses them for its warp's R rows. The tile comes either
+// straight from the table by 16-byte loads into each lane's registers, or
+// (kStaged) through a double-buffered shared-memory ring filled by bulk
+// copies behind mbarriers (each warp fences its reads of a slot against the
+// async proxy before it releases the slot); neither has a block-wide
+// barrier per tile. Per entry the int8 row loop issues ~12 instructions:
+// FMUL + 4 FFMA (c), FADD (t), FFMA + FMNMX (u), MUFU.EX2, FMUL 127 + the
+// magic FADD (the stored byte is the low byte of 127 k + 1.5 * 2^23), 3
+// PRMT per 4 entries to pack the bytes into one word and one IDP4A per 4
+// entries for the row sum. One
+// 16-byte store per lane and row, consecutive lanes on consecutive 16
+// bytes, so the [N, S] store is written once and coalesced (a row whose
+// start is not 16-byte aligned, or the ragged last tile, is written entry by
+// entry). No f32 intermediate reaches device memory.
+//
+// Bit-equality with crf_device.landmark_rows_plain on the card: every
+// product, sum and fma is written with __fmul_rn / __fadd_rn / __fmaf_rn in
+// the twin's order (nothing is left to contraction); bf16 and f32 take
+// exp2f, the function torch.exp2 runs; int8 takes ex2.approx.ftz, which
+// differs from exp2f only where the result is subnormal (u < -126), where
+// 127 k rounds to 0 either way; rint(127 k) is the round to nearest even of
+// 127 k + 1.5 * 2^23 (exact for 0 <= 127 k < 2^22), bf16 is the
+// cvt.rn.bf16x2 of __floats2bfloat162_rn. The int8 row sums are exact
+// integers before the scale, equal in any order. A dense row sum is lane
+// l's running sum over its columns in increasing order (from 0), then lane
+// 0's butterfly over the 32 lane sums (l + (l ^ o) for o = 16, 8, 4, 2, 1):
+// the twin adds in that order too (columns past s_cols in the last tile
+// add +0).
 //
 // Bound on this card: bytes. At the 512 x 512 bucket (N 262,144, S 16,384)
 // the int8 store is 4.29 GB: 1.28 ms at 3.35 TB/s (bf16 2.56 ms, f32 5.13
-// ms). Each entry takes ~16 f32 operations and one exp: 4.3e9 exps are
-// ~1.0 ms on the SFUs (16 per SM and clock), the operations ~1.0 ms at the
-// f32 peak; with expf's range reduction and the int8 packing a lane runs
-// ~26 instructions per entry, so this simple kernel is bound by its
-// instruction rate (~4 ms; 5.2 ms measured on an H100 SXM at 700 W), not
-// by its bytes.
-
-#include <cuda_bf16.h>
+// ms); the 4.3e9 exps are ~1.0 ms on the SFUs (16 per SM and clock), and
+// ~12 instructions per entry are ~1.5 ms of issue at 132 SMs x 128 lanes x
+// 1.98 GHz, level with the store.
 
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+namespace hp = irn::hopper;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 16;
-constexpr int kBlockRows = kWarps * kRowsPerWarp;
-constexpr int kFeat = 6;  // the five features, then |f|^2
+constexpr int kTabRows = 6;     // F_0 .. F_4, then b
+constexpr int kTabAlign = 512;  // the table's columns: whole tiles
+constexpr int kPix = 8;         // floats per pixel row in shared memory
+constexpr int kTableThreads = 256;
+constexpr int kMaxWarpRows = 64;
+constexpr float kSigma = 0x1.b2da4ep-1f;  // 0x3f596d27
 
 struct Geometry {
-  int ph, pw, eh, ew, stride, off, lw, n_land, s_cols, r0, r1;
+  int ph, pw, eh, ew, stride, off, lw, n_land, s_cols, s_tab, r0, r1,
+      warp_rows;
   float sxy, srgb;
 };
 
-// |f|^2 left to right: ((((f0 f0 + f1 f1) + f2 f2) + f3 f3) + f4 f4)
-__device__ __forceinline__ float sq5(const float (&f)[5]) {
-  float s = __fmul_rn(f[0], f[0]);
+// fma(p4, q4, fma(p3, q3, fma(p2, q2, fma(p1, q1, RN(p0 q0)))))
+__device__ __forceinline__ float chain(const float (&p)[5],
+                                       const float (&q)[5]) {
+  float c = __fmul_rn(p[0], q[0]);
 #pragma unroll
-  for (int k = 1; k < 5; ++k) s = __fadd_rn(s, __fmul_rn(f[k], f[k]));
-  return s;
+  for (int k = 1; k < 5; ++k) c = __fmaf_rn(p[k], q[k], c);
+  return c;
 }
 
-// the five features of the bucket pixel (y, x)
+// the five scaled features F = RN(kSigma f) of the bucket pixel (y, x)
 __device__ __forceinline__ void features(const uint8_t* __restrict__ img,
                                          const Geometry& g, int y, int x,
                                          float (&f)[5]) {
   const size_t n = (size_t)g.ph * g.pw;
   const size_t p = (size_t)y * g.pw + x;
-  f[0] = __fdiv_rn((float)x, g.sxy);
-  f[1] = __fdiv_rn((float)y, g.sxy);
+  f[0] = __fmul_rn(__fdiv_rn((float)x, g.sxy), kSigma);
+  f[1] = __fmul_rn(__fdiv_rn((float)y, g.sxy), kSigma);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    f[2 + c] = __fdiv_rn((float)__ldg(img + c * n + p), g.srgb);
+    f[2 + c] =
+        __fmul_rn(__fdiv_rn((float)__ldg(img + c * n + p), g.srgb), kSigma);
 }
 
-// k for one (pixel, landmark) pair: lf holds the landmark's features and
-// |l|^2, f0..f4 and sqp the pixel's
-__device__ __forceinline__ float entry(float f0, float f1, float f2, float f3,
-                                       float f4, float sqp, float l0, float l1,
-                                       float l2, float l3, float l4,
-                                       float sql) {
-  float c = __fmul_rn(f0, l0);
-  c = __fadd_rn(c, __fmul_rn(f1, l1));
-  c = __fadd_rn(c, __fmul_rn(f2, l2));
-  c = __fadd_rn(c, __fmul_rn(f3, l3));
-  c = __fadd_rn(c, __fmul_rn(f4, l4));
-  const float d2 = __fsub_rn(__fadd_rn(sqp, sql), __fmul_rn(2.f, c));
-  return expf(__fmul_rn(-0.5f, fmaxf(d2, 0.f)));
+__global__ void __launch_bounds__(kTableThreads)
+    table_kernel(const uint8_t* __restrict__ img, float* __restrict__ tab,
+                 Geometry g) {
+  const int j = blockIdx.x * kTableThreads + threadIdx.x;
+  if (j >= g.s_tab) return;
+  float f[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float b = __int_as_float(0x7f800000);  // +inf: k = +0
+  if (j < g.n_land) {
+    const int jy = j / g.lw;
+    const int y = g.off + g.stride * jy;
+    const int x = g.off + g.stride * (j - jy * g.lw);
+    features(img, g, y, x, f);
+    if (y < g.eh && x < g.ew) b = chain(f, f);
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) tab[(size_t)k * g.s_tab + j] = f[k];
+  tab[(size_t)5 * g.s_tab + j] = b;
+}
+
+__device__ __forceinline__ float ex2_ftz(float u) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(u));
+  return r;
+}
+
+// k for the pixel (P, a) and the landmark column v of the lane's tile
+template <int kBytes, int V>
+__device__ __forceinline__ float entry(const float (&P)[5], float a,
+                                       const float (&lf)[kTabRows][V],
+                                       int v) {
+  const float q[5] = {lf[0][v], lf[1][v], lf[2][v], lf[3][v], lf[4][v]};
+  const float c = chain(P, q);
+  const float t = __fadd_rn(a, lf[5][v]);
+  const float u = fminf(__fmaf_rn(2.f, c, -t), 0.f);
+  if constexpr (kBytes == 1) {
+    return ex2_ftz(u);
+  } else {
+    return exp2f(u);
+  }
+}
+
+// entries E, E + 1, .. of w to dst while they lie inside the row's first
+// nbytes (E a template argument, so w stays in registers)
+template <int kBytes, int E>
+__device__ __forceinline__ void write_entries(uint8_t* dst,
+                                              const uint32_t (&w)[4],
+                                              int nbytes) {
+  if constexpr (E < 16 / kBytes) {
+    if (E * kBytes >= nbytes) return;
+    if constexpr (kBytes == 1) {
+      dst[E] = (uint8_t)(w[E >> 2] >> (8 * (E & 3)));
+    } else if constexpr (kBytes == 2) {
+      reinterpret_cast<uint16_t*>(dst)[E] =
+          (uint16_t)(w[E >> 1] >> (16 * (E & 1)));
+    } else {
+      reinterpret_cast<uint32_t*>(dst)[E] = w[E];
+    }
+    write_entries<kBytes, E + 1>(dst, w, nbytes);
+  }
 }
 
 // 16 bytes at dst, of which the first nbytes are inside the row: one vector
-// store when all are and dst is 16-byte aligned, else byte by byte
+// store when all are and dst is 16-byte aligned, else entry by entry (dst is
+// kBytes-aligned)
+template <int kBytes>
 __device__ __forceinline__ void write16(uint8_t* dst, const uint32_t (&w)[4],
                                         int nbytes) {
   if (nbytes == 16 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
     *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-    return;
+  } else {
+    write_entries<kBytes, 0>(dst, w, nbytes);
   }
-#pragma unroll
-  for (int b = 0; b < 16; ++b)
-    if (b < nbytes) dst[b] = (uint8_t)(w[b >> 2] >> (8 * (b & 3)));
 }
 
-// V entries of one row into the 16 stored bytes w, their sum into acc
-template <int kBytes>
-__device__ __forceinline__ void pack(const float* k, uint32_t (&w)[4],
-                                     typename std::conditional<
-                                         kBytes == 1, int, float>::type& acc);
+// __floats2bfloat162_rn(lo, hi)'s bits, in a register (the intrinsic's
+// struct, read back through a pointer, costs a stack slot)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 
-template <>
-__device__ __forceinline__ void pack<1>(const float* k, uint32_t (&w)[4],
-                                        int& acc) {
+// one row's V entries into the 16 stored bytes w, their sum into acc
+template <int kBytes, int V, typename Acc>
+__device__ __forceinline__ void row_entries(const float (&P)[5], float a,
+                                            const float (&lf)[kTabRows][V],
+                                            uint32_t (&w)[4], Acc& acc) {
+  if constexpr (kBytes == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t word = 0;
+    for (int i = 0; i < 4; ++i) {
+      uint32_t q[4];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      // 127 k + 1.5 * 2^23 rounds 127 k to the nearest integer, ties to
-      // even; the integer is the low mantissa bits
-      const int q = __float_as_int(__fadd_rn(__fmul_rn(k[4 * i + b], 127.f),
-                                             12582912.f)) -
-                    0x4B400000;
-      acc += q;
-      word |= (uint32_t)q << (8 * b);
+      for (int b = 0; b < 4; ++b) {
+        // 127 k + 1.5 * 2^23 rounds 127 k to the nearest integer, ties to
+        // even; the integer (0 .. 127) is the sum's low byte
+        q[b] = __float_as_uint(__fadd_rn(
+            __fmul_rn(entry<kBytes, V>(P, a, lf, 4 * i + b), 127.f),
+            12582912.f));
+      }
+      w[i] = __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                         __byte_perm(q[2], q[3], 0x0040), 0x5410);
+      acc = __dp4a((int)w[i], 0x01010101, acc);
     }
-    w[i] = word;
-  }
-}
-
-template <>
-__device__ __forceinline__ void pack<2>(const float* k, uint32_t (&w)[4],
-                                        float& acc) {
+  } else if constexpr (kBytes == 2) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(k[2 * i], k[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
+    for (int i = 0; i < 4; ++i) {
+      const float k0 = entry<kBytes, V>(P, a, lf, 2 * i);
+      const float k1 = entry<kBytes, V>(P, a, lf, 2 * i + 1);
+      w[i] = bf16x2(k0, k1);
+      acc = __fadd_rn(__fadd_rn(acc, k0), k1);
+    }
+  } else {
 #pragma unroll
-  for (int v = 0; v < 8; ++v) acc = __fadd_rn(acc, k[v]);
-}
-
-template <>
-__device__ __forceinline__ void pack<4>(const float* k, uint32_t (&w)[4],
-                                        float& acc) {
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    w[v] = __float_as_uint(k[v]);
-    acc = __fadd_rn(acc, k[v]);
+    for (int v = 0; v < 4; ++v) {
+      const float k = entry<kBytes, V>(P, a, lf, v);
+      w[v] = __float_as_uint(k);
+      acc = __fadd_rn(acc, k);
+    }
   }
 }
 
 template <int kBytes>
+__host__ __device__ constexpr int tile_cols() {
+  return 32 * (16 / kBytes);
+}
+
+// dynamic shared memory of the rows pass: [the ring and its four
+// mbarriers (kStaged)] [pixel rows: 4 R x kPix f32] [row sums: 4 R x 32]
+template <int kBytes, bool kStaged>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return kStaged ? 2 * kTabRows * tile_cols<kBytes>() * 4 + 4 * 8 : 0;
+}
+
+// the table's tile t into ring slot t & 1 ([kTabRows][kTile] f32), its
+// bytes completing on the slot's full barrier bars[t & 1] (thread 0 only)
+template <int kTile>
+__device__ __forceinline__ void fill_slot(float* ring, uint64_t* bars,
+                                          const float* tab, int s_tab, int t) {
+  const int s = t & 1;
+  hp::mbar_expect_tx(&bars[s], kTabRows * kTile * 4);
+#pragma unroll
+  for (int k = 0; k < kTabRows; ++k)
+    hp::bulk_load(ring + (s * kTabRows + k) * kTile,
+                  tab + (size_t)k * s_tab + (size_t)t * kTile, kTile * 4,
+                  &bars[s]);
+}
+
+template <int kBytes, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-    landmark_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ store,
-                    float* __restrict__ sums, Geometry g) {
+    rows_kernel(const uint8_t* __restrict__ img, const float* __restrict__ tab,
+                uint8_t* __restrict__ store, float* __restrict__ sums,
+                Geometry g) {
   constexpr int V = 16 / kBytes;  // columns per lane and tile
-  constexpr int kTile = 32 * V;
+  constexpr int kTile = tile_cols<kBytes>();
   using Acc = typename std::conditional<kBytes == 1, int, float>::type;
-  // landmark (tile0 + l V + v) at [feature][v * 32 + l]
-  __shared__ float s_land[kFeat][kTile];
-  __shared__ float s_pix[kBlockRows][kFeat];
-  __shared__ Acc s_acc[kBlockRows][32];  // [row][lane]: the lane's sum
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int R = g.warp_rows;
+  const int block_rows = kWarps * R;
+  float* ring = reinterpret_cast<float*>(smem);  // [2][kTabRows][kTile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + 2 * kTabRows * kTile * 4);  // full 0, 1; empty 0, 1
+  float* s_pix = reinterpret_cast<float*>(smem + ring_bytes<kBytes, kStaged>());
+  Acc* s_acc = reinterpret_cast<Acc*>(s_pix + block_rows * kPix);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = g.r0 + blockIdx.x * kBlockRows;
+  const int row0 = g.r0 + blockIdx.x * block_rows;
+  const int n_tiles = (g.s_cols + kTile - 1) / kTile;
 
-  if (threadIdx.x < kBlockRows) {
-    const int p = row0 + threadIdx.x;
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < 2; ++s) {
+        hp::mbar_init(&bars[s], 1);
+        hp::mbar_init(&bars[2 + s], kWarps);
+      }
+      hp::fence_barrier_init();
+      for (int t = 0; t < 2 && t < n_tiles; ++t)
+        fill_slot<kTile>(ring, bars, tab, g.s_tab, t);
+    }
+  }
+  for (int i = threadIdx.x; i < block_rows; i += kThreads) {
+    const int p = row0 + i;
     float f[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     if (p < g.r1) features(img, g, p / g.pw, p % g.pw, f);
 #pragma unroll
-    for (int k = 0; k < 5; ++k) s_pix[threadIdx.x][k] = f[k];
-    s_pix[threadIdx.x][5] = sq5(f);
+    for (int k = 0; k < 5; ++k) s_pix[i * kPix + k] = f[k];
+    s_pix[i * kPix + 5] = chain(f, f);
+    s_pix[i * kPix + 6] = 0.f;
+    s_pix[i * kPix + 7] = 0.f;
   }
   // each lane's row sums are its own: written and read by this thread only
 #pragma unroll 1
-  for (int rr = 0; rr < kRowsPerWarp; ++rr)
-    s_acc[warp * kRowsPerWarp + rr][lane] = Acc(0);
+  for (int rr = 0; rr < R; ++rr) s_acc[(warp * R + rr) * 32 + lane] = Acc(0);
+  __syncthreads();  // the pixel rows (and the mbarriers) are ready
 
 #pragma unroll 1
-  for (int tile0 = 0; tile0 < g.s_cols; tile0 += kTile) {
-    __syncthreads();  // the previous tile's landmarks are read (and s_pix set)
-    for (int e = threadIdx.x; e < kTile; e += kThreads) {
-      const int j = tile0 + (e % 32) * V + e / 32;
-      float f[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-      float sq = __int_as_float(0x7f800000);  // +inf: k = 0
-      if (j < g.n_land) {
-        const int jy = j / g.lw;
-        const int y = g.off + g.stride * jy;
-        const int x = g.off + g.stride * (j - jy * g.lw);
-        features(img, g, y, x, f);
-        if (y < g.eh && x < g.ew) sq = sq5(f);
+  for (int t = 0; t < n_tiles; ++t) {
+    float lf[kTabRows][V];
+    if constexpr (kStaged) {
+      const int s = t & 1;
+      hp::mbar_wait(&bars[s], (t >> 1) & 1);
+      const float* src = ring + s * kTabRows * kTile + lane * V;
+#pragma unroll
+      for (int k = 0; k < kTabRows; ++k)
+#pragma unroll
+        for (int v = 0; v < V; v += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(src + k * kTile + v);
+          lf[k][v] = x.x;
+          lf[k][v + 1] = x.y;
+          lf[k][v + 2] = x.z;
+          lf[k][v + 3] = x.w;
+        }
+      // the slot's next bulk copy (async proxy) must not overtake these
+      // reads (generic proxy): without the fence it did, at 1 row per warp
+      hp::fence_proxy_async_shared();
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&bars[2 + s]);
+      // slot (t + 1) & 1 held tile t - 1: refill it once every warp has
+      // read that tile
+      if (threadIdx.x == 0 && t >= 1 && t + 1 < n_tiles) {
+        hp::mbar_wait(&bars[2 + ((t - 1) & 1)], ((t - 1) >> 1) & 1);
+        fill_slot<kTile>(ring, bars, tab, g.s_tab, t + 1);
       }
+    } else {
+      const float* src = tab + (size_t)t * kTile + lane * V;
 #pragma unroll
-      for (int k = 0; k < 5; ++k) s_land[k][e] = f[k];
-      s_land[5][e] = sq;
+      for (int k = 0; k < kTabRows; ++k)
+#pragma unroll
+        for (int v = 0; v < V; v += 4) {
+          const float4 x = __ldg(
+              reinterpret_cast<const float4*>(src + (size_t)k * g.s_tab + v));
+          lf[k][v] = x.x;
+          lf[k][v + 1] = x.y;
+          lf[k][v + 2] = x.z;
+          lf[k][v + 3] = x.w;
+        }
     }
-    __syncthreads();
-    float lf[kFeat][V];
-#pragma unroll
-    for (int k = 0; k < kFeat; ++k)
-#pragma unroll
-      for (int v = 0; v < V; ++v) lf[k][v] = s_land[k][v * 32 + lane];
-    const int c0 = tile0 + lane * V;
+    const int c0 = t * kTile + lane * V;
     const int nbytes = min(V, g.s_cols - c0) * kBytes;  // <= 0: none inside
 
 #pragma unroll 1
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int lr = warp * kRowsPerWarp + rr;
+    for (int rr = 0; rr < R; ++rr) {
+      const int lr = warp * R + rr;
       const int p = row0 + lr;
       if (p >= g.r1) break;  // uniform over the warp
-      const float f0 = s_pix[lr][0], f1 = s_pix[lr][1], f2 = s_pix[lr][2];
-      const float f3 = s_pix[lr][3], f4 = s_pix[lr][4], sqp = s_pix[lr][5];
-      float k[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        k[v] = entry(f0, f1, f2, f3, f4, sqp, lf[0][v], lf[1][v], lf[2][v],
-                     lf[3][v], lf[4][v], lf[5][v]);
-      Acc acc = s_acc[lr][lane];
+      const float4 pa = *reinterpret_cast<const float4*>(s_pix + lr * kPix);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(s_pix + lr * kPix + 4);
+      const float P[5] = {pa.x, pa.y, pa.z, pa.w, pb.x};
+      Acc acc = s_acc[lr * 32 + lane];
       uint32_t w[4];
-      pack<kBytes>(k, w, acc);
-      s_acc[lr][lane] = acc;
+      row_entries<kBytes, V>(P, pb.y, lf, w, acc);
+      s_acc[lr * 32 + lane] = acc;
       if (store != nullptr && nbytes > 0)
-        write16(store + ((size_t)(p - g.r0) * g.s_cols + c0) * kBytes, w,
-                nbytes);
+        write16<kBytes>(store + ((size_t)(p - g.r0) * g.s_cols + c0) * kBytes,
+                        w, nbytes);
     }
   }
 
 #pragma unroll 1
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int lr = warp * kRowsPerWarp + rr;
+  for (int rr = 0; rr < R; ++rr) {
+    const int lr = warp * R + rr;
     const int p = row0 + lr;
     if (p >= g.r1) break;
-    Acc acc = s_acc[lr][lane];
+    Acc acc = s_acc[lr * 32 + lane];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const Acc other = __shfl_xor_sync(0xffffffffu, acc, o);
@@ -278,45 +409,92 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kBytes>
-cudaError_t launch(const uint8_t* img, uint8_t* store, float* sums,
-                   const Geometry& g, cudaStream_t stream) {
-  const int blocks = (g.r1 - g.r0 + kBlockRows - 1) / kBlockRows;
-  landmark_kernel<kBytes><<<blocks, kThreads, 0, stream>>>(img, store, sums, g);
+template <int kBytes, bool kStaged>
+cudaError_t launch_plan(const uint8_t* img, const float* tab, uint8_t* store,
+                        float* sums, const Geometry& g, cudaStream_t stream) {
+  const int block_rows = kWarps * g.warp_rows;
+  const size_t smem = ring_bytes<kBytes, kStaged>() +
+                      (size_t)block_rows * (kPix + 32) * 4;
+  auto kernel = rows_kernel<kBytes, kStaged>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (g.r1 - g.r0 + block_rows - 1) / block_rows;
+  kernel<<<blocks, kThreads, smem, stream>>>(img, tab, store, sums, g);
   return cudaGetLastError();
+}
+
+template <int kBytes>
+cudaError_t launch_rows(const uint8_t* img, const float* tab, uint8_t* store,
+                        float* sums, const Geometry& g, bool staged,
+                        cudaStream_t stream) {
+  return staged ? launch_plan<kBytes, true>(img, tab, store, sums, g, stream)
+                : launch_plan<kBytes, false>(img, tab, store, sums, g, stream);
+}
+
+cudaError_t launch_table(const uint8_t* img, float* tab, const Geometry& g,
+                         cudaStream_t stream) {
+  const int blocks = (g.s_tab + kTableThreads - 1) / kTableThreads;
+  table_kernel<<<blocks, kTableThreads, 0, stream>>>(img, tab, g);
+  return cudaGetLastError();
+}
+
+bool table_ok(const uint8_t* img, const float* tab, const Geometry& g) {
+  return img && tab && g.ph > 0 && g.pw > 0 && g.stride > 0 && g.lw > 0 &&
+         g.n_land > 0 && g.s_tab >= g.n_land && g.s_tab % kTabAlign == 0;
 }
 
 }  // namespace
 
-// img [3, ph, pw] uint8 (the packed upload's image planes); store [r1 - r0,
-// s_cols] of store_bytes per entry (1 int8, 2 bf16, 4 f32), or null for the
-// sums alone; sums [r1 - r0] f32. store_bytes also sets the dense sums'
-// order (V = 16 / store_bytes) in the sums-only mode.
-IRN_API int irn_crf_landmark(const uint8_t* img, void* store, float* sums,
-                             int ph, int pw, int eh, int ew, int stride,
-                             int lw, int n_land, int s_cols, int store_bytes,
-                             int r0, int r1, float sxy, float srgb,
+// K14's table pass alone: img [3, ph, pw] uint8 (the packed upload's image
+// planes); tab [6, s_tab] f32, s_tab a multiple of 512 and >= n_land.
+IRN_API int irn_crf_landmark_table(const uint8_t* img, float* tab, int ph,
+                                   int pw, int eh, int ew, int stride, int lw,
+                                   int n_land, int s_tab, float sxy,
+                                   float srgb, cudaStream_t stream,
+                                   int* launched) {
+  const Geometry g{ph, pw, eh, ew, stride, stride / 2, lw, n_land, n_land,
+                   s_tab, 0, 1, 1, sxy, srgb};
+  if (!table_ok(img, tab, g)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = launch_table(img, tab, g, stream);
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
+  return 0;
+}
+
+// K14: the table pass into tab [6, s_tab] f32 (scratch), then the rows;
+// store [r1 - r0, s_cols] of store_bytes per entry (1 int8, 2 bf16, 4 f32),
+// or null for the sums alone; sums [r1 - r0] f32. store_bytes also sets the
+// dense sums' order (V = 16 / store_bytes) in the sums-only mode. The plan:
+// staged (the table through the shared-memory ring) and warp_rows (pixel
+// rows per warp, 1 .. 64).
+IRN_API int irn_crf_landmark(const uint8_t* img, float* tab, void* store,
+                             float* sums, int ph, int pw, int eh, int ew,
+                             int stride, int lw, int n_land, int s_cols,
+                             int s_tab, int store_bytes, int r0, int r1,
+                             float sxy, float srgb, int staged, int warp_rows,
                              cudaStream_t stream, int* launched) {
   const Geometry g{ph, pw, eh, ew, stride, stride / 2, lw, n_land, s_cols,
-                   r0, r1, sxy, srgb};
-  if (!img || !sums || ph <= 0 || pw <= 0 || stride <= 0 || lw <= 0 ||
-      n_land <= 0 || s_cols < n_land || r0 < 0 || r1 <= r0 ||
-      (long long)r1 > (long long)ph * pw)
+                   s_tab, r0, r1, warp_rows, sxy, srgb};
+  if (!table_ok(img, tab, g) || !sums || s_cols < n_land || s_tab < s_cols ||
+      r0 < 0 || r1 <= r0 || (long long)r1 > (long long)ph * pw ||
+      warp_rows < 1 || warp_rows > kMaxWarpRows ||
+      (store_bytes != 1 && store_bytes != 2 && store_bytes != 4))
     return (int)cudaErrorInvalidValue;
+  cudaError_t e = launch_table(img, tab, g, stream);
+  if (e != cudaSuccess) return (int)e;
+  ++*launched;
   uint8_t* out = static_cast<uint8_t*>(store);
-  cudaError_t e;
   switch (store_bytes) {
     case 1:
-      e = launch<1>(img, out, sums, g, stream);
+      e = launch_rows<1>(img, tab, out, sums, g, staged != 0, stream);
       break;
     case 2:
-      e = launch<2>(img, out, sums, g, stream);
-      break;
-    case 4:
-      e = launch<4>(img, out, sums, g, stream);
+      e = launch_rows<2>(img, tab, out, sums, g, staged != 0, stream);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      e = launch_rows<4>(img, tab, out, sums, g, staged != 0, stream);
+      break;
   }
   if (e != cudaSuccess) return (int)e;
   ++*launched;

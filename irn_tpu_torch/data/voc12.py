@@ -117,7 +117,7 @@ class ImageDataset(EpochSeeded):
     def __init__(self, img_name_list_path: str, voc12_root: str,
                  resize_long: Optional[Tuple[int, int]] = None,
                  rescale: Optional[Tuple[float, float]] = None,
-                 img_normal: bool = False, hor_flip: bool = False,
+                 img_normal: bool = True, hor_flip: bool = False,
                  crop_size: Optional[int] = None,
                  crop_method: Optional[str] = None, seed: int = 0):
         super().__init__(seed)

@@ -14,7 +14,8 @@ or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 call is its split pass and its product, 2; one K10 operator build 1; one
 K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
 its upsample pass and its argmax pass, or 1 for the upsample alone; one
-K14 landmark-kernel build 1, whatever its row range), and :func:`launch`
+K14 landmark-kernel build 2, its table pass and its rows, whatever its row
+range, or 1 for the table pass alone), and :func:`launch`
 adds that number under a lock (the stages call kernels from a thread
 pool), so a run can show that its main path really went through the
 kernels.
@@ -188,15 +189,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_decode.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p, n,
     ]
+    f = ctypes.c_float
     lib.irn_crf_landmark.argtypes = [
-        p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float,
-        ctypes.c_float, p, n,
+        p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, i, p, n,
+    ]
+    lib.irn_crf_landmark_table.argtypes = [
+        p, p, i, i, i, i, i, i, i, i, f, f, p, n,
     ]
     for k in (*(k for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
               "packed_chain_occupancy", "cluster_masks", "component_tables",
-              "upsample_scores"):
+              "upsample_scores", "crf_landmark_table"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

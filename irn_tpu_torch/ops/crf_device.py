@@ -13,9 +13,10 @@ the host backend):
 - **Bilateral kernel (sxy 50, srgb 5, compat 10): landmark subgrid.**
   Every pixel exchanges messages with a stride-``s`` subgrid of landmark
   pixels; the 5-D kernel to each landmark is evaluated exactly and stored
-  with its row sums by :func:`landmark_rows`: on the card one launch per
-  image (K14, ``csrc/crf_landmark.cu``), on the CPU its plain twin
-  :func:`landmark_rows_plain` in chunks of at most 4096 rows. Each
+  with its row sums by :func:`landmark_rows`: on the card two launches per
+  image (K14, ``csrc/crf_landmark.cu``: the landmark table, then the
+  rows), on the CPU its plain twin :func:`landmark_rows_plain` in chunks
+  of at most 4096 rows. Each
   mean-field iteration is then one [N, S] @ [S, 2L] product: bf16 storage
   with f32 accumulation (``kernel_store='dense'``), or int8 storage with
   int32 accumulation (``'int8'``, the activations quantized per column on
@@ -43,11 +44,22 @@ import numpy as np
 import torch
 
 from irn_tpu_torch.ops import _build
+from irn_tpu_torch.ops.centroids import fma_f32
 
 CHUNK_ROWS = 4096
 KERNEL_STORES = ("dense", "int8")
 # K14's stores on the card (the twin takes any float dtype as well)
 LANDMARK_STORES = (torch.int8, torch.bfloat16, torch.float32)
+# sqrt(log2(e) / 2) rounded to f32 (0.8493218): with F = RN(SIGMA f),
+# exp(-|f_p - f_j|^2 / 2) = exp2(2 <F_p, F_j> - |F_p|^2 - |F_j|^2)
+SIGMA_BITS = 0x3F596D27
+# K14's landmark table: rows F_0 .. F_4 and b = chain(F, F), its columns a
+# multiple of the widest tile (32 lanes x 16 int8 columns)
+TABLE_ROWS = 6
+TABLE_ALIGN = 512
+# K14's rows pass per store's bytes per entry: (the table staged through
+# shared memory, else read into registers; pixel rows per warp)
+ROWS_PLAN = {1: (False, 16), 2: (False, 16), 4: (False, 16)}
 
 
 def _toeplitz(n: int, taps: torch.Tensor) -> torch.Tensor:
@@ -92,12 +104,25 @@ def _check_rows(planes: torch.Tensor, rows, stride: int) -> Tuple[int, int]:
     return r0, r1
 
 
-def _sq5(f) -> torch.Tensor:
-    """|f|^2 of five feature tensors, left to right, one op at a time."""
-    s = f[0] * f[0]
-    for x in f[1:]:
-        s = s + x * x
-    return s
+def _chain(p, q) -> torch.Tensor:
+    """K14's five-term dot of feature tensors: fma(p4, q4, fma(p3, q3,
+    fma(p2, q2, fma(p1, q1, RN(p0 q0))))), each fma rounded once
+    (:func:`centroids.fma_f32`, ``__fmaf_rn`` on the card)."""
+    c = p[0] * q[0]
+    for x, y in zip(p[1:], q[1:]):
+        c = fma_f32(x, y, c)
+    return c
+
+
+def _exp2(u: torch.Tensor) -> torch.Tensor:
+    """exp2 of f32 u as the twin takes it: on the card torch's f32 exp2,
+    whose bits K14 follows; on the CPU through f64, rounded once to f32,
+    because torch's f32 exp2 there gives other bits in a tensor's
+    vectorized body than in its scalar tail (a row range would not be the
+    slice of the whole build)."""
+    if u.device.type == "cuda":
+        return torch.exp2(u)
+    return torch.exp2(u.double()).float()
 
 
 def _lane_sums(k: torch.Tensor, v: int) -> torch.Tensor:
@@ -118,40 +143,81 @@ def _lane_sums(k: torch.Tensor, v: int) -> torch.Tensor:
     return acc[:, 0]
 
 
-def landmark_rows_plain(planes: torch.Tensor, eh: int, ew: int, *,
-                        stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
-                        store: torch.dtype = torch.int8,
-                        rows: Optional[Tuple[int, int]] = None,
-                        sums_only: bool = False):
-    """K14's plain twin, in the kernel's order of operations (see
-    :func:`landmark_rows`), built in chunks of CHUNK_ROWS rows. The
-    divisions take a tensor divisor: a CUDA tensor divided by a Python
+def _scaled_features(planes: torch.Tensor, sxy: float, srgb: float):
+    """features(ys, xs) -> the five scaled features F = RN(SIGMA f) of the
+    pixels (ys, xs), f = (x / sxy, y / sxy, r / srgb, g / srgb, b / srgb).
+    The divisions take a tensor divisor: a CUDA tensor divided by a Python
     number is a product with its reciprocal in torch, not a division."""
-    r0, r1 = _check_rows(planes, rows, stride)
-    _, h, w = planes.shape
     dev = planes.device
     sxy_t = torch.full((), sxy, dtype=torch.float32, device=dev)
     srgb_t = torch.full((), srgb, dtype=torch.float32, device=dev)
+    sigma = torch.tensor(SIGMA_BITS, dtype=torch.int32).view(
+        torch.float32).to(dev)
     flat = planes.reshape(3, -1)
+    w = planes.shape[2]
 
     def features(ys, xs):
         p = ys * w + xs
-        return [xs.float() / sxy_t, ys.float() / sxy_t,
-                *(flat[c, p].float() / srgb_t for c in range(3))]
+        f = [xs.float() / sxy_t, ys.float() / sxy_t,
+             *(flat[c, p].float() / srgb_t for c in range(3))]
+        return [x * sigma for x in f]
 
+    return features
+
+
+def table_columns(n_land: int) -> int:
+    """Columns of K14's landmark table: S padded to a multiple of the
+    widest tile, so that every tile reads whole 16-byte rows."""
+    return n_land + (-n_land) % TABLE_ALIGN
+
+
+def landmark_table_plain(planes: torch.Tensor, eh: int, ew: int, *,
+                         stride: int = 4, sxy: float = 50.0,
+                         srgb: float = 5.0) -> torch.Tensor:
+    """The twin of K14's table pass: [6, table_columns(S)] f32, rows F_0 ..
+    F_4 of each landmark's scaled features and b = chain(F, F); b is +inf
+    for a landmark outside the true extent (eh, ew), and the padded columns
+    hold F = 0, b = +inf."""
+    _check_rows(planes, None, stride)
+    _, h, w = planes.shape
+    dev = planes.device
     lh, lw = landmark_grid(h, w, stride)
     off = stride // 2
     jy, jx = torch.meshgrid(torch.arange(lh, device=dev) * stride + off,
                             torch.arange(lw, device=dev) * stride + off,
                             indexing="ij")
     jy, jx = jy.reshape(-1), jx.reshape(-1)
+    n_land = lh * lw
+    f = _scaled_features(planes, sxy, srgb)(jy, jx)
+    # b from the finite features first: fma_f32 turns an infinity into NaN
+    b = torch.where((jy < eh) & (jx < ew), _chain(f, f),
+                    torch.full((), math.inf, device=dev))
+    table = torch.zeros((TABLE_ROWS, table_columns(n_land)),
+                        dtype=torch.float32, device=dev)
+    table[5] = math.inf
+    table[:5, :n_land] = torch.stack(f)
+    table[5, :n_land] = b
+    return table
+
+
+def landmark_rows_plain(planes: torch.Tensor, eh: int, ew: int, *,
+                        stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
+                        store: torch.dtype = torch.int8,
+                        rows: Optional[Tuple[int, int]] = None,
+                        sums_only: bool = False):
+    """K14's plain twin, in the kernel's order of operations (see
+    :func:`landmark_rows`), built in chunks of CHUNK_ROWS rows from
+    :func:`landmark_table_plain`."""
+    r0, r1 = _check_rows(planes, rows, stride)
+    _, h, w = planes.shape
+    dev = planes.device
+    features = _scaled_features(planes, sxy, srgb)
+    lh, lw = landmark_grid(h, w, stride)
     s_cols = landmark_columns(lh * lw, store)
-    pad = s_cols - lh * lw
-    f_land = [torch.nn.functional.pad(f, (0, pad))
-              for f in features(jy, jx)]
-    v_land = torch.nn.functional.pad(((jy < eh) & (jx < ew)).float(),
-                                     (0, pad))
-    sq_land = _sq5(f_land)
+    table = landmark_table_plain(planes, eh, ew, stride=stride, sxy=sxy,
+                                 srgb=srgb)[:, :s_cols]
+    f_land = [x[None, :] for x in table[:5]]
+    b_land = table[5][None, :]
     lanes = 16 // store.itemsize
     out = None if sums_only else torch.empty((r1 - r0, s_cols), dtype=store,
                                              device=dev)
@@ -160,11 +226,11 @@ def landmark_rows_plain(planes: torch.Tensor, eh: int, ew: int, *,
         b = min(a + CHUNK_ROWS, r1)
         p = torch.arange(a, b, device=dev)
         f_pix = features(p // w, p % w)
-        cross = f_pix[0][:, None] * f_land[0][None, :]
-        for fp, fl in zip(f_pix[1:], f_land[1:]):
-            cross = cross + fp[:, None] * fl[None, :]
-        d2 = (_sq5(f_pix)[:, None] + sq_land[None, :]) - 2.0 * cross
-        k = torch.exp(-0.5 * d2.clamp_min(0.0)) * v_land[None, :]
+        t = _chain(f_pix, f_pix)[:, None] + b_land
+        c = _chain([x[:, None] for x in f_pix], f_land)
+        # 2c is exact, so 2c - t rounds once, as fma(2, c, -t)
+        k = _exp2((2.0 * c - t).clamp(max=0.0))
+        del c, t
         if store == torch.int8:
             # entries live in [0, 1]: symmetric scale 127; the row sums
             # come from the quantized values, the kernel actually applied
@@ -177,29 +243,54 @@ def landmark_rows_plain(planes: torch.Tensor, eh: int, ew: int, *,
     return out, sums
 
 
+def landmark_table(planes: torch.Tensor, eh: int, ew: int, *,
+                   stride: int = 4, sxy: float = 50.0,
+                   srgb: float = 5.0) -> torch.Tensor:
+    """K14's landmark table of one image (:func:`landmark_table_plain`): on
+    the card one launch of its table pass, on the CPU the twin."""
+    if _build.is_plain(planes):
+        return landmark_table_plain(planes, eh, ew, stride=stride, sxy=sxy,
+                                    srgb=srgb)
+    _check_rows(planes, None, stride)
+    _build.check_cuda("crf_landmark", planes, dtype=torch.uint8)
+    _, h, w = planes.shape
+    lh, lw = landmark_grid(h, w, stride)
+    table = torch.empty((TABLE_ROWS, table_columns(lh * lw)),
+                        dtype=torch.float32, device=planes.device)
+    _build.launch("crf_landmark", planes.device, planes.data_ptr(),
+                  table.data_ptr(), h, w, eh, ew, stride, lw, lh * lw,
+                  table.shape[1], sxy, srgb, entry="crf_landmark_table")
+    return table
+
+
 def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
                   stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
                   store: torch.dtype = torch.int8,
                   rows: Optional[Tuple[int, int]] = None,
-                  sums_only: bool = False):
+                  sums_only: bool = False,
+                  plan: Optional[Tuple[bool, int]] = None):
     """The bilateral landmark kernel of one image and its f32 row sums:
     (store [r1 - r0, S'] or None, sums [r1 - r0]) for the pixel rows
     [r0, r1) (default all) of the image planes [3, H, W] uint8 (the packed
     upload's first three), true extent (eh, ew).
 
     Pixel p = y W + x has the f32 features f_p = (x / sxy, y / sxy,
-    r / srgb, g / srgb, b / srgb); landmark j is the pixel (off + stride
-    (j // lw), off + stride (j % lw)), valid (v_j 1) inside (eh, ew); under
-    int8 S is padded to S' (a multiple of 8) with zero landmarks. Each
-    entry is k = exp(-0.5 max(d2, 0)) v_j with d2 = (|f_p|^2 + |l_j|^2) -
-    2 <f_p, l_j> (five-term sums left to right), stored as int8
-    round(127 k), bf16 or f32 (``store``); the row sums are taken over the
-    stored values, sum(round(127 k)) / 127 under int8, the f32 k otherwise
-    (in K14's lane order, :func:`_lane_sums`). ``sums_only`` drops the
-    store.
+    r / srgb, g / srgb, b / srgb) and the scaled features F_p = RN(SIGMA
+    f_p); landmark j is the pixel (off + stride (j // lw), off + stride
+    (j % lw)), valid inside (eh, ew); under int8 S is padded to S' (a
+    multiple of 8) with zero landmarks. With chain the five-term fma dot
+    (:func:`_chain`), a_p = chain(F_p, F_p), b_j = chain(F_j, F_j) (+inf
+    for an invalid or padded landmark) and c = chain(F_p, F_j), each entry
+    is k = exp2(min(RN(2c - RN(a_p + b_j)), 0)) = exp(-d2 / 2) up to
+    rounding (SIGMA^2 = log2(e) / 2), stored as int8 round(127 k), bf16 or
+    f32 (``store``); the row sums are taken over the stored values,
+    sum(round(127 k)) / 127 under int8, the f32 k otherwise (in K14's lane
+    order, :func:`_lane_sums`). ``sums_only`` drops the store.
 
-    On the card one launch of K14 (``csrc/crf_landmark.cu``), bit-equal to
-    :func:`landmark_rows_plain`; on the CPU the twin."""
+    On the card two launches of K14 (``csrc/crf_landmark.cu``: the table
+    pass, then the rows), bit-equal to :func:`landmark_rows_plain`; on the
+    CPU the twin. ``plan`` (the table staged through shared memory or read
+    into registers, pixel rows per warp) defaults to ``ROWS_PLAN``."""
     if _build.is_plain(planes):
         return landmark_rows_plain(planes, eh, ew, stride=stride, sxy=sxy,
                                    srgb=srgb, store=store, rows=rows,
@@ -212,14 +303,16 @@ def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
     dev = planes.device
     lh, lw = landmark_grid(h, w, stride)
     s_cols = landmark_columns(lh * lw, store)
+    table = torch.empty((TABLE_ROWS, table_columns(lh * lw)),
+                        dtype=torch.float32, device=dev)
     out = None if sums_only else torch.empty((r1 - r0, s_cols), dtype=store,
                                              device=dev)
     sums = torch.empty(r1 - r0, dtype=torch.float32, device=dev)
-    _build.launch("crf_landmark", dev, planes.data_ptr(),
+    staged, warp_rows = ROWS_PLAN[store.itemsize] if plan is None else plan
+    _build.launch("crf_landmark", dev, planes.data_ptr(), table.data_ptr(),
                   None if out is None else out.data_ptr(), sums.data_ptr(),
-                  h, w, eh, ew, stride, lw, lh * lw, s_cols,
-                  store.itemsize, r0, r1,
-                  sxy, srgb)
+                  h, w, eh, ew, stride, lw, lh * lw, s_cols, table.shape[1],
+                  store.itemsize, r0, r1, sxy, srgb, int(staged), warp_rows)
     return out, sums
 
 

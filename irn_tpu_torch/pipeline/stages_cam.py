@@ -355,7 +355,7 @@ def make_cam(cfg: Config, device="cuda") -> Dict:
     dev = resolve_device(device)
     _no_tf32()
     ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
-                                     _label_dict(cfg))
+                                     _label_dict(cfg), img_normal=False)
     scale_pass = CAMScalePass(load_cam_net(cfg, dev), dev,
                               cfg.rw_grid_cap, 4 * cfg.rw_grid_cap)
     os.makedirs(cfg.cam_out_dir, exist_ok=True)
@@ -478,7 +478,7 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
     dev = resolve_device(device)
     _no_tf32()
     backend = resolve_crf_backend(cfg, dev)
-    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.ir_label_out_dir, exist_ok=True)
     n = len(ds)
     n_pool = max(1, cfg.num_workers)

@@ -483,7 +483,7 @@ def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
 
     runner = _load_irn(cfg, dev)
     walker = RandomWalkRunner(cfg, n_seed_rows=20, device=dev)
-    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.sem_seg_out_dir, exist_ok=True)
     n = len(ds)
     todo = [
@@ -713,7 +713,7 @@ def make_ins_seg_labels(cfg: Config, device="cuda") -> Dict:
     runner = _load_irn(cfg, dev)
     walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap, device=dev)
     tail = InstanceTail(cfg, walker)
-    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root)
+    ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.ins_seg_out_dir, exist_ok=True)
     n = len(ds)
     todo = [

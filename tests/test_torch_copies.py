@@ -10,6 +10,7 @@ imports none of the originals (tests/test_torch_imports.py); this file
 imports both sides. The CRF copies are held in tests/test_torch_crf.py."""
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -233,10 +234,10 @@ def test_voc12_sources(tmp_path):
         for k in want:
             assert got[k].dtype == want[k].dtype
             assert np.array_equal(got[k], want[k])
-    port = voc12.ClassificationDataset(train, root, labels)
+    port = voc12.ClassificationDataset(train, root, labels, img_normal=False)
     ref = jax_voc12.ClassificationDataset(train, root, labels,
                                           img_normal=False)
-    plain = voc12.ImageDataset(train, root)
+    plain = voc12.ImageDataset(train, root, img_normal=False)
     assert len(port) == len(ref) == len(plain)
     for i in range(len(ref)):
         a, b, c = port[i], ref[i], plain[i]
@@ -268,6 +269,34 @@ def test_voc12_sources(tmp_path):
         for k in want:
             assert np.array_equal(got[k], want[k]) and got[k].dtype == \
                 want[k].dtype
+
+
+def _init_defaults(cls):
+    """{parameter: default} of cls's constructor, with the keywords that a
+    ``**kw`` passes on to the base class's constructor."""
+    out = {}
+    for klass in reversed(cls.__mro__):
+        if "__init__" not in vars(klass) or klass is object:
+            continue
+        for p in inspect.signature(vars(klass)["__init__"]).parameters.values():
+            if p.default is not inspect.Parameter.empty:
+                out[p.name] = p.default
+    return out
+
+
+@pytest.mark.parametrize("name", ["ImageDataset", "ClassificationDataset"])
+def test_dataset_constructor_defaults(name):
+    """The port's ImageDataset and ClassificationDataset take the same
+    constructor parameters with the same defaults as their JAX originals
+    (img_normal True: a caller that wants the uint8 image asks for it)."""
+    from irn_tpu.data import voc12 as jax_voc12
+    from irn_tpu_torch.data import voc12
+
+    got = _init_defaults(getattr(voc12, name))
+    want = _init_defaults(getattr(jax_voc12, name))
+    assert got == want and got["img_normal"] is True
+    assert list(inspect.signature(getattr(voc12, name)).parameters) == \
+        list(inspect.signature(getattr(jax_voc12, name)).parameters)
 
 
 # -- the instance stage's copies ---------------------------------------------

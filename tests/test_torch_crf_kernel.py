@@ -1,18 +1,26 @@
 """K14, the device CRF's landmark-kernel build (``crf_device.landmark_rows``),
 through its plain twin on the CPU, against a float64 NumPy oracle.
 
-The twin evaluates d2 = (|f|^2 + |l|^2) - 2 <f, l> in f32 as the kernel
-does, so d2 carries the expansion's cancellation error: at rgb / 5 up to 51
-(|f|^2 up to ~8000) it is ~5e-4, and k = exp(-d2 / 2) is off by up to ~2e-4
-where k is near 1 (measured: 2.0e-4 to 2.5e-4 on the images below, ~0.015%
-of the int8 entries off rint(127 k64) by one). A flat 1e-6 holds only where
+The twin evaluates u = 2 <F_p, F_j> - (|F_p|^2 + |F_j|^2) in f32 on the
+scaled features F = RN(SIGMA f), SIGMA = f32(sqrt(log2(e) / 2)), each
+five-term dot a chain of fmas, and k = exp2(min(u, 0)); so u carries the
+expansion's cancellation error: at rgb / 5 up to 51 (|f|^2 up to ~8000),
+k is off by up to ~2e-4 where it is near 1. A flat 1e-6 holds only where
 |f|^2 + |l|^2 is small, so the oracle checks each entry against the
-forward-error bound of the twin's own operations: |dk| <= k (0.5 * 10u
-(|f|^2 + |l|^2 + 2 <f, l>) + 4u), u = 2^-24 (five-term sums: at most ~7
-roundings of the sum of magnitudes, the features' own roundings ~2 more,
-expf 2 ulp). The labels of the whole CRF
-against JAX stay in tests/test_torch_crf.py.
+forward-error bound of the twin's own operations. With mag = |f|^2 +
+|l|^2 + 2 <f, l> (every feature is >= 0), in units of SIGMA^2 mag: the
+features' roundings (the division, the scale, SIGMA itself: 3u on each F)
+move u by at most 6u; the three chains (five roundings each, gamma_5 of
+the sum of magnitudes) 5u; the sum a + b and the difference 2c - t u
+each. That is 13u SIGMA^2 mag in u, and k = 2^u turns it into a relative
+error ln(2) SIGMA^2 13u mag = 0.5 * 13u mag; the exp2 (f64, rounded once
+to f32) adds at most ~u. So |dk| <= k (0.5 * 13u mag + 2u), u = 2^-24
+(measured: up to ~1.1 u mag on the images below). The labels of the
+whole CRF against JAX stay in tests/test_torch_crf.py.
 """
+
+import math
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -57,7 +65,7 @@ def _oracle(img, eh, ew, stride=4):
     d2 = ((f[:, None, :] - lf[None]) ** 2).sum(-1)
     k = np.exp(-0.5 * d2) * valid
     mag = (f ** 2).sum(1)[:, None] + (lf ** 2).sum(1)[None] + 2.0 * f @ lf.T
-    return k, k * (0.5 * 10 * U * mag + 4 * U), valid
+    return k, k * (0.5 * 13 * U * mag + 2 * U), valid
 
 
 def _build_rows(img, eh, ew, store, **kw):
@@ -229,6 +237,115 @@ def test_landmark_kernel_uses_the_rows():
     q = torch.rand((4, stream.n_land), generator=torch.Generator().manual_seed(0))
     dense = cd.LandmarkKernel(hwc, 37, 45)
     assert torch.equal(stream.bilateral(q), dense.bilateral(q))
+
+
+def _round32(x: Fraction) -> np.float32:
+    """The exact rational x rounded once to f32, ties to even."""
+    v = np.float32(float(x))
+    cands = (np.nextafter(v, np.float32(-np.inf)), v,
+             np.nextafter(v, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(np.float32(c).view(np.uint32)) & 1))
+
+
+def _chain_exact(p, q) -> np.float32:
+    """chain(p, q) in exact rationals, rounded to f32 once per fma."""
+    c = _round32(Fraction(float(p[0])) * Fraction(float(q[0])))
+    for x, y in zip(p[1:], q[1:]):
+        c = _round32(Fraction(float(x)) * Fraction(float(y))
+                     + Fraction(float(c)))
+    return c
+
+
+SIGMA = np.uint32(cd.SIGMA_BITS).view(np.float32)
+
+
+def test_sigma_and_chain_against_exact_rationals():
+    """SIGMA is the f32 nearest sqrt(log2(e) / 2); the twin's chain on 400
+    random feature pairs (the features' ranges, near pairs with
+    cancellation, signs mixed in) equals exact rational arithmetic rounded
+    to f32 once per fma, bit for bit."""
+    assert SIGMA == np.float32(math.sqrt(math.log2(math.e) / 2.0))
+    rng = np.random.default_rng(7)
+    p = (rng.uniform(0, 45, (400, 5)) * SIGMA).astype(np.float32)
+    q = (p + rng.normal(0, 0.5, p.shape)).astype(np.float32)
+    q[:100] *= rng.choice([-1, 1], (100, 5)).astype(np.float32)
+    q[300:] = rng.uniform(-1e-3, 1e-3, (100, 5)).astype(np.float32)
+    got = cd._chain([torch.from_numpy(p[:, i]) for i in range(5)],
+                    [torch.from_numpy(q[:, i]) for i in range(5)]).numpy()
+    want = np.array([_chain_exact(a, b) for a, b in zip(p, q)], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_table_against_rounded_float64(case):
+    """The landmark table: F = RN(SIGMA RN(f)) from IEEE f32 divisions and
+    products, b = chain(F, F) in exact rationals rounded once per fma,
+    +inf for a landmark outside the extent; the padded columns F = 0, b =
+    +inf; the wrapper gives the twin's table on the CPU."""
+    h, w, eh, ew = CASES[case]
+    img = _image(h, w, seed=8)
+    planes = torch.from_numpy(img)
+    table = cd.landmark_table_plain(planes, eh, ew).numpy()
+    jy, jx = np.meshgrid(np.arange(2, h, 4), np.arange(2, w, 4),
+                         indexing="ij")
+    jy, jx = jy.reshape(-1), jx.reshape(-1)
+    s = jy.size
+    assert table.shape == (6, cd.table_columns(s)) and table.shape[1] % 512 == 0
+    f32 = np.float32
+    f = [jx.astype(f32) / f32(50), jy.astype(f32) / f32(50),
+         *(img[c][jy, jx].astype(f32) / f32(5) for c in range(3))]
+    big_f = np.stack([(x * SIGMA).astype(f32) for x in f])
+    valid = (jy < eh) & (jx < ew)
+    b = np.array([_chain_exact(big_f[:, j], big_f[:, j]) if valid[j]
+                  else np.inf for j in range(s)], f32)
+    assert np.array_equal(table[:5, :s].view(np.uint32), big_f.view(np.uint32))
+    assert np.array_equal(table[5, :s].view(np.uint32), b.view(np.uint32))
+    assert not table[:5, s:].any() and (table[5, s:] == np.inf).all()
+    assert np.isfinite(table[5, :s]).sum() == valid.sum() < s or valid.all()
+    assert torch.equal(cd.landmark_table(planes, eh, ew),
+                       torch.from_numpy(table))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_own_pixel_u_is_zero(case):
+    """Where a pixel is its landmark's own, c = a_p = b_j, so u = 0 exactly
+    and k = 1 (int8 127), on a scene, not only a uniform image."""
+    h, w, eh, ew = CASES[case]
+    img = _image(h, w, seed=9)
+    planes = torch.from_numpy(img)
+    table = cd.landmark_table_plain(planes, eh, ew)
+    jy, jx = np.meshgrid(np.arange(2, h, 4), np.arange(2, w, 4),
+                         indexing="ij")
+    jy, jx = torch.from_numpy(jy.reshape(-1)), torch.from_numpy(jx.reshape(-1))
+    valid = (jy < eh) & (jx < ew)
+    f_pix = cd._scaled_features(planes, 50.0, 5.0)(jy, jx)
+    s = jy.numel()
+    a = cd._chain(f_pix, f_pix)
+    c = cd._chain(f_pix, [x[:s] for x in table[:5]])
+    u = 2.0 * c - (a + table[5, :s])
+    assert (u[valid] == 0).all() and (u[~valid] == -math.inf).all()
+    own = jy * w + jx
+    cols = torch.arange(s)
+    k, _ = _build_rows(img, eh, ew, torch.float32)
+    k8, _ = _build_rows(img, eh, ew, torch.int8)
+    assert (k[own, cols][valid] == 1.0).all()
+    assert (k8[own, cols][valid] == 127).all()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("store", sorted(STORES))
+def test_no_nan_with_invalid_columns(case, store):
+    """Invalid and padded columns (b = +inf) give +0, never NaN: every
+    stored value and row sum is finite, k in [0, 1]."""
+    h, w, eh, ew = CASES[case]
+    img = _image(h, w, seed=10)
+    for rows in (None, (37, h * w - 5)):
+        k, d = _build_rows(img, eh, ew, STORES[store], rows=rows)
+        kf = k.float()
+        assert torch.isfinite(kf).all() and torch.isfinite(d).all()
+        assert (kf >= 0).all() and (kf <= (127 if store == "int8" else 1)).all()
+        assert (d >= 0).all() and (d > 0).any()
 
 
 def test_wrapper_refuses():

@@ -114,8 +114,10 @@ def test_square_banded_in_band(cuda, n):
 def test_square_banded_hgmma(cuda):
     """K2's SASS holds wgmma (HGMMA) instructions."""
     import chip_smoke
+    from irn_tpu_torch.tools.probe_crf_landmark import cuobjdump_sass
 
-    assert chip_smoke.hgmma_counts(_build.build())["square_banded"] > 0
+    assert chip_smoke.hgmma_counts(
+        cuobjdump_sass(_build.build()))["square_banded"] > 0
 
 
 def test_packed_chain(cuda):
@@ -991,12 +993,13 @@ CRF_STORES = {"int8": torch.int8, "bf16": torch.bfloat16,
     ("scene", (24, 28), (21, 25)), ("black", (64, 64), (61, 57)),
     ("uniform", (64, 64), (64, 64))])
 def test_crf_landmark_bit_equal(cuda, kind, bucket, extent, store, mode):
-    """K14 bit-equal to its twin on the card in one launch, store and row
-    sums (int8 and dense): a full bucket, odd extents whose S (483, 42)
-    leaves int8 and bf16 rows off 16-byte alignment and a ragged last tile,
-    an all-black and a uniform image (d2 <= 0 at the landmarks' own
-    pixels); all rows, an odd row range, or the sums alone. The f32 store
-    within 1e-6 of the host twin (exp differs by an ulp there)."""
+    """K14 bit-equal to its twin on the card in two launches (the table
+    pass, the rows), store and row sums (int8 and dense): a full bucket,
+    odd extents whose S (483, 42) leaves int8 and bf16 rows off 16-byte
+    alignment and a ragged last tile, an all-black and a uniform image (u
+    = 0 at the landmarks' own pixels); all rows, an odd row range, or the
+    sums alone. The f32 store within 1e-6 of the host twin (exp2 differs
+    by an ulp or two there)."""
     planes = _crf_image(kind, *bucket)
     n = bucket[0] * bucket[1]
     kw = dict(store=CRF_STORES[store])
@@ -1006,7 +1009,7 @@ def test_crf_landmark_bit_equal(cuda, kind, bucket, extent, store, mode):
         kw["sums_only"] = True
     got_k, got_d = crf_device.landmark_rows(planes.to(cuda), *extent, **kw)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["crf_landmark"] == 1
+    assert _build.LAUNCHES["crf_landmark"] == 2
     want_k, want_d = crf_device.landmark_rows_plain(planes.to(cuda), *extent,
                                                     **kw)
     assert torch.equal(got_d, want_d)
@@ -1020,6 +1023,38 @@ def test_crf_landmark_bit_equal(cuda, kind, bucket, extent, store, mode):
                                    atol=1e-30)
 
 
+@pytest.mark.parametrize("kind,bucket,extent", [
+    ("scene", (92, 84), (89, 81)), ("scene", (24, 28), (21, 25)),
+    ("uniform", (64, 64), (64, 64))])
+def test_crf_landmark_table(cuda, kind, bucket, extent):
+    """K14's table pass alone (one launch) equal to its twin: F, b, +inf
+    for the landmarks outside the extent and the padded columns."""
+    planes = _crf_image(kind, *bucket).to(cuda)
+    got = crf_device.landmark_table(planes, *extent)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["crf_landmark"] == 1
+    assert torch.equal(got, crf_device.landmark_table_plain(planes, *extent))
+    assert not torch.isnan(got).any()
+
+
+@pytest.mark.parametrize("plan", [(False, 1), (False, 8), (False, 32),
+                                  (True, 1), (True, 16), (True, 64)])
+@pytest.mark.parametrize("store", sorted(CRF_STORES))
+def test_crf_landmark_plans(cuda, plan, store):
+    """Every rows plan (the table read into registers or staged through the
+    shared-memory ring; 1 to 64 rows per warp) gives the twin's bits, on the
+    odd bucket (a ragged last tile, rows off alignment) with a row range,
+    and on a bucket of several tiles (S 1920: int8 four tiles, so the ring
+    is refilled twice)."""
+    for bucket, extent, rows in (((92, 84), (89, 81), (37, 92 * 84 - 5)),
+                                 ((192, 160), (190, 151), None)):
+        planes = _crf_image("scene", *bucket).to(cuda)
+        kw = dict(store=CRF_STORES[store], rows=rows)
+        got = crf_device.landmark_rows(planes, *extent, plan=plan, **kw)
+        want = crf_device.landmark_rows_plain(planes, *extent, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_crf_landmark_refuses(cuda):
     """K14 stores int8, bf16 or f32; the planes are [3, H, W] uint8; a CUDA
     tensor never reaches the twin."""
@@ -1030,4 +1065,7 @@ def test_crf_landmark_refuses(cuda):
         crf_device.landmark_rows(planes.float(), 24, 28)
     with pytest.raises(ValueError):
         crf_device.landmark_rows(planes, 24, 28, rows=(3, 3))
+    for plan in ((False, 0), (True, 65)):
+        with pytest.raises(RuntimeError):
+            crf_device.landmark_rows(planes, 24, 28, plan=plan)
     assert not any(_build.LAUNCHES.values())

@@ -79,3 +79,47 @@ def test_tools_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError):
         bench_banded.main(["--device", "cuda", "--batch_only"])
     assert resolve_device("cpu") == CPU
+
+
+SASS = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_111rows_kernelILi1ELb0EEEvPKhPKf
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/                   FMUL R2, R3, R4 ;        /* 0x0000000403027220 */
+        /*0020*/                   MUFU.EX2 R5, R2 ;        /* 0x0000000200057308 */
+        /*0030*/               @P0 BRA 0x60 ;               /* 0x0000000000000947 */
+        /*0040*/                   STG.E.128 desc[UR4][R6.64], R8 ;
+        /*0050*/                   BRA 0x80 ;
+        /*0060*/                   STG.E.U8 desc[UR4][R6.64], R9 ;
+        /*0070*/                   STG.E.U8 desc[UR4][R6.64+0x1], R10 ;
+        /*0080*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0090*/               @P1 BRA 0x10 ;               /* 0xfffffffc00e80947 */
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+        /*00c0*/                   NOP;
+		Function : _ZN12_GLOBAL__N_111table_kernelEPKhPf
+        /*0000*/                   MUFU.EX2 R5, R2 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_probe_crf_landmark_sass_loop():
+    """The K14 probe's SASS count (tools/probe_crf_landmark.py): the
+    innermost loop that holds an exp, its byte-store block left out, the
+    instructions over its exps; a kernel named by a substring of its
+    mangled name; no loop, or no such kernel, raises."""
+    from irn_tpu_torch.tools import probe_crf_landmark as probe
+
+    fns = probe.sass_functions(SASS)
+    assert len(fns) == 2
+    n, ex2, listing = probe.sass_loop(fns[next(iter(fns))])
+    assert (n, ex2) == (7, 1)
+    assert [line.split()[0] for line in listing] == [
+        "00010", "00020", "00030", "00040", "00050", "00080", "00090"]
+    per_entry, _ = probe.sass_per_entry(SASS, "rows_kernelILi1ELb0E")
+    assert per_entry == 7.0
+    with pytest.raises(RuntimeError):
+        probe.sass_per_entry(SASS, "table_kernel")
+    with pytest.raises(RuntimeError):
+        probe.sass_per_entry(SASS, "no_such_kernel")
