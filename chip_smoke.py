@@ -1059,8 +1059,8 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     bf16, f32), the store and the row sums bit-equal (the dense sums too:
     the twin adds in the kernel's lane order), the table pass alone equal
     to its twin; on the odd bucket also a row range and the sums alone.
-    Timed at the largest bucket with each store, the sums alone and the
-    rows plan not chosen, beside K14's first design
+    Timed at the largest bucket with each store and the sums alone, beside
+    K14's first design
     (``tools/crf_landmark_ieee.cu``, built on its own, its int8 store held
     within one step of the port's), and both designs' SASS instructions
     per entry of their int8 row loops."""
@@ -1114,16 +1114,11 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
         torch.cuda.empty_cache()
     sums_ms = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
                                                sums_only=True), 10)
-    chosen = cd.ROWS_PLAN[1]
-    other = (not chosen[0], chosen[1])
-    other_ms = cuda_ms(lambda: cd.landmark_rows(
-        planes, *CRF_EXTENT, plan=other), 10)
     plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 2)
     per_entry, _ = probe.sass_per_entry(sass, probe.NEW_KERNEL)
     parent_per_entry, _ = probe.sass_per_entry(
         probe.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)
     exps = n * s_land
-    route = {True: "staged ring", False: "registers"}
     res["crf_landmark"] = dict(
         max_abs_err=0.0,
         ms=store_ms["int8"],
@@ -1136,13 +1131,11 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
         parent_store_ms=parent_ms,
         sass_per_entry=per_entry,
         parent_sass_per_entry=parent_per_entry,
-        other_plan_ms=other_ms,
         shape=(f"image [3, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] uint8, extent "
                f"{CRF_EXTENT} -> int8 store [{n}, {s_land}] "
                f"({n * s_land / 1e9:.2f} GB) + f32 row sums, two launches "
-               f"(table, rows: table read into {route[chosen[0]]}, "
-               f"{chosen[1]} rows per warp; {route[other[0]]} "
-               f"{other_ms:.4f} ms); bf16 store {store_ms['bf16']:.4f} ms, "
+               f"(table, rows at {cd.WARP_ROWS[1]} rows per warp); bf16 "
+               f"store {store_ms['bf16']:.4f} ms, "
                f"f32 store {store_ms['f32']:.4f} ms, the sums alone "
                f"{sums_ms:.4f} ms; the first design int8 "
                f"{parent_ms['int8']:.4f}, bf16 {parent_ms['bf16']:.4f}, f32 "
@@ -3499,8 +3492,7 @@ def main() -> int:
                             "held_share_per_image", "phase_shares", "k3_ms",
                             "k13_ms", "exps", "exp_sfu_ms", "store_ms",
                             "sums_only_ms", "parent_ms", "parent_store_ms",
-                            "sass_per_entry", "parent_sass_per_entry",
-                            "other_plan_ms")
+                            "sass_per_entry", "parent_sass_per_entry")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -35,25 +35,23 @@
 // per block.
 //
 // Launch 2, the rows: a block of 4 warps owns 4 R consecutive pixel rows, R
-// per warp (warp_rows, a run-time plan), so every row sum is one warp's and
-// needs no atomics; at its start the block computes its rows' F_p and a_p
-// into shared memory. The warps walk the landmark columns in tiles of 32 V
-// (V = 16 / bytes per entry: 16 int8, 8 bf16, 4 f32): lane l owns the
-// columns tile0 + l V .. + V - 1, holds their six table values in registers
-// (96 at V 16) and reuses them for its warp's R rows. The tile comes either
-// straight from the table by 16-byte loads into each lane's registers, or
-// (kStaged) through a double-buffered shared-memory ring filled by bulk
-// copies behind mbarriers (each warp fences its reads of a slot against the
-// async proxy before it releases the slot); neither has a block-wide
-// barrier per tile. Per entry the int8 row loop issues ~12 instructions:
-// FMUL + 4 FFMA (c), FADD (t), FFMA + FMNMX (u), MUFU.EX2, FMUL 127 + the
-// magic FADD (the stored byte is the low byte of 127 k + 1.5 * 2^23), 3
-// PRMT per 4 entries to pack the bytes into one word and one IDP4A per 4
-// entries for the row sum. One
-// 16-byte store per lane and row, consecutive lanes on consecutive 16
-// bytes, so the [N, S] store is written once and coalesced (a row whose
-// start is not 16-byte aligned, or the ragged last tile, is written entry by
-// entry). No f32 intermediate reaches device memory.
+// per warp (warp_rows, a run-time plan: 32 for int8, 8 for bf16 and f32,
+// the fastest measured), so every row sum is one warp's and needs no
+// atomics; at its start the block computes its rows' F_p and a_p into
+// shared memory. The warps walk the landmark columns in tiles of 32 V (V =
+// 16 / bytes per entry: 16 int8, 8 bf16, 4 f32): lane l owns the columns
+// tile0 + l V .. + V - 1, loads their six table values straight from the
+// table into registers by 16-byte loads (96 registers at V 16; no
+// block-wide barrier per tile) and reuses them for its warp's R rows. Per
+// entry the int8 row loop issues ~12 instructions: FMUL + 4 FFMA (c), FADD
+// (t), FFMA + FMNMX (u), MUFU.EX2, FMUL 127 + the magic FADD (the stored
+// byte is the low byte of 127 k + 1.5 * 2^23), 3 PRMT per 4 entries to pack
+// the bytes into one word and one IDP4A per 4 entries for the row sum;
+// with the row's loads, checks and store ~14. One 16-byte store per lane
+// and row, consecutive lanes on consecutive 16 bytes, so the [N, S] store
+// is written once and coalesced (a row whose start is not 16-byte aligned,
+// or the ragged last tile, is written entry by entry). No f32 intermediate
+// reaches device memory.
 //
 // Bit-equality with crf_device.landmark_rows_plain on the card: every
 // product, sum and fma is written with __fmul_rn / __fadd_rn / __fmaf_rn in
@@ -79,11 +77,8 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "hopper.cuh"
 
 namespace {
-
-namespace hp = irn::hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -245,46 +240,18 @@ __device__ __forceinline__ void row_entries(const float (&P)[5], float a,
 }
 
 template <int kBytes>
-__host__ __device__ constexpr int tile_cols() {
-  return 32 * (16 / kBytes);
-}
-
-// dynamic shared memory of the rows pass: [the ring and its four
-// mbarriers (kStaged)] [pixel rows: 4 R x kPix f32] [row sums: 4 R x 32]
-template <int kBytes, bool kStaged>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return kStaged ? 2 * kTabRows * tile_cols<kBytes>() * 4 + 4 * 8 : 0;
-}
-
-// the table's tile t into ring slot t & 1 ([kTabRows][kTile] f32), its
-// bytes completing on the slot's full barrier bars[t & 1] (thread 0 only)
-template <int kTile>
-__device__ __forceinline__ void fill_slot(float* ring, uint64_t* bars,
-                                          const float* tab, int s_tab, int t) {
-  const int s = t & 1;
-  hp::mbar_expect_tx(&bars[s], kTabRows * kTile * 4);
-#pragma unroll
-  for (int k = 0; k < kTabRows; ++k)
-    hp::bulk_load(ring + (s * kTabRows + k) * kTile,
-                  tab + (size_t)k * s_tab + (size_t)t * kTile, kTile * 4,
-                  &bars[s]);
-}
-
-template <int kBytes, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     rows_kernel(const uint8_t* __restrict__ img, const float* __restrict__ tab,
                 uint8_t* __restrict__ store, float* __restrict__ sums,
                 Geometry g) {
   constexpr int V = 16 / kBytes;  // columns per lane and tile
-  constexpr int kTile = tile_cols<kBytes>();
+  constexpr int kTile = 32 * V;
   using Acc = typename std::conditional<kBytes == 1, int, float>::type;
-  extern __shared__ __align__(128) unsigned char smem[];
+  // [pixel rows: 4 R x kPix f32] [row sums: 4 R x 32 Acc]
+  extern __shared__ __align__(16) unsigned char smem[];
   const int R = g.warp_rows;
   const int block_rows = kWarps * R;
-  float* ring = reinterpret_cast<float*>(smem);  // [2][kTabRows][kTile]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + 2 * kTabRows * kTile * 4);  // full 0, 1; empty 0, 1
-  float* s_pix = reinterpret_cast<float*>(smem + ring_bytes<kBytes, kStaged>());
+  float* s_pix = reinterpret_cast<float*>(smem);
   Acc* s_acc = reinterpret_cast<Acc*>(s_pix + block_rows * kPix);
 
   const int lane = threadIdx.x & 31;
@@ -292,17 +259,6 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = g.r0 + blockIdx.x * block_rows;
   const int n_tiles = (g.s_cols + kTile - 1) / kTile;
 
-  if constexpr (kStaged) {
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < 2; ++s) {
-        hp::mbar_init(&bars[s], 1);
-        hp::mbar_init(&bars[2 + s], kWarps);
-      }
-      hp::fence_barrier_init();
-      for (int t = 0; t < 2 && t < n_tiles; ++t)
-        fill_slot<kTile>(ring, bars, tab, g.s_tab, t);
-    }
-  }
   for (int i = threadIdx.x; i < block_rows; i += kThreads) {
     const int p = row0 + i;
     float f[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
@@ -316,51 +272,24 @@ __global__ void __launch_bounds__(kThreads)
   // each lane's row sums are its own: written and read by this thread only
 #pragma unroll 1
   for (int rr = 0; rr < R; ++rr) s_acc[(warp * R + rr) * 32 + lane] = Acc(0);
-  __syncthreads();  // the pixel rows (and the mbarriers) are ready
+  __syncthreads();  // the pixel rows are ready
 
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
+    // the lane's V landmarks' six table values, by 16-byte loads from L2
     float lf[kTabRows][V];
-    if constexpr (kStaged) {
-      const int s = t & 1;
-      hp::mbar_wait(&bars[s], (t >> 1) & 1);
-      const float* src = ring + s * kTabRows * kTile + lane * V;
+    const float* src = tab + (size_t)t * kTile + lane * V;
 #pragma unroll
-      for (int k = 0; k < kTabRows; ++k)
+    for (int k = 0; k < kTabRows; ++k)
 #pragma unroll
-        for (int v = 0; v < V; v += 4) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(src + k * kTile + v);
-          lf[k][v] = x.x;
-          lf[k][v + 1] = x.y;
-          lf[k][v + 2] = x.z;
-          lf[k][v + 3] = x.w;
-        }
-      // the slot's next bulk copy (async proxy) must not overtake these
-      // reads (generic proxy): without the fence it did, at 1 row per warp
-      hp::fence_proxy_async_shared();
-      __syncwarp();
-      if (lane == 0) hp::mbar_arrive(&bars[2 + s]);
-      // slot (t + 1) & 1 held tile t - 1: refill it once every warp has
-      // read that tile
-      if (threadIdx.x == 0 && t >= 1 && t + 1 < n_tiles) {
-        hp::mbar_wait(&bars[2 + ((t - 1) & 1)], ((t - 1) >> 1) & 1);
-        fill_slot<kTile>(ring, bars, tab, g.s_tab, t + 1);
+      for (int v = 0; v < V; v += 4) {
+        const float4 x = __ldg(
+            reinterpret_cast<const float4*>(src + (size_t)k * g.s_tab + v));
+        lf[k][v] = x.x;
+        lf[k][v + 1] = x.y;
+        lf[k][v + 2] = x.z;
+        lf[k][v + 3] = x.w;
       }
-    } else {
-      const float* src = tab + (size_t)t * kTile + lane * V;
-#pragma unroll
-      for (int k = 0; k < kTabRows; ++k)
-#pragma unroll
-        for (int v = 0; v < V; v += 4) {
-          const float4 x = __ldg(
-              reinterpret_cast<const float4*>(src + (size_t)k * g.s_tab + v));
-          lf[k][v] = x.x;
-          lf[k][v + 1] = x.y;
-          lf[k][v + 2] = x.z;
-          lf[k][v + 3] = x.w;
-        }
-    }
     const int c0 = t * kTile + lane * V;
     const int nbytes = min(V, g.s_cols - c0) * kBytes;  // <= 0: none inside
 
@@ -409,27 +338,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kBytes, bool kStaged>
-cudaError_t launch_plan(const uint8_t* img, const float* tab, uint8_t* store,
-                        float* sums, const Geometry& g, cudaStream_t stream) {
-  const int block_rows = kWarps * g.warp_rows;
-  const size_t smem = ring_bytes<kBytes, kStaged>() +
-                      (size_t)block_rows * (kPix + 32) * 4;
-  auto kernel = rows_kernel<kBytes, kStaged>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = (g.r1 - g.r0 + block_rows - 1) / block_rows;
-  kernel<<<blocks, kThreads, smem, stream>>>(img, tab, store, sums, g);
-  return cudaGetLastError();
-}
-
 template <int kBytes>
 cudaError_t launch_rows(const uint8_t* img, const float* tab, uint8_t* store,
-                        float* sums, const Geometry& g, bool staged,
-                        cudaStream_t stream) {
-  return staged ? launch_plan<kBytes, true>(img, tab, store, sums, g, stream)
-                : launch_plan<kBytes, false>(img, tab, store, sums, g, stream);
+                        float* sums, const Geometry& g, cudaStream_t stream) {
+  const int block_rows = kWarps * g.warp_rows;
+  const size_t smem = (size_t)block_rows * (kPix + 32) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      rows_kernel<kBytes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (g.r1 - g.r0 + block_rows - 1) / block_rows;
+  rows_kernel<kBytes>
+      <<<blocks, kThreads, smem, stream>>>(img, tab, store, sums, g);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_table(const uint8_t* img, float* tab, const Geometry& g,
@@ -465,14 +386,13 @@ IRN_API int irn_crf_landmark_table(const uint8_t* img, float* tab, int ph,
 // K14: the table pass into tab [6, s_tab] f32 (scratch), then the rows;
 // store [r1 - r0, s_cols] of store_bytes per entry (1 int8, 2 bf16, 4 f32),
 // or null for the sums alone; sums [r1 - r0] f32. store_bytes also sets the
-// dense sums' order (V = 16 / store_bytes) in the sums-only mode. The plan:
-// staged (the table through the shared-memory ring) and warp_rows (pixel
-// rows per warp, 1 .. 64).
+// dense sums' order (V = 16 / store_bytes) in the sums-only mode. warp_rows:
+// pixel rows per warp (1 .. 64), the block 4 warp_rows.
 IRN_API int irn_crf_landmark(const uint8_t* img, float* tab, void* store,
                              float* sums, int ph, int pw, int eh, int ew,
                              int stride, int lw, int n_land, int s_cols,
                              int s_tab, int store_bytes, int r0, int r1,
-                             float sxy, float srgb, int staged, int warp_rows,
+                             float sxy, float srgb, int warp_rows,
                              cudaStream_t stream, int* launched) {
   const Geometry g{ph, pw, eh, ew, stride, stride / 2, lw, n_land, s_cols,
                    s_tab, r0, r1, warp_rows, sxy, srgb};
@@ -487,13 +407,13 @@ IRN_API int irn_crf_landmark(const uint8_t* img, float* tab, void* store,
   uint8_t* out = static_cast<uint8_t*>(store);
   switch (store_bytes) {
     case 1:
-      e = launch_rows<1>(img, tab, out, sums, g, staged != 0, stream);
+      e = launch_rows<1>(img, tab, out, sums, g, stream);
       break;
     case 2:
-      e = launch_rows<2>(img, tab, out, sums, g, staged != 0, stream);
+      e = launch_rows<2>(img, tab, out, sums, g, stream);
       break;
     default:
-      e = launch_rows<4>(img, tab, out, sums, g, staged != 0, stream);
+      e = launch_rows<4>(img, tab, out, sums, g, stream);
       break;
   }
   if (e != cudaSuccess) return (int)e;

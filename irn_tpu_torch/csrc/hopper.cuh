@@ -1,9 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
 // split product of K2 square_banded, K5 square_dense and K6
 // square_fused_first, K9 conv3x3), the cluster-resident K0 diag_chain and
-// the cooperative K3 packed_chain, K14 crf_landmark's table ring:
-// mbarriers, thread-block cluster barriers and distributed shared memory, a
-// grid barrier, TMA tile loads and bulk copies, the async-proxy fence,
+// the cooperative K3 packed_chain: mbarriers, thread-block cluster
+// barriers and distributed shared memory, a grid barrier, TMA tile loads,
 // the wgmma shared-memory descriptor and two wgmma shapes with 128 output
 // columns. Written as inline PTX; the tensor maps are encoded on the host
 // through the driver entry point that the runtime hands out, so the
@@ -96,15 +95,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
-}
-
-// Orders this thread's earlier generic-proxy accesses to shared memory
-// (plain loads and stores) before later async-proxy accesses (bulk and TMA
-// copies) that another thread issues after synchronizing with it: a
-// consumer runs it after reading a ring slot and before releasing the slot
-// to the producer's next copy into it.
-__device__ __forceinline__ void fence_proxy_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // -- thread-block clusters ---------------------------------------------------
@@ -200,18 +190,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A bulk copy (no tensor map) of ``bytes`` contiguous bytes, a multiple of
-// 16, from global to shared memory, both 16-byte aligned; its bytes
-// complete on ``bar``.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -191,7 +191,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     f = ctypes.c_float
     lib.irn_crf_landmark.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, i, p, n,
+        p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, p, n,
     ]
     lib.irn_crf_landmark_table.argtypes = [
         p, p, i, i, i, i, i, i, i, i, f, f, p, n,

@@ -1,6 +1,6 @@
 """Time K14's designs on one card: the port's two-launch kernel
-(``csrc/crf_landmark.cu`` through ``crf_device.landmark_rows``) under each
-rows plan, and its first design (``tools/crf_landmark_ieee.cu``, built
+(``csrc/crf_landmark.cu`` through ``crf_device.landmark_rows``) at each
+count of pixel rows per warp, and its first design (``tools/crf_landmark_ieee.cu``, built
 here on its own), and count each design's SASS instructions per entry:
 
   python -m irn_tpu_torch.tools.probe_crf_landmark [--reps 10]
@@ -9,13 +9,13 @@ here on its own), and count each design's SASS instructions per entry:
 Input: a scene of colour regions with noise at the 512 x 512 bucket
 (extent 500 x 500), made from seed 0 on the card. The first design's int8
 store is first held to the port's within one step of 127 (they round
-differently), a disagreement failing the run; every plan of the port is
-held to its default plan bit for bit. Times are mean device milliseconds
-per call (CUDA events, after one warm-up call), the designs in turns
-(port, first design, port), each plan the median of three rounds over all
-plans. Prints one JSON line: the card's name and
-power limit (nvidia-smi), per store the port's default ms, each plan's ms
-and the first design's ms, and the SASS instructions per entry of each
+differently), a disagreement failing the run; the port at every count of
+rows per warp is held to its default bit for bit. Times are mean device
+milliseconds per call (CUDA events, after one warm-up call), the designs
+in turns (port, first design, port), each count of rows per warp the
+median of three rounds over all counts. Prints one JSON line: the card's
+name and power limit (nvidia-smi), per store the port's default ms, its
+ms at each count of rows per warp and the first design's ms, and the SASS instructions per entry of each
 design's int8 row loop (``--sass_out`` writes both loops' listings).
 Needs a CUDA card. ``chip_smoke.py`` calls :func:`build`,
 :func:`ieee_rows` and :func:`sass_per_entry`.
@@ -39,13 +39,12 @@ SOURCE = os.path.join(HERE, "crf_landmark_ieee.cu")
 BUCKET = (512, 512)
 EXTENT = (500, 500)
 STORES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-# the rows plans timed: (table staged through shared memory, rows per warp)
-PLANS = ((False, 8), (False, 16), (False, 32), (False, 64), (True, 8),
-         (True, 16), (True, 32), (True, 64))
+# pixel rows per warp timed
+WARP_ROWS = (8, 16, 32, 64)
 ROUNDS = 3
 # each design's int8 row-loop kernel in the SASS: the port's rows pass
-# (rows_kernel<1, false>), the first design's landmark_kernel<1>
-NEW_KERNEL = "rows_kernelILi1ELb0E"
+# (rows_kernel<1>), the first design's landmark_kernel<1>
+NEW_KERNEL = "rows_kernelILi1E"
 IEEE_KERNEL = "landmark_kernelILi1E"
 
 
@@ -253,28 +252,30 @@ def main(argv: Optional[List[str]] = None) -> dict:
                ieee_int8_differ=hold_ieee(lib, planes, EXTENT), stores={})
     for name, store in STORES.items():
         want = cd.landmark_rows(planes, *EXTENT, store=store)
-        for plan in PLANS:
-            got = cd.landmark_rows(planes, *EXTENT, store=store, plan=plan)
+        for rows in WARP_ROWS:
+            got = cd.landmark_rows(planes, *EXTENT, store=store,
+                                   warp_rows=rows)
             if not (torch.equal(got[0], want[0])
                     and torch.equal(got[1], want[1])):
-                raise AssertionError(f"{name} plan {plan} differs")
+                raise AssertionError(f"{name} at {rows} rows per warp "
+                                     "differs")
         del got, want
 
-        def port(plan=None):
-            return cd.landmark_rows(planes, *EXTENT, store=store, plan=plan)
+        def port(rows=None):
+            return cd.landmark_rows(planes, *EXTENT, store=store,
+                                    warp_rows=rows)
 
         row = dict(port_ms=[cuda_ms(port, args.reps)])
         row["ieee_ms"] = cuda_ms(
             lambda: ieee_rows(lib, planes, *EXTENT, store), args.reps)
         row["port_ms"].append(cuda_ms(port, args.reps))
-        # each plan in ROUNDS rounds over all plans; the median per plan
-        times = {plan: [] for plan in PLANS}
+        # ROUNDS rounds over the counts; the median per count
+        times = {rows: [] for rows in WARP_ROWS}
         for _ in range(ROUNDS):
-            for plan in PLANS:
-                times[plan].append(cuda_ms(lambda: port(plan), args.reps))
-        row["plans_ms"] = {
-            f"{'staged' if s else 'registers'} {r}": sorted(t)[ROUNDS // 2]
-            for (s, r), t in times.items()}
+            for rows in WARP_ROWS:
+                times[rows].append(cuda_ms(lambda: port(rows), args.reps))
+        row["warp_rows_ms"] = {rows: sorted(t)[ROUNDS // 2]
+                               for rows, t in times.items()}
         res["stores"][name] = row
         torch.cuda.empty_cache()
     res["sums_only_ms"] = cuda_ms(lambda: cd.landmark_rows(

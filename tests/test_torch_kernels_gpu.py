@@ -1037,20 +1037,18 @@ def test_crf_landmark_table(cuda, kind, bucket, extent):
     assert not torch.isnan(got).any()
 
 
-@pytest.mark.parametrize("plan", [(False, 1), (False, 8), (False, 32),
-                                  (True, 1), (True, 16), (True, 64)])
+@pytest.mark.parametrize("warp_rows", [1, 3, 8, 16, 32, 64])
 @pytest.mark.parametrize("store", sorted(CRF_STORES))
-def test_crf_landmark_plans(cuda, plan, store):
-    """Every rows plan (the table read into registers or staged through the
-    shared-memory ring; 1 to 64 rows per warp) gives the twin's bits, on the
-    odd bucket (a ragged last tile, rows off alignment) with a row range,
-    and on a bucket of several tiles (S 1920: int8 four tiles, so the ring
-    is refilled twice)."""
+def test_crf_landmark_warp_rows(cuda, warp_rows, store):
+    """Every count of pixel rows per warp (1 to 64) gives the twin's bits,
+    on the odd bucket (a ragged last tile, rows off alignment) with a row
+    range, and on a bucket of several tiles (S 1920: int8 four)."""
     for bucket, extent, rows in (((92, 84), (89, 81), (37, 92 * 84 - 5)),
                                  ((192, 160), (190, 151), None)):
         planes = _crf_image("scene", *bucket).to(cuda)
         kw = dict(store=CRF_STORES[store], rows=rows)
-        got = crf_device.landmark_rows(planes, *extent, plan=plan, **kw)
+        got = crf_device.landmark_rows(planes, *extent, warp_rows=warp_rows,
+                                       **kw)
         want = crf_device.landmark_rows_plain(planes, *extent, **kw)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -1065,7 +1063,7 @@ def test_crf_landmark_refuses(cuda):
         crf_device.landmark_rows(planes.float(), 24, 28)
     with pytest.raises(ValueError):
         crf_device.landmark_rows(planes, 24, 28, rows=(3, 3))
-    for plan in ((False, 0), (True, 65)):
+    for warp_rows in (0, 65):
         with pytest.raises(RuntimeError):
-            crf_device.landmark_rows(planes, 24, 28, plan=plan)
+            crf_device.landmark_rows(planes, 24, 28, warp_rows=warp_rows)
     assert not any(_build.LAUNCHES.values())

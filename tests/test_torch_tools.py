@@ -83,7 +83,7 @@ def test_tools_refuse_a_missing_card(monkeypatch):
 
 SASS = """\
 	code for sm_90a
-		Function : _ZN12_GLOBAL__N_111rows_kernelILi1ELb0EEEvPKhPKf
+		Function : _ZN12_GLOBAL__N_111rows_kernelILi1EEEvPKhPKfPhPf
 	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
         /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
         /*0010*/                   FMUL R2, R3, R4 ;        /* 0x0000000403027220 */
@@ -117,7 +117,7 @@ def test_probe_crf_landmark_sass_loop():
     assert (n, ex2) == (7, 1)
     assert [line.split()[0] for line in listing] == [
         "00010", "00020", "00030", "00040", "00050", "00080", "00090"]
-    per_entry, _ = probe.sass_per_entry(SASS, "rows_kernelILi1ELb0E")
+    per_entry, _ = probe.sass_per_entry(SASS, "rows_kernelILi1E")
     assert per_entry == 7.0
     with pytest.raises(RuntimeError):
         probe.sass_per_entry(SASS, "table_kernel")
