@@ -1102,19 +1102,19 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     ieee = probe.load(ieee_path)
     differ = probe.hold_ieee(ieee, planes, CRF_EXTENT)
     torch.cuda.empty_cache()
-    # the designs in turns: port, first design, port
+    # the designs in turns (port, first design, first design, port), each
+    # the mean of its two
     store_ms, parent_ms = {}, {}
     for name, store in CRF_STORES.items():
-        t0 = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
-                                              store=store), 10)
-        parent_ms[name] = cuda_ms(lambda: probe.ieee_rows(
-            ieee, planes, *CRF_EXTENT, store), 10)
-        store_ms[name] = min(t0, cuda_ms(lambda: cd.landmark_rows(
-            planes, *CRF_EXTENT, store=store), 10))
+        fns = (lambda: cd.landmark_rows(planes, *CRF_EXTENT, store=store),
+               lambda: probe.ieee_rows(ieee, planes, *CRF_EXTENT, store))
+        t = [cuda_ms(fns[i], 10) for i in (0, 1, 1, 0)]
+        store_ms[name] = (t[0] + t[3]) / 2
+        parent_ms[name] = (t[1] + t[2]) / 2
         torch.cuda.empty_cache()
     sums_ms = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
                                                sums_only=True), 10)
-    plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 2)
+    plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 1)
     per_entry, _ = probe.sass_per_entry(sass, probe.NEW_KERNEL)
     parent_per_entry, _ = probe.sass_per_entry(
         probe.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)

@@ -70,8 +70,11 @@
 // Bound on this card: bytes. At the 512 x 512 bucket (N 262,144, S 16,384)
 // the int8 store is 4.29 GB: 1.28 ms at 3.35 TB/s (bf16 2.56 ms, f32 5.13
 // ms); the 4.3e9 exps are ~1.0 ms on the SFUs (16 per SM and clock), and
-// ~12 instructions per entry are ~1.5 ms of issue at 132 SMs x 128 lanes x
-// 1.98 GHz, level with the store.
+// the ~13.6 SASS instructions per int8 entry ~1.7 ms of issue at 132 SMs x
+// 128 lanes x 1.98 GHz: the int8 kernel is bound by its instruction rate
+// (2.31 ms measured on an H100 SXM at 700 W, against 5.23 for the first
+// design's ~29.7 instructions per entry; tools/probe_crf_landmark.py), the
+// f32 store by its bytes.
 
 #include <cstdint>
 #include <type_traits>
@@ -159,8 +162,9 @@ __device__ __forceinline__ float entry(const float (&P)[5], float a,
   }
 }
 
-// entries E, E + 1, .. of w to dst while they lie inside the row's first
-// nbytes (E a template argument, so w stays in registers)
+// entries E, E + 1, .. of w to dst (kBytes-aligned) while they lie inside
+// the row's first nbytes: a row that is not 16-byte aligned, or the ragged
+// last tile (E a template argument, so w stays in registers)
 template <int kBytes, int E>
 __device__ __forceinline__ void write_entries(uint8_t* dst,
                                               const uint32_t (&w)[4],
@@ -176,19 +180,6 @@ __device__ __forceinline__ void write_entries(uint8_t* dst,
       reinterpret_cast<uint32_t*>(dst)[E] = w[E];
     }
     write_entries<kBytes, E + 1>(dst, w, nbytes);
-  }
-}
-
-// 16 bytes at dst, of which the first nbytes are inside the row: one vector
-// store when all are and dst is 16-byte aligned, else entry by entry (dst is
-// kBytes-aligned)
-template <int kBytes>
-__device__ __forceinline__ void write16(uint8_t* dst, const uint32_t (&w)[4],
-                                        int nbytes) {
-  if (nbytes == 16 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-    write_entries<kBytes, 0>(dst, w, nbytes);
   }
 }
 
@@ -258,6 +249,11 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   const int row0 = g.r0 + blockIdx.x * block_rows;
   const int n_tiles = (g.s_cols + kTile - 1) / kTile;
+  // every row starts 16-byte aligned when the store does and a row is a
+  // multiple of 16 bytes: then a lane's full tile is one vector store
+  const size_t row_bytes = (size_t)g.s_cols * kBytes;
+  const bool rows_aligned =
+      ((reinterpret_cast<uintptr_t>(store) | row_bytes) & 15) == 0;
 
   for (int i = threadIdx.x; i < block_rows; i += kThreads) {
     const int p = row0 + i;
@@ -292,12 +288,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     const int c0 = t * kTile + lane * V;
     const int nbytes = min(V, g.s_cols - c0) * kBytes;  // <= 0: none inside
+    // per lane and tile: every row one vector store, or entry by entry
+    const bool vector = store != nullptr && rows_aligned && nbytes == 16;
+    const bool bytes = store != nullptr && !vector && nbytes > 0;
+    size_t at = (size_t)(row0 + warp * R - g.r0) * row_bytes + c0 * kBytes;
 
 #pragma unroll 1
-    for (int rr = 0; rr < R; ++rr) {
+    for (int rr = 0; rr < R; ++rr, at += row_bytes) {
       const int lr = warp * R + rr;
-      const int p = row0 + lr;
-      if (p >= g.r1) break;  // uniform over the warp
+      if (row0 + lr >= g.r1) break;  // uniform over the warp
       const float4 pa = *reinterpret_cast<const float4*>(s_pix + lr * kPix);
       const float4 pb =
           *reinterpret_cast<const float4*>(s_pix + lr * kPix + 4);
@@ -306,9 +305,12 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t w[4];
       row_entries<kBytes, V>(P, pb.y, lf, w, acc);
       s_acc[lr * 32 + lane] = acc;
-      if (store != nullptr && nbytes > 0)
-        write16<kBytes>(store + ((size_t)(p - g.r0) * g.s_cols + c0) * kBytes,
-                        w, nbytes);
+      if (vector) {
+        *reinterpret_cast<uint4*>(store + at) = make_uint4(w[0], w[1], w[2],
+                                                           w[3]);
+      } else if (bytes) {
+        write_entries<kBytes, 0>(store + at, w, nbytes);
+      }
     }
   }
 

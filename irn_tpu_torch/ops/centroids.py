@@ -27,14 +27,13 @@ ITERATIONS = 300
 BASIN_THRES = 2.5
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
-            ) -> torch.Tensor:
-    """``a * b + c`` of f32 tensors with one rounding, as a fused
-    multiply-add (``__fmaf_rn``). The product is exact in f64; the sum is
+def _fma_f32_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                 ) -> torch.Tensor:
+    """fma_f32 by round-to-odd: the product is exact in f64; the sum is
     rounded to odd in f64 (``TwoSum`` gives its exact error, and an inexact
     sum with an even last bit steps one ulp toward the exact value), and
     the cast to f32 then rounds the exact value correctly (53 >= 24 + 2
-    bits: Boldo and Melquiond's round-to-odd)."""
+    bits: Boldo and Melquiond's round-to-odd). Finite inputs only."""
     p = a.double() * b.double()
     c = c.double()
     s = p + c
@@ -47,6 +46,26 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
                                     device=s.device))
     s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
     return s.float()
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors (broadcast) with one rounding, as a
+    fused multiply-add (``__fmaf_rn``). The product is exact in f64, so s =
+    RN64(a b + c) is one f64 rounding, and RN32(s) is the correctly rounded
+    result unless s lies exactly halfway between two f32 values: every f32
+    midpoint is an f64 number, so the exact sum and s lie on one side of
+    it. Those sums (low 29 bits of the f64 mantissa 1 << 28), and the sums
+    in f32's subnormal range (other midpoints), go through the
+    round-to-odd path (:func:`_fma_f32_odd`)."""
+    s = torch.addcmul(c.double(), a.double(), b.double())
+    out = s.float()
+    suspect = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (
+        (s.abs() < 2.0 ** -126) & (s != 0))
+    if bool(suspect.any()):
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        out[suspect] = _fma_f32_odd(a[suspect], b[suspect], c[suspect])
+    return out
 
 
 def advect_plain(dp: torch.Tensor, h4: int, w4: int,

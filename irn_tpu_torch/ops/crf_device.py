@@ -189,7 +189,8 @@ def landmark_table_plain(planes: torch.Tensor, eh: int, ew: int, *,
     jy, jx = jy.reshape(-1), jx.reshape(-1)
     n_land = lh * lw
     f = _scaled_features(planes, sxy, srgb)(jy, jx)
-    # b from the finite features first: fma_f32 turns an infinity into NaN
+    # b from the finite features first (fma_f32's exact path takes finite
+    # inputs only), +inf for the invalid landmarks after
     b = torch.where((jy < eh) & (jx < ew), _chain(f, f),
                     torch.full((), math.inf, device=dev))
     table = torch.zeros((TABLE_ROWS, table_columns(n_land)),

@@ -1,7 +1,8 @@
 """Time K14's designs on one card: the port's two-launch kernel
 (``csrc/crf_landmark.cu`` through ``crf_device.landmark_rows``) at each
-count of pixel rows per warp, and its first design (``tools/crf_landmark_ieee.cu``, built
-here on its own), and count each design's SASS instructions per entry:
+count of pixel rows per warp, and its first design
+(``tools/crf_landmark_ieee.cu``, built here on its own), and count each
+design's SASS instructions per entry:
 
   python -m irn_tpu_torch.tools.probe_crf_landmark [--reps 10]
       [--sass_out FILE]
@@ -11,14 +12,16 @@ Input: a scene of colour regions with noise at the 512 x 512 bucket
 store is first held to the port's within one step of 127 (they round
 differently), a disagreement failing the run; the port at every count of
 rows per warp is held to its default bit for bit. Times are mean device
-milliseconds per call (CUDA events, after one warm-up call), the designs
-in turns (port, first design, port), each count of rows per warp the
-median of three rounds over all counts. Prints one JSON line: the card's
-name and power limit (nvidia-smi), per store the port's default ms, its
-ms at each count of rows per warp and the first design's ms, and the SASS instructions per entry of each
+milliseconds per call (CUDA events, after one warm-up call): the designs
+in turns (port, first design, first design, port), each count of rows per
+warp the median of three rounds over all counts. Prints one JSON line:
+the card's name and power limit (nvidia-smi), per store the port's and
+the first design's ms (two each) and the port's ms at each count of rows
+per warp, the sums alone, and the SASS instructions per entry of each
 design's int8 row loop (``--sass_out`` writes both loops' listings).
-Needs a CUDA card. ``chip_smoke.py`` calls :func:`build`,
-:func:`ieee_rows` and :func:`sass_per_entry`.
+Needs a CUDA card. ``chip_smoke.py`` calls :func:`build`, :func:`load`,
+:func:`hold_ieee`, :func:`ieee_rows`, :func:`cuobjdump_sass` and
+:func:`sass_per_entry`.
 """
 
 from __future__ import annotations
@@ -265,10 +268,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
             return cd.landmark_rows(planes, *EXTENT, store=store,
                                     warp_rows=rows)
 
-        row = dict(port_ms=[cuda_ms(port, args.reps)])
-        row["ieee_ms"] = cuda_ms(
-            lambda: ieee_rows(lib, planes, *EXTENT, store), args.reps)
-        row["port_ms"].append(cuda_ms(port, args.reps))
+        fns = (port, lambda: ieee_rows(lib, planes, *EXTENT, store))
+        t = [cuda_ms(fns[i], args.reps) for i in (0, 1, 1, 0)]
+        row = dict(port_ms=[t[0], t[3]], ieee_ms=[t[1], t[2]])
         # ROUNDS rounds over the counts; the median per count
         times = {rows: [] for rows in WARP_ROWS}
         for _ in range(ROUNDS):

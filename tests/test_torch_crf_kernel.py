@@ -291,7 +291,8 @@ def test_table_against_rounded_float64(case):
                          indexing="ij")
     jy, jx = jy.reshape(-1), jx.reshape(-1)
     s = jy.size
-    assert table.shape == (6, cd.table_columns(s)) and table.shape[1] % 512 == 0
+    assert table.shape == (6, cd.table_columns(s))
+    assert table.shape[1] % 512 == 0
     f32 = np.float32
     f = [jx.astype(f32) / f32(50), jy.astype(f32) / f32(50),
          *(img[c][jy, jx].astype(f32) / f32(5) for c in range(3))]
@@ -344,7 +345,8 @@ def test_no_nan_with_invalid_columns(case, store):
         k, d = _build_rows(img, eh, ew, STORES[store], rows=rows)
         kf = k.float()
         assert torch.isfinite(kf).all() and torch.isfinite(d).all()
-        assert (kf >= 0).all() and (kf <= (127 if store == "int8" else 1)).all()
+        top = 127 if store == "int8" else 1
+        assert (kf >= 0).all() and (kf <= top).all()
         assert (d >= 0).all() and (d > 0).any()
 
 

@@ -112,6 +112,40 @@ def test_fma_f32_rounds_once(rng):
         assert got[i].item() == float(want), i
 
 
+def test_fma_f32_double_rounding_cases():
+    """Sums whose f64 rounding lands exactly halfway between two f32 values
+    (a plain f64 sum cast to f32 rounds them the wrong way), and results in
+    f32's subnormal range, equal the correctly rounded a * b + c: the fast
+    path hands them to the round-to-odd path, which agrees with it on 4096
+    broadcast random entries."""
+    from fractions import Fraction
+
+    f32 = np.float32
+    cases = [(1 + 2.0 ** -23, 1 - 2.0 ** -23, 2.0 ** 24 + 2),
+             (1 + 2.0 ** -23, 1 - 2.0 ** -23, -(2.0 ** 24 + 2)),
+             (-(1 + 2.0 ** -23), 1 - 2.0 ** -23, 2.0 ** 24 + 2),
+             (1 + 2.0 ** -23, -(1 - 2.0 ** -23), 2.0 ** 20 + 0.25),
+             (2.0 ** -70, 2.0 ** -70, 0.0), (3e-39, 1.5, 1e-45),
+             (1e-30, 1e-10, -1e-40)]
+    a, b, c = (np.array([x[i] for x in cases], f32) for i in range(3))
+    got = centroids.fma_f32(*(torch.from_numpy(v) for v in (a, b, c)))
+    naive = (a.astype(np.float64) * b + c).astype(f32)
+    assert (naive[:3] != got.numpy()[:3]).all()  # the cases bite
+    for i in range(len(cases)):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(
+            float(c[i]))
+        f = f32(float(exact))
+        near = [np.nextafter(f, f32(-np.inf)), f, np.nextafter(f, f32(np.inf))]
+        want = min(near, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                        int(np.array(v).view(np.int32)) & 1))
+        assert got[i].item() == float(want), i
+    g = torch.Generator().manual_seed(0)
+    x, y = torch.randn((64, 1), generator=g), torch.randn((1, 64), generator=g)
+    z = torch.randn((64, 64), generator=g)
+    assert torch.equal(centroids.fma_f32(x, y, z),
+                       centroids._fma_f32_odd(x, y, z))
+
+
 def test_advect_rejects_bad_extent():
     with pytest.raises(ValueError, match="extent"):
         centroids.advect(torch.zeros(2, 8, 8), 9, 8)
