@@ -399,7 +399,6 @@ def build_report(here: str) -> tuple:
     HGMMA, or a wgmma kernel's or a SPILL_CHECKED source spills. Returns
     (the HGMMA counts, the library's SASS listing)."""
     from irn_tpu_torch.ops import _build
-    from irn_tpu_torch.tools.probe_crf_landmark import cuobjdump_sass
 
     _build.load()
     info = _build.BUILD_INFO
@@ -414,7 +413,7 @@ def build_report(here: str) -> tuple:
                       if any(int(v) for v in re.findall(
                           r"(\d+) bytes spill (?:stores|loads)", ln))]
             check(not spills, f"{src}: register spills {spills}")
-    sass = cuobjdump_sass(info["path"])
+    sass = _build.cuobjdump_sass(info["path"])
     counts = hgmma_counts(sass)
     print(f"HGMMA instructions per kernel source: {counts}", flush=True)
     for k in WGMMA_KERNELS:
@@ -1117,7 +1116,7 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 1)
     per_entry, _ = probe.sass_per_entry(sass, probe.NEW_KERNEL)
     parent_per_entry, _ = probe.sass_per_entry(
-        probe.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)
+        _build.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)
     exps = n * s_land
     res["crf_landmark"] = dict(
         max_abs_err=0.0,
@@ -1134,7 +1133,7 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
         shape=(f"image [3, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] uint8, extent "
                f"{CRF_EXTENT} -> int8 store [{n}, {s_land}] "
                f"({n * s_land / 1e9:.2f} GB) + f32 row sums, two launches "
-               f"(table, rows at {cd.WARP_ROWS[1]} rows per warp); bf16 "
+               f"(table, rows); bf16 "
                f"store {store_ms['bf16']:.4f} ms, "
                f"f32 store {store_ms['f32']:.4f} ms, the sums alone "
                f"{sums_ms:.4f} ms; the first design int8 "

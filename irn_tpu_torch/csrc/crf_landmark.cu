@@ -35,8 +35,8 @@
 // per block.
 //
 // Launch 2, the rows: a block of 4 warps owns 4 R consecutive pixel rows, R
-// per warp (warp_rows, a run-time plan: 32 for int8, 8 for bf16 and f32,
-// the fastest measured), so every row sum is one warp's and needs no
+// per warp (kWarpRows: 32 for int8, 8 for bf16 and f32, the fastest of 8,
+// 16, 32 and 64 measured), so every row sum is one warp's and needs no
 // atomics; at its start the block computes its rows' F_p and a_p into
 // shared memory. The warps walk the landmark columns in tiles of 32 V (V =
 // 16 / bytes per entry: 16 int8, 8 bf16, 4 f32): lane l owns the columns
@@ -89,12 +89,14 @@ constexpr int kTabRows = 6;     // F_0 .. F_4, then b
 constexpr int kTabAlign = 512;  // the table's columns: whole tiles
 constexpr int kPix = 8;         // floats per pixel row in shared memory
 constexpr int kTableThreads = 256;
-constexpr int kMaxWarpRows = 64;
 constexpr float kSigma = 0x1.b2da4ep-1f;  // 0x3f596d27
 
+// pixel rows per warp of the rows pass, per store's bytes per entry
+template <int kBytes>
+constexpr int kWarpRows = kBytes == 1 ? 32 : 8;
+
 struct Geometry {
-  int ph, pw, eh, ew, stride, off, lw, n_land, s_cols, s_tab, r0, r1,
-      warp_rows;
+  int ph, pw, eh, ew, stride, off, lw, n_land, s_cols, s_tab, r0, r1;
   float sxy, srgb;
 };
 
@@ -237,13 +239,11 @@ __global__ void __launch_bounds__(kThreads)
                 Geometry g) {
   constexpr int V = 16 / kBytes;  // columns per lane and tile
   constexpr int kTile = 32 * V;
+  constexpr int R = kWarpRows<kBytes>;
+  constexpr int block_rows = kWarps * R;
   using Acc = typename std::conditional<kBytes == 1, int, float>::type;
-  // [pixel rows: 4 R x kPix f32] [row sums: 4 R x 32 Acc]
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int R = g.warp_rows;
-  const int block_rows = kWarps * R;
-  float* s_pix = reinterpret_cast<float*>(smem);
-  Acc* s_acc = reinterpret_cast<Acc*>(s_pix + block_rows * kPix);
+  __shared__ __align__(16) float s_pix[block_rows * kPix];
+  __shared__ Acc s_acc[block_rows * 32];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -270,6 +270,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int rr = 0; rr < R; ++rr) s_acc[(warp * R + rr) * 32 + lane] = Acc(0);
   __syncthreads();  // the pixel rows are ready
 
+  // the warp's rows inside [r0, r1): a trip count, because a break in the
+  // row loop measured slower at int8 (tools/probe_crf_landmark.py)
+  const int rows_here = max(0, min(R, g.r1 - (row0 + warp * R)));
 #pragma unroll 1
   for (int t = 0; t < n_tiles; ++t) {
     // the lane's V landmarks' six table values, by 16-byte loads from L2
@@ -294,9 +297,8 @@ __global__ void __launch_bounds__(kThreads)
     size_t at = (size_t)(row0 + warp * R - g.r0) * row_bytes + c0 * kBytes;
 
 #pragma unroll 1
-    for (int rr = 0; rr < R; ++rr, at += row_bytes) {
+    for (int rr = 0; rr < rows_here; ++rr, at += row_bytes) {
       const int lr = warp * R + rr;
-      if (row0 + lr >= g.r1) break;  // uniform over the warp
       const float4 pa = *reinterpret_cast<const float4*>(s_pix + lr * kPix);
       const float4 pb =
           *reinterpret_cast<const float4*>(s_pix + lr * kPix + 4);
@@ -343,15 +345,10 @@ __global__ void __launch_bounds__(kThreads)
 template <int kBytes>
 cudaError_t launch_rows(const uint8_t* img, const float* tab, uint8_t* store,
                         float* sums, const Geometry& g, cudaStream_t stream) {
-  const int block_rows = kWarps * g.warp_rows;
-  const size_t smem = (size_t)block_rows * (kPix + 32) * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      rows_kernel<kBytes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
+  constexpr int block_rows = kWarps * kWarpRows<kBytes>;
   const int blocks = (g.r1 - g.r0 + block_rows - 1) / block_rows;
   rows_kernel<kBytes>
-      <<<blocks, kThreads, smem, stream>>>(img, tab, store, sums, g);
+      <<<blocks, kThreads, 0, stream>>>(img, tab, store, sums, g);
   return cudaGetLastError();
 }
 
@@ -377,7 +374,7 @@ IRN_API int irn_crf_landmark_table(const uint8_t* img, float* tab, int ph,
                                    float srgb, cudaStream_t stream,
                                    int* launched) {
   const Geometry g{ph, pw, eh, ew, stride, stride / 2, lw, n_land, n_land,
-                   s_tab, 0, 1, 1, sxy, srgb};
+                   s_tab, 0, 1, sxy, srgb};
   if (!table_ok(img, tab, g)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = launch_table(img, tab, g, stream);
   if (e != cudaSuccess) return (int)e;
@@ -388,19 +385,17 @@ IRN_API int irn_crf_landmark_table(const uint8_t* img, float* tab, int ph,
 // K14: the table pass into tab [6, s_tab] f32 (scratch), then the rows;
 // store [r1 - r0, s_cols] of store_bytes per entry (1 int8, 2 bf16, 4 f32),
 // or null for the sums alone; sums [r1 - r0] f32. store_bytes also sets the
-// dense sums' order (V = 16 / store_bytes) in the sums-only mode. warp_rows:
-// pixel rows per warp (1 .. 64), the block 4 warp_rows.
+// dense sums' order (V = 16 / store_bytes) in the sums-only mode.
 IRN_API int irn_crf_landmark(const uint8_t* img, float* tab, void* store,
                              float* sums, int ph, int pw, int eh, int ew,
                              int stride, int lw, int n_land, int s_cols,
                              int s_tab, int store_bytes, int r0, int r1,
-                             float sxy, float srgb, int warp_rows,
-                             cudaStream_t stream, int* launched) {
+                             float sxy, float srgb, cudaStream_t stream,
+                             int* launched) {
   const Geometry g{ph, pw, eh, ew, stride, stride / 2, lw, n_land, s_cols,
-                   s_tab, r0, r1, warp_rows, sxy, srgb};
+                   s_tab, r0, r1, sxy, srgb};
   if (!table_ok(img, tab, g) || !sums || s_cols < n_land || s_tab < s_cols ||
       r0 < 0 || r1 <= r0 || (long long)r1 > (long long)ph * pw ||
-      warp_rows < 1 || warp_rows > kMaxWarpRows ||
       (store_bytes != 1 && store_bytes != 2 && store_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = launch_table(img, tab, g, stream);

@@ -31,7 +31,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -191,7 +191,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     f = ctypes.c_float
     lib.irn_crf_landmark.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, f, i, p, n,
+        p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, f, p, n,
     ]
     lib.irn_crf_landmark_table.argtypes = [
         p, p, i, i, i, i, i, i, i, i, f, f, p, n,
@@ -258,3 +258,36 @@ def is_plain(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain twin for device {t.device}")
+
+
+def cuobjdump_sass(path: str) -> str:
+    """``cuobjdump -sass`` of a built library (the toolkit's cuobjdump, or
+    Triton's copy of it)."""
+    cands = [os.path.join(os.environ.get(v, ""), "bin", "cuobjdump")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands += [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    exe = next((c for c in cands
+                if c and os.path.isfile(c) and os.access(c, os.X_OK)), None)
+    if exe is None:
+        raise RuntimeError("cuobjdump not found (toolkit or triton)")
+    return subprocess.run([exe, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_functions(sass: str) -> Dict[str, List[str]]:
+    """The SASS listing's lines per ``Function :`` (mangled name)."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out

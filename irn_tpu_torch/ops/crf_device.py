@@ -57,9 +57,6 @@ SIGMA_BITS = 0x3F596D27
 # multiple of the widest tile (32 lanes x 16 int8 columns)
 TABLE_ROWS = 6
 TABLE_ALIGN = 512
-# K14's rows pass: pixel rows per warp for each store's bytes per entry (the
-# fastest measured at the 512 x 512 bucket on the H100)
-WARP_ROWS = {1: 32, 2: 8, 4: 8}
 
 
 def _toeplitz(n: int, taps: torch.Tensor) -> torch.Tensor:
@@ -268,8 +265,7 @@ def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
                   stride: int = 4, sxy: float = 50.0, srgb: float = 5.0,
                   store: torch.dtype = torch.int8,
                   rows: Optional[Tuple[int, int]] = None,
-                  sums_only: bool = False,
-                  warp_rows: Optional[int] = None):
+                  sums_only: bool = False):
     """The bilateral landmark kernel of one image and its f32 row sums:
     (store [r1 - r0, S'] or None, sums [r1 - r0]) for the pixel rows
     [r0, r1) (default all) of the image planes [3, H, W] uint8 (the packed
@@ -290,8 +286,7 @@ def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
 
     On the card two launches of K14 (``csrc/crf_landmark.cu``: the table
     pass, then the rows), bit-equal to :func:`landmark_rows_plain`; on the
-    CPU the twin. ``warp_rows`` (pixel rows per warp of the rows pass, 1 ..
-    64; the result does not depend on it) defaults to ``WARP_ROWS``."""
+    CPU the twin."""
     if _build.is_plain(planes):
         return landmark_rows_plain(planes, eh, ew, stride=stride, sxy=sxy,
                                    srgb=srgb, store=store, rows=rows,
@@ -309,12 +304,10 @@ def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
     out = None if sums_only else torch.empty((r1 - r0, s_cols), dtype=store,
                                              device=dev)
     sums = torch.empty(r1 - r0, dtype=torch.float32, device=dev)
-    if warp_rows is None:
-        warp_rows = WARP_ROWS[store.itemsize]
     _build.launch("crf_landmark", dev, planes.data_ptr(), table.data_ptr(),
                   None if out is None else out.data_ptr(), sums.data_ptr(),
                   h, w, eh, ew, stride, lw, lh * lw, s_cols, table.shape[1],
-                  store.itemsize, r0, r1, sxy, srgb, warp_rows)
+                  store.itemsize, r0, r1, sxy, srgb)
     return out, sums
 
 

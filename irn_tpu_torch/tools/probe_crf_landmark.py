@@ -1,8 +1,7 @@
 """Time K14's designs on one card: the port's two-launch kernel
-(``csrc/crf_landmark.cu`` through ``crf_device.landmark_rows``) at each
-count of pixel rows per warp, and its first design
-(``tools/crf_landmark_ieee.cu``, built here on its own), and count each
-design's SASS instructions per entry:
+(``csrc/crf_landmark.cu`` through ``crf_device.landmark_rows``) and its
+first design (``tools/crf_landmark_ieee.cu``, built here on its own), and
+count each design's SASS instructions per entry:
 
   python -m irn_tpu_torch.tools.probe_crf_landmark [--reps 10]
       [--sass_out FILE]
@@ -10,17 +9,14 @@ design's SASS instructions per entry:
 Input: a scene of colour regions with noise at the 512 x 512 bucket
 (extent 500 x 500), made from seed 0 on the card. The first design's int8
 store is first held to the port's within one step of 127 (they round
-differently), a disagreement failing the run; the port at every count of
-rows per warp is held to its default bit for bit. Times are mean device
-milliseconds per call (CUDA events, after one warm-up call): the designs
-in turns (port, first design, first design, port), each count of rows per
-warp the median of three rounds over all counts. Prints one JSON line:
+differently), a disagreement failing the run. Times are mean device
+milliseconds per call (CUDA events, after one warm-up call), the designs
+in turns (port, first design, first design, port). Prints one JSON line:
 the card's name and power limit (nvidia-smi), per store the port's and
-the first design's ms (two each) and the port's ms at each count of rows
-per warp, the sums alone, and the SASS instructions per entry of each
-design's int8 row loop (``--sass_out`` writes both loops' listings).
-Needs a CUDA card. ``chip_smoke.py`` calls :func:`build`, :func:`load`,
-:func:`hold_ieee`, :func:`ieee_rows`, :func:`cuobjdump_sass` and
+the first design's ms (two each), the sums alone, and the SASS
+instructions per entry of each design's int8 row loop (``--sass_out``
+writes both loops' listings). Needs a CUDA card. ``chip_smoke.py`` calls
+:func:`build`, :func:`load`, :func:`hold_ieee`, :func:`ieee_rows` and
 :func:`sass_per_entry`.
 """
 
@@ -31,7 +27,6 @@ import ctypes
 import json
 import os
 import re
-import shutil
 import subprocess
 from typing import Dict, List, Optional, Tuple
 
@@ -42,9 +37,8 @@ SOURCE = os.path.join(HERE, "crf_landmark_ieee.cu")
 BUCKET = (512, 512)
 EXTENT = (500, 500)
 STORES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-# pixel rows per warp timed
-WARP_ROWS = (8, 16, 32, 64)
-ROUNDS = 3
+# rows per slice when the first design is held to the port
+HOLD_ROWS = 4096
 # each design's int8 row-loop kernel in the SASS: the port's rows pass
 # (rows_kernel<1>), the first design's landmark_kernel<1>
 NEW_KERNEL = "rows_kernelILi1E"
@@ -81,20 +75,22 @@ def load(path: str) -> ctypes.CDLL:
 
 def ieee_rows(lib: ctypes.CDLL, planes: torch.Tensor, eh: int, ew: int,
               store: torch.dtype, stride: int = 4, sxy: float = 50.0,
-              srgb: float = 5.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first design's (store [N, S'], sums [N]) of all rows, one
-    launch on the current stream."""
+              srgb: float = 5.0, rows: Optional[Tuple[int, int]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first design's (store [r1 - r0, S'], sums [r1 - r0]) of the
+    rows [r0, r1) (default all), one launch on the current stream."""
     from irn_tpu_torch.ops import crf_device as cd
 
     _, h, w = planes.shape
+    r0, r1 = rows if rows is not None else (0, h * w)
     lh, lw = cd.landmark_grid(h, w, stride)
     s_cols = cd.landmark_columns(lh * lw, store)
-    out = torch.empty((h * w, s_cols), dtype=store, device=planes.device)
-    sums = torch.empty(h * w, dtype=torch.float32, device=planes.device)
+    out = torch.empty((r1 - r0, s_cols), dtype=store, device=planes.device)
+    sums = torch.empty(r1 - r0, dtype=torch.float32, device=planes.device)
     launched = ctypes.c_int(0)
     status = lib.irn_crf_landmark_ieee(
         planes.data_ptr(), out.data_ptr(), sums.data_ptr(), h, w, eh, ew,
-        stride, lw, lh * lw, s_cols, store.itemsize, 0, h * w, sxy, srgb,
+        stride, lw, lh * lw, s_cols, store.itemsize, r0, r1, sxy, srgb,
         torch.cuda.current_stream(planes.device).cuda_stream,
         ctypes.byref(launched))
     if status != 0:
@@ -104,39 +100,6 @@ def ieee_rows(lib: ctypes.CDLL, planes: torch.Tensor, eh: int, ew: int,
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _TARGET = re.compile(r"\bBRA\b[^;]*?\b0x([0-9a-f]+)")
-
-
-def cuobjdump_sass(path: str) -> str:
-    """``cuobjdump -sass`` of a built library (the toolkit's cuobjdump, or
-    Triton's copy of it)."""
-    cands = [os.path.join(os.environ.get(v, ""), "bin", "cuobjdump")
-             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
-    cands += [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
-    try:
-        import triton
-
-        cands.append(os.path.join(os.path.dirname(triton.__file__),
-                                  "backends", "nvidia", "bin", "cuobjdump"))
-    except ImportError:
-        pass
-    exe = next((c for c in cands
-                if c and os.path.isfile(c) and os.access(c, os.X_OK)), None)
-    if exe is None:
-        raise RuntimeError("cuobjdump not found (toolkit or triton)")
-    return subprocess.run([exe, "-sass", path], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-
-
-def sass_functions(sass: str) -> Dict[str, List[str]]:
-    """The SASS listing's lines per ``Function :`` (mangled name)."""
-    out, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            out[name] = []
-        elif name is not None:
-            out[name].append(line)
-    return out
 
 
 def sass_loop(lines: List[str]) -> Tuple[int, int, List[str]]:
@@ -178,7 +141,9 @@ def sass_per_entry(sass: str, kernel: str) -> Tuple[float, List[str]]:
     """SASS instructions per entry of ``kernel``'s (a substring of its
     mangled name) row loop in the SASS listing ``sass``: the loop's
     instructions over its exps (one per entry); and the loop's listing."""
-    fns = [v for k, v in sass_functions(sass).items() if kernel in k]
+    from irn_tpu_torch.ops import _build
+
+    fns = [v for k, v in _build.sass_functions(sass).items() if kernel in k]
     if len(fns) != 1:
         raise RuntimeError(f"{kernel}: {len(fns)} functions in the SASS")
     n, ex2, listing = sass_loop(fns[0])
@@ -216,21 +181,27 @@ def cuda_ms(fn, reps: int) -> float:
 def hold_ieee(lib, planes, extent) -> float:
     """The first design's int8 store within one step of the port's (they
     round differently) and its row sums its stored integers' sums times
-    f32(1/127): a run that launched it for real. Returns the share of
-    entries that differ."""
+    f32(1/127): a run that launched it for real. Both are built and
+    compared ``HOLD_ROWS`` rows at a time, so the memory held stays near
+    one slice's. Returns the share of entries that differ."""
     from irn_tpu_torch.ops import crf_device as cd
 
-    new_k, _ = cd.landmark_rows(planes, *extent, store=torch.int8)
-    old_k, old_d = ieee_rows(lib, planes, *extent, torch.int8)
-    torch.cuda.synchronize()
-    diff = (new_k.short() - old_k.short()).abs()
-    step = int(diff.max())
-    share = float((diff > 0).float().mean())
-    own = old_k.sum(1, dtype=torch.int64).float() * (1.0 / 127.0)
-    if step > 1 or not torch.allclose(old_d, own, rtol=1e-6, atol=0):
-        raise AssertionError(f"crf_landmark_ieee: int8 off by {step} or its "
-                             "sums are not its store's")
-    return share
+    n = planes.shape[1] * planes.shape[2]
+    step, differ, entries = 0, 0, 0
+    for r0 in range(0, n, HOLD_ROWS):
+        rows = (r0, min(r0 + HOLD_ROWS, n))
+        new_k, _ = cd.landmark_rows(planes, *extent, store=torch.int8,
+                                    rows=rows)
+        old_k, old_d = ieee_rows(lib, planes, *extent, torch.int8, rows=rows)
+        diff = (new_k.short() - old_k.short()).abs()
+        step = max(step, int(diff.max()))
+        differ += int((diff > 0).sum())
+        entries += diff.numel()
+        own = old_k.sum(1, dtype=torch.int64).float() * (1.0 / 127.0)
+        if step > 1 or not torch.allclose(old_d, own, rtol=1e-6, atol=0):
+            raise AssertionError(f"crf_landmark_ieee: int8 off by {step} or "
+                                 f"its sums are not its store's (rows {rows})")
+    return differ / entries
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -254,38 +225,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     res = dict(card=card, ieee_ptxas=ptxas, bucket=BUCKET, extent=EXTENT,
                ieee_int8_differ=hold_ieee(lib, planes, EXTENT), stores={})
     for name, store in STORES.items():
-        want = cd.landmark_rows(planes, *EXTENT, store=store)
-        for rows in WARP_ROWS:
-            got = cd.landmark_rows(planes, *EXTENT, store=store,
-                                   warp_rows=rows)
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                raise AssertionError(f"{name} at {rows} rows per warp "
-                                     "differs")
-        del got, want
-
-        def port(rows=None):
-            return cd.landmark_rows(planes, *EXTENT, store=store,
-                                    warp_rows=rows)
-
-        fns = (port, lambda: ieee_rows(lib, planes, *EXTENT, store))
+        fns = (lambda: cd.landmark_rows(planes, *EXTENT, store=store),
+               lambda: ieee_rows(lib, planes, *EXTENT, store))
         t = [cuda_ms(fns[i], args.reps) for i in (0, 1, 1, 0)]
-        row = dict(port_ms=[t[0], t[3]], ieee_ms=[t[1], t[2]])
-        # ROUNDS rounds over the counts; the median per count
-        times = {rows: [] for rows in WARP_ROWS}
-        for _ in range(ROUNDS):
-            for rows in WARP_ROWS:
-                times[rows].append(cuda_ms(lambda: port(rows), args.reps))
-        row["warp_rows_ms"] = {rows: sorted(t)[ROUNDS // 2]
-                               for rows, t in times.items()}
-        res["stores"][name] = row
+        res["stores"][name] = dict(port_ms=[t[0], t[3]], ieee_ms=[t[1], t[2]])
         torch.cuda.empty_cache()
     res["sums_only_ms"] = cuda_ms(lambda: cd.landmark_rows(
         planes, *EXTENT, sums_only=True), args.reps)
     listings = []
     for name, sass, kernel in (
-            ("port", cuobjdump_sass(_build.build()), NEW_KERNEL),
-            ("ieee", cuobjdump_sass(path), IEEE_KERNEL)):
+            ("port", _build.cuobjdump_sass(_build.build()), NEW_KERNEL),
+            ("ieee", _build.cuobjdump_sass(path), IEEE_KERNEL)):
         per, listing = sass_per_entry(sass, kernel)
         res.setdefault("sass_per_entry", {})[name] = per
         listings += [f"# {kernel}: {per:.3f} per entry", *listing]

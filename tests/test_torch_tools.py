@@ -109,9 +109,10 @@ def test_probe_crf_landmark_sass_loop():
     innermost loop that holds an exp, its byte-store block left out, the
     instructions over its exps; a kernel named by a substring of its
     mangled name; no loop, or no such kernel, raises."""
+    from irn_tpu_torch.ops import _build
     from irn_tpu_torch.tools import probe_crf_landmark as probe
 
-    fns = probe.sass_functions(SASS)
+    fns = _build.sass_functions(SASS)
     assert len(fns) == 2
     n, ex2, listing = probe.sass_loop(fns[next(iter(fns))])
     assert (n, ex2) == (7, 1)
