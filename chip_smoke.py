@@ -54,16 +54,23 @@ to the native lattice (>= 90% per image), and prints each stage's smoke
 rate, a per-step breakdown (with the kernel build's peak memory above the
 stored kernel) and the CRF products' times beside their bound. The device
 CRF builds its landmark kernel in two K14 launches per image, its table
-pass and its rows (``csrc/crf_landmark.cu``): 32 over the two int8
-passes, 16 in the dense run, none under the native lattice, and no other
-hand kernel in these stages (the rest of their work is cuDNN's and
-cuBLAS's). The kernels phase holds K14 to its twin bit for bit, store and
-row sums, at the 512x512 bucket and an odd 92x84 one (S 483) with each
-store, on a scene, an all-black and a uniform image, a row range and the
-sums alone, its table pass to the table's twin, and times K14 beside its
-first design (``irn_tpu_torch/tools/crf_landmark_ieee.cu``, held within
-one int8 step of it) with the SASS instructions per entry of both int8
-row loops.
+pass and its rows (``csrc/crf_landmark.cu``), and runs its ten
+iterations through K17 (``csrc/crf_mean_field.cu``): 2 + 2 t = 22
+launches per image and pass (the Gaussian's row norms, the start, a
+quantize and a combine around each library product). Over the two int8
+passes that is 32 K14 and 352 K17 launches, in the dense run 16 and 176,
+none under the native lattice, and no other hand kernel in these stages
+(the rest of their work is cuDNN's and cuBLAS's). The kernels phase holds
+K14 to its twin bit for bit, store and row sums, at the 512x512 bucket
+and an odd 92x84 one (S 483) with each store, on a scene, an all-black
+and a uniform image, a row range and the sums alone, its table pass to
+the table's twin, and times each store with the SASS instructions per
+entry of its int8 row loop (beside its first design:
+``tools/probe_crf_landmark.py``). It holds every K17 launch (blur,
+start, quantize with each operand, combine into q and into the labels)
+to its twin bit for bit at the same two buckets on one image's int8 and
+bf16 kernels, ten iterations' labels to the twins' loop, and times
+quantize, combine, the product and whole iterations (int8 and dense).
 
 The phase ``stage: train_irn`` trains IRNet through the CLI at its
 defaults (crop 512, batch 32, path radius 10, lr 0.1) with a seeded random
@@ -187,6 +194,9 @@ REPLACES = {
     # the device CRF's landmark-kernel build (crf_pair_program's build_chunk,
     # mapped over 4096-row chunks), an XLA program
     "crf_landmark": "irn_tpu/ops/crf_tpu.py:196",
+    # the device CRF's mean-field iterations (the unrolled loop :259-295,
+    # the first softmax :258, the argmax :299), an XLA program
+    "crf_mean_field": "irn_tpu/ops/crf_tpu.py:259",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -207,6 +217,7 @@ SOURCES = {
     "diag_operator": "irn_tpu_torch/csrc/diag_operator.cu",
     "decode": "irn_tpu_torch/csrc/decode.cu",
     "crf_landmark": "irn_tpu_torch/csrc/crf_landmark.cu",
+    "crf_mean_field": "irn_tpu_torch/csrc/crf_mean_field.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -219,6 +230,7 @@ HOME_RUN = {
     "ccl_tables": "ins default", "path_max_fwd": "train irn",
     "path_max_bwd": "train irn", "diag_operator": "default",
     "decode": "default", "crf_landmark": "cam stages",
+    "crf_mean_field": "cam stages",
 }
 
 
@@ -599,6 +611,7 @@ def check_kernels(dev, card: str, sass: str) -> dict:
     check_path_max_kernels(dev, gen, res)
     check_walk_kernels(dev, gen, res)
     check_crf_landmark(dev, gen, res, sass)
+    check_crf_mean_field(dev, gen, res)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -1058,12 +1071,9 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     bf16, f32), the store and the row sums bit-equal (the dense sums too:
     the twin adds in the kernel's lane order), the table pass alone equal
     to its twin; on the odd bucket also a row range and the sums alone.
-    Timed at the largest bucket with each store and the sums alone, beside
-    K14's first design
-    (``tools/crf_landmark_ieee.cu``, built on its own, its int8 store held
-    within one step of the port's), and both designs' SASS instructions
-    per entry of their int8 row loops."""
-    from irn_tpu_torch.ops import _build
+    Timed at the largest bucket with each store and the sums alone, with
+    the SASS instructions per entry of its int8 row loop (K14 beside its
+    first design: ``tools/probe_crf_landmark.py``)."""
     from irn_tpu_torch.ops import crf_device as cd
     from irn_tpu_torch.tools import probe_crf_landmark as probe
 
@@ -1097,26 +1107,15 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     planes = _crf_planes(gen, "scene", CRF_BUCKET).to(dev)
     n = CRF_BUCKET[0] * CRF_BUCKET[1]
     s_land = len(range(2, CRF_BUCKET[0], 4)) * len(range(2, CRF_BUCKET[1], 4))
-    ieee_path, ieee_ptxas = probe.build(_build)
-    ieee = probe.load(ieee_path)
-    differ = probe.hold_ieee(ieee, planes, CRF_EXTENT)
-    torch.cuda.empty_cache()
-    # the designs in turns (port, first design, first design, port), each
-    # the mean of its two
-    store_ms, parent_ms = {}, {}
+    store_ms = {}
     for name, store in CRF_STORES.items():
-        fns = (lambda: cd.landmark_rows(planes, *CRF_EXTENT, store=store),
-               lambda: probe.ieee_rows(ieee, planes, *CRF_EXTENT, store))
-        t = [cuda_ms(fns[i], 10) for i in (0, 1, 1, 0)]
-        store_ms[name] = (t[0] + t[3]) / 2
-        parent_ms[name] = (t[1] + t[2]) / 2
+        store_ms[name] = cuda_ms(
+            lambda: cd.landmark_rows(planes, *CRF_EXTENT, store=store), 10)
         torch.cuda.empty_cache()
     sums_ms = cuda_ms(lambda: cd.landmark_rows(planes, *CRF_EXTENT,
                                                sums_only=True), 10)
     plain_ms = cuda_ms(lambda: cd.landmark_rows_plain(planes, *CRF_EXTENT), 1)
     per_entry, _ = probe.sass_per_entry(sass, probe.NEW_KERNEL)
-    parent_per_entry, _ = probe.sass_per_entry(
-        _build.cuobjdump_sass(ieee_path), probe.IEEE_KERNEL)
     exps = n * s_land
     res["crf_landmark"] = dict(
         max_abs_err=0.0,
@@ -1126,22 +1125,15 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
         exp_sfu_ms=exps / SFU_EXP_S * 1e3,
         store_ms=store_ms,
         sums_only_ms=sums_ms,
-        parent_ms=parent_ms["int8"],
-        parent_store_ms=parent_ms,
         sass_per_entry=per_entry,
-        parent_sass_per_entry=parent_per_entry,
         shape=(f"image [3, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] uint8, extent "
                f"{CRF_EXTENT} -> int8 store [{n}, {s_land}] "
                f"({n * s_land / 1e9:.2f} GB) + f32 row sums, two launches "
                f"(table, rows); bf16 "
                f"store {store_ms['bf16']:.4f} ms, "
                f"f32 store {store_ms['f32']:.4f} ms, the sums alone "
-               f"{sums_ms:.4f} ms; the first design int8 "
-               f"{parent_ms['int8']:.4f}, bf16 {parent_ms['bf16']:.4f}, f32 "
-               f"{parent_ms['f32']:.4f} ms ({differ:.2e} of its int8 entries "
-               f"one step off; {ieee_ptxas['registers']}); SASS per int8 "
-               f"entry {per_entry:.3f} (first design {parent_per_entry:.3f});"
-               f" {exps:.3e} exps ({exps / SFU_EXP_S * 1e3:.4f} ms on the "
+               f"{sums_ms:.4f} ms; SASS per int8 entry {per_entry:.3f}; "
+               f"{exps:.3e} exps ({exps / SFU_EXP_S * 1e3:.4f} ms on the "
                f"SFUs); store and sums bit-equal to the twin, the table "
                f"equal (every store; {CRF_BUCKET} and {CRF_ODD} extent "
                f"{CRF_ODD_EXTENT}; a scene, all black, uniform; a row range, "
@@ -1154,6 +1146,191 @@ def check_crf_landmark(dev, gen, res: dict, sass: str) -> None:
     )
     del planes
     torch.cuda.empty_cache()
+
+
+# K17 at the device CRF's shapes: the fg / bg pair over 21 channels, 3
+# labels present (a VOC image with two classes and the background)
+CRF_CAP, CRF_LABELS, CRF_GT = 21, 3, 0.7
+
+
+def _crf_labels(gen, bucket: tuple, extent: tuple) -> torch.Tensor:
+    """[2, h, w] uint8 label maps < CRF_LABELS: two regions and 6% noise
+    inside the extent, 0 outside."""
+    h, w = bucket
+    eh, ew = extent
+    lab = torch.zeros((2, h, w), dtype=torch.uint8)
+    lab[0, :eh, : ew // 2 - 3] = 1
+    lab[0, eh // 2 + 3:eh, ew // 2:ew] = 2
+    lab[1] = torch.where(lab[0] == 2, 2, 0)
+    noise = torch.rand((2, h, w), generator=gen) < 0.06
+    lab[noise] = torch.randint(0, CRF_LABELS, (int(noise.sum()),),
+                               generator=gen, dtype=torch.uint8)
+    lab[:, eh:] = 0
+    lab[:, :, ew:] = 0
+    return lab
+
+
+def check_crf_mean_field(dev, gen, res: dict) -> None:
+    """K17 vs its twins on the card at the largest bucket and the odd one,
+    on one image's kernels (K14's int8 and bf16 stores): the blur (the
+    validity mask and 42 planes), the start (softmax and argmax), the
+    quantize (int8, bf16 and f32 operands, qscale, zero columns past the
+    labels), the combine (int32 and f32 products; q_{i+1} and the labels)
+    bit-equal, and ten iterations through ``mean_field_pair`` equal to the
+    same loop through the twins. At the largest bucket quantize, combine,
+    the product and one whole iteration are timed by CUDA events, int8 and
+    dense, beside the twins and the bytes an iteration must move."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import crf_device as cd
+
+    lg, lo = cd.unary_logs(CRF_GT, CRF_LABELS)
+    timing = {}
+    for bucket, extent in ((CRF_BUCKET, CRF_EXTENT),
+                           (CRF_ODD, CRF_ODD_EXTENT)):
+        img = _crf_planes(gen, "scene", bucket).to(dev).permute(1, 2, 0)
+        labels = _crf_labels(gen, bucket, extent).to(dev)
+        for store, kw in (("int8", dict(kernel_store="int8")),
+                          ("dense", dict())):
+            kern = cd.LandmarkKernel(img, *extent, **kw)
+            tag = f"crf_mean_field {bucket} {store}"
+            for x in (kern.valid[None],
+                      torch.rand((2 * CRF_CAP, *bucket), generator=gen).to(
+                          dev) * kern.valid):
+                check(torch.equal(cd.blur(x, kern.taps),
+                                  cd.blur_plain(x, kern.taps)),
+                      f"{tag}: blur of {x.shape[0]} planes not bit-equal")
+            for argmax in (False, True):
+                check(torch.equal(
+                    cd.start(labels, CRF_CAP, CRF_LABELS, lg, lo,
+                             argmax=argmax),
+                    cd.start_plain(labels, CRF_CAP, CRF_LABELS, lg, lo,
+                                   argmax=argmax)),
+                      f"{tag}: start (argmax {argmax}) not bit-equal")
+            q = cd.start(labels, CRF_CAP, CRF_LABELS, lg, lo)
+            for op_store in ((torch.int8,) if store == "int8"
+                             else (torch.bfloat16, torch.float32)):
+                bufs = [cd.operand_buffers(kern.n_land, CRF_CAP, op_store,
+                                           dev) for _ in range(2)]
+                cd.quantize(q, kern.nr_b, *bufs[0])
+                cd.quantize_plain(q, kern.nr_b, *bufs[1])
+                check(torch.equal(bufs[0][0], bufs[1][0])
+                      and torch.equal(bufs[0][1], bufs[1][1]),
+                      f"{tag}: quantize {op_store} not bit-equal")
+            opnd, qscale = kern.operand(CRF_CAP)
+            cd.quantize(q, kern.nr_b, opnd, qscale)
+            prod = kern.product(opnd)
+            qs = qscale if kern.int8 else None
+            for out in (torch.empty_like(q), torch.empty_like(labels)):
+                got = cd.combine(q, labels, kern.nr_g, kern.nr_b, kern.taps,
+                                 prod, qs, CRF_LABELS, lg, lo,
+                                 out.clone())
+                want = cd.combine_plain(q, labels, kern.nr_g, kern.nr_b,
+                                        kern.taps, prod, qs, CRF_LABELS, lg,
+                                        lo, out.clone())
+                check(torch.equal(got, want),
+                      f"{tag}: combine into {out.dtype} not bit-equal "
+                      f"(max abs {(got.float() - want.float()).abs().max()})")
+            # ten iterations: kernels against the twins' loop on the card
+            _build.reset_launches()
+            got = cd.mean_field_pair(kern, labels, CRF_LABELS, CRF_GT)
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES["crf_mean_field"] == 21,
+                  f"{tag}: {_build.LAUNCHES['crf_mean_field']} launches for "
+                  f"ten iterations, expected 21")
+            q_ = cd.start_plain(labels, CRF_CAP, CRF_LABELS, lg, lo)
+            want = torch.empty_like(labels)
+            for i in range(10):
+                cd.quantize_plain(q_, kern.nr_b, opnd, qscale)
+                q_ = cd.combine_plain(
+                    q_, labels, kern.nr_g, kern.nr_b, kern.taps,
+                    kern.product(opnd), qs, CRF_LABELS, lg, lo,
+                    want if i == 9 else torch.empty_like(q_))
+            check(torch.equal(got, want),
+                  f"{tag}: ten iterations' labels differ from the twins' "
+                  f"({float((got != want).float().mean()):.2e})")
+            if bucket == CRF_BUCKET:
+                q_next = torch.empty_like(q)
+
+                def quant():
+                    cd.quantize(q, kern.nr_b, opnd, qscale)
+
+                def comb():
+                    cd.combine(q, labels, kern.nr_g, kern.nr_b, kern.taps,
+                               prod, qs, CRF_LABELS, lg, lo, q_next)
+
+                def both():
+                    quant()
+                    comb()
+
+                def iteration():
+                    cd.quantize(q, kern.nr_b, opnd, qscale)
+                    cd.combine(q, labels, kern.nr_g, kern.nr_b, kern.taps,
+                               kern.product(opnd), qs, CRF_LABELS, lg, lo,
+                               q_next)
+
+                def plain():
+                    cd.quantize_plain(q, kern.nr_b, opnd, qscale)
+                    cd.combine_plain(q, labels, kern.nr_g, kern.nr_b,
+                                     kern.taps, prod, qs, CRF_LABELS, lg, lo,
+                                     q_next)
+
+                timing[store] = dict(
+                    quantize_ms=cuda_ms(quant, 20),
+                    combine_ms=cuda_ms(comb, 20),
+                    ms=cuda_ms(both, 20),
+                    product_ms=cuda_ms(lambda: kern.product(opnd), 10),
+                    iteration_ms=cuda_ms(iteration, 10),
+                    ten_iterations_ms=cuda_ms(lambda: cd.mean_field_pair(
+                        kern, labels, CRF_LABELS, CRF_GT), 5),
+                    plain_ms=cuda_ms(plain, 2))
+                n = bucket[0] * bucket[1]
+                qbytes = 2 * CRF_CAP * n * 4
+                timing[store]["bytes"] = (
+                    2 * qbytes + prod.numel() * prod.element_size()
+                    + labels.numel() + 2 * 4 * n
+                    + opnd.numel() * opnd.element_size())
+            del kern, q, opnd, prod, got, want
+            torch.cuda.empty_cache()
+    t8, td = timing["int8"], timing["dense"]
+    n = CRF_BUCKET[0] * CRF_BUCKET[1]
+    print(f"K17 at {CRF_BUCKET}: int8 {json.dumps(t8)}; dense "
+          f"{json.dumps(td)}", flush=True)
+    res["crf_mean_field"] = dict(
+        max_abs_err=0.0,
+        ms=t8["ms"],
+        plain_ms=t8["plain_ms"],
+        quantize_ms=t8["quantize_ms"],
+        combine_ms=t8["combine_ms"],
+        product_ms=t8["product_ms"],
+        iteration_ms=t8["iteration_ms"],
+        ten_iterations_ms=t8["ten_iterations_ms"],
+        dense_ms=td["ms"],
+        dense_product_ms=td["product_ms"],
+        dense_iteration_ms=td["iteration_ms"],
+        dense_ten_iterations_ms=td["ten_iterations_ms"],
+        shape=(f"q [2, {CRF_CAP}, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] f32, "
+               f"{CRF_LABELS} labels, one image's K14 int8 kernel; ms = one "
+               f"iteration's quantize + combine (two launches; quantize "
+               f"{t8['quantize_ms']:.4f}, combine {t8['combine_ms']:.4f}); "
+               f"torch._int_mm {t8['product_ms']:.4f}; one iteration "
+               f"{t8['iteration_ms']:.4f}, ten (mean_field_pair, with the "
+               f"start) {t8['ten_iterations_ms']:.4f}; dense (bf16 operand, "
+               f"f32 product): quantize + combine {td['ms']:.4f}, product "
+               f"{td['product_ms']:.4f}, iteration "
+               f"{td['iteration_ms']:.4f}, ten "
+               f"{td['ten_iterations_ms']:.4f}; {t8['bytes'] / 1e6:.1f} MB "
+               f"per iteration; bit-equal to the twins (blur, start, "
+               f"quantize int8 / bf16 / f32, combine int32 / f32 into q and "
+               f"labels; {CRF_BUCKET} and {CRF_ODD}); ten iterations' labels "
+               f"equal to the twins' loop"),
+        library_ms=None,
+        # per pixel and channel: two 25-tap passes (mul + add), RN(nr_g q),
+        # the two messages' scalings and sums, the softmax's subtract, exp,
+        # sum and division; q read and written, the product's output, the
+        # labels and row norms read once, the operand written once
+        **bound(2 * CRF_CAP * n * (4 * cd.BLUR_TAPS + 10), t8["bytes"],
+                PEAK_F32),
+    )
 
 
 def _poison_blocks(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -1991,6 +2168,7 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
     from irn_tpu_torch.ops import crf_device
     from irn_tpu_torch.ops import native
     from irn_tpu_torch.pipeline import stages_cam
+    from irn_tpu_torch.pipeline.config import Config
 
     work, names = stage["work"], stage["names"]
     root = os.path.join(work, "voc")
@@ -2049,17 +2227,18 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     check(tf32 and not any(a or b for _, a, b in tf32),
           f"TF32 on inside a stage: {sorted(set(tf32))}")
-    # K14: two launches (its table pass and its rows) per image and
-    # device-CRF pass (two int8 passes, one dense); no other hand kernel,
-    # none under the native lattice
-    for run, per_image in (("cam stages", 4), ("cam native", 0),
-                           ("cam dense", 2)):
+    # per image and device-CRF pass (two int8 passes, one dense): K14's two
+    # launches (its table pass and its rows), K17's 2 + 2 t (the blur of
+    # the validity mask, the start, a quantize and a combine per
+    # iteration); no other hand kernel, none under the native lattice
+    per_pass = {"crf_landmark": 2,
+                "crf_mean_field": 2 + 2 * Config.crf_iters}
+    for run, passes in (("cam stages", 2), ("cam native", 0),
+                        ("cam dense", 1)):
         counts = stage["launches"][run]
-        check(counts["crf_landmark"] == per_image * len(names)
-              and not any(v for k, v in counts.items()
-                          if k != "crf_landmark"),
-              f"{run}: launches {counts}, expected crf_landmark "
-              f"{per_image * len(names)} and nothing else")
+        want = {k: passes * per_pass.get(k, 0) * len(names)
+                for k in counts}
+        check(counts == want, f"{run}: launches {counts}, expected {want}")
     for n_ in names:
         d = np.load(os.path.join(cams, n_ + ".npy"), allow_pickle=True).item()
         h, w = _image_size(root, n_)
@@ -3490,8 +3669,11 @@ def main() -> int:
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
                             "k13_ms", "exps", "exp_sfu_ms", "store_ms",
-                            "sums_only_ms", "parent_ms", "parent_store_ms",
-                            "sass_per_entry", "parent_sass_per_entry")
+                            "sums_only_ms", "sass_per_entry", "quantize_ms",
+                            "combine_ms", "product_ms", "iteration_ms",
+                            "ten_iterations_ms", "dense_ms",
+                            "dense_product_ms", "dense_iteration_ms",
+                            "dense_ten_iterations_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -15,7 +15,8 @@ call is its split pass and its product, 2; one K10 operator build 1; one
 K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
 its upsample pass and its argmax pass, or 1 for the upsample alone; one
 K14 landmark-kernel build 2, its table pass and its rows, whatever its row
-range, or 1 for the table pass alone), and :func:`launch`
+range, or 1 for the table pass alone; K17's blur, start, quantize and
+combine 1 each), and :func:`launch`
 adds that number under a lock (the stages call kernels from a thread
 pool), so a run can show that its main path really went through the
 kernels.
@@ -50,7 +51,7 @@ KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
            "banded_chain", "packed_chain_batched", "conv3x3", "advect",
            "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd",
-           "diag_operator", "decode", "crf_landmark")
+           "diag_operator", "decode", "crf_landmark", "crf_mean_field")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -196,11 +197,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_crf_landmark_table.argtypes = [
         p, p, i, i, i, i, i, i, i, i, f, f, p, n,
     ]
+    lib.irn_crf_blur.argtypes = [p, p, i, i, i, p, p, n]
+    lib.irn_crf_start.argtypes = [p, p, p, i, i, i, i, f, f, p, n]
+    lib.irn_crf_quantize.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                     p, n]
+    lib.irn_crf_mean_field.argtypes = [
+        p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p, n,
+    ]
     for k in (*(k for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
               "packed_chain_occupancy", "cluster_masks", "component_tables",
-              "upsample_scores", "crf_landmark_table"):
+              "upsample_scores", "crf_landmark_table", "crf_blur",
+              "crf_start", "crf_quantize"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 
 

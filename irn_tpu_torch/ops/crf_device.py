@@ -7,9 +7,9 @@ permutohedral lattice's scatter and gather (:mod:`irn_tpu_torch.ops.crf`,
 the host backend):
 
 - **Gaussian kernel (sxy 3, compat 3): exact.** A truncated separable
-  convolution (|tap| <= 4 sigma) as two banded Toeplitz products in f32,
-  with the symmetric normalisation's row sums from the blurred validity
-  mask.
+  convolution (|tap| <= 4 sigma, 25 taps) in f32, a row pass then a column
+  pass (:func:`blur`), with the symmetric normalisation's row sums from the
+  blurred validity mask.
 - **Bilateral kernel (sxy 50, srgb 5, compat 10): landmark subgrid.**
   Every pixel exchanges messages with a stride-``s`` subgrid of landmark
   pixels; the 5-D kernel to each landmark is evaluated exactly and stored
@@ -29,10 +29,17 @@ log((1 - gt_prob) / (n - 1)). The fg/bg pair of the ir-label stage shares
 one kernel build and rides one product ([S, 2L] right operand).
 
 The products are library calls: on CUDA ``torch._int_mm`` (int8 x int8 ->
-int32, its right operand padded to a multiple of 8 columns and laid out
-column-major) and ``torch.mm(..., out_dtype=torch.float32)`` for bf16; on
-the CPU the same ``torch._int_mm``, and the bf16 product upcast to f32
-(exact products, f32 sums, as XLA's bf16 dot with an f32 result).
+int32, its right operand column-major with a multiple of 8 columns) and
+``torch.mm(..., out_dtype=torch.float32)`` for bf16; on the CPU the same
+``torch._int_mm``, and the bf16 product upcast to f32 (exact products, f32
+sums, as XLA's bf16 dot with an f32 result). Everything else of an
+iteration is K17 (``csrc/crf_mean_field.cu``), two launches around the
+product: :func:`quantize` writes the product's operand straight in its
+layout, :func:`combine` reads the product's output in place, blurs,
+adds the unary made from the uint8 label maps, and takes the softmax (on
+the last iteration the argmax); :func:`start` takes the first softmax and
+:func:`blur` the Gaussian's row sums. On the CPU each runs its plain twin
+(``*_plain``), in the kernel's order of operations.
 """
 
 from __future__ import annotations
@@ -57,23 +64,12 @@ SIGMA_BITS = 0x3F596D27
 # multiple of the widest tile (32 lanes x 16 int8 columns)
 TABLE_ROWS = 6
 TABLE_ALIGN = 512
-
-
-def _toeplitz(n: int, taps: torch.Tensor) -> torch.Tensor:
-    """[n, n] banded Toeplitz blur matrix: T[i, j] = taps[j - i + r]."""
-    r = (taps.shape[0] - 1) // 2
-    i = torch.arange(n, device=taps.device)
-    d = i[None, :] - i[:, None] + r
-    inside = (d >= 0) & (d < taps.shape[0])
-    return torch.where(inside, taps[d.clamp(0, taps.shape[0] - 1)],
-                       torch.zeros((), device=taps.device))
-
-
-def _sep_gauss(x: torch.Tensor, th: torch.Tensor,
-               tw: torch.Tensor) -> torch.Tensor:
-    """Separable 2-D blur of x [C, H, W] with zero padding: x @ tw along
-    the width, then th^T @ . along the height (f32)."""
-    return torch.matmul(th.t(), torch.matmul(x, tw))
+# K17's compiled limits: the Gaussian's taps (2r + 1 <= 25, sxy <= 3) and
+# the channels per map whose logits a thread keeps in registers
+BLUR_TAPS = 25
+MAX_CAP_CARD = 32
+INV_127_SQ = np.float32(1.0 / (127.0 * 127.0))
+NEVER_LOGIT = -1e30  # the unary of a channel past the image's labels
 
 
 def landmark_grid(h: int, w: int, stride: int) -> Tuple[int, int]:
@@ -311,16 +307,304 @@ def landmark_rows(planes: torch.Tensor, eh: int, ew: int, *,
     return out, sums
 
 
-def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
-    return torch.nn.functional.pad(x, (0, 0, 0, (-x.shape[0]) % multiple))
+def map_columns(cap: int) -> int:
+    """Columns per label map in the product's operand and output: cap
+    rounded up to a multiple of 4, so each map's columns start on 16 bytes
+    and the 2 cp columns are a multiple of 8 (as ``torch._int_mm`` wants);
+    map m's channel c is column m cp + c, the rest stay zero."""
+    return cap + (-cap) % 4
+
+
+def _columns(cap: int, device) -> torch.Tensor:
+    """The operand column of each (map, channel) in q's channel order."""
+    cp = map_columns(cap)
+    return (torch.arange(2, device=device)[:, None] * cp
+            + torch.arange(cap, device=device)[None, :]).reshape(-1)
+
+
+def gaussian_taps(sxy: float) -> torch.Tensor:
+    """The Gaussian's 2r + 1 f32 taps exp(-(i / sxy)^2 / 2), |i| <= r =
+    ceil(4 sxy), made on the CPU: the host and the card blur with the same
+    taps."""
+    r = int(math.ceil(4.0 * sxy))
+    return torch.exp(-0.5 * (torch.arange(-r, r + 1, dtype=torch.float32)
+                             / sxy) ** 2)
+
+
+def _card_taps(taps: torch.Tensor) -> torch.Tensor:
+    """The taps as K17 takes them: BLUR_TAPS f32 in host memory, zero-padded
+    at both ends (a +0 term changes no sum)."""
+    k = taps.shape[0]
+    if taps.dim() != 1 or k % 2 == 0 or k > BLUR_TAPS:
+        raise ValueError(f"crf_mean_field: an odd number of taps <= "
+                         f"{BLUR_TAPS}, got {tuple(taps.shape)}")
+    pad = (BLUR_TAPS - k) // 2
+    return torch.nn.functional.pad(taps.detach().float().cpu(),
+                                   (pad, pad)).contiguous()
+
+
+def blur_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """K17's blur twin: the separable blur of x [C, H, W] f32 with zero
+    padding, a row pass y[i, j] = sum_t taps[t] x[i, j + t - r], then a
+    column pass sum_t taps[t] y[i + t - r, j], each sum from +0 over t in
+    order, RN(acc + RN(tap x)) (the Toeplitz products of the JAX module's
+    ``_sep_gauss``, summed over the 2r + 1 taps alone)."""
+    k = taps.shape[0]
+    r = (k - 1) // 2
+    taps = taps.to(x.device)
+    h, w = x.shape[-2:]
+    xp = torch.nn.functional.pad(x, (r, r))
+    y = torch.zeros_like(x)
+    for t in range(k):
+        y = y + taps[t] * xp[..., t:t + w]
+    yp = torch.nn.functional.pad(y, (0, 0, r, r))
+    z = torch.zeros_like(x)
+    for t in range(k):
+        z = z + taps[t] * yp[..., t:t + h, :]
+    return z
+
+
+def blur(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The separable Gaussian blur of x [C, H, W] f32 (:func:`blur_plain`):
+    on the card one K17 launch (``csrc/crf_mean_field.cu``, taps 2r + 1 <=
+    25), bit-equal to the twin; on the CPU the twin."""
+    if _build.is_plain(x):
+        return blur_plain(x, taps)
+    if x.dim() != 3:
+        raise ValueError(f"crf_mean_field: blur of [C, H, W], got "
+                         f"{tuple(x.shape)}")
+    _build.check_cuda("crf_mean_field", x)
+    host_taps = _card_taps(taps)
+    out = torch.empty_like(x)
+    _build.launch("crf_mean_field", x.device, x.data_ptr(), out.data_ptr(),
+                  *x.shape, host_taps.data_ptr(), entry="crf_blur")
+    return out
+
+
+def unary_logs(gt_prob: float, n_labels: int) -> Tuple[float, float]:
+    """(log gt_prob, log((1 - gt_prob) / max(n_labels - 1, 1))) in f32,
+    computed on the CPU: the host and the card take the same unary."""
+    gt = torch.tensor(gt_prob, dtype=torch.float32)
+    p_other = (1.0 - gt) / torch.tensor(max(float(n_labels) - 1.0, 1.0),
+                                        dtype=torch.float32)
+    return float(torch.log(gt)), float(torch.log(p_other))
+
+
+def unary_plain(labels: torch.Tensor, cap: int, n_labels: int, lg: float,
+                lo: float) -> torch.Tensor:
+    """[2, cap, H, W] f32 unary of labels [2, H, W]: lg where the label is
+    the channel, lo elsewhere, NEVER_LOGIT for channels >= n_labels (they
+    can never win)."""
+    dev = labels.device
+    c = torch.arange(cap, device=dev)[None, :, None, None]
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    u = torch.where(c == labels.long()[:, None], f32(lg), f32(lo))
+    return torch.where(c < n_labels, u, f32(NEVER_LOGIT))
+
+
+def softmax_plain(l: torch.Tensor) -> torch.Tensor:
+    """K17's softmax over dim 1 of l [2, cap, H, W]: m = max, e = exp(l -
+    m), s = e_0 + e_1 + ... in channel order, e / s (IEEE divisions)."""
+    e = torch.exp(l - l.amax(1, keepdim=True))
+    s = e[:, 0]
+    for c in range(1, l.shape[1]):
+        s = s + e[:, c]
+    return e / s[:, None]
+
+
+def _check_cap(cap: int) -> None:
+    if not 1 <= cap <= MAX_CAP_CARD:
+        raise ValueError(f"crf_mean_field: n_label_cap <= {MAX_CAP_CARD} on "
+                         f"the card, got {cap}")
+
+
+def start_plain(labels: torch.Tensor, cap: int, n_labels: int, lg: float,
+                lo: float, *, argmax: bool = False) -> torch.Tensor:
+    """K17's start twin: q0 = softmax of the unary, [2, cap, H, W] f32, or
+    its argmax [2, H, W] uint8 (the first largest channel)."""
+    q = softmax_plain(unary_plain(labels, cap, n_labels, lg, lo))
+    return torch.argmax(q, 1).to(torch.uint8) if argmax else q
+
+
+def start(labels: torch.Tensor, cap: int, n_labels: int, lg: float,
+          lo: float, *, argmax: bool = False) -> torch.Tensor:
+    """The first softmax of labels [2, H, W] uint8 (:func:`start_plain`):
+    on the card one K17 launch, on the CPU the twin."""
+    if _build.is_plain(labels):
+        return start_plain(labels, cap, n_labels, lg, lo, argmax=argmax)
+    _check_cap(cap)
+    _build.check_cuda("crf_mean_field", labels, dtype=torch.uint8)
+    if labels.dim() != 3 or labels.shape[0] != 2:
+        raise ValueError(f"crf_mean_field: label maps [2, H, W], got "
+                         f"{tuple(labels.shape)}")
+    _, h, w = labels.shape
+    if argmax:
+        out = torch.empty_like(labels)
+        q, lab = None, out.data_ptr()
+    else:
+        out = torch.empty((2, cap, h, w), dtype=torch.float32,
+                          device=labels.device)
+        q, lab = out.data_ptr(), None
+    _build.launch("crf_mean_field", labels.device, labels.data_ptr(), q, lab,
+                  h, w, cap, n_labels, lg, lo, entry="crf_start")
+    return out
+
+
+def operand_buffers(n_land: int, cap: int, store: torch.dtype,
+                    device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed (operand, qscale [2 cp] f32) for :func:`quantize`: under int8
+    the [S', 2 cp] column-major operand (a view of a [2 cp, S'] buffer,
+    S' = S padded to a multiple of 8), else [S, 2 cp] row-major in
+    ``store``."""
+    m = 2 * map_columns(cap)
+    qscale = torch.zeros(m, dtype=torch.float32, device=device)
+    if store == torch.int8:
+        s_rows = landmark_columns(n_land, torch.int8)
+        return torch.zeros((m, s_rows), dtype=torch.int8,
+                           device=device).t(), qscale
+    return torch.zeros((n_land, m), dtype=store, device=device), qscale
+
+
+def quantize_plain(q: torch.Tensor, nr_b: torch.Tensor, opnd: torch.Tensor,
+                   qscale: torch.Tensor, *, stride: int = 4) -> None:
+    """K17's quantize twin: the landmark activations a = RN(nr_b q) of each
+    (map, channel) column into the operand; under int8 qscale = max(max a,
+    1e-20) and rint(RN(a RN(127 / qscale))), the scale into qscale."""
+    _, cap, _, _ = q.shape
+    off = stride // 2
+    a = (nr_b * q)[:, :, off::stride, off::stride].reshape(2 * cap, -1)
+    cols = _columns(cap, q.device)
+    if opnd.dtype == torch.int8:
+        scale = a.amax(1).clamp_min(1e-20)
+        r = torch.full((), 127.0, device=q.device) / scale
+        opnd.t()[cols, :a.shape[1]] = torch.round(a * r[:, None]).to(
+            torch.int8)
+        qscale[cols] = scale
+    else:
+        opnd[:, cols] = a.t().to(opnd.dtype)
+
+
+def quantize(q: torch.Tensor, nr_b: torch.Tensor, opnd: torch.Tensor,
+             qscale: torch.Tensor, *, stride: int = 4) -> None:
+    """The product's operand from q [2, cap, H, W] f32 and the bilateral row
+    norms nr_b [H, W] (:func:`quantize_plain`), into buffers from
+    :func:`operand_buffers`: on the card one K17 launch, on the CPU the
+    twin."""
+    if _build.is_plain(q):
+        return quantize_plain(q, nr_b, opnd, qscale, stride=stride)
+    _, cap, h, w = q.shape
+    _check_cap(cap)
+    _build.check_cuda("crf_mean_field", q, nr_b, qscale)
+    lh, lw = landmark_grid(h, w, stride)
+    cp = map_columns(cap)
+    if opnd.dtype == torch.int8:
+        buf = opnd.t()
+        _build.check_cuda("crf_mean_field", buf, dtype=torch.int8)
+        ok = buf.shape[0] == 2 * cp and buf.shape[1] >= lh * lw
+    else:
+        _build.check_cuda("crf_mean_field", opnd, dtype=opnd.dtype)
+        ok = (opnd.dtype in (torch.bfloat16, torch.float32)
+              and opnd.shape == (lh * lw, 2 * cp))
+    if not ok or nr_b.shape != (h, w) or qscale.shape[0] < 2 * cp:
+        raise ValueError(f"crf_mean_field: operand {tuple(opnd.shape)} "
+                         f"{opnd.dtype}, nr_b {tuple(nr_b.shape)} for q "
+                         f"{tuple(q.shape)}")
+    _build.launch("crf_mean_field", q.device, q.data_ptr(), nr_b.data_ptr(),
+                  opnd.data_ptr(), qscale.data_ptr(), h, w, cap, cp, stride,
+                  lw, lh * lw, opnd.shape[0], opnd.dtype.itemsize,
+                  entry="crf_quantize")
+
+
+def combine_plain(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
+                  nr_b: torch.Tensor, taps: torch.Tensor, prod: torch.Tensor,
+                  qscale: Optional[torch.Tensor], n_labels: int, lg: float,
+                  lo: float, out: torch.Tensor, *,
+                  compat_gaussian: float = 3.0,
+                  compat_bilateral: float = 10.0) -> torch.Tensor:
+    """K17's combine twin: l = RN(RN(u + mg) + mb) with the Gaussian message
+    mg = RN(RN(compat_g nr_g) blur(RN(nr_g q))) and the bilateral message
+    mb = RN(RN(compat_b nr_b) x), x the product's column (int32 under int8,
+    then RN(float(acc) RN(qscale / 127^2))); the softmax of l into ``out``
+    [2, cap, H, W] f32, or its argmax into ``out`` [2, H, W] uint8."""
+    _, cap, h, w = q.shape
+    z = blur_plain((nr_g * q).reshape(2 * cap, h, w), taps).reshape(q.shape)
+    l = unary_plain(labels, cap, n_labels, lg, lo) + (
+        compat_gaussian * nr_g) * z
+    cols = _columns(cap, q.device)
+    x = prod[:, cols]
+    if prod.dtype == torch.int32:
+        x = x.float() * (qscale[cols] * INV_127_SQ)
+    mb = (compat_bilateral * nr_b).reshape(-1, 1) * x
+    q_next = softmax_plain(l + mb.t().reshape(q.shape))
+    if out.dtype == torch.uint8:
+        return out.copy_(torch.argmax(q_next, 1))
+    return out.copy_(q_next)
+
+
+def combine(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
+            nr_b: torch.Tensor, taps: torch.Tensor, prod: torch.Tensor,
+            qscale: Optional[torch.Tensor], n_labels: int, lg: float,
+            lo: float, out: torch.Tensor, *, compat_gaussian: float = 3.0,
+            compat_bilateral: float = 10.0) -> torch.Tensor:
+    """One mean-field update after the product (:func:`combine_plain`): q
+    [2, cap, H, W] f32, the label maps [2, H, W] uint8, the row norms [H, W],
+    the product's output prod [N, >= 2 cp] (int32 with qscale, or f32, map
+    m's channel c in column m cp + c, read in place) -> ``out`` (q_{i+1}, a
+    buffer apart from q, or the labels). On the card one K17 launch, on the
+    CPU the twin."""
+    kw = dict(compat_gaussian=compat_gaussian,
+              compat_bilateral=compat_bilateral)
+    if _build.is_plain(q):
+        return combine_plain(q, labels, nr_g, nr_b, taps, prod, qscale,
+                             n_labels, lg, lo, out, **kw)
+    _, cap, h, w = q.shape
+    _check_cap(cap)
+    cp = map_columns(cap)
+    int8 = prod.dtype == torch.int32
+    _build.check_cuda("crf_mean_field", q, nr_g, nr_b,
+                      *([qscale] if int8 else []))
+    _build.check_cuda("crf_mean_field", labels, dtype=torch.uint8)
+    if (labels.shape != (2, h, w) or nr_g.shape != (h, w)
+            or nr_b.shape != (h, w) or prod.device != q.device
+            or prod.dtype not in (torch.int32, torch.float32)
+            or prod.shape[0] != h * w or prod.shape[1] < 2 * cp
+            or prod.stride(1) != 1 or prod.stride(0) % 4
+            or prod.data_ptr() % 16 or (int8 and qscale.shape[0] < 2 * cp)):
+        raise ValueError(f"crf_mean_field: q {tuple(q.shape)}, labels "
+                         f"{tuple(labels.shape)}, product "
+                         f"{tuple(prod.shape)} {prod.dtype} strides "
+                         f"{prod.stride()}")
+    if out.dtype == torch.uint8:
+        _build.check_cuda("crf_mean_field", out, dtype=torch.uint8)
+        q_out, lab_out = None, out.data_ptr()
+        ok = out.shape == (2, h, w)
+    else:
+        _build.check_cuda("crf_mean_field", out)
+        q_out, lab_out = out.data_ptr(), None
+        ok = out.shape == q.shape and out.data_ptr() != q.data_ptr()
+    if not ok:
+        raise ValueError(f"crf_mean_field: out {tuple(out.shape)} "
+                         f"{out.dtype} for q {tuple(q.shape)}")
+    host_taps = _card_taps(taps)
+    _build.launch("crf_mean_field", q.device, q.data_ptr(), nr_g.data_ptr(),
+                  nr_b.data_ptr(), labels.data_ptr(), prod.data_ptr(),
+                  prod.stride(0), qscale.data_ptr() if int8 else None, q_out,
+                  lab_out, host_taps.data_ptr(), h, w, cap, cp, n_labels,
+                  int(int8), lg, lo, compat_gaussian, compat_bilateral)
+    return out
 
 
 def product_f32(k: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """k [N, S] (f32 or bf16) @ q [S, M] in k's dtype with an f32 result;
-    q's columns padded to a multiple of 8 (zero columns, aligned rows for
-    cuBLAS)."""
+    q's columns padded to a multiple of 8 where they are not (zero columns,
+    aligned rows for cuBLAS)."""
     m = q.shape[1]
-    q = torch.nn.functional.pad(q.to(k.dtype), (0, (-m) % 8))
+    q = q.to(k.dtype)
+    if m % 8:
+        q = torch.nn.functional.pad(q, (0, (-m) % 8))
     if k.dtype == torch.float32:
         return torch.mm(k, q)[:, :m]
     if k.device.type == "cuda":
@@ -331,17 +615,19 @@ def product_f32(k: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def product_int8(k8: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
     """k8 [N, S] int8 @ q8 [S, M] int8 -> int32 (exact). ``torch._int_mm``
     wants S and the output's columns in multiples of 8 (S is padded at the
-    kernel build), so q8's columns are padded here; q8 goes column-major,
-    the layout cuBLAS's int8 product takes without a slower path."""
+    kernel build) and q8 column-major, the layout cuBLAS's int8 product
+    takes without a slower path: q8 is padded and laid out so unless it is
+    already (as :func:`operand_buffers` makes it)."""
     m = q8.shape[1]
-    q8 = torch.nn.functional.pad(q8, (0, (-m) % 8)).t().contiguous().t()
+    if m % 8 or q8.stride(0) != 1:
+        q8 = torch.nn.functional.pad(q8, (0, (-m) % 8)).t().contiguous().t()
     return torch._int_mm(k8, q8)[:, :m]
 
 
 class LandmarkKernel:
     """One image's kernels at a bucket shape: the validity mask, the
-    Gaussian's Toeplitz factors and row norms, the bilateral landmark
-    kernel (None when streaming) and its row norms."""
+    Gaussian's taps and row norms, the bilateral landmark kernel (None when
+    streaming) and its row norms."""
 
     def __init__(self, img_u8: torch.Tensor, eh: int, ew: int, *,
                  stride: int = 4, sxy_gaussian: float = 3.0,
@@ -360,14 +646,13 @@ class LandmarkKernel:
         self.hw = (h, w)
         self.n = h * w
         self.stride = stride
-        self.off = stride // 2
         self.int8 = kernel_store == "int8"
         self.stream = stream_kernel
         self.mdt = getattr(torch, matmul_dtype)
 
         ys = torch.arange(h, device=dev)[:, None].expand(h, w)
         xs = torch.arange(w, device=dev)[None, :].expand(h, w)
-        self.valid = ((ys < eh) & (xs < ew)).float()
+        self.valid = valid = ((ys < eh) & (xs < ew)).float()
 
         # bilateral landmark kernel: K14 on the card, its twin on the CPU
         self.n_land = math.prod(landmark_grid(h, w, stride))
@@ -383,16 +668,13 @@ class LandmarkKernel:
         # only the stored kernel [N, S] and the f32 row sums stay (none of
         # the kernel when streaming)
         self.k_land, d_b = self.landmark_rows(sums_only=stream_kernel)
-        self.nr_b = torch.rsqrt(d_b.clamp_min(1e-12)).reshape(h, w) * self.valid
+        self.nr_b = torch.rsqrt(d_b.clamp_min(1e-12)).reshape(h, w) * valid
 
-        # gaussian separable kernel
-        r = int(math.ceil(4.0 * sxy_gaussian))
-        taps = torch.exp(-0.5 * (torch.arange(-r, r + 1, dtype=torch.float32,
-                                              device=dev) / sxy_gaussian) ** 2)
-        self.th = _toeplitz(h, taps)
-        self.tw = _toeplitz(w, taps)
-        d_g = _sep_gauss(self.valid[None], self.th, self.tw)[0]
-        self.nr_g = torch.rsqrt(d_g.clamp_min(1e-12)) * self.valid
+        # gaussian separable kernel: its row sums are the blurred validity
+        # mask (K17's blur on the card)
+        self.taps = gaussian_taps(sxy_gaussian)
+        d_g = blur(valid[None], self.taps)[0]
+        self.nr_g = torch.rsqrt(d_g.clamp_min(1e-12)) * valid
 
     def landmark_rows(self, rows: Optional[Tuple[int, int]] = None,
                       sums_only: bool = False):
@@ -401,24 +683,24 @@ class LandmarkKernel:
         return landmark_rows(self.planes, *self.extent, rows=rows,
                              sums_only=sums_only, **self.bilateral_hypers)
 
-    def bilateral(self, q_land: torch.Tensor) -> torch.Tensor:
-        """[N, 2L] f32 = K @ q_land^T for landmark activations q_land
-        [2L, S]."""
-        qlT = q_land.t()
+    def operand(self, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed (operand, qscale) buffers of the product for ``cap``
+        channels per map (:func:`operand_buffers`)."""
+        return operand_buffers(self.n_land, cap,
+                               self.bilateral_hypers["store"],
+                               self.nr_b.device)
+
+    def product(self, opnd: torch.Tensor) -> torch.Tensor:
+        """K @ opnd: [N, 2 cp], int32 under int8, else f32 (the stream mode
+        rebuilds the kernel in CHUNK_ROWS-row chunks)."""
         if self.stream:
             return torch.cat([
                 product_f32(self.landmark_rows(
-                    (a, min(a + CHUNK_ROWS, self.n)))[0], qlT)
+                    (a, min(a + CHUNK_ROWS, self.n)))[0], opnd)
                 for a in range(0, self.n, CHUNK_ROWS)])
         if self.int8:
-            # the activations are nonnegative, so one max per column is an
-            # exact symmetric scale; the kernel carries the static 1/127
-            qscale = qlT.amax(0).clamp_min(1e-20)
-            q8 = _pad_rows(torch.round(qlT * (127.0 / qscale)).to(torch.int8),
-                           8)  # the zero landmarks of the padded kernel
-            return product_int8(self.k_land, q8).float() * (
-                qscale * np.float32(1.0 / (127.0 * 127.0)))[None, :]
-        return product_f32(self.k_land, qlT)
+            return product_int8(self.k_land, opnd)
+        return product_f32(self.k_land, opnd)
 
     def nbytes(self) -> int:
         """Bytes of the stored landmark kernel (0 when streaming)."""
@@ -430,35 +712,28 @@ def mean_field_pair(kern: LandmarkKernel, labels: torch.Tensor,
                     n_labels: int, gt_prob: float, *, n_label_cap: int = 21,
                     t: int = 10, compat_gaussian: float = 3.0,
                     compat_bilateral: float = 10.0) -> torch.Tensor:
-    """t mean-field iterations for two label maps labels [2, H, W] (ints
-    in [0, n_labels)) over one kernel build; returns the argmax [2, H, W]
-    uint8."""
-    h, w = kern.hw
+    """t mean-field iterations for two label maps labels [2, H, W] uint8
+    (ints in [0, n_labels)) over one kernel build; returns the argmax [2,
+    H, W] uint8. Each iteration is a K17 quantize, the library product and
+    a K17 combine (the twins on the CPU), after one K17 start."""
     cap = n_label_cap
-    dev = labels.device
-    gt = torch.tensor(gt_prob, dtype=torch.float32, device=dev)
-    p_other = (1.0 - gt) / max(float(n_labels) - 1.0, 1.0)
-    one = torch.nn.functional.one_hot(labels.long(), cap).permute(
-        0, 3, 1, 2).float()                                   # [2, cap, H, W]
-    u = one * torch.log(gt) + (1.0 - one) * torch.log(p_other)
-    # channels beyond this image's label count can never win
-    chans = torch.arange(cap, device=dev)
-    u = torch.where((chans < n_labels)[None, :, None, None], u,
-                    torch.full((), -1e30, device=dev))
-
-    off, s = kern.off, kern.stride
-    q = torch.softmax(u, dim=1)
-    for _ in range(t):
-        qm = q * kern.valid
-        mg = compat_gaussian * kern.nr_g * _sep_gauss(
-            (kern.nr_g * qm).reshape(2 * cap, h, w), kern.th, kern.tw
-        ).reshape(2, cap, h, w)
-        qb = kern.nr_b * qm
-        q_land = qb[:, :, off::s, off::s].reshape(2 * cap, -1)
-        mb = compat_bilateral * kern.nr_b.reshape(-1, 1) * kern.bilateral(
-            q_land)
-        q = torch.softmax(u + mg + mb.t().reshape(2, cap, h, w), dim=1)
-    return torch.argmax(q, dim=1).to(torch.uint8)
+    labels = labels.contiguous()
+    lg, lo = unary_logs(gt_prob, n_labels)
+    if t == 0:
+        return start(labels, cap, n_labels, lg, lo, argmax=True)
+    q = start(labels, cap, n_labels, lg, lo)
+    q_next = torch.empty_like(q)
+    out = torch.empty_like(labels)
+    opnd, qscale = kern.operand(cap)
+    for i in range(t):
+        quantize(q, kern.nr_b, opnd, qscale, stride=kern.stride)
+        combine(q, labels, kern.nr_g, kern.nr_b, kern.taps,
+                kern.product(opnd), qscale if kern.int8 else None, n_labels,
+                lg, lo, out if i == t - 1 else q_next,
+                compat_gaussian=compat_gaussian,
+                compat_bilateral=compat_bilateral)
+        q, q_next = q_next, q
+    return out
 
 
 class LandmarkCRF:

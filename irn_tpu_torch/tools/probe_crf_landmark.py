@@ -16,8 +16,8 @@ the card's name and power limit (nvidia-smi), per store the port's and
 the first design's ms (two each), the sums alone, and the SASS
 instructions per entry of each design's int8 row loop (``--sass_out``
 writes both loops' listings). Needs a CUDA card. ``chip_smoke.py`` calls
-:func:`build`, :func:`load`, :func:`hold_ieee`, :func:`ieee_rows` and
-:func:`sass_per_entry`.
+:func:`sass_per_entry` for K14's own loop; the first design is timed here
+alone.
 """
 
 from __future__ import annotations

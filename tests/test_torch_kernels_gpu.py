@@ -1062,3 +1062,184 @@ def test_crf_landmark_refuses(cuda):
     with pytest.raises(ValueError):
         crf_device.landmark_rows(planes, 24, 28, rows=(3, 3))
     assert not any(_build.LAUNCHES.values())
+
+
+MF_BUCKETS = [((512, 512), (500, 497)), ((92, 84), (89, 81))]
+MF_STORES = {"int8": torch.int8, "bf16": torch.bfloat16,
+             "f32": torch.float32}
+
+
+def _mf_state(cuda, bucket, extent, n_labels=6, cap=21, seed=0):
+    """K17's inputs on the card: q (a softmax, channels >= n_labels at 0,
+    map 1's channel 2 all zero), labels < n_labels, nr_g and nr_b > 0
+    inside the extent, the taps, the unary's logs."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h, w = bucket
+    logits = torch.randn((2, cap, h, w), generator=g, device=cuda) * 2
+    logits[:, n_labels:] = -1e30
+    logits[1, 2] = -1e30
+    q = torch.softmax(logits, 1)
+    valid = torch.zeros((h, w), device=cuda)
+    valid[:extent[0], :extent[1]] = 1
+    nr_g = (torch.rand((h, w), generator=g, device=cuda) + 0.05) * valid
+    nr_b = (torch.rand((h, w), generator=g, device=cuda) + 0.05) * valid
+    labels = torch.randint(0, n_labels, (2, h, w), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    lg, lo = crf_device.unary_logs(0.7, n_labels)
+    return q, labels, nr_g, nr_b, crf_device.gaussian_taps(3.0), lg, lo
+
+
+@pytest.mark.parametrize("c", [1, 42])
+@pytest.mark.parametrize("bucket,extent", MF_BUCKETS)
+def test_crf_blur_bit_equal(cuda, bucket, extent, c):
+    """K17's blur (one launch) bit-equal to its twin: the validity mask and
+    42 planes zero outside the extent, at 512x512 and the odd 92x84; the
+    13 taps of sxy 1.5 padded to the kernel's 25."""
+    q, *_ = _mf_state(cuda, bucket, extent)
+    x = q.reshape(-1, *bucket)[:c].contiguous()
+    for taps in (crf_device.gaussian_taps(3.0), crf_device.gaussian_taps(1.5)):
+        _build.reset_launches()
+        got = crf_device.blur(x, taps)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["crf_mean_field"] == 1
+        assert torch.equal(got, crf_device.blur_plain(x, taps))
+
+
+@pytest.mark.parametrize("argmax", [False, True])
+@pytest.mark.parametrize("bucket,extent", MF_BUCKETS)
+def test_crf_start_bit_equal(cuda, bucket, extent, argmax):
+    """K17's start (one launch): the first softmax of the unary, or its
+    argmax, bit-equal to its twin; with gt 0.5 over 2 labels every channel
+    ties and the argmax is channel 0."""
+    _, labels, *_, lg, lo = _mf_state(cuda, bucket, extent)
+    for n_labels, (a, b) in ((6, (lg, lo)),
+                             (2, crf_device.unary_logs(0.5, 2))):
+        lab = labels % n_labels
+        _build.reset_launches()
+        got = crf_device.start(lab, 21, n_labels, a, b, argmax=argmax)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["crf_mean_field"] == 1
+        assert torch.equal(got, crf_device.start_plain(lab, 21, n_labels, a,
+                                                       b, argmax=argmax))
+        if argmax and n_labels == 2:
+            assert not got.any()
+
+
+@pytest.mark.parametrize("store", sorted(MF_STORES))
+@pytest.mark.parametrize("bucket,extent", MF_BUCKETS)
+def test_crf_quantize_bit_equal(cuda, bucket, extent, store):
+    """K17's quantize (one launch): the int8, bf16 and f32 operands and the
+    int8 qscale bit-equal to the twin's, with all-zero landmark columns
+    (channels past n_labels, map 1's channel 2) whose qscale is clamped to
+    1e-20, the padding rows and columns left zero."""
+    q, _, _, nr_b, *_ = _mf_state(cuda, bucket, extent)
+    s = len(range(2, bucket[0], 4)) * len(range(2, bucket[1], 4))
+    bufs = [crf_device.operand_buffers(s, 21, MF_STORES[store], cuda)
+            for _ in range(2)]
+    _build.reset_launches()
+    crf_device.quantize(q, nr_b, *bufs[0])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["crf_mean_field"] == 1
+    crf_device.quantize_plain(q, nr_b, *bufs[1])
+    assert torch.equal(bufs[0][0], bufs[1][0])
+    assert torch.equal(bufs[0][1], bufs[1][1])
+    if store == "int8":
+        assert bufs[0][1][24 + 2] == np.float32(1e-20)
+        assert bufs[0][1][6:21].eq(np.float32(1e-20)).all()
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("store", ["int8", "f32"])
+@pytest.mark.parametrize("bucket,extent", MF_BUCKETS)
+def test_crf_combine_bit_equal(cuda, bucket, extent, store, last):
+    """K17's combine (one launch) bit-equal to its twin: q_{i+1}, or the
+    last iteration's labels, from an int32 product with qscale or an f32
+    product, read in place from a [N, 48] output."""
+    q, labels, nr_g, nr_b, taps, lg, lo = _mf_state(cuda, bucket, extent)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = bucket[0] * bucket[1]
+    if store == "int8":
+        prod = torch.randint(0, 2 ** 28, (n, 48), generator=g, device=cuda,
+                             dtype=torch.int32)
+        qscale = torch.rand(48, generator=g, device=cuda)
+    else:
+        prod = torch.rand((n, 48), generator=g, device=cuda) * 200
+        qscale = None
+    outs = [torch.empty((2, *bucket), dtype=torch.uint8, device=cuda) if last
+            else torch.empty_like(q) for _ in range(2)]
+    _build.reset_launches()
+    crf_device.combine(q, labels, nr_g, nr_b, taps, prod, qscale, 6, lg, lo,
+                       outs[0])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["crf_mean_field"] == 1
+    crf_device.combine_plain(q, labels, nr_g, nr_b, taps, prod, qscale, 6,
+                             lg, lo, outs[1])
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_crf_combine_argmax_ties(cuda):
+    """Planted ties on the last iteration: gt 0.5 over 2 labels, no
+    messages outside the extent and a product of zeros; every channel
+    below n_labels ties there and the first wins, as torch.argmax."""
+    bucket, extent = (92, 84), (40, 30)
+    q, labels, nr_g, nr_b, taps, *_ = _mf_state(cuda, bucket, extent,
+                                                n_labels=2)
+    lg, lo = crf_device.unary_logs(0.5, 2)
+    prod = torch.zeros((bucket[0] * bucket[1], 48), dtype=torch.int32,
+                       device=cuda)
+    qscale = torch.ones(48, device=cuda)
+    got, want = (torch.empty((2, *bucket), dtype=torch.uint8, device=cuda)
+                 for _ in range(2))
+    crf_device.combine(q, labels, nr_g, nr_b, taps, prod, qscale, 2, lg, lo,
+                       got)
+    crf_device.combine_plain(q, labels, nr_g, nr_b, taps, prod, qscale, 2,
+                             lg, lo, want)
+    assert torch.equal(got, want)
+    assert not got[:, 60:].any() and not got[:, :, 60:].any()
+
+
+@pytest.mark.parametrize("store", ["int8", "dense", "f32", "stream"])
+def test_crf_mean_field_pair_bit_equal(cuda, store):
+    """mean_field_pair on the card (1 + 2 t K17 launches, the products
+    cuBLAS's) against the same loop through the twins on the card: equal
+    labels after t = 5, at the odd bucket, 6 labels."""
+    kw = dict(int8=dict(kernel_store="int8"), dense=dict(),
+              f32=dict(matmul_dtype="float32"),
+              stream=dict(stream_kernel=True))[store]
+    planes = _crf_image("scene", 92, 84).to(cuda)
+    kern = crf_device.LandmarkKernel(planes.permute(1, 2, 0), 89, 81, **kw)
+    _, labels, *_ = _mf_state(cuda, (92, 84), (89, 81))
+    _build.reset_launches()
+    got = crf_device.mean_field_pair(kern, labels, 6, 0.7, t=5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["crf_mean_field"] == 11
+    lg, lo = crf_device.unary_logs(0.7, 6)
+    q = crf_device.start_plain(labels, 21, 6, lg, lo)
+    opnd, qscale = kern.operand(21)
+    out = torch.empty_like(labels)
+    for i in range(5):
+        crf_device.quantize_plain(q, kern.nr_b, opnd, qscale)
+        q = crf_device.combine_plain(
+            q, labels, kern.nr_g, kern.nr_b, kern.taps, kern.product(opnd),
+            qscale if kern.int8 else None, 6, lg, lo,
+            out if i == 4 else torch.empty_like(q))
+    assert torch.equal(got, out)
+
+
+def test_crf_mean_field_refuses(cuda):
+    """More than 32 channels per map, an output that is q itself, a
+    product whose rows are not 16-byte aligned and more than 25 taps are
+    refused before a launch."""
+    q, labels, nr_g, nr_b, taps, lg, lo = _mf_state(cuda, (24, 28), (24, 28))
+    prod = torch.zeros((24 * 28, 52), device=cuda)
+    with pytest.raises(ValueError):
+        crf_device.start(labels, 33, 6, lg, lo)
+    with pytest.raises(ValueError):
+        crf_device.combine(q, labels, nr_g, nr_b, taps, prod[:, :48], None, 6,
+                           lg, lo, q)
+    with pytest.raises(ValueError):
+        crf_device.combine(q, labels, nr_g, nr_b, taps, prod[:, 1:49], None,
+                           6, lg, lo, torch.empty_like(q))
+    with pytest.raises(ValueError):
+        crf_device.blur(q[0], crf_device.gaussian_taps(3.5))
+    assert not any(_build.LAUNCHES.values())
