@@ -45,16 +45,20 @@
 //         in order, q_c = RN(e_c / s); on the last iteration the first c
 //         of the largest q_c as uint8 in place of q
 //
-// Design. Combine: one block of 256 threads per 16 x 32 tile of one map;
-// nr_g over the tile and its 12-pixel halo (40 x 56) is staged once in
-// shared memory; per channel, RN(nr_g q) over the halo tile is staged, a
-// row pass writes the 40 x 32 row sums (4 outputs per item from 28 values
-// read as 16-byte words), a column pass gives each thread the blurred
-// value of its 2 pixels (one column, 2 rows; 26 values), so the [H, W]
+// Design. Combine: one block of 256 threads per 16 x 32 tile of one map.
+// Each thread owns up to 9 elements of the tile's 12-pixel halo (40 x 56)
+// and keeps their offsets and nr_g in registers; per channel (a loop that
+// is not unrolled, so its code stays in the instruction cache) it stages
+// RN(nr_g q) in shared memory from values it loaded one channel ahead (the
+// loads of channel c + 1 are in flight during channel c's passes), a row
+// pass writes the 40 x 32 row sums (4 outputs per item from 28 values
+// read as 16-byte words), and a column pass gives each thread the blurred
+// value of its 2 pixels (one column, 2 rows; 26 values): the [H, W]
 // factors never exist and each q plane is read from device memory about
-// once (the halo rereads hit L2). Each thread keeps its 2 pixels' cap
-// logits in registers (cap <= 32), adds the bilateral term from the
-// product's row read in place by 16-byte words, and writes q_{i+1}
+// once (the halo rereads hit L2). u + mg of every channel waits in
+// shared memory (cap x 2 KB); then per pixel the thread adds the
+// bilateral term from the product's row, read in place by 16-byte words,
+// takes the softmax over cap <= 32 logits in registers and writes q_{i+1}
 // (consecutive lanes on consecutive pixels) into a second buffer. The taps
 // ride in the kernel's parameters (constant bank). Quantize: one block per
 // real column, two passes over its S landmarks (the max, then the
@@ -84,8 +88,11 @@ constexpr int kHaloW = kTileW + 2 * kRadius;  // 56
 constexpr int kThreads = 256;
 constexpr int kPixRows = kTileH * kTileW / kThreads;  // 2 pixels per thread
 constexpr int kQuads = kTileW / 4;  // row-pass items per halo row
+// halo elements each thread stages
+constexpr int kStage = (kHaloH * kHaloW + kThreads - 1) / kThreads;
 constexpr int kMaxCap = 32;
-constexpr int kQuantThreads = 512;
+constexpr int kCombineBlocks = 3;  // per SM: at most 85 registers
+constexpr int kQuantThreads = 1024;
 constexpr int kStartThreads = 256;
 constexpr float kInv127Sq = 0x1.040c2p-14f;  // f32(1 / 127^2)
 constexpr float kMinScale = 0x1.79ca1p-67f;  // f32(1e-20)
@@ -99,6 +106,10 @@ struct Planes {
   int h, w, cap, cp, n_labels;
   float lg, lo;
 };
+
+dim3 tiles(int h, int w, int z) {
+  return dim3((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, z);
+}
 
 __device__ __forceinline__ float unary(int c, int lab, const Planes& g) {
   return c >= g.n_labels ? kNeverLogit : (c == lab ? g.lg : g.lo);
@@ -133,10 +144,8 @@ __device__ __forceinline__ int softmax(float (&l)[kMaxCap], int cap) {
   return best;
 }
 
-// RN(nr x) (or x where nr is null) over the halo tile at (y0, x0), zero
-// outside the bucket
+// x over the halo tile at (y0, x0), zero outside the bucket
 __device__ __forceinline__ void stage(float (*dst)[kHaloW],
-                                      const float (*nr)[kHaloW],
                                       const float* __restrict__ x, int y0,
                                       int x0, int h, int w) {
   for (int i = threadIdx.x; i < kHaloH * kHaloW; i += kThreads) {
@@ -144,12 +153,9 @@ __device__ __forceinline__ void stage(float (*dst)[kHaloW],
     const int c = i - r * kHaloW;
     const int y = y0 - kRadius + r;
     const int xx = x0 - kRadius + c;
-    float v = 0.f;
-    if (y >= 0 && y < h && xx >= 0 && xx < w) {
-      v = __ldg(x + (size_t)y * w + xx);
-      if (nr != nullptr) v = __fmul_rn(nr[r][c], v);
-    }
-    dst[r][c] = v;
+    dst[r][c] = y >= 0 && y < h && xx >= 0 && xx < w
+                    ? __ldg(x + (size_t)y * w + xx)
+                    : 0.f;
   }
 }
 
@@ -207,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const size_t n = (size_t)h * w;
-  stage(s_x, nullptr, x + blockIdx.z * n, y0, x0, h, w);
+  stage(s_x, x + blockIdx.z * n, y0, x0, h, w);
   __syncthreads();
   row_pass(s_x, s_y, taps);
   __syncthreads();
@@ -267,6 +273,7 @@ __global__ void __launch_bounds__(kQuantThreads)
   };
   if constexpr (kStore == 1) {
     float v = 0.f;  // every activation is >= +0
+#pragma unroll 4
     for (int j = threadIdx.x; j < n_land; j += kQuantThreads)
       v = fmaxf(v, act(j));
 #pragma unroll
@@ -281,10 +288,12 @@ __global__ void __launch_bounds__(kQuantThreads)
     if (threadIdx.x == 0) qscale[col] = scale;
     const float r = __fdiv_rn(127.f, scale);
     int8_t* dst = static_cast<int8_t*>(opnd) + (size_t)col * s_rows;
+#pragma unroll 4
     for (int j = threadIdx.x; j < n_land; j += kQuantThreads)
       dst[j] = (int8_t)__float2int_rn(__fmul_rn(act(j), r));
   } else {
     const int ld = 2 * g.cp;
+#pragma unroll 4
     for (int j = threadIdx.x; j < n_land; j += kQuantThreads) {
       const float a = act(j);
       if constexpr (kStore == 2)
@@ -296,9 +305,10 @@ __global__ void __launch_bounds__(kQuantThreads)
   }
 }
 
-// kInt8: the product is int32 with per-column qscale, else f32
+// kInt8: the product is int32 with per-column qscale, else f32. Dynamic
+// shared memory: the tile's logits, cap x kTileH x kTileW f32.
 template <bool kInt8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCombineBlocks)
     combine_kernel(const float* __restrict__ q, const float* __restrict__ nr_g,
                    const float* __restrict__ nr_b,
                    const uint8_t* __restrict__ labels,
@@ -306,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ qscale, float* __restrict__ q_out,
                    uint8_t* __restrict__ lab_out, Planes g, float compat_g,
                    float compat_b, Taps taps) {
-  __shared__ __align__(16) float s_nrg[kHaloH][kHaloW];
+  extern __shared__ float s_l[];  // [cap][kTileH * kTileW]
   __shared__ __align__(16) float s_x[kHaloH][kHaloW];
   __shared__ __align__(16) float s_y[kHaloH][kTileW];
   __shared__ float s_sc[kMaxCap];
@@ -316,13 +326,29 @@ __global__ void __launch_bounds__(kThreads)
   const size_t n = (size_t)g.h * g.w;
   const int tx = threadIdx.x % kTileW;
   const int ty0 = threadIdx.x / kTileW * kPixRows;
-  stage(s_nrg, nullptr, nr_g, y0, x0, g.h, g.w);
   if (kInt8 && threadIdx.x < g.cap)
     s_sc[threadIdx.x] =
         __fmul_rn(qscale[m * g.cp + threadIdx.x], kInv127Sq);
+
+  // this thread's halo elements e = threadIdx.x + i kThreads: their pixel
+  // (-1 outside the bucket or past the halo) and nr_g there
+  int src[kStage];
+  float nrg[kStage];
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kHaloW;
+    const int y = y0 - kRadius + r;
+    const int xx = x0 - kRadius + (e - r * kHaloW);
+    const bool in = e < kHaloH * kHaloW && y >= 0 && y < g.h && xx >= 0 &&
+                    xx < g.w;
+    src[i] = in ? y * g.w + xx : -1;
+    nrg[i] = in ? __ldg(nr_g + src[i]) : 0.f;
+  }
   size_t pix[kPixRows];
   bool inside[kPixRows];
   int lab[kPixRows];
+  float cg[kPixRows];
 #pragma unroll
   for (int k = 0; k < kPixRows; ++k) {
     const int y = y0 + ty0 + k;
@@ -330,34 +356,51 @@ __global__ void __launch_bounds__(kThreads)
     inside[k] = y < g.h && xx < g.w;
     pix[k] = inside[k] ? (size_t)y * g.w + xx : 0;
     lab[k] = inside[k] ? labels[m * n + pix[k]] : 0;
+    cg[k] = __fmul_rn(compat_g, inside[k] ? __ldg(nr_g + pix[k]) : 0.f);
   }
-  __syncthreads();
-  float cg[kPixRows];
-#pragma unroll
-  for (int k = 0; k < kPixRows; ++k)
-    cg[k] = __fmul_rn(compat_g, s_nrg[ty0 + k + kRadius][tx + kRadius]);
 
-  float l[kPixRows][kMaxCap];
+  // per channel: stage RN(nr_g q) from the values loaded one channel
+  // ahead, blur, keep u + mg in shared memory
   const float* qm = q + (size_t)m * g.cap * n;
+  float pre[kStage];
 #pragma unroll
-  for (int c = 0; c < kMaxCap; ++c) {
-    if (c < g.cap) {
-      stage(s_x, s_nrg, qm + c * n, y0, x0, g.h, g.w);
-      __syncthreads();
-      row_pass(s_x, s_y, taps);
-      __syncthreads();
-      float z[kPixRows];
-      col_pass(s_y, tx, ty0, taps, z);
+  for (int i = 0; i < kStage; ++i)
+    pre[i] = src[i] >= 0 ? __ldg(qm + src[i]) : 0.f;
+  float* x_flat = &s_x[0][0];
+#pragma unroll 1
+  for (int c = 0; c < g.cap; ++c) {
 #pragma unroll
-      for (int k = 0; k < kPixRows; ++k)
-        l[k][c] = __fadd_rn(unary(c, lab[k], g), __fmul_rn(cg[k], z[k]));
+    for (int i = 0; i < kStage; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (e < kHaloH * kHaloW) x_flat[e] = __fmul_rn(nrg[i], pre[i]);
     }
+    __syncthreads();
+    if (c + 1 < g.cap) {
+      const float* qc = qm + (size_t)(c + 1) * n;
+#pragma unroll
+      for (int i = 0; i < kStage; ++i)
+        pre[i] = src[i] >= 0 ? __ldg(qc + src[i]) : 0.f;
+    }
+    row_pass(s_x, s_y, taps);
+    __syncthreads();
+    float z[kPixRows];
+    col_pass(s_y, tx, ty0, taps, z);
+#pragma unroll
+    for (int k = 0; k < kPixRows; ++k)
+      s_l[c * (kTileH * kTileW) + (ty0 + k) * kTileW + tx] =
+          __fadd_rn(unary(c, lab[k], g), __fmul_rn(cg[k], z[k]));
   }
 
-  // the bilateral message from the product's rows, 16 bytes at a time
-#pragma unroll
+  // per pixel: the bilateral message from the product's row (16 bytes at
+  // a time), the softmax, the output
+#pragma unroll 1
   for (int k = 0; k < kPixRows; ++k) {
     if (!inside[k]) continue;
+    float l[kMaxCap];
+#pragma unroll
+    for (int c = 0; c < kMaxCap; ++c)
+      if (c < g.cap)
+        l[c] = s_l[c * (kTileH * kTileW) + (ty0 + k) * kTileW + tx];
     const float cb = __fmul_rn(compat_b, __ldg(nr_b + pix[k]));
     const size_t row = pix[k] * ld + m * g.cp;
 #pragma unroll
@@ -382,15 +425,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (4 * c4 + i < g.cap)
-          l[k][4 * c4 + i] =
-              __fadd_rn(l[k][4 * c4 + i], __fmul_rn(cb, acc[i]));
+          l[4 * c4 + i] = __fadd_rn(l[4 * c4 + i], __fmul_rn(cb, acc[i]));
     }
-  }
-
-#pragma unroll
-  for (int k = 0; k < kPixRows; ++k) {
-    if (!inside[k]) continue;
-    const int best = softmax(l[k], g.cap);
+    const int best = softmax(l, g.cap);
     if (lab_out != nullptr) {
       lab_out[m * n + pix[k]] = (uint8_t)best;
       continue;
@@ -398,18 +435,31 @@ __global__ void __launch_bounds__(kThreads)
     float* dst = q_out + (size_t)m * g.cap * n + pix[k];
 #pragma unroll
     for (int c = 0; c < kMaxCap; ++c)
-      if (c < g.cap) dst[c * n] = l[k][c];
+      if (c < g.cap) dst[c * n] = l[c];
   }
+}
+
+template <bool kInt8>
+int launch_combine(const float* q, const float* nr_g, const float* nr_b,
+                   const uint8_t* labels, const void* prod, int ld,
+                   const float* qscale, float* q_out, uint8_t* lab_out,
+                   const Planes& g, float compat_g, float compat_b,
+                   const Taps& taps, cudaStream_t stream) {
+  const int smem = g.cap * kTileH * kTileW * (int)sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      combine_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  combine_kernel<kInt8><<<tiles(g.h, g.w, 2), kThreads, smem, stream>>>(
+      q, nr_g, nr_b, labels, prod, ld, qscale, q_out, lab_out, g, compat_g,
+      compat_b, taps);
+  return 0;
 }
 
 Taps load_taps(const float* host) {
   Taps t;
   for (int i = 0; i < kTaps; ++i) t.t[i] = host[i];
   return t;
-}
-
-dim3 tiles(int h, int w, int z) {
-  return dim3((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, z);
 }
 
 }  // namespace
@@ -471,14 +521,14 @@ IRN_API int irn_crf_mean_field(const float* q, const float* nr_g,
                                cudaStream_t stream, int* launched) {
   const Planes g{h, w, cap, cp, n_labels, lg, lo};
   const Taps taps = load_taps(taps_host);
-  if (int8)
-    combine_kernel<true><<<tiles(h, w, 2), kThreads, 0, stream>>>(
-        q, nr_g, nr_b, labels, prod, ld, qscale, q_out, lab_out, g, compat_g,
-        compat_b, taps);
-  else
-    combine_kernel<false><<<tiles(h, w, 2), kThreads, 0, stream>>>(
-        q, nr_g, nr_b, labels, prod, ld, qscale, q_out, lab_out, g, compat_g,
-        compat_b, taps);
+  const int e =
+      int8 ? launch_combine<true>(q, nr_g, nr_b, labels, prod, ld, qscale,
+                                  q_out, lab_out, g, compat_g, compat_b, taps,
+                                  stream)
+           : launch_combine<false>(q, nr_g, nr_b, labels, prod, ld, qscale,
+                                   q_out, lab_out, g, compat_g, compat_b,
+                                   taps, stream);
+  if (e != 0) return e;
   IRN_CHECK_LAUNCH(launched);
   return 0;
 }

@@ -39,7 +39,9 @@ EXTENT = (500, 497)
 N_LABELS = 3
 TAGS = {"_sep_gauss": "toeplitz", "product_int8": "product",
         "product_f32": "product"}
-HAND_TAG = "_crf_mean_field_cu_"  # K17's kernels' namespace in their names
+# K17's kernels, by their demangled names
+HAND_KERNELS = ("::blur_kernel", "::start_kernel", "::quantize_kernel",
+                "::combine_kernel")
 
 
 def scene(seed: int = 0):
@@ -88,7 +90,7 @@ def profile(fn):
     """Device microseconds and kernel counts per tag of one call of fn
     (after a warm-up call), the rest's kernels by name, and the hand
     kernels (launched through ctypes, under no torch op: read from the
-    device rows by their source's tag in the mangled name)."""
+    device rows by name)."""
     import torch
 
     fn()
@@ -109,7 +111,7 @@ def profile(fn):
                 names[k.name[:80]] += k.duration
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and HAND_TAG in e.key):
+                and any(k in e.key for k in HAND_KERNELS)):
             us["hand"] += e.self_device_time_total
             count["hand"] += e.count
             names[e.key[:80]] += e.self_device_time_total
