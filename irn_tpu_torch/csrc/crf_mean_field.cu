@@ -22,14 +22,14 @@
 // columns start on 16 bytes.
 //
 // All in f32 with round to nearest, every product and sum written with
-// __fmul_rn / __fadd_rn / __fdiv_rn in the order of the twins in
-// ops/crf_device.py (nothing is left to contraction):
+// __fmul_rn / __fadd_rn / __fmaf_rn / __fdiv_rn in the order of the twins
+// in ops/crf_device.py (nothing is left to contraction):
 //
 //   blur(x)[i, j]: the row pass y[i, j] = sum_t taps[t] x[i, j + t - r],
 //         then the column pass sum_t taps[t] y[i + t - r, j], each sum from
-//         +0 over t = 0 .. 24 in order, RN(acc + RN(tap x)), zero outside
-//         the bucket (taps: 2r + 1 <= 25, zero-padded to 25 at both ends,
-//         which adds +0 to a sum of nonnegative terms: the same bits)
+//         +0 over t = 0 .. 24 in order, acc = fma(tap, x, acc) rounded once,
+//         zero outside the bucket (taps: 2r + 1 <= 25, zero-padded to 25 at
+//         both ends: fma(0, x, acc) = acc, the same bits)
 //   start: l_c = u_c, the unary: -1e30 for c >= n_labels, else lg where
 //         the label is c, lo elsewhere (lg = log gt, lo = log p_other)
 //   quantize, per column (m, c): a_j = RN(nr_b q) at landmark j;
@@ -45,25 +45,33 @@
 //         in order, q_c = RN(e_c / s); on the last iteration the first c
 //         of the largest q_c as uint8 in place of q
 //
-// Design. Combine: one block of 256 threads per 16 x 32 tile of one map.
-// Each thread owns up to 9 elements of the tile's 12-pixel halo (40 x 56)
-// and keeps their offsets and nr_g in registers; per channel (a loop that
-// is not unrolled, so its code stays in the instruction cache) it stages
-// RN(nr_g q) in shared memory from values it loaded one channel ahead (the
-// loads of channel c + 1 are in flight during channel c's passes), a row
-// pass writes the 40 x 32 row sums (4 outputs per item from 28 values
-// read as 16-byte words), and a column pass gives each thread the blurred
-// value of its 2 pixels (one column, 2 rows; 26 values): the [H, W]
-// factors never exist and each q plane is read from device memory about
-// once (the halo rereads hit L2). u + mg of every channel waits in
-// shared memory (cap x 2 KB); then per pixel the thread adds the
-// bilateral term from the product's row, read in place by 16-byte words,
-// takes the softmax over cap <= 32 logits in registers and writes q_{i+1}
-// (consecutive lanes on consecutive pixels) into a second buffer. The taps
-// ride in the kernel's parameters (constant bank). Quantize: one block per
-// real column, two passes over its S landmarks (the max, then the
-// quantized operand), the gathers from L2. Start: one thread per pixel
-// and map.
+// Design. Combine: one block of 256 threads per 32 x 32 tile of one map,
+// two blocks per SM. Each thread stages one column of the tile's 12-pixel
+// halo (56 x 56), every fourth row, and keeps nr_g there in registers; per
+// channel (a loop that is not unrolled, so its code stays in the
+// instruction cache) it stores RN(nr_g q) in shared memory from values it
+// loaded one channel ahead (the loads of channel c + 1 are in flight
+// during channel c's passes), a row pass writes the 56 x 32 row sums (8
+// outputs per item from 32 values read as 16-byte words; row pitches
+// padded so that a quarter-warp's two rows fall on distinct banks), and a
+// column pass gives each thread the blurred value of its 4 pixels (one
+// column, 4 rows; 28 values): the [H, W] factors never exist and each q
+// plane is read from device memory about once (the halo rereads hit L2).
+// u + mg of every channel waits in shared memory (cap x 4 KB); then per
+// pixel the thread adds the bilateral term from the product's row, read
+// in place by 16-byte loads issued together, takes the softmax over cap
+// <= 32 logits in registers and writes q_{i+1} (consecutive lanes on
+// consecutive pixels) into a second buffer. The taps ride in the kernel's
+// parameters (constant bank). Quantize: one block of 1024 threads per real
+// column, two passes over its S landmarks (the max, then the quantized
+// operand), the gathers from L2. Start: one thread per pixel and map.
+//
+// Measured at 512 x 512 (H100 80GB HBM3, 700 W; chip_smoke.py): combine
+// ~0.16 ms, quantize ~0.013 ms of device time, against the product's 1.50
+// ms. The first design, which unrolled the channel loop to keep every
+// logit in registers, took 0.62 ms for the combine; the combine is still
+// ~4x its byte bound, latency-bound (two barriers per channel, 16 warps
+// per SM), not issue-bound (~0.05 ms of issue).
 //
 // Bound on this card: bytes. Per iteration at the 512 x 512 bucket (cap
 // 21): q read and written (44.0 MB each), the product's [N, 48] output
@@ -81,17 +89,24 @@ namespace {
 
 constexpr int kRadius = 12;  // ceil(4 sxy) at the Gaussian's sxy 3
 constexpr int kTaps = 2 * kRadius + 1;
-constexpr int kTileH = 16;
+constexpr int kTileH = 32;
 constexpr int kTileW = 32;
-constexpr int kHaloH = kTileH + 2 * kRadius;  // 40
+constexpr int kHaloH = kTileH + 2 * kRadius;  // 56
 constexpr int kHaloW = kTileW + 2 * kRadius;  // 56
+// shared row pitches (floats): a quarter-warp's 16-byte accesses to two
+// consecutive rows fall on distinct banks
+constexpr int kXPitch = kHaloW + 4;
+constexpr int kYPitch = kTileW + 4;
 constexpr int kThreads = 256;
-constexpr int kPixRows = kTileH * kTileW / kThreads;  // 2 pixels per thread
-constexpr int kQuads = kTileW / 4;  // row-pass items per halo row
-// halo elements each thread stages
-constexpr int kStage = (kHaloH * kHaloW + kThreads - 1) / kThreads;
+constexpr int kPixRows = kTileH * kTileW / kThreads;  // 4 pixels per thread
+constexpr int kSpan = 8;  // row-pass outputs per item
+// the combine's staging: a thread per halo column c < kHaloW (of 64), its
+// rows r0, r0 + 4, ...
+constexpr int kStageCols = 64;
+constexpr int kStageStep = kThreads / kStageCols;  // 4
+constexpr int kStage = kHaloH / kStageStep;        // 14 rows per thread
 constexpr int kMaxCap = 32;
-constexpr int kCombineBlocks = 3;  // per SM: at most 85 registers
+constexpr int kCombineBlocks = 2;  // per SM: at most 128 registers
 constexpr int kQuantThreads = 1024;
 constexpr int kStartThreads = 256;
 constexpr float kInv127Sq = 0x1.040c2p-14f;  // f32(1 / 127^2)
@@ -145,7 +160,7 @@ __device__ __forceinline__ int softmax(float (&l)[kMaxCap], int cap) {
 }
 
 // x over the halo tile at (y0, x0), zero outside the bucket
-__device__ __forceinline__ void stage(float (*dst)[kHaloW],
+__device__ __forceinline__ void stage(float (*dst)[kXPitch],
                                       const float* __restrict__ x, int y0,
                                       int x0, int h, int w) {
   for (int i = threadIdx.x; i < kHaloH * kHaloW; i += kThreads) {
@@ -159,37 +174,44 @@ __device__ __forceinline__ void stage(float (*dst)[kHaloW],
   }
 }
 
-// the row pass over the halo tile: y[r][j] = sum_t taps[t] x[r][j + t]
-__device__ __forceinline__ void row_pass(const float (*x)[kHaloW],
-                                         float (*y)[kTileW],
+// the row pass over the halo tile: y[r][j] = sum_t taps[t] x[r][j + t],
+// kSpan outputs per item from kSpan + 24 values read as 16-byte words
+__device__ __forceinline__ void row_pass(const float (*x)[kXPitch],
+                                         float (*y)[kYPitch],
                                          const Taps& taps) {
-  for (int item = threadIdx.x; item < kHaloH * kQuads; item += kThreads) {
-    const int r = item / kQuads;
-    const int j0 = (item - r * kQuads) * 4;
-    float v[4 + 2 * kRadius];
+  constexpr int kItems = kHaloH * (kTileW / kSpan);
+  for (int item = threadIdx.x; item < kItems; item += kThreads) {
+    const int r = item / (kTileW / kSpan);
+    const int j0 = (item - r * (kTileW / kSpan)) * kSpan;
+    float v[kSpan + 2 * kRadius];
     const float4* src = reinterpret_cast<const float4*>(&x[r][j0]);
 #pragma unroll
-    for (int i = 0; i < (4 + 2 * kRadius) / 4; ++i) {
+    for (int i = 0; i < (kSpan + 2 * kRadius) / 4; ++i) {
       const float4 f = src[i];
       v[4 * i] = f.x;
       v[4 * i + 1] = f.y;
       v[4 * i + 2] = f.z;
       v[4 * i + 3] = f.w;
     }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    float acc[kSpan];
+#pragma unroll
+    for (int k = 0; k < kSpan; ++k) acc[k] = 0.f;
 #pragma unroll
     for (int t = 0; t < kTaps; ++t)
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc[k] = __fadd_rn(acc[k], __fmul_rn(taps.t[t], v[k + t]));
-    *reinterpret_cast<float4*>(&y[r][j0]) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
+      for (int k = 0; k < kSpan; ++k)
+        acc[k] = __fmaf_rn(taps.t[t], v[k + t], acc[k]);
+    float4* dst = reinterpret_cast<float4*>(&y[r][j0]);
+#pragma unroll
+    for (int i = 0; i < kSpan / 4; ++i)
+      dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                           acc[4 * i + 3]);
   }
 }
 
 // the column pass for this thread's kPixRows pixels (column tx, tile rows
 // ty0 ..): z[k] = sum_t taps[t] y[ty0 + k + t][tx]
-__device__ __forceinline__ void col_pass(const float (*y)[kTileW], int tx,
+__device__ __forceinline__ void col_pass(const float (*y)[kYPitch], int tx,
                                          int ty0, const Taps& taps,
                                          float (&z)[kPixRows]) {
   float v[kPixRows + 2 * kRadius];
@@ -200,7 +222,7 @@ __device__ __forceinline__ void col_pass(const float (*y)[kTileW], int tx,
     float acc = 0.f;
 #pragma unroll
     for (int t = 0; t < kTaps; ++t)
-      acc = __fadd_rn(acc, __fmul_rn(taps.t[t], v[k + t]));
+      acc = __fmaf_rn(taps.t[t], v[k + t], acc);
     z[k] = acc;
   }
 }
@@ -208,8 +230,8 @@ __device__ __forceinline__ void col_pass(const float (*y)[kTileW], int tx,
 __global__ void __launch_bounds__(kThreads)
     blur_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
                 int w, Taps taps) {
-  __shared__ __align__(16) float s_x[kHaloH][kHaloW];
-  __shared__ __align__(16) float s_y[kHaloH][kTileW];
+  __shared__ __align__(16) float s_x[kHaloH][kXPitch];
+  __shared__ __align__(16) float s_y[kHaloH][kYPitch];
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const size_t n = (size_t)h * w;
@@ -317,8 +339,8 @@ __global__ void __launch_bounds__(kThreads, kCombineBlocks)
                    uint8_t* __restrict__ lab_out, Planes g, float compat_g,
                    float compat_b, Taps taps) {
   extern __shared__ float s_l[];  // [cap][kTileH * kTileW]
-  __shared__ __align__(16) float s_x[kHaloH][kHaloW];
-  __shared__ __align__(16) float s_y[kHaloH][kTileW];
+  __shared__ __align__(16) float s_x[kHaloH][kXPitch];
+  __shared__ __align__(16) float s_y[kHaloH][kYPitch];
   __shared__ float s_sc[kMaxCap];
   const int m = blockIdx.z;
   const int x0 = blockIdx.x * kTileW;
@@ -330,20 +352,21 @@ __global__ void __launch_bounds__(kThreads, kCombineBlocks)
     s_sc[threadIdx.x] =
         __fmul_rn(qscale[m * g.cp + threadIdx.x], kInv127Sq);
 
-  // this thread's halo elements e = threadIdx.x + i kThreads: their pixel
-  // (-1 outside the bucket or past the halo) and nr_g there
-  int src[kStage];
+  // this thread's halo elements: column sc, rows sr0 + kStageStep i; the
+  // pixel of the first, and nr_g at each (0 outside the bucket)
+  const int sc = threadIdx.x % kStageCols;
+  const int sr0 = threadIdx.x / kStageCols;
+  const int sx = x0 - kRadius + sc;
+  const bool scol = sc < kHaloW && sx >= 0 && sx < g.w;
+  const int src0 = (y0 - kRadius + sr0) * g.w + sx;
+  unsigned in_rows = 0;
   float nrg[kStage];
 #pragma unroll
   for (int i = 0; i < kStage; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / kHaloW;
-    const int y = y0 - kRadius + r;
-    const int xx = x0 - kRadius + (e - r * kHaloW);
-    const bool in = e < kHaloH * kHaloW && y >= 0 && y < g.h && xx >= 0 &&
-                    xx < g.w;
-    src[i] = in ? y * g.w + xx : -1;
-    nrg[i] = in ? __ldg(nr_g + src[i]) : 0.f;
+    const int y = y0 - kRadius + sr0 + kStageStep * i;
+    const bool in = scol && y >= 0 && y < g.h;
+    in_rows |= (unsigned)in << i;
+    nrg[i] = in ? __ldg(nr_g + src0 + kStageStep * i * g.w) : 0.f;
   }
   size_t pix[kPixRows];
   bool inside[kPixRows];
@@ -365,21 +388,22 @@ __global__ void __launch_bounds__(kThreads, kCombineBlocks)
   float pre[kStage];
 #pragma unroll
   for (int i = 0; i < kStage; ++i)
-    pre[i] = src[i] >= 0 ? __ldg(qm + src[i]) : 0.f;
-  float* x_flat = &s_x[0][0];
+    pre[i] = in_rows >> i & 1 ? __ldg(qm + src0 + kStageStep * i * g.w)
+                              : 0.f;
 #pragma unroll 1
   for (int c = 0; c < g.cap; ++c) {
+    if (sc < kHaloW) {
 #pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < kHaloH * kHaloW) x_flat[e] = __fmul_rn(nrg[i], pre[i]);
+      for (int i = 0; i < kStage; ++i)
+        s_x[sr0 + kStageStep * i][sc] = __fmul_rn(nrg[i], pre[i]);
     }
     __syncthreads();
     if (c + 1 < g.cap) {
       const float* qc = qm + (size_t)(c + 1) * n;
 #pragma unroll
       for (int i = 0; i < kStage; ++i)
-        pre[i] = src[i] >= 0 ? __ldg(qc + src[i]) : 0.f;
+        pre[i] = in_rows >> i & 1 ? __ldg(qc + src0 + kStageStep * i * g.w)
+                                  : 0.f;
     }
     row_pass(s_x, s_y, taps);
     __syncthreads();
@@ -392,8 +416,8 @@ __global__ void __launch_bounds__(kThreads, kCombineBlocks)
   }
 
   // per pixel: the bilateral message from the product's row (16 bytes at
-  // a time), the softmax, the output
-#pragma unroll 1
+  // a time, the row's loads in flight together), the softmax, the output
+#pragma unroll
   for (int k = 0; k < kPixRows; ++k) {
     if (!inside[k]) continue;
     float l[kMaxCap];
@@ -405,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, kCombineBlocks)
     const size_t row = pix[k] * ld + m * g.cp;
 #pragma unroll
     for (int c4 = 0; c4 < kMaxCap / 4; ++c4) {
-      if (4 * c4 >= g.cap) break;
+      if (4 * c4 >= g.cap) continue;
       float acc[4];
       if constexpr (kInt8) {
         const int4 a = __ldg(reinterpret_cast<const int4*>(

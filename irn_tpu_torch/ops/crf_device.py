@@ -333,7 +333,7 @@ def gaussian_taps(sxy: float) -> torch.Tensor:
 
 def _card_taps(taps: torch.Tensor) -> torch.Tensor:
     """The taps as K17 takes them: BLUR_TAPS f32 in host memory, zero-padded
-    at both ends (a +0 term changes no sum)."""
+    at both ends (fma(0, x, acc) = acc for finite x)."""
     k = taps.shape[0]
     if taps.dim() != 1 or k % 2 == 0 or k > BLUR_TAPS:
         raise ValueError(f"crf_mean_field: an odd number of taps <= "
@@ -347,8 +347,9 @@ def blur_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """K17's blur twin: the separable blur of x [C, H, W] f32 with zero
     padding, a row pass y[i, j] = sum_t taps[t] x[i, j + t - r], then a
     column pass sum_t taps[t] y[i + t - r, j], each sum from +0 over t in
-    order, RN(acc + RN(tap x)) (the Toeplitz products of the JAX module's
-    ``_sep_gauss``, summed over the 2r + 1 taps alone)."""
+    order by fused multiply-adds (:func:`centroids.fma_f32`; the Toeplitz
+    products of the JAX module's ``_sep_gauss``, summed over the 2r + 1
+    taps alone)."""
     k = taps.shape[0]
     r = (k - 1) // 2
     taps = taps.to(x.device)
@@ -356,11 +357,11 @@ def blur_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     xp = torch.nn.functional.pad(x, (r, r))
     y = torch.zeros_like(x)
     for t in range(k):
-        y = y + taps[t] * xp[..., t:t + w]
+        y = fma_f32(taps[t], xp[..., t:t + w], y)
     yp = torch.nn.functional.pad(y, (0, 0, r, r))
     z = torch.zeros_like(x)
     for t in range(k):
-        z = z + taps[t] * yp[..., t:t + h, :]
+        z = fma_f32(taps[t], yp[..., t:t + h, :], z)
     return z
 
 
