@@ -4,7 +4,8 @@
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
 count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill, K13's
-``path_max.cu`` and K14's ``crf_landmark.cu`` without a spill), checks each
+``path_max.cu``, K14's ``crf_landmark.cu`` and K17's ``crf_mean_field.cu``
+without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -249,7 +250,7 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
                  "square_fused_first")
 # other sources whose build fails on a register spill
-SPILL_CHECKED = ("path_max", "crf_landmark")
+SPILL_CHECKED = ("path_max", "crf_landmark", "crf_mean_field")
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -1278,6 +1279,11 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
                     quantize_ms=cuda_ms(quant, 20),
                     combine_ms=cuda_ms(comb, 20),
                     ms=cuda_ms(both, 20),
+                    # the card's own time, apart from the wrappers' host
+                    # time that cuda_ms includes when a launch is shorter
+                    quantize_device_ms=device_ms(quant, 10),
+                    combine_device_ms=device_ms(comb, 10),
+                    device_ms=device_ms(both, 10),
                     product_ms=cuda_ms(lambda: kern.product(opnd), 10),
                     iteration_ms=cuda_ms(iteration, 10),
                     ten_iterations_ms=cuda_ms(lambda: cd.mean_field_pair(
@@ -1298,6 +1304,7 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
     res["crf_mean_field"] = dict(
         max_abs_err=0.0,
         ms=t8["ms"],
+        device_ms=t8["device_ms"],
         plain_ms=t8["plain_ms"],
         quantize_ms=t8["quantize_ms"],
         combine_ms=t8["combine_ms"],
@@ -1311,7 +1318,10 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
         shape=(f"q [2, {CRF_CAP}, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] f32, "
                f"{CRF_LABELS} labels, one image's K14 int8 kernel; ms = one "
                f"iteration's quantize + combine (two launches; quantize "
-               f"{t8['quantize_ms']:.4f}, combine {t8['combine_ms']:.4f}); "
+               f"{t8['quantize_ms']:.4f}, combine {t8['combine_ms']:.4f}; "
+               f"the card's own time {t8['device_ms']:.4f}: quantize "
+               f"{t8['quantize_device_ms']:.4f}, combine "
+               f"{t8['combine_device_ms']:.4f}); "
                f"torch._int_mm {t8['product_ms']:.4f}; one iteration "
                f"{t8['iteration_ms']:.4f}, ten (mean_field_pair, with the "
                f"start) {t8['ten_iterations_ms']:.4f}; dense (bf16 operand, "
