@@ -1226,6 +1226,35 @@ def test_crf_mean_field_pair_bit_equal(cuda, store):
     assert torch.equal(got, out)
 
 
+@pytest.mark.parametrize("cap", [5, 32])
+def test_crf_mean_field_caps(cuda, cap):
+    """Other channel counts per map than 21: 5 (4 columns of padding per
+    map, a [S', 16] operand) and the card's limit 32 (one block per SM):
+    ten iterations' labels equal to the twins' loop, int8 and dense."""
+    planes = _crf_image("scene", 92, 84).to(cuda)
+    _, labels, *_ = _mf_state(cuda, (92, 84), (89, 81), n_labels=4)
+    lg, lo = crf_device.unary_logs(0.7, 4)
+    for kw in (dict(kernel_store="int8"), dict()):
+        kern = crf_device.LandmarkKernel(planes.permute(1, 2, 0), 89, 81,
+                                         **kw)
+        _build.reset_launches()
+        got = crf_device.mean_field_pair(kern, labels, 4, 0.7,
+                                         n_label_cap=cap)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["crf_mean_field"] == 21
+        q = crf_device.start_plain(labels, cap, 4, lg, lo)
+        opnd, qscale = kern.operand(cap)
+        assert opnd.shape[1] == 2 * crf_device.map_columns(cap)
+        out = torch.empty_like(labels)
+        for i in range(10):
+            crf_device.quantize_plain(q, kern.nr_b, opnd, qscale)
+            q = crf_device.combine_plain(
+                q, labels, kern.nr_g, kern.nr_b, kern.taps,
+                kern.product(opnd), qscale if kern.int8 else None, 4, lg,
+                lo, out if i == 9 else torch.empty_like(q))
+        assert torch.equal(got, out)
+
+
 def test_crf_mean_field_refuses(cuda):
     """More than 32 channels per map, an output that is q itself, a
     product whose rows are not 16-byte aligned and more than 25 taps are
