@@ -4,8 +4,8 @@
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
 count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill, K13's
-``path_max.cu``, K14's ``crf_landmark.cu`` and K17's ``crf_mean_field.cu``
-without a spill), checks each
+``path_max.cu``, K14's ``crf_landmark.cu``, K16's ``irn_loss.cu`` and K17's
+``crf_mean_field.cu`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -78,16 +78,22 @@ defaults (crop 512, batch 32, path radius 10, lr 0.1) with a seeded random
 backbone on the cam phase's ir labels (the 8 images 8 times: 2 steps per
 epoch): 2 epochs, then the same run at 3 epochs resumed from its
 ``.train`` file (2 more steps), TF32 switched on before and required off
-inside; one K13a and one K13b launch per step (6 and 6); every loss
+inside; per step one K13a, two K16 forward, one K16 backward and one
+K13b launch (6, 12, 6 and 6); every loss
 finite, the backbone bit-equal to its initial values, every head tensor
 moved, dp_mean a finite pair; make_sem_seg and make_ins_seg on the trained
 checkpoint. It holds one step at batch 4 on the card to the port on the
 host (losses within 1e-3, head updates within 1e-2 in norm) and prints
 the step time (median after the first, batch 32), img/s, a per-step
-breakdown, the device's busy share over a step and the peak memory. The
-kernels phase holds K13a and K13b to their twins bit for bit at the
-default shapes (a sigmoid map and the same map quantized to 8 levels) and
-an odd small shape.
+breakdown (heads forward, loss forward K13a + K16, backward, K13a, K13b
+and both K16 launches alone), the device's busy share over a step and the
+peak memory. The kernels phase holds K13a and K13b to their twins bit for
+bit at the default shapes (a sigmoid map and the same map quantized to 8
+levels) and an odd small shape, and K16's forward and backward to their
+twins run on the card (the f64 stats, the loss values, d_maxed and d_dp)
+at the default shapes on synthetic reduced labels, labels with 255, no
+foreground, NaN in dp, radii 5 and 4 and an odd map, timed beside the
+eager composition's forward + backward.
 
 The phase ``stage: train_cam`` trains the CAM classifier through the CLI
 at its defaults (crop 512, batch 16, lr 0.1, ``cam_stop_grad`` c3, the
@@ -198,6 +204,11 @@ REPLACES = {
     # the device CRF's mean-field iterations (the unrolled loop :259-295,
     # the first softmax :258, the argmax :299), an XLA program
     "crf_mean_field": "irn_tpu/ops/crf_tpu.py:259",
+    # train_irn's loss side after the path max (affinity_labels_2d :171,
+    # pair_displacement :241, affinity_displacement_loss_maps :274 after
+    # path_affinity, irn_total_loss :297) and its autodiff, XLA programs
+    "irn_loss_fwd": "irn_tpu/ops/affinity.py:274",
+    "irn_loss_bwd": "irn_tpu/ops/affinity.py:297",
 }
 SOURCES = {
     "diag_chain": "irn_tpu_torch/csrc/diag_chain.cu",
@@ -219,6 +230,8 @@ SOURCES = {
     "decode": "irn_tpu_torch/csrc/decode.cu",
     "crf_landmark": "irn_tpu_torch/csrc/crf_landmark.cu",
     "crf_mean_field": "irn_tpu_torch/csrc/crf_mean_field.cu",
+    "irn_loss_fwd": "irn_tpu_torch/csrc/irn_loss.cu",
+    "irn_loss_bwd": "irn_tpu_torch/csrc/irn_loss.cu",
 }
 # the run whose launch counts the kernels line reports for each kernel
 HOME_RUN = {
@@ -231,7 +244,8 @@ HOME_RUN = {
     "ccl_tables": "ins default", "path_max_fwd": "train irn",
     "path_max_bwd": "train irn", "diag_operator": "default",
     "decode": "default", "crf_landmark": "cam stages",
-    "crf_mean_field": "cam stages",
+    "crf_mean_field": "cam stages", "irn_loss_fwd": "train irn",
+    "irn_loss_bwd": "train irn",
 }
 
 
@@ -250,7 +264,7 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
                  "square_fused_first")
 # other sources whose build fails on a register spill
-SPILL_CHECKED = ("path_max", "crf_landmark", "crf_mean_field")
+SPILL_CHECKED = ("path_max", "crf_landmark", "crf_mean_field", "irn_loss")
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -610,6 +624,7 @@ def check_kernels(dev, card: str, sass: str) -> dict:
     check_conv(dev, res)
     check_instance_kernels(dev, geom, edge, gen, res)
     check_path_max_kernels(dev, gen, res)
+    check_irn_loss(dev, gen, res)
     check_walk_kernels(dev, gen, res)
     check_crf_landmark(dev, gen, res, sass)
     check_crf_mean_field(dev, gen, res)
@@ -900,6 +915,155 @@ def check_path_max_kernels(dev, gen, res: dict) -> None:
                 PEAK_F32),
     )
     del maxed, winner, g, edge, target, gflat, d_lib
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal, NaN at the same places (its payload may differ)."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.masked_fill(nan, 0).view(view),
+                       b.masked_fill(nan, 0).view(view))
+
+
+def _eager_loss(maxed, dp, labels, table):
+    """The eager composition from the path max's output: the label masks,
+    the maps of ``affinity_displacement_loss_maps`` after its path max, and
+    ``irn_total_loss`` (the port's train step before K16)."""
+    from irn_tpu_torch.ops import affinity
+
+    with torch.no_grad():
+        masks = affinity.affinity_labels_2d(labels, table.path_set)
+    b, n, ch, cw = maxed.shape
+    aff = (1.0 - maxed).reshape(b, n, ch * cw)
+    pair = affinity.pair_displacement(dp, table.path_set)
+    target = torch.from_numpy(table.path_set.dst_offsets.T.astype(
+        np.float32)).to(dp.device)[None, :, :, None]
+    maps = affinity.AffinityLossMaps(
+        -torch.log(aff + 1e-5), -torch.log(1.0 + 1e-5 - aff),
+        torch.abs(pair - target), torch.abs(pair))
+    return affinity.irn_total_loss(maps, *masks)[0]
+
+
+# K16's operations per (pair, window pixel), counted from irn_loss.cu: the
+# forward's subtractions, adds, products and two logs; the backward's
+# source and destination roles with two divisions
+IRN_LOSS_FWD_OPS = 23
+IRN_LOSS_BWD_OPS = 38
+
+
+def check_irn_loss(dev, gen, res: dict) -> None:
+    """K16 forward and backward vs their twins run on the card, bit for bit
+    (the f64 stats and the five loss values; d_maxed and d_dp, NaN where
+    the twin has NaN): at the default shapes (B 32, 128x128, radius 10) on
+    maxed from K13a over a sigmoid map and the probe's synthetic reduced
+    labels (class ellipses, 255 bands), on labels of {0, 1, 2, 255}, with
+    no foreground, with NaN in dp, at radii 5 and 4, and on an odd [3, 37,
+    29] map. Times each with CUDA events and the profiler's device time
+    beside its twin and the eager composition's forward + backward
+    (``eager_ms``)."""
+    from irn_tpu_torch.ops import affinity
+    from irn_tpu_torch.ops import paths
+    from irn_tpu_torch.tools.probe_train_step import reduced_labels
+
+    def tab(radius):
+        return affinity.path_table(paths.build_path_set(radius))
+
+    def inputs(radius, shape, kind):
+        table = tab(radius)
+        b, h, w = shape
+        edge = torch.sigmoid(torch.randn(shape, generator=gen)).to(dev)
+        maxed, _ = affinity.path_max_fwd(edge, table)
+        dp = torch.randn((b, 2, h, w), generator=gen)
+        if kind == "NaN in dp":
+            dp.view(-1)[::101] = float("nan")
+        if kind == "synthetic labels":
+            lab = torch.from_numpy(reduced_labels(b, h, seed=SEED))
+        else:
+            vals = torch.tensor([0, 255] if kind == "no foreground"
+                                else [0, 1, 2, 255], dtype=torch.int32)
+            p = torch.tensor([0.8, 0.2] if kind == "no foreground"
+                             else [0.4, 0.25, 0.25, 0.1])
+            lab = vals[torch.multinomial(p, b * h * w, True, generator=gen)
+                       ].reshape(shape)
+        return table, maxed, dp.to(dev), lab.to(dev)
+
+    g = torch.tensor([1.0, 0.25, -0.5, 0.125, 2.0], device=dev)
+    full = (TRAIN_BATCH, TRAIN_GRID, TRAIN_GRID)
+    cases = (("synthetic labels", TRAIN_RADIUS, full),
+             ("labels with 255", TRAIN_RADIUS, full),
+             ("no foreground", TRAIN_RADIUS, full),
+             ("NaN in dp", TRAIN_RADIUS, full),
+             ("labels with 255", 5, full), ("labels with 255", 4, full),
+             ("labels with 255", TRAIN_RADIUS, (3, 37, 29)))
+    for kind, radius, shape in cases:
+        tag = f"{kind}, radius {radius}, {list(shape)}"
+        table, maxed, dp, lab = inputs(radius, shape, kind)
+        loss, stats = affinity.irn_loss_fwd(maxed, dp, lab, table)
+        w_loss, w_stats = affinity.irn_loss_fwd_plain(maxed, dp, lab, table)
+        check(_same_bits(stats, w_stats) and _same_bits(loss, w_loss),
+              f"irn_loss_fwd ({tag}) not bit-equal to its twin: "
+              f"{loss.tolist()} {w_loss.tolist()} / {stats.tolist()} "
+              f"{w_stats.tolist()}")
+        d_m, d_d = affinity.irn_loss_bwd(g, stats, maxed, dp, lab, table)
+        w_m, w_d = affinity.irn_loss_bwd_plain(g, stats, maxed, dp, lab,
+                                               table)
+        check(_same_bits(d_m, w_m) and _same_bits(d_d, w_d),
+              f"irn_loss_bwd ({tag}) not bit-equal to its twin")
+        check(kind != "NaN in dp" or bool(torch.isnan(loss[[0, 3, 4]]).all()),
+              f"irn_loss_fwd ({tag}): NaN did not reach the dp terms")
+        del maxed, dp, lab, d_m, d_d, w_m, w_d
+    table, maxed, dp, lab = inputs(TRAIN_RADIUS, full, "synthetic labels")
+    loss, stats = affinity.irn_loss_fwd(maxed, dp, lab, table)
+    m_leaf = maxed.clone().requires_grad_(True)
+    dp_leaf = dp.clone().requires_grad_(True)
+
+    def eager():
+        torch.autograd.grad(_eager_loss(m_leaf, dp_leaf, lab, table),
+                            (m_leaf, dp_leaf))
+
+    eager_ms = cuda_ms(eager, 3)
+    e_loss = float(_eager_loss(maxed, dp, lab, table))
+    n_el = maxed.numel()
+    io = 4 * (n_el + dp.numel() + lab.numel())
+    counts = [int(v) for v in stats[5:].tolist()]
+    desc = (f"maxed [{TRAIN_BATCH}, {table.n_pairs}, {maxed.shape[2]}, "
+            f"{maxed.shape[3]}] f32 (K13a over a sigmoid map), dp [{TRAIN_BATCH}"
+            f", 2, {TRAIN_GRID}, {TRAIN_GRID}], the synthetic reduced labels "
+            f"(counts bg / fg / neg {counts}); bit-equal to the twin on the "
+            f"card there, on labels of {{0, 1, 2, 255}}, with no foreground, "
+            f"with NaN in dp, at radii 5 and 4 and on a [3, 37, 29] map; "
+            f"loss {loss.tolist()} (eager composition's total {e_loss}); "
+            f"eager: the composition's forward + backward from maxed and dp")
+    res["irn_loss_fwd"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: affinity.irn_loss_fwd(maxed, dp, lab, table), 20),
+        device_ms=device_ms(
+            lambda: affinity.irn_loss_fwd(maxed, dp, lab, table), 20),
+        plain_ms=cuda_ms(lambda: affinity.irn_loss_fwd_plain(
+            maxed, dp, lab, table), 2),
+        eager_ms=eager_ms,
+        shape=desc + "; two launches (the block sums, their f64 total and "
+                     "the terms)",
+        library_ms=None,
+        **bound(IRN_LOSS_FWD_OPS * n_el, io, PEAK_F32),
+    )
+    res["irn_loss_bwd"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: affinity.irn_loss_bwd(g, stats, maxed, dp, lab,
+                                                 table), 20),
+        device_ms=device_ms(lambda: affinity.irn_loss_bwd(
+            g, stats, maxed, dp, lab, table), 20),
+        plain_ms=cuda_ms(lambda: affinity.irn_loss_bwd_plain(
+            g, stats, maxed, dp, lab, table), 2),
+        eager_ms=eager_ms,
+        shape=desc + "; one launch, writes d_maxed and d_dp, no atomics",
+        library_ms=None,
+        **bound(IRN_LOSS_BWD_OPS * n_el, io + 4 * (n_el + dp.numel()),
+                PEAK_F32),
+    )
+    del maxed, dp, lab, m_leaf, dp_leaf
 
 
 # K10 at the three buckets of the default 128 x 128 grid cap (radius 5)
@@ -2617,9 +2781,11 @@ def run_train_stage(dev, stage: dict, card: str) -> dict:
     check((first["n_steps"], resumed["n_steps"], resumed["start_epoch"])
           == (4, 2, 2), f"train runs {first['n_steps']} + "
           f"{resumed['n_steps']} steps from epoch {resumed['start_epoch']}")
-    # one K13a and one K13b per step, nothing else
+    # per step one K13a, two K16 forward (its sums, their total), one K16
+    # backward and one K13b, nothing else
     check(lt["path_max_fwd"] == 6 and lt["path_max_bwd"] == 6
-          and sum(lt.values()) == 12, f"train launches {lt}")
+          and lt["irn_loss_fwd"] == 12 and lt["irn_loss_bwd"] == 6
+          and sum(lt.values()) == 30, f"train launches {lt}")
     losses = first["losses"] + resumed["losses"]
     check(len(losses) == 6 and all(np.isfinite(v) for row in losses
                                    for v in row.values()),
@@ -2740,7 +2906,8 @@ def train_host_check(dev, train: dict) -> None:
         del model, opt
     (m_c, b_c, a_c, t_c, l_c), (m_h, b_h, a_h, t_h, l_h) = runs
     check(l_c["path_max_fwd"] == 1 and l_c["path_max_bwd"] == 1
-          and not any(l_h.values()),
+          and l_c["irn_loss_fwd"] == 2 and l_c["irn_loss_bwd"] == 1
+          and sum(l_c.values()) == 5 and not any(l_h.values()),
           f"host check launches: card {l_c}, host {l_h}")
     loss_err = max(abs(m_c[k] - m_h[k]) / max(abs(m_h[k]), 1e-30)
                    for k in m_h)
@@ -2813,7 +2980,6 @@ def train_layers(dev, train: dict, card: str) -> None:
         return out
 
     reps = 3
-    path_set = table.path_set
     it = iter(dl)
     for rep in range(reps + 1):
         if rep == 1:
@@ -2827,26 +2993,29 @@ def train_layers(dev, train: dict, card: str) -> None:
         feats = timed("backbone forward (no autograd)",
                       lambda: model.features(x))
 
-        def heads_loss():
-            with torch.no_grad():
-                masks = affinity.affinity_labels_2d(red, path_set)
-            edge_logit, dp = model.heads(feats)
-            maps = affinity.affinity_displacement_loss_maps(edge_logit, dp,
-                                                            table)
-            return edge_logit, affinity.irn_total_loss(maps, *masks)[0]
+        edge_logit, dp = timed("heads forward", lambda: model.heads(feats))
 
-        edge_logit, loss = timed("heads + labels + loss forward (incl. K13a)",
-                                 heads_loss)
+        def loss_fwd():
+            maxed = affinity.path_max(
+                torch.sigmoid(edge_logit[:, 0]).contiguous(), table)
+            return affinity.irn_loss(maxed, dp, red, table)[0]
+
+        loss = timed("loss forward (K13a + K16)", loss_fwd)
         edge = torch.sigmoid(edge_logit[:, 0]).detach().contiguous()
         maxed, winner = timed("K13a alone", lambda: affinity.path_max_fwd(
             edge, table))
+        dp_d = dp.detach()
+        _, stats = timed("K16 forward alone", lambda: affinity.irn_loss_fwd(
+            maxed, dp_d, red, table))
         opt.zero_grad()
-        timed("backward (incl. K13b)", loss.backward)
-        g = torch.ones_like(maxed)
+        timed("backward (incl. K16, K13b)", loss.backward)
+        g5 = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0], device=dev)
+        g, _ = timed("K16 backward alone", lambda: affinity.irn_loss_bwd(
+            g5, stats, maxed, dp_d, red, table))
         timed("K13b alone", lambda: affinity.path_max_bwd(
             g, winner, table, tuple(edge.shape[1:])))
         timed("optimizer", opt.step)
-        del maxed, winner, g, loss, edge_logit, feats
+        del maxed, winner, g, loss, edge_logit, dp, dp_d, feats, stats
     for name, v in ms.items():
         print(f"layer train {name}: {v / reps:.3f} ms/step ({card})",
               flush=True)
@@ -3683,7 +3852,7 @@ def main() -> int:
                             "combine_ms", "product_ms", "iteration_ms",
                             "ten_iterations_ms", "dense_ms",
                             "dense_product_ms", "dense_iteration_ms",
-                            "dense_ten_iterations_ms")
+                            "dense_ten_iterations_ms", "eager_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

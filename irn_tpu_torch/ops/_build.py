@@ -16,7 +16,8 @@ K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
 its upsample pass and its argmax pass, or 1 for the upsample alone; one
 K14 landmark-kernel build 2, its table pass and its rows, whatever its row
 range, or 1 for the table pass alone; K17's blur, start, quantize and
-combine 1 each), and :func:`launch`
+combine 1 each; one K16 forward 2, its block sums and their total, one
+backward 1), and :func:`launch`
 adds that number under a lock (the stages call kernels from a thread
 pool), so a run can show that its main path really went through the
 kernels.
@@ -51,7 +52,10 @@ KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "apply_banded", "square_dense", "square_fused_first",
            "banded_chain", "packed_chain_batched", "conv3x3", "advect",
            "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd",
-           "diag_operator", "decode", "crf_landmark", "crf_mean_field")
+           "diag_operator", "decode", "crf_landmark", "crf_mean_field",
+           "irn_loss_fwd", "irn_loss_bwd")
+# kernels whose C entry point is not irn_<key>
+ENTRIES = {"irn_loss_fwd": "loss_fwd", "irn_loss_bwd": "loss_bwd"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -204,7 +208,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_crf_mean_field.argtypes = [
         p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p, n,
     ]
-    for k in (*(k for k in KERNELS if k != "ccl_tables"),
+    lib.irn_loss_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                 p, n]
+    lib.irn_loss_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                 p, n]
+    for k in (*(ENTRIES.get(k, k) for k in KERNELS if k != "ccl_tables"),
               "diag_chain_clusters", "square_dense_split",
               "square_fused_first_split", "square_banded_split",
               "packed_chain_occupancy", "cluster_masks", "component_tables",
@@ -242,11 +250,12 @@ def check_cuda(name: str, *tensors: torch.Tensor,
 
 def launch(name: str, device: torch.device, *args,
            entry: Optional[str] = None) -> None:
-    """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``) with
+    """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``, or
+    the name in :data:`ENTRIES`) with
     ``args``, then the current stream of ``device`` and the launch-count
     out-argument; raise on a non-zero cudaError, else add the kernels it
     launched to ``LAUNCHES[name]``."""
-    fn = getattr(load(), f"irn_{entry or name}")
+    fn = getattr(load(), f"irn_{entry or ENTRIES.get(name, name)}")
     launched = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

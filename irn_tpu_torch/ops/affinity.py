@@ -10,12 +10,18 @@ displacements and train_irn's loss maps.
   same max with train_irn's winner-take-all gradient, a
   ``torch.autograd.Function`` that keeps only the int8 winning cell per
   (pair, pixel) for the backward (JAX ``_path_max``'s custom VJP).
+- :func:`irn_loss` (K16 forward and backward, ``csrc/irn_loss.cu``): the
+  loss side after the path max, labels, maps, masked sums and weighted
+  terms in one pass per direction, a ``torch.autograd.Function`` whose
+  backward gives the cotangents of the path max's output and of the
+  displacements; train_irn's step runs ``path_max`` then ``irn_loss``.
 - :func:`affinity_labels_2d`, :func:`pair_displacement`,
   :func:`affinity_displacement_loss_maps` and :func:`irn_total_loss`: the
-  loss side (resnet50_irn.py:177-213, train_irn.py:58-69 of the
-  reference), plain PyTorch over a few large tensors. The port's tensors
-  are NCHW: edge logits [B, 1, H, W], displacements [B, 2, H, W]; the loss
-  maps come out in the JAX functions' layouts.
+  same loss side (resnet50_irn.py:177-213, train_irn.py:58-69 of the
+  reference) as an eager composition over a few large tensors, the
+  counterpart of the JAX functions that the tests hold to them. The port's
+  tensors are NCHW: edge logits [B, 1, H, W], displacements [B, 2, H, W];
+  the loss maps come out in the JAX functions' layouts.
 """
 
 from __future__ import annotations
@@ -128,6 +134,15 @@ class PathTable:
         """Cells of pair ``p`` before its suffix pair's path begins."""
         s = self.suffix[p]
         return len(self.cells[p]) - (len(self.cells[s]) if s >= 0 else 0)
+
+    def offsets(self, device: torch.device) -> torch.Tensor:
+        """int32 [n_pairs, 2]: each pair's destination (dy, dx) on
+        ``device`` (K16's constant table), built once."""
+        key = ("offsets", str(device))
+        if key not in self.packed:
+            self.packed[key] = torch.from_numpy(np.ascontiguousarray(
+                self.path_set.dst_offsets, dtype=np.int32)).to(device)
+        return self.packed[key]
 
     def tables(self, device: torch.device) -> PackedTables:
         """The kernels' tables on ``device``, built once (see
@@ -444,3 +459,300 @@ def irn_total_loss(maps: AffinityLossMaps, bg_pos_label: torch.Tensor,
         "loss_dp_fg": dp_fg,
         "loss_dp_bg": dp_bg,
     }
+
+
+# -- K16: the loss side after the path max, forward and backward ----------
+
+N_CLASSES_WITH_BG = 21
+LOSS_KEYS = ("loss_pos_aff", "loss_neg_aff", "loss_dp_fg", "loss_dp_bg")
+# K16's blocks: 32 x 8 threads, one pixel each
+_LOSS_LANES, _LOSS_ROWS = 32, 8
+# the second launch's threads (the block partials' f64 sum)
+_LOSS_TOTAL_THREADS = 256
+
+
+def _loss_checks(name: str, maxed: torch.Tensor, dp: torch.Tensor,
+                 labels: torch.Tensor, table: PathTable) -> Tuple[int, int]:
+    """(H, W) of ``dp`` after checking that maxed [B, n_pairs, ch, cw], dp
+    [B, 2, H, W] and labels [B, H, W] agree with ``table``."""
+    if dp.dim() != 4 or dp.shape[1] != 2:
+        raise ValueError(f"{name}: dp must be [B, 2, H, W], got "
+                         f"{tuple(dp.shape)}")
+    b, _, h, w = dp.shape
+    ch, cw = _window_dims(table, h, w)
+    if tuple(maxed.shape) != (b, table.n_pairs, ch, cw):
+        raise ValueError(f"{name}: maxed {tuple(maxed.shape)}, expected "
+                         f"{(b, table.n_pairs, ch, cw)}")
+    if tuple(labels.shape) != (b, h, w):
+        raise ValueError(f"{name}: labels {tuple(labels.shape)}, expected "
+                         f"{(b, h, w)}")
+    return h, w
+
+
+def _loss_masks(labels: torch.Tensor, table: PathTable, dtype: torch.dtype,
+                n_classes: int):
+    """K16's (bg, fg, neg) 0 / 1 masks [B, n_pairs, ch, cw] in ``dtype``
+    (``affinity_labels_2d``'s rules)."""
+    rf = table.rf
+    ch, cw = _window_dims(table, labels.shape[-2], labels.shape[-1])
+    ls = shifted_window(labels, 0, 0, rf, ch, cw)[:, None]
+    ld = torch.stack([shifted_window(labels, int(dy), int(dx), rf, ch, cw)
+                      for dy, dx in table.path_set.dst_offsets], 1)
+    valid = (ls < n_classes) & (ld < n_classes)
+    equal = ls == ld
+    pos = equal & valid
+    return ((pos & (ls == 0)).to(dtype), (pos & (ls > 0)).to(dtype),
+            ((~equal) & valid).to(dtype))
+
+
+def _loss_pairs(dp: torch.Tensor, table: PathTable) -> Tuple[torch.Tensor,
+                                                              torch.Tensor]:
+    """(pair = dp_src - dp_dst [B, 2, n_pairs, ch, cw], the offsets (dy,
+    dx) [1, 2, n_pairs, 1, 1] in dp's dtype)."""
+    rf = table.rf
+    ch, cw = _window_dims(table, dp.shape[-2], dp.shape[-1])
+    src = shifted_window(dp, 0, 0, rf, ch, cw)
+    dst = torch.stack([shifted_window(dp, int(dy), int(dx), rf, ch, cw)
+                       for dy, dx in table.path_set.dst_offsets], 2)
+    off = torch.from_numpy(np.ascontiguousarray(
+        table.path_set.dst_offsets.T)).to(device=dp.device, dtype=dp.dtype)
+    return src[:, :, None] - dst, off[None, :, :, None, None]
+
+
+def _warp_tree(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's shuffle-down sum over the last dim (32 lanes): lane i
+    adds lane i + 16, then i + 8, ..., lane 0 keeps the total."""
+    for half in (16, 8, 4, 2, 1):
+        x = x[..., :half] + x[..., half : 2 * half]
+    return x[..., 0]
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """[..., warps, 32] -> [...]: each warp's tree, then the warps in
+    order (K16's ``block_sum``)."""
+    w = _warp_tree(x)
+    acc = w[..., 0]
+    for i in range(1, w.shape[-1]):
+        acc = acc + w[..., i]
+    return acc
+
+
+def _loss_sum(per_thread: torch.Tensor) -> torch.Tensor:
+    """K16's f64 sum of per-thread values [B, ch, cw]: per block of 32 x 8
+    window pixels its tree (pixels outside the window add +0), then thread
+    t of the second launch sums blocks t, t + 256, ... from +0 in order,
+    then the same tree."""
+    b, ch, cw = per_thread.shape
+    gy = -(-ch // _LOSS_ROWS)
+    gx = -(-cw // _LOSS_LANES)
+    x = torch.nn.functional.pad(
+        per_thread.double(),
+        (0, gx * _LOSS_LANES - cw, 0, gy * _LOSS_ROWS - ch))
+    x = x.reshape(b, gy, _LOSS_ROWS, gx, _LOSS_LANES).permute(0, 1, 3, 2, 4)
+    parts = _block_sum(x).reshape(-1)  # block order (b, y, x)
+    n = parts.shape[0]
+    k = -(-n // _LOSS_TOTAL_THREADS)
+    parts = torch.nn.functional.pad(parts, (0, k * _LOSS_TOTAL_THREADS - n))
+    acc = torch.zeros(_LOSS_TOTAL_THREADS, dtype=torch.float64,
+                      device=parts.device)
+    for row in parts.reshape(k, _LOSS_TOTAL_THREADS):
+        acc = acc + row
+    return _block_sum(acc.reshape(_LOSS_TOTAL_THREADS // 32, 32))
+
+
+def _loss_denominators(stats: torch.Tensor, dtype: torch.dtype):
+    """(n_bg + eps, n_fg + eps, n_neg + eps, 2 n_fg + eps, 2 n_bg + eps),
+    eps 1e-5, formed in f32 from the counts rounded to f32 once (JAX's
+    masks are f32, so their sums and these sums are f32 in f64 runs too),
+    then taken to ``dtype``."""
+    eps = 1e-5
+    n = stats[5:].float()
+    return tuple(v.to(dtype) for v in (
+        n[0] + eps, n[1] + eps, n[2] + eps, 2.0 * n[1] + eps,
+        2.0 * n[0] + eps))
+
+
+def _loss_terms(stats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[total, pos, neg, dp_fg, dp_bg] in ``dtype`` from the f64 stats
+    [s0..s4, n_bg, n_fg, n_neg], each sum rounded to ``dtype`` once
+    (``irn_total_loss``'s formula)."""
+    s = stats[:5].to(dtype)
+    d_bg, d_fg, d_neg, d_dfg, d_dbg = _loss_denominators(stats, dtype)
+    pos = (s[0] / d_bg) * 0.5 + (s[1] / d_fg) * 0.5
+    neg = s[2] / d_neg
+    dp_fg = s[3] / d_dfg
+    dp_bg = s[4] / d_dbg
+    total = (pos + neg) * 0.5 + (dp_fg + dp_bg) * 0.5
+    return torch.stack([total, pos, neg, dp_fg, dp_bg])
+
+
+def irn_loss_fwd_plain(maxed: torch.Tensor, dp: torch.Tensor,
+                       labels: torch.Tensor, table: PathTable,
+                       n_classes: int = N_CLASSES_WITH_BG
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16 forward's plain twin in the kernel's order (f32 or f64): per
+    window pixel the five masked sums over the pairs in order, from +0
+    (bg pos_aff, fg pos_aff, neg neg_aff, then fg |pair_c - off_c| and bg
+    |pair_c| for c = dy, dx), their f64 sum by the kernel's blocks and
+    trees, the exact label counts -> (loss [total, pos, neg, dp_fg, dp_bg]
+    in maxed's dtype, stats f64 [s0..s4, n_bg, n_fg, n_neg])."""
+    _loss_checks("irn_loss_fwd", maxed, dp, labels, table)
+    bg, fg, neg = _loss_masks(labels, table, maxed.dtype, n_classes)
+    a = 1.0 - maxed
+    pos_aff = -torch.log(a + 1e-5)
+    neg_aff = -torch.log(1.0 + 1e-5 - a)
+    pair, off = _loss_pairs(dp, table)
+    terms = (bg * pos_aff, fg * pos_aff, neg * neg_aff,
+             fg[:, None] * torch.abs(pair - off), bg[:, None] * torch.abs(pair))
+    s = [torch.zeros_like(maxed[:, 0]) for _ in range(5)]
+    for p in range(table.n_pairs):
+        for k in range(3):
+            s[k] = s[k] + terms[k][:, p]
+        for k in (3, 4):
+            s[k] = s[k] + terms[k][:, 0, p]
+            s[k] = s[k] + terms[k][:, 1, p]
+    stats = torch.stack(
+        [_loss_sum(v) for v in s]
+        + [m.sum(dtype=torch.float64) for m in (bg, fg, neg)])
+    return _loss_terms(stats, maxed.dtype), stats
+
+
+def irn_loss_bwd_plain(g: torch.Tensor, stats: torch.Tensor,
+                       maxed: torch.Tensor, dp: torch.Tensor,
+                       labels: torch.Tensor, table: PathTable,
+                       n_classes: int = N_CLASSES_WITH_BG
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16 backward's plain twin in the kernel's order: the cotangents g
+    [5] of the forward's loss and its stats -> (d_maxed [B, n_pairs, ch,
+    cw], d_dp [B, 2, H, W]). d_maxed = (bg k_bg + fg k_fg) / (a + 1e-5) -
+    neg k_neg / (1.00001 - a); per pair t_c = (fg k_dfg) sgn(pair_c -
+    off_c) + (bg k_dbg) sgn(pair_c), sgn(x) = x >= 0 ? 1 : -1 (JAX's abs
+    JVP), added at the pair's source and subtracted at its destination,
+    pairs ascending, from +0."""
+    h, w = _loss_checks("irn_loss_bwd", maxed, dp, labels, table)
+    dt = maxed.dtype
+    d_bg, d_fg, d_neg, d_dfg, d_dbg = _loss_denominators(stats, dt)
+    half_g = g[0] * 0.5
+    g_pos = (half_g + g[1]) * 0.5
+    k_bg = g_pos / d_bg
+    k_fg = g_pos / d_fg
+    k_neg = (half_g + g[2]) / d_neg
+    k_dfg = (half_g + g[3]) / d_dfg
+    k_dbg = (half_g + g[4]) / d_dbg
+    bg, fg, neg = _loss_masks(labels, table, dt, n_classes)
+    a = 1.0 - maxed
+    d_maxed = ((bg * k_bg + fg * k_fg) / (a + 1e-5)
+               - (neg * k_neg) / (1.0 + 1e-5 - a))
+    pair, off = _loss_pairs(dp, table)
+
+    def sgn(x):
+        return torch.where(x >= 0, 1.0, -1.0).to(dt)
+
+    t = ((fg * k_dfg)[:, None] * sgn(pair - off)
+         + (bg * k_dbg)[:, None] * sgn(pair))  # [B, 2, n_pairs, ch, cw]
+    rf = table.rf
+    ch, cw = maxed.shape[-2:]
+    d_dp = torch.zeros((dp.shape[0], 2, h, w), dtype=dt, device=dp.device)
+    for p, (dy, dx) in enumerate(table.path_set.dst_offsets):
+        dy, dx = int(dy), int(dx)
+        d_dp[..., :ch, rf : rf + cw] += t[:, :, p]
+        d_dp[..., dy : dy + ch, rf + dx : rf + dx + cw] -= t[:, :, p]
+    return d_maxed, d_dp
+
+
+def _loss_kernel_checks(name: str, table: PathTable, *tensors) -> None:
+    _build.check_cuda(name, *tensors[:2])
+    _build.check_cuda(name, tensors[2], dtype=torch.int32)
+    if table.n_pairs > MAX_PAIRS or table.rf > 31:
+        raise ValueError(f"{name}: {table.n_pairs} pairs at radius floor "
+                         f"{table.rf} exceed the kernel's table (at most "
+                         f"{MAX_PAIRS} pairs, radius floor 31)")
+
+
+def irn_loss_fwd(maxed: torch.Tensor, dp: torch.Tensor,
+                 labels: torch.Tensor, table: PathTable,
+                 n_classes: int = N_CLASSES_WITH_BG
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16 forward: maxed [B, n_pairs, ch, cw] (K13a's output), dp [B, 2,
+    H, W], labels [B, H, W] -> (loss [total, pos, neg, dp_fg, dp_bg],
+    stats f64 [8]), on the device. Two launches on the card (the block
+    sums, then their total and the terms), f32 and int32 labels only,
+    equal to :func:`irn_loss_fwd_plain`."""
+    h, w = _loss_checks("irn_loss_fwd", maxed, dp, labels, table)
+    if _build.is_plain(maxed):
+        return irn_loss_fwd_plain(maxed, dp, labels, table, n_classes)
+    _loss_kernel_checks("irn_loss_fwd", table, maxed, dp, labels)
+    b = dp.shape[0]
+    ch, cw = maxed.shape[-2:]
+    n_blocks = (-(-cw // _LOSS_LANES)) * (-(-ch // _LOSS_ROWS)) * b
+    dev = maxed.device
+    partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
+    loss = torch.empty(5, device=dev)
+    stats = torch.empty(8, dtype=torch.float64, device=dev)
+    _build.launch("irn_loss_fwd", dev, maxed.data_ptr(), dp.data_ptr(),
+                  labels.data_ptr(), table.offsets(dev).data_ptr(),
+                  partials.data_ptr(), loss.data_ptr(), stats.data_ptr(), b,
+                  h, w, table.rf, table.n_pairs, n_classes, n_blocks)
+    return loss, stats
+
+
+def irn_loss_bwd(g: torch.Tensor, stats: torch.Tensor, maxed: torch.Tensor,
+                 dp: torch.Tensor, labels: torch.Tensor, table: PathTable,
+                 n_classes: int = N_CLASSES_WITH_BG
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K16 backward: the cotangents g [5] of :func:`irn_loss_fwd`'s loss,
+    its stats and inputs -> (d_maxed [B, n_pairs, ch, cw], d_dp [B, 2, H,
+    W]). One launch on the card, no atomics, bit-equal to
+    :func:`irn_loss_bwd_plain`."""
+    _loss_checks("irn_loss_bwd", maxed, dp, labels, table)
+    if tuple(g.shape) != (5,) or tuple(stats.shape) != (8,):
+        raise ValueError(f"irn_loss_bwd: g {tuple(g.shape)} and stats "
+                         f"{tuple(stats.shape)}, expected (5,) and (8,)")
+    if _build.is_plain(maxed):
+        return irn_loss_bwd_plain(g, stats, maxed, dp, labels, table,
+                                  n_classes)
+    _loss_kernel_checks("irn_loss_bwd", table, maxed, dp, labels)
+    _build.check_cuda("irn_loss_bwd", g)
+    _build.check_cuda("irn_loss_bwd", stats, dtype=torch.float64)
+    b, _, h, w = dp.shape
+    dev = maxed.device
+    d_maxed = torch.empty_like(maxed)
+    d_dp = torch.empty_like(dp)
+    _build.launch("irn_loss_bwd", dev, maxed.data_ptr(), dp.data_ptr(),
+                  labels.data_ptr(), table.offsets(dev).data_ptr(),
+                  g.data_ptr(), stats.data_ptr(), d_maxed.data_ptr(),
+                  d_dp.data_ptr(), b, h, w, table.rf, table.n_pairs,
+                  n_classes)
+    return d_maxed, d_dp
+
+
+class IrnLoss(torch.autograd.Function):
+    """loss [total, pos, neg, dp_fg, dp_bg] = K16 forward(maxed, dp,
+    labels); its backward is K16's backward over the saved inputs and
+    stats (no label mask or loss map is kept)."""
+
+    @staticmethod
+    def forward(ctx, maxed: torch.Tensor, dp: torch.Tensor,
+                labels: torch.Tensor, table: PathTable) -> torch.Tensor:
+        loss, stats = irn_loss_fwd(maxed, dp, labels, table)
+        ctx.save_for_backward(maxed, dp, labels, stats)
+        ctx.table = table
+        return loss
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        maxed, dp, labels, stats = ctx.saved_tensors
+        d_maxed, d_dp = irn_loss_bwd(g.contiguous(), stats, maxed, dp,
+                                     labels, ctx.table)
+        return d_maxed, d_dp, None, None
+
+
+def irn_loss(maxed: torch.Tensor, dp: torch.Tensor, labels: torch.Tensor,
+             table: PathTable):
+    """train_irn's loss from the path max's output: maxed [B, n_pairs, ch,
+    cw] (:func:`path_max`), dp [B, 2, H, W], the reduced labels [B, H, W]
+    -> (total, the four loss scalars), as ``irn_total_loss`` over
+    ``affinity_displacement_loss_maps`` and ``affinity_labels_2d``;
+    differentiable in maxed and dp."""
+    loss = IrnLoss.apply(maxed, dp.contiguous(), labels.contiguous(), table)
+    return loss[0], {k: loss[i + 1] for i, k in enumerate(LOSS_KEYS)}

@@ -1,11 +1,12 @@
 """IRNet training — the counterpart of :mod:`irn_tpu.train.irn_train`
 (stage contract: step/train_irn.py of the reference).
 
-The affinity label masks are computed on the device from the reduced
-label map; the four masked affinity / displacement losses with the
-reference's weighting go through the path max kernels (K13a forward, K13b
-backward); after training, the displacement mean calibrates MeanShift
-(train_irn.py:95-107). The stage's ``.train`` checkpoint is
+The loss side runs as two pairs of kernels: the path max (K13a forward,
+K13b backward), then the affinity labels, the four masked affinity /
+displacement losses and the reference's weighting in one pass each way
+(K16 forward and backward), from the reduced label map on the device; no
+per-pair mask or loss map is made. After training, the displacement mean
+calibrates MeanShift (train_irn.py:95-107). The stage's ``.train`` checkpoint is
 :func:`irn_tpu_torch.train.optim.train_state`'s."""
 
 from __future__ import annotations
@@ -36,17 +37,15 @@ def make_train_step(model: IRNet, optimizer: PolySGD,
                     table: affinity.PathTable):
     """step(images [B, 3, H, W] f32, reduced_labels [B, H/4, W/4] int) ->
     the four loss scalars and ``loss``, on the device (no sync): forward,
-    loss, backward, optimizer step."""
-    path_set = table.path_set
+    path max (K13a), loss (K16), backward (K16, K13b, the heads), optimizer
+    step."""
 
     def train_step(images: torch.Tensor, reduced_labels: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            bg_pos, fg_pos, neg = affinity.affinity_labels_2d(
-                reduced_labels, path_set)
         edge_logit, dp = model(images)
-        maps = affinity.affinity_displacement_loss_maps(edge_logit, dp, table)
-        loss, metrics = affinity.irn_total_loss(maps, bg_pos, fg_pos, neg)
+        maxed = affinity.path_max(
+            torch.sigmoid(edge_logit[:, 0]).contiguous(), table)
+        loss, metrics = affinity.irn_loss(maxed, dp, reduced_labels, table)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()

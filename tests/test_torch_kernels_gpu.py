@@ -869,6 +869,104 @@ def test_path_max_autograd(cuda):
     assert torch.equal(grads[0], grads[1])
 
 
+def _same_bits(a, b):
+    """Bit-equal, NaN at the same places (its payload may differ)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.masked_fill(nan, 0).view(view),
+                       b.masked_fill(nan, 0).view(view))
+
+
+def _loss_inputs(kind, radius, shape, seed):
+    """K16's inputs: maxed (K13a's twin over a sigmoid map), dp of normals,
+    labels of {0, 1, 2, 255} or, with no foreground, {0, 255}; "NaN in dp"
+    plants NaN in both dp channels."""
+    from irn_tpu_torch.ops import affinity, paths
+
+    table = affinity.path_table(paths.build_path_set(radius))
+    b, h, w = shape
+    g = np.random.default_rng(seed)
+    maxed, _ = affinity.path_max_plain(_edge_map("sigmoid", shape, seed),
+                                       table)
+    dp = g.standard_normal((b, 2, h, w)).astype(np.float32)
+    values, p = ((0, 255), (0.8, 0.2)) if kind == "no foreground" else (
+        (0, 1, 2, 255), (0.4, 0.25, 0.25, 0.1))
+    lab = g.choice(np.array(values, np.int32), size=shape, p=p)
+    if kind == "NaN in dp":
+        dp.reshape(-1)[::101] = np.nan
+    return (table, maxed, torch.from_numpy(dp), torch.from_numpy(lab))
+
+
+@pytest.mark.parametrize("kind", ["labels with 255", "no foreground",
+                                  "NaN in dp"])
+@pytest.mark.parametrize("radius,shape", [(10, (32, 128, 128)),
+                                          (5, (32, 128, 128)),
+                                          (4, (32, 128, 128)),
+                                          (10, (3, 37, 29))])
+def test_irn_loss_bit_equal(cuda, kind, radius, shape):
+    """K16 forward (two launches) and backward (one) against their twins
+    run on the card: the f64 stats (five sums, three counts) and the five
+    loss values bit-equal (the twins emulate the kernels' f64 block and
+    warp trees, so no ulp of slack is needed), d_maxed and d_dp bit-equal,
+    NaN where the twin has NaN; the backward also bit-equal to the host
+    twin given the same stats (it takes no transcendental)."""
+    from irn_tpu_torch.ops import affinity
+
+    table, maxed, dp, lab = _loss_inputs(kind, radius, shape, radius)
+    args = (maxed.to(cuda), dp.to(cuda), lab.to(cuda), table)
+    loss, stats = affinity.irn_loss_fwd(*args)
+    want_loss, want_stats = affinity.irn_loss_fwd_plain(*args)
+    g = torch.tensor([1.0, 0.25, -0.5, 0.125, 2.0], device=cuda)
+    d_maxed, d_dp = affinity.irn_loss_bwd(g, stats, *args)
+    want_dm, want_dd = affinity.irn_loss_bwd_plain(g, stats, *args)
+    host_dm, host_dd = affinity.irn_loss_bwd_plain(
+        g.cpu(), stats.cpu(), maxed, dp, lab, table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["irn_loss_fwd"] == 2
+    assert _build.LAUNCHES["irn_loss_bwd"] == 1
+    assert _same_bits(stats, want_stats)
+    assert _same_bits(loss, want_loss)
+    assert _same_bits(d_maxed, want_dm) and _same_bits(d_dp, want_dd)
+    assert _same_bits(d_maxed, host_dm) and _same_bits(d_dp, host_dd)
+    if kind == "NaN in dp":
+        assert torch.isnan(loss[[0, 3, 4]]).all()
+        assert not torch.isnan(loss[1:3]).any()
+
+
+def test_irn_loss_autograd_step(cuda):
+    """One autograd step through PathMax and IrnLoss, card against host:
+    one K13a, two K16 forward, one K16 backward and one K13b launch; the
+    gradients of the edge map and of dp bit-equal (d_maxed takes only the
+    exact counts and the upstream 1), the losses within 1e-6 (the host's
+    log may differ from the card's by an ulp)."""
+    from irn_tpu_torch.ops import affinity
+
+    table, _, dp, lab = _loss_inputs("labels with 255", 10, (4, 64, 72), 5)
+    edge = _edge_map("sigmoid", (4, 64, 72), seed=6)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        e = edge.to(dev).requires_grad_(True)
+        d = dp.to(dev).requires_grad_(True)
+        total, terms = affinity.irn_loss(affinity.path_max(e, table), d,
+                                         lab.to(dev), table)
+        total.backward()
+        out.append((float(total), {k: float(v) for k, v in terms.items()},
+                    e.grad.cpu(), d.grad.cpu()))
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] for k in (
+        "path_max_fwd", "path_max_bwd", "irn_loss_fwd", "irn_loss_bwd")} == {
+        "path_max_fwd": 1, "path_max_bwd": 1, "irn_loss_fwd": 2,
+        "irn_loss_bwd": 1}
+    (t_c, m_c, ge_c, gd_c), (t_h, m_h, ge_h, gd_h) = out
+    assert t_c == pytest.approx(t_h, rel=1e-6)
+    for k, v in m_h.items():
+        assert m_c[k] == pytest.approx(v, rel=1e-6), k
+    assert torch.equal(ge_c, ge_h) and torch.equal(gd_c, gd_h)
+
+
 def _walk_edge(kind, shape, seed):
     """A capped edge map for K10: a sigmoid of normals, the same quantized
     to 8 levels (ties along every path), or all ones (w 0, inv 1)."""
