@@ -929,21 +929,14 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def _eager_loss(maxed, dp, labels, table):
     """The eager composition from the path max's output: the label masks,
-    the maps of ``affinity_displacement_loss_maps`` after its path max, and
-    ``irn_total_loss`` (the port's train step before K16)."""
+    the loss maps and ``irn_total_loss`` (the port's train step before
+    K16)."""
     from irn_tpu_torch.ops import affinity
 
     with torch.no_grad():
         masks = affinity.affinity_labels_2d(labels, table.path_set)
-    b, n, ch, cw = maxed.shape
-    aff = (1.0 - maxed).reshape(b, n, ch * cw)
-    pair = affinity.pair_displacement(dp, table.path_set)
-    target = torch.from_numpy(table.path_set.dst_offsets.T.astype(
-        np.float32)).to(dp.device)[None, :, :, None]
-    maps = affinity.AffinityLossMaps(
-        -torch.log(aff + 1e-5), -torch.log(1.0 + 1e-5 - aff),
-        torch.abs(pair - target), torch.abs(pair))
-    return affinity.irn_total_loss(maps, *masks)[0]
+    return affinity.irn_total_loss(affinity.loss_maps(maxed, dp, table),
+                                   *masks)[0]
 
 
 # K16's operations per (pair, window pixel), counted from irn_loss.cu: the

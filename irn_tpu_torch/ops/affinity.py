@@ -421,10 +421,16 @@ def affinity_displacement_loss_maps(edge_logit: torch.Tensor,
     logits [B, 1, H, W] and displacements [B, 2, H, W]; the path max runs
     through :func:`path_max` (K13a, K13b)."""
     edge = torch.sigmoid(edge_logit[:, 0])
-    b, h, w = edge.shape
-    ch, cw = _window_dims(table, h, w)
-    maxed = path_max(edge.contiguous(), table)
-    aff = (1.0 - maxed).reshape(b, table.n_pairs, ch * cw)
+    return loss_maps(path_max(edge.contiguous(), table), dp, table)
+
+
+def loss_maps(maxed: torch.Tensor, dp: torch.Tensor, table: PathTable
+              ) -> AffinityLossMaps:
+    """The four loss maps from the path max's output maxed [B, n_pairs,
+    ch, cw] and dp [B, 2, H, W]: the eager composition that K16 replaces in
+    the train step."""
+    b, n, ch, cw = maxed.shape
+    aff = (1.0 - maxed).reshape(b, n, ch * cw)
     pos_aff = -torch.log(aff + 1e-5)
     neg_aff = -torch.log(1.0 + 1e-5 - aff)
 
@@ -492,31 +498,24 @@ def _loss_checks(name: str, maxed: torch.Tensor, dp: torch.Tensor,
 def _loss_masks(labels: torch.Tensor, table: PathTable, dtype: torch.dtype,
                 n_classes: int):
     """K16's (bg, fg, neg) 0 / 1 masks [B, n_pairs, ch, cw] in ``dtype``
-    (``affinity_labels_2d``'s rules)."""
-    rf = table.rf
-    ch, cw = _window_dims(table, labels.shape[-2], labels.shape[-1])
-    ls = shifted_window(labels, 0, 0, rf, ch, cw)[:, None]
-    ld = torch.stack([shifted_window(labels, int(dy), int(dx), rf, ch, cw)
-                      for dy, dx in table.path_set.dst_offsets], 1)
-    valid = (ls < n_classes) & (ld < n_classes)
-    equal = ls == ld
-    pos = equal & valid
-    return ((pos & (ls == 0)).to(dtype), (pos & (ls > 0)).to(dtype),
-            ((~equal) & valid).to(dtype))
+    (``affinity_labels_2d``'s)."""
+    b, h, w = labels.shape
+    ch, cw = _window_dims(table, h, w)
+    return tuple(m.reshape(b, table.n_pairs, ch, cw).to(dtype)
+                 for m in affinity_labels_2d(labels, table.path_set,
+                                             n_classes))
 
 
 def _loss_pairs(dp: torch.Tensor, table: PathTable) -> Tuple[torch.Tensor,
                                                               torch.Tensor]:
     """(pair = dp_src - dp_dst [B, 2, n_pairs, ch, cw], the offsets (dy,
     dx) [1, 2, n_pairs, 1, 1] in dp's dtype)."""
-    rf = table.rf
-    ch, cw = _window_dims(table, dp.shape[-2], dp.shape[-1])
-    src = shifted_window(dp, 0, 0, rf, ch, cw)
-    dst = torch.stack([shifted_window(dp, int(dy), int(dx), rf, ch, cw)
-                       for dy, dx in table.path_set.dst_offsets], 2)
+    b, _, h, w = dp.shape
+    ch, cw = _window_dims(table, h, w)
     off = torch.from_numpy(np.ascontiguousarray(
         table.path_set.dst_offsets.T)).to(device=dp.device, dtype=dp.dtype)
-    return src[:, :, None] - dst, off[None, :, :, None, None]
+    return (pair_displacement(dp, table.path_set).reshape(
+        b, 2, table.n_pairs, ch, cw), off[None, :, :, None, None])
 
 
 def _warp_tree(x: torch.Tensor) -> torch.Tensor:

@@ -164,6 +164,8 @@ def main(argv=None) -> dict:
     def loss_fwd():
         if kernel:
             return affinity.irn_loss(m_leaf, dp_leaf, red, table)[0]
+        # the eager maps of affinity_displacement_loss_maps after its path
+        # max, written out so that trees before K16 run them too
         with torch.no_grad():
             masks = affinity.affinity_labels_2d(red, table.path_set)
         b, n, ch, cw = m_leaf.shape

@@ -953,7 +953,8 @@ def test_irn_loss_autograd_step(cuda):
         total, terms = affinity.irn_loss(affinity.path_max(e, table), d,
                                          lab.to(dev), table)
         total.backward()
-        out.append((float(total), {k: float(v) for k, v in terms.items()},
+        out.append((float(total.detach()),
+                    {k: float(v.detach()) for k, v in terms.items()},
                     e.grad.cpu(), d.grad.cpu()))
     torch.cuda.synchronize()
     assert {k: _build.LAUNCHES[k] for k in (
