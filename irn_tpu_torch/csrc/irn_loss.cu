@@ -72,7 +72,7 @@
 // maxed (254.7 MB), dp (4.2 MB) and the labels (2.1 MB): ~0.078 ms at 3.35
 // TB/s; the backward reads the same and writes d_maxed and d_dp: ~0.155 ms.
 // Two logf per element in the forward and two divisions in the backward
-// put the issue time near the byte time.
+// bring the instruction time close to the byte time.
 
 #include <atomic>
 #include <cstdint>
