@@ -12,6 +12,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <atomic>
 #include <cstddef>
 
 #define IRN_API extern "C" __attribute__((visibility("default")))
@@ -25,6 +26,23 @@
   } while (0)
 
 namespace irn {
+
+// Lets `kernel` take up to `bytes` of dynamic shared memory on the current
+// device: set once per kernel and device (a bit of `set` per device), as
+// each launch's own size is at most that.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& set,
+                       int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (set.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) set.fetch_or(bit);
+  return e;
+}
 
 // x**e by binary exponentiation (e >= 1): the multiplication order of JAX's
 // integer_pow and of matpow_kernels.pow_int. With a compile-time e the loop

@@ -374,21 +374,7 @@ bool bad_geometry(int B, int H, int W, int rf, int n_pairs) {
          n_pairs < 1 || n_pairs > kMaxPairs;
 }
 
-// Lets a kernel take up to kSmemMax of dynamic shared memory: set once per
-// kernel and device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& set) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (set.load() & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemMax);
-  if (e == cudaSuccess) set.fetch_or(bit);
-  return e;
-}
-
+// per device, whether a kernel's shared-memory limit is raised
 std::atomic<unsigned long long> fwd_smem_set{0};
 std::atomic<unsigned long long> bwd_smem_set{0};
 
@@ -414,7 +400,7 @@ IRN_API int irn_loss_fwd(const float* maxed, const float* dp,
   cudaError_t e = cudaMemcpyToSymbolAsync(c_off, offsets, 8 * n_pairs, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(irn_loss_sums_kernel, fwd_smem_set);
+  e = irn::allow_smem(irn_loss_sums_kernel, fwd_smem_set, kSmemMax);
   if (e != cudaSuccess) return (int)e;
   irn_loss_sums_kernel<<<grid, kThreads, smem, stream>>>(
       maxed, dp, labels, partials, H, W, rf, n_pairs, n_classes);
@@ -439,7 +425,7 @@ IRN_API int irn_loss_bwd(const float* maxed, const float* dp,
   cudaError_t e = cudaMemcpyToSymbolAsync(c_off, offsets, 8 * n_pairs, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(irn_loss_bwd_kernel, bwd_smem_set);
+  e = irn::allow_smem(irn_loss_bwd_kernel, bwd_smem_set, kSmemMax);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((W + kLanes - 1) / kLanes, (H + kRows - 1) / kRows, B);
   irn_loss_bwd_kernel<<<grid, kThreads, smem, stream>>>(

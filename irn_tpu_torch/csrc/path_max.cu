@@ -328,21 +328,7 @@ bool bad_geometry(int B, int H, int W, int rf) {
   return B < 1 || rf < 0 || H - rf < 1 || W - 2 * rf < 1;
 }
 
-// Lets both kernels take up to kSmemMax of dynamic shared memory: set once
-// per kernel and device, as each launch's own size is at most that.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& set) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (set.load() & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemMax);
-  if (e == cudaSuccess) set.fetch_or(bit);
-  return e;
-}
-
+// per device, whether a kernel's shared-memory limit is raised
 std::atomic<unsigned long long> fwd_smem_set{0};
 std::atomic<unsigned long long> bwd_smem_set{0};
 
@@ -364,7 +350,7 @@ IRN_API int irn_path_max_fwd(const float* edge, float* maxed, int8_t* winner,
   cudaError_t e = cudaMemcpyToSymbolAsync(c_tab, tab, 4 * n_words, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(path_max_fwd_kernel, fwd_smem_set);
+  e = irn::allow_smem(path_max_fwd_kernel, fwd_smem_set, kSmemMax);
   if (e != cudaSuccess) return (int)e;
   const int ch = H - rf;
   const int cw = W - 2 * rf;
@@ -402,7 +388,7 @@ IRN_API int irn_path_max_bwd(const float* g, const int8_t* winner,
   cudaError_t e = cudaMemcpyToSymbolAsync(c_tab, starts, 4 * n_pairs, 0,
                                           cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(path_max_bwd_kernel, bwd_smem_set);
+  e = irn::allow_smem(path_max_bwd_kernel, bwd_smem_set, kSmemMax);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((W + kBwdLanes - 1) / kBwdLanes,
                   (H + tile_rows - 1) / tile_rows, B);

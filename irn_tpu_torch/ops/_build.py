@@ -54,8 +54,6 @@ KERNELS = ("diag_chain", "pack_banded", "square_banded", "packed_chain",
            "ccl_label", "ccl_tables", "path_max_fwd", "path_max_bwd",
            "diag_operator", "decode", "crf_landmark", "crf_mean_field",
            "irn_loss_fwd", "irn_loss_bwd")
-# kernels whose C entry point is not irn_<key>
-ENTRIES = {"irn_loss_fwd": "loss_fwd", "irn_loss_bwd": "loss_bwd"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -212,9 +210,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                  p, n]
     lib.irn_loss_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                  p, n]
-    for k in (*(ENTRIES.get(k, k) for k in KERNELS if k != "ccl_tables"),
-              "diag_chain_clusters", "square_dense_split",
-              "square_fused_first_split", "square_banded_split",
+    for k in (*(k for k in KERNELS
+                if k not in ("ccl_tables", "irn_loss_fwd", "irn_loss_bwd")),
+              "loss_fwd", "loss_bwd", "diag_chain_clusters",
+              "square_dense_split", "square_fused_first_split",
+              "square_banded_split",
               "packed_chain_occupancy", "cluster_masks", "component_tables",
               "upsample_scores", "crf_landmark_table", "crf_blur",
               "crf_start", "crf_quantize"):
@@ -250,12 +250,11 @@ def check_cuda(name: str, *tensors: torch.Tensor,
 
 def launch(name: str, device: torch.device, *args,
            entry: Optional[str] = None) -> None:
-    """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``, or
-    the name in :data:`ENTRIES`) with
+    """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``) with
     ``args``, then the current stream of ``device`` and the launch-count
     out-argument; raise on a non-zero cudaError, else add the kernels it
     launched to ``LAUNCHES[name]``."""
-    fn = getattr(load(), f"irn_{entry or ENTRIES.get(name, name)}")
+    fn = getattr(load(), f"irn_{entry or name}")
     launched = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

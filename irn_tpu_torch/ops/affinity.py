@@ -691,7 +691,8 @@ def irn_loss_fwd(maxed: torch.Tensor, dp: torch.Tensor,
     _build.launch("irn_loss_fwd", dev, maxed.data_ptr(), dp.data_ptr(),
                   labels.data_ptr(), table.offsets(dev).data_ptr(),
                   partials.data_ptr(), loss.data_ptr(), stats.data_ptr(), b,
-                  h, w, table.rf, table.n_pairs, n_classes, n_blocks)
+                  h, w, table.rf, table.n_pairs, n_classes, n_blocks,
+                  entry="loss_fwd")
     return loss, stats
 
 
@@ -721,7 +722,7 @@ def irn_loss_bwd(g: torch.Tensor, stats: torch.Tensor, maxed: torch.Tensor,
                   labels.data_ptr(), table.offsets(dev).data_ptr(),
                   g.data_ptr(), stats.data_ptr(), d_maxed.data_ptr(),
                   d_dp.data_ptr(), b, h, w, table.rf, table.n_pairs,
-                  n_classes)
+                  n_classes, entry="loss_bwd")
     return d_maxed, d_dp
 
 

@@ -1,8 +1,7 @@
 """Profile one train_irn step on one card, part by part:
 
   python irn_tpu_torch/tools/probe_train_step.py [--root DIR]
-      [--loss auto|eager|kernel] [--batch 32] [--crop 512] [--radius 10]
-      [--reps 3] [--out FILE]
+      [--batch 32] [--crop 512] [--radius 10] [--reps 3] [--out FILE]
 
 Input: a seeded random IRNet (``init_irnet``, seed 0), images of normals
 and reduced labels of a few class ellipses on background with 255 bands
@@ -32,9 +31,9 @@ Then the whole step, ``irn_train.make_train_step`` of the tree: its time
 after one), its device time and launches under the profiler, and the peak
 memory allocated over one step.
 
-``--loss auto`` takes the tree's ``affinity.irn_loss`` where it has one
-(K16), else the eager composition; ``eager`` forces the composition.
-``--root`` imports ``irn_tpu_torch`` from another checkout (a parent's
+The loss is the tree's ``affinity.irn_loss`` where it has one (K16),
+else the eager composition, so the parts and the whole step run the same
+loss. ``--root`` imports ``irn_tpu_torch`` from another checkout (a parent's
 ``git archive``), so one script profiles both trees; run the file by its
 path for that. Prints the card's name and power limit (nvidia-smi) and one
 JSON line; ``--out`` writes the JSON there too. Needs a CUDA card.
@@ -114,8 +113,6 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="checkout whose irn_tpu_torch is profiled")
-    ap.add_argument("--loss", choices=("auto", "eager", "kernel"),
-                    default="auto")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--crop", type=int, default=512)
     ap.add_argument("--radius", type=int, default=10)
@@ -139,8 +136,7 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    kernel = args.loss == "kernel" or (args.loss == "auto"
-                                       and hasattr(affinity, "irn_loss"))
+    kernel = hasattr(affinity, "irn_loss")
     dev = torch.device("cuda")
     model = init_irnet(IRNet(), torch.Generator().manual_seed(0)).to(dev)
     opt = optim.poly_sgd(model.named_parameters(), 0.1, max_step=1000,

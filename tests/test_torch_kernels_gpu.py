@@ -869,17 +869,6 @@ def test_path_max_autograd(cuda):
     assert torch.equal(grads[0], grads[1])
 
 
-def _same_bits(a, b):
-    """Bit-equal, NaN at the same places (its payload may differ)."""
-    a, b = a.cpu(), b.cpu()
-    nan = torch.isnan(a)
-    if not torch.equal(nan, torch.isnan(b)):
-        return False
-    view = torch.int64 if a.dtype == torch.float64 else torch.int32
-    return torch.equal(a.masked_fill(nan, 0).view(view),
-                       b.masked_fill(nan, 0).view(view))
-
-
 def _loss_inputs(kind, radius, shape, seed):
     """K16's inputs: maxed (K13a's twin over a sigmoid map), dp of normals,
     labels of {0, 1, 2, 255} or, with no foreground, {0, 255}; "NaN in dp"
@@ -913,6 +902,7 @@ def test_irn_loss_bit_equal(cuda, kind, radius, shape):
     warp trees, so no ulp of slack is needed), d_maxed and d_dp bit-equal,
     NaN where the twin has NaN; the backward also bit-equal to the host
     twin given the same stats (it takes no transcendental)."""
+    from chip_smoke import _same_bits
     from irn_tpu_torch.ops import affinity
 
     table, maxed, dp, lab = _loss_inputs(kind, radius, shape, radius)
@@ -930,7 +920,8 @@ def test_irn_loss_bit_equal(cuda, kind, radius, shape):
     assert _same_bits(stats, want_stats)
     assert _same_bits(loss, want_loss)
     assert _same_bits(d_maxed, want_dm) and _same_bits(d_dp, want_dd)
-    assert _same_bits(d_maxed, host_dm) and _same_bits(d_dp, host_dd)
+    assert (_same_bits(d_maxed.cpu(), host_dm)
+            and _same_bits(d_dp.cpu(), host_dd))
     if kind == "NaN in dp":
         assert torch.isnan(loss[[0, 3, 4]]).all()
         assert not torch.isnan(loss[1:3]).any()
