@@ -420,6 +420,28 @@ def hgmma_counts(sass: str) -> dict:
             for k, src in SOURCES.items()}
 
 
+def sass_loops(sass: str, kernel: str) -> list:
+    """The SASS instruction counts of the loops (a branch back to a lower
+    address, the branch included) of the one function whose mangled name
+    holds ``kernel``, largest first."""
+    from irn_tpu_torch.ops import _build
+
+    fns = [v for k, v in _build.sass_functions(sass).items() if kernel in k]
+    check(len(fns) == 1, f"{kernel}: {len(fns)} functions in the SASS")
+    ins = []
+    for line in fns[0]:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append(sum(1 for a, _ in ins
+                             if int(m.group(1), 16) <= a <= addr))
+    return sorted(loops, reverse=True)
+
+
 def build_report(here: str) -> tuple:
     """Build the kernels; print each source's ptxas register and spill
     lines and each kernel's HGMMA count; fail if a wgmma kernel shows no
@@ -624,10 +646,10 @@ def check_kernels(dev, card: str, sass: str) -> dict:
     check_conv(dev, res)
     check_instance_kernels(dev, geom, edge, gen, res)
     check_path_max_kernels(dev, gen, res)
-    check_irn_loss(dev, gen, res)
+    check_irn_loss(dev, gen, res, sass)
     check_walk_kernels(dev, gen, res)
     check_crf_landmark(dev, gen, res, sass)
-    check_crf_mean_field(dev, gen, res)
+    check_crf_mean_field(dev, gen, res, sass)
     for name, r_ in res.items():
         lib = (f"{r_['library_ms']:.4f} ms" if r_["library_ms"] is not None
                else "none")
@@ -946,7 +968,7 @@ IRN_LOSS_FWD_OPS = 23
 IRN_LOSS_BWD_OPS = 38
 
 
-def check_irn_loss(dev, gen, res: dict) -> None:
+def check_irn_loss(dev, gen, res: dict, sass: str) -> None:
     """K16 forward and backward vs their twins run on the card, bit for bit
     (the f64 stats and the five loss values; d_maxed and d_dp, NaN where
     the twin has NaN): at the default shapes (B 32, 128x128, radius 10) on
@@ -966,8 +988,12 @@ def check_irn_loss(dev, gen, res: dict) -> None:
     def inputs(radius, shape, kind):
         table = tab(radius)
         b, h, w = shape
-        edge = torch.sigmoid(torch.randn(shape, generator=gen)).to(dev)
-        maxed, _ = affinity.path_max_fwd(edge, table)
+        edge = torch.sigmoid(torch.randn(shape, generator=gen))
+        if radius > 14:
+            # K13a's tables hold the path sets up to radius 14: its twin
+            maxed = affinity.path_max_plain(edge, table)[0].to(dev)
+        else:
+            maxed, _ = affinity.path_max_fwd(edge.to(dev), table)
         dp = torch.randn((b, 2, h, w), generator=gen)
         if kind == "NaN in dp":
             dp.view(-1)[::101] = float("nan")
@@ -989,7 +1015,12 @@ def check_irn_loss(dev, gen, res: dict) -> None:
              ("no foreground", TRAIN_RADIUS, full),
              ("NaN in dp", TRAIN_RADIUS, full),
              ("labels with 255", 5, full), ("labels with 255", 4, full),
-             ("labels with 255", TRAIN_RADIUS, (3, 37, 29)))
+             ("labels with 255", TRAIN_RADIUS, (3, 37, 29)),
+             ("labels with 255", TRAIN_RADIUS, (2, 36, 29)),
+             ("labels with 255", 4, (2, 20, 150)),
+             ("labels with 255", 5, (2, 40, 300)),
+             ("labels with 255", 14, (2, 40, 60)),
+             ("labels with 255", 20, (1, 540, 39)))
     for kind, radius, shape in cases:
         tag = f"{kind}, radius {radius}, {list(shape)}"
         table, maxed, dp, lab = inputs(radius, shape, kind)
@@ -1026,9 +1057,18 @@ def check_irn_loss(dev, gen, res: dict) -> None:
             f", 2, {TRAIN_GRID}, {TRAIN_GRID}], the synthetic reduced labels "
             f"(counts bg / fg / neg {counts}); bit-equal to the twin on the "
             f"card there, on labels of {{0, 1, 2, 255}}, with no foreground, "
-            f"with NaN in dp, at radii 5 and 4 and on a [3, 37, 29] map; "
+            f"with NaN in dp, at radii 5, 4 and 14 and on [3, 37, 29], [2, "
+            f"36, 29], [2, 20, 150] and [2, 40, 300] maps, a one-column "
+            f"window at radius 20 (rows through L1); "
             f"loss {loss.tolist()} (eager composition's total {e_loss}); "
             f"eager: the composition's forward + backward from maxed and dp")
+    # SASS per element: the forward's pair loop (4 pairs x 2 pixels per
+    # trip) over 8, the backward's (2 pairs x 1 pixel, its source and
+    # destination roles) over 2
+    fwd_loops = sass_loops(sass, "irn_loss_sums_kernelILb1ELb1E")
+    bwd_loops = sass_loops(sass, "irn_loss_bwd_kernel")
+    print(f"K16 SASS loops: forward {fwd_loops}, backward {bwd_loops}",
+          flush=True)
     res["irn_loss_fwd"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: affinity.irn_loss_fwd(maxed, dp, lab, table), 20),
@@ -1038,8 +1078,10 @@ def check_irn_loss(dev, gen, res: dict) -> None:
             maxed, dp, lab, table), 2),
         eager_ms=eager_ms,
         shape=desc + "; two launches (the block sums, their f64 total and "
-                     "the terms)",
+                     f"the terms); {fwd_loops[0] / 8:.2f} SASS instructions "
+                     f"per element",
         library_ms=None,
+        sass_per_element=fwd_loops[0] / 8,
         **bound(IRN_LOSS_FWD_OPS * n_el, io, PEAK_F32),
     )
     res["irn_loss_bwd"] = dict(
@@ -1051,8 +1093,11 @@ def check_irn_loss(dev, gen, res: dict) -> None:
         plain_ms=cuda_ms(lambda: affinity.irn_loss_bwd_plain(
             g, stats, maxed, dp, lab, table), 2),
         eager_ms=eager_ms,
-        shape=desc + "; one launch, writes d_maxed and d_dp, no atomics",
+        shape=desc + "; one launch, writes d_maxed and d_dp, no atomics; "
+                     f"{bwd_loops[0] / 2:.2f} SASS instructions per element "
+                     f"(its source and destination roles)",
         library_ms=None,
+        sass_per_element=bwd_loops[0] / 2,
         **bound(IRN_LOSS_BWD_OPS * n_el, io + 4 * (n_el + dp.numel()),
                 PEAK_F32),
     )
@@ -1328,16 +1373,78 @@ def _crf_labels(gen, bucket: tuple, extent: tuple) -> torch.Tensor:
     return lab
 
 
-def check_crf_mean_field(dev, gen, res: dict) -> None:
+def _combine_edges(dev, gen) -> int:
+    """K17's combine at 2, 5, 21 and 32 channels per map with the taps of
+    sxy 1, 2 and 3, on a bucket no multiple of the 32 x 32 tile and on one
+    narrower and shorter than a tile, from an int32 product with qscale
+    and an f32 product, into q_{i+1} and into the labels: each bit-equal
+    to the twin; a width that is no multiple of 4 and an unaligned q are
+    refused before a launch. Returns the cases held."""
+    from irn_tpu_torch.ops import crf_device as cd
+
+    n_cases = 0
+    for bucket, extent in (((92, 84), (89, 81)), ((20, 24), (17, 22))):
+        h, w = bucket
+        valid = torch.zeros((h, w))
+        valid[:extent[0], :extent[1]] = 1
+        nr_g = ((torch.rand((h, w), generator=gen) + 0.05) * valid).to(dev)
+        nr_b = ((torch.rand((h, w), generator=gen) + 0.05) * valid).to(dev)
+        for cap in (2, 5, 21, 32):
+            n_labels = min(cap, 4)
+            logits = torch.randn((2, cap, h, w), generator=gen) * 2
+            logits[:, n_labels:] = -1e30
+            q = torch.softmax(logits, 1).to(dev)
+            labels = torch.randint(0, n_labels, (2, h, w), generator=gen,
+                                   dtype=torch.uint8).to(dev)
+            lg, lo = cd.unary_logs(CRF_GT, n_labels)
+            m = 2 * cd.map_columns(cap)
+            prods = ((torch.randint(0, 2 ** 20, (h * w, m), generator=gen,
+                                    dtype=torch.int32).to(dev),
+                      torch.rand(m, generator=gen).to(dev)),
+                     ((torch.rand((h * w, m), generator=gen) * 200).to(dev),
+                      None))
+            for sxy in (1.0, 2.0, 3.0):
+                taps = cd.gaussian_taps(sxy)
+                for prod, qscale in prods:
+                    for out in (torch.empty_like(q),
+                                torch.empty_like(labels)):
+                        got = cd.combine(q, labels, nr_g, nr_b, taps, prod,
+                                         qscale, n_labels, lg, lo,
+                                         out.clone())
+                        want = cd.combine_plain(q, labels, nr_g, nr_b, taps,
+                                                prod, qscale, n_labels, lg,
+                                                lo, out.clone())
+                        check(torch.equal(got, want),
+                              f"crf_mean_field combine {bucket} cap {cap} "
+                              f"sxy {sxy} {prod.dtype} into {out.dtype}: not "
+                              f"bit-equal to the twin")
+                        n_cases += 1
+    q = torch.zeros((2, 3, 24, 30), device=dev)
+    shifted = torch.zeros(2 * 3 * 24 * 28 + 1, device=dev)[1:].view(
+        2, 3, 24, 28)
+    for bad in (q, shifted):
+        try:
+            cd.check_q_map(bad)
+            check(False, f"crf_mean_field: q {tuple(bad.shape)} at "
+                         f"{bad.data_ptr() % 16} past 16 bytes was not "
+                         f"refused")
+        except ValueError:
+            pass
+    return n_cases
+
+
+def check_crf_mean_field(dev, gen, res: dict, sass: str) -> None:
     """K17 vs its twins on the card at the largest bucket and the odd one,
     on one image's kernels (K14's int8 and bf16 stores): the blur (the
     validity mask and 42 planes), the start (softmax and argmax), the
     quantize (int8, bf16 and f32 operands, qscale, zero columns past the
     labels), the combine (int32 and f32 products; q_{i+1} and the labels)
     bit-equal, and ten iterations through ``mean_field_pair`` equal to the
-    same loop through the twins. At the largest bucket quantize, combine,
+    same loop through the twins; then the combine's edge cases
+    (:func:`_combine_edges`). At the largest bucket quantize, combine,
     the product and one whole iteration are timed by CUDA events, int8 and
-    dense, beside the twins and the bytes an iteration must move."""
+    dense, beside the twins and the bytes an iteration must move; the
+    combine's SASS loops are counted."""
     from irn_tpu_torch.ops import _build
     from irn_tpu_torch.ops import crf_device as cd
 
@@ -1454,6 +1561,10 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
                     + opnd.numel() * opnd.element_size())
             del kern, q, opnd, prod, got, want
             torch.cuda.empty_cache()
+    n_edges = _combine_edges(dev, gen)
+    loops = sass_loops(sass, "combine_kernelILb1E")
+    print(f"K17 combine: {n_edges} edge cases bit-equal; SASS loops "
+          f"{loops}", flush=True)
     t8, td = timing["int8"], timing["dense"]
     n = CRF_BUCKET[0] * CRF_BUCKET[1]
     print(f"K17 at {CRF_BUCKET}: int8 {json.dumps(t8)}; dense "
@@ -1472,6 +1583,7 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
         dense_product_ms=td["product_ms"],
         dense_iteration_ms=td["iteration_ms"],
         dense_ten_iterations_ms=td["ten_iterations_ms"],
+        sass_loops=loops[:4],
         shape=(f"q [2, {CRF_CAP}, {CRF_BUCKET[0]}, {CRF_BUCKET[1]}] f32, "
                f"{CRF_LABELS} labels, one image's K14 int8 kernel; ms = one "
                f"iteration's quantize + combine (two launches; quantize "
@@ -1488,8 +1600,10 @@ def check_crf_mean_field(dev, gen, res: dict) -> None:
                f"{td['ten_iterations_ms']:.4f}; {t8['bytes'] / 1e6:.1f} MB "
                f"per iteration; bit-equal to the twins (blur, start, "
                f"quantize int8 / bf16 / f32, combine int32 / f32 into q and "
-               f"labels; {CRF_BUCKET} and {CRF_ODD}); ten iterations' labels "
-               f"equal to the twins' loop"),
+               f"labels; {CRF_BUCKET} and {CRF_ODD}; {n_edges} combine edge "
+               f"cases: caps 2, 5, 21, 32, sxy 1, 2, 3, buckets 92x84 and "
+               f"20x24); combine SASS loops {loops[:4]}; ten iterations' "
+               f"labels equal to the twins' loop"),
         library_ms=None,
         # per pixel and channel: two 25-tap passes (mul + add), RN(nr_g q),
         # the two messages' scalings and sums, the softmax's subtract, exp,
@@ -3841,7 +3955,8 @@ def main() -> int:
                             "entry_share", "held_share",
                             "held_share_per_image", "phase_shares", "k3_ms",
                             "k13_ms", "exps", "exp_sfu_ms", "store_ms",
-                            "sums_only_ms", "sass_per_entry", "quantize_ms",
+                            "sums_only_ms", "sass_per_entry",
+                            "sass_per_element", "sass_loops", "quantize_ms",
                             "combine_ms", "product_ms", "iteration_ms",
                             "ten_iterations_ms", "dense_ms",
                             "dense_product_ms", "dense_iteration_ms",

@@ -45,33 +45,53 @@
 //         in order, q_c = RN(e_c / s); on the last iteration the first c
 //         of the largest q_c as uint8 in place of q
 //
-// Design. Combine: one block of 256 threads per 32 x 32 tile of one map,
-// two blocks per SM. Each thread stages one column of the tile's 12-pixel
-// halo (56 x 56), every fourth row, and keeps nr_g there in registers; per
-// channel (a loop that is not unrolled, so its code stays in the
-// instruction cache) it stores RN(nr_g q) in shared memory from values it
-// loaded one channel ahead (the loads of channel c + 1 are in flight
-// during channel c's passes), a row pass writes the 56 x 32 row sums (8
-// outputs per item from 32 values read as 16-byte words; row pitches
-// padded so that a quarter-warp's two rows fall on distinct banks), and a
-// column pass gives each thread the blurred value of its 4 pixels (one
-// column, 4 rows; 28 values): the [H, W] factors never exist and each q
-// plane is read from device memory about once (the halo rereads hit L2).
-// u + mg of every channel waits in shared memory (cap x 4 KB); then per
-// pixel the thread adds the bilateral term from the product's row, read
-// in place by 16-byte loads issued together, takes the softmax over cap
-// <= 32 logits in registers and writes q_{i+1} (consecutive lanes on
-// consecutive pixels) into a second buffer. The taps ride in the kernel's
-// parameters (constant bank). Quantize: one block of 1024 threads per real
-// column, two passes over its S landmarks (the max, then the quantized
-// operand), the gathers from L2. Start: one thread per pixel and map.
+// Design. Combine: persistent blocks of 384 threads, one per SM, each
+// walking 32 x 32 tiles (the two maps of a tile on neighbouring blocks, so
+// they share the product's rows in L2) in three roles. One producer
+// thread issues, per channel, a TMA load of the tile's 12-pixel q halo as
+// a 60 x 56 f32 box of the [2 cap, H, W] tensor map (its zero fill is the
+// zero outside the bucket; 240-byte rows keep the row pass's 16-byte
+// reads conflict-free) into a ring of 4 stages paced by mbarriers (full:
+// the load's bytes; empty: the row threads' arrivals); it runs ahead into
+// the next tile's channels while a tile's softmax runs. Seven row warps
+// each own one 8-output item of the 56 x 32 row sums: they keep their 32
+// values of nr_g's halo in registers for the whole tile, form RN(nr_g q)
+// as they read q from the ring (the bits of a staged product) and write
+// the row sums into one of two buffers. Four column warps each give 8
+// pixels (one column, 8 rows) their blurred value and keep u + mg of
+// every channel in shared memory (cap x 4 KB). Row and column warps hand
+// the row sums over through named barriers (full / empty per buffer), so
+// each channel costs one barrier wait on each side and the row pass of
+// channel c + 1 runs beside the column pass of channel c. After a tile's
+// channels the row and column threads (about 3 pixels each) add the
+// bilateral term from the product's row (16-byte loads issued together),
+// take the softmax over the logits where they lie in shared memory (loops
+// over groups of 4 channels, small code) and write q_{i+1} (consecutive
+// lanes on consecutive pixels). A zero e_c (every channel past n_labels)
+// would send __fdiv_rn to its slow path; quotient() gives it the signed
+// zero of IEEE division instead. Shared memory: the ring 52.5 KB, the row
+// sums 15.75 KB, the logits 84 KB at cap 21 (128 KB at cap 32); 150
+// registers: one block of 12 warps per SM. The taps ride in the kernel's
+// parameters (constant bank). Quantize: one block of 1024 threads per
+// real column, two passes over its S landmarks (the max, then the
+// quantized operand), the gathers from L2. Start: one thread per pixel
+// and map.
 //
-// Measured at 512 x 512 (H100 80GB HBM3, 700 W; chip_smoke.py): combine
-// ~0.16 ms, quantize ~0.013 ms of device time, against the product's 1.50
-// ms. The first design, which unrolled the channel loop to keep every
-// logit in registers, took 0.62 ms for the combine; the combine is still
-// ~4x its byte bound, latency-bound (two barriers per channel, 16 warps
-// per SM), not issue-bound (~0.05 ms of issue).
+// Measured at 512 x 512 (NVIDIA H100 80GB HBM3, 700 W): quantize +
+// combine 0.1578 ms of device time per iteration against 0.1813 for the
+// design before this one in the same call (tools/probe_crf_iteration.py,
+// the two trees in turns); the combine alone 0.1293 ms, 150 registers, no
+// spill (chip_smoke.py). The design before (two blocks of 256 threads per
+// SM, the halo staged by hand from registers loaded one channel ahead, two
+// barriers per channel, the softmax per pixel in registers) spent much of
+// its time in the softmax, which never overlapped its channels; in this
+// one the softmax, latency-bound on three pixels per thread, still runs
+// after each tile's channels. Tried and dropped, slower in an experiment
+// harness that is not kept: two blocks per SM over 16 x 32 tiles (the
+// taller halo's row sums and TMA bytes), the softmax on separate warps
+// during the next tile's channels (too few such warps fit the
+// registers), two pixels' softmax side by side (more registers), L2
+// prefetches of the product rows.
 //
 // Bound on this card: bytes. Per iteration at the 512 x 512 bucket (cap
 // 21): q read and written (44.0 MB each), the product's [N, 48] output
@@ -81,11 +101,15 @@
 
 #include <cuda_bf16.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+namespace hp = irn::hopper;
 
 constexpr int kRadius = 12;  // ceil(4 sxy) at the Gaussian's sxy 3
 constexpr int kTaps = 2 * kRadius + 1;
@@ -100,13 +124,34 @@ constexpr int kYPitch = kTileW + 4;
 constexpr int kThreads = 256;
 constexpr int kPixRows = kTileH * kTileW / kThreads;  // 4 pixels per thread
 constexpr int kSpan = 8;  // row-pass outputs per item
-// the combine's staging: a thread per halo column c < kHaloW (of 64), its
-// rows r0, r0 + 4, ...
-constexpr int kStageCols = 64;
-constexpr int kStageStep = kThreads / kStageCols;  // 4
-constexpr int kStage = kHaloH / kStageStep;        // 14 rows per thread
 constexpr int kMaxCap = 32;
-constexpr int kCombineBlocks = 2;  // per SM: at most 128 registers
+// the combine: 32 x 32 tiles, one block of 384 threads per SM walking
+// them, in three roles: a row thread per 8-output item of the 56 x 32 row
+// sums, a column thread per 8 pixels (one column, 8 rows), one producer
+// warp (its lane 0); the row and column threads then share the tile's
+// softmax
+constexpr int kCPix = kTileH * kTileW;                     // 1024
+constexpr int kRowThreads = kHaloH * (kTileW / kSpan);     // 224
+constexpr int kColRows = 8;
+constexpr int kColThreads = kCPix / kColRows;              // 128
+constexpr int kPipeThreads = kRowThreads + kColThreads;    // 352
+constexpr int kCombineThreads = kPipeThreads + 32;         // 384
+// the ring of q halo boxes: 60 x 56 f32 each, 128-byte aligned
+constexpr int kStages = 4;
+constexpr int kStageFloats = kHaloH * kXPitch;
+constexpr uint32_t kStageBytes = kStageFloats * sizeof(float);  // 13,440
+constexpr int kYFloats = kHaloH * kYPitch;  // one buffer of row sums
+// named barriers over the row and column threads: buffer b of the row
+// sums is full (kBarFull + b) or free again (kBarEmpty + b); the tile's
+// logits are all written (kBarLogits); its softmax has read them
+// (kBarTail)
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
+constexpr int kBarLogits = 5;
+constexpr int kBarTail = 6;
+// a thread's pixels of a tile's softmax: threadIdx.x + kPipeThreads j,
+// j < kTailPixels
+constexpr int kTailPixels = (kCPix + kPipeThreads - 1) / kPipeThreads;  // 3
 constexpr int kQuantThreads = 1024;
 constexpr int kStartThreads = 256;
 constexpr float kInv127Sq = 0x1.040c2p-14f;  // f32(1 / 127^2)
@@ -209,16 +254,17 @@ __device__ __forceinline__ void row_pass(const float (*x)[kXPitch],
   }
 }
 
-// the column pass for this thread's kPixRows pixels (column tx, tile rows
+// the column pass for this thread's kRows pixels (column tx, tile rows
 // ty0 ..): z[k] = sum_t taps[t] y[ty0 + k + t][tx]
+template <int kRows>
 __device__ __forceinline__ void col_pass(const float (*y)[kYPitch], int tx,
                                          int ty0, const Taps& taps,
-                                         float (&z)[kPixRows]) {
-  float v[kPixRows + 2 * kRadius];
+                                         float (&z)[kRows]) {
+  float v[kRows + 2 * kRadius];
 #pragma unroll
-  for (int i = 0; i < kPixRows + 2 * kRadius; ++i) v[i] = y[ty0 + i][tx];
+  for (int i = 0; i < kRows + 2 * kRadius; ++i) v[i] = y[ty0 + i][tx];
 #pragma unroll
-  for (int k = 0; k < kPixRows; ++k) {
+  for (int k = 0; k < kRows; ++k) {
     float acc = 0.f;
 #pragma unroll
     for (int t = 0; t < kTaps; ++t)
@@ -327,141 +373,314 @@ __global__ void __launch_bounds__(kQuantThreads)
   }
 }
 
-// kInt8: the product is int32 with per-column qscale, else f32. Dynamic
-// shared memory: the tile's logits, cap x kTileH x kTileW f32.
+// RN(a / b) as __fdiv_rn gives it. A zero dividend over a finite nonzero
+// divisor is the signed zero of IEEE division; such lanes divide 1 instead
+// and take that zero, so the never-winning channels (e = +0) skip the
+// division's slow path, which a zero dividend takes, without a branch.
+__device__ __forceinline__ float quotient(float a, float b) {
+  const bool zero = a == 0.f && b == b && b != 0.f;
+  const float q = __fdiv_rn(zero ? 1.f : a, b);
+  return zero ? __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                               0x80000000)
+              : q;
+}
+
+// One pixel's product row (map m's cp columns, 16-byte loads, as floats)
+// and its RN(compat_b nr_b): loaded ahead of the softmax that needs them.
+struct Bilateral {
+  float4 a[kMaxCap / 4];
+  float cb;
+};
+
 template <bool kInt8>
-__global__ void __launch_bounds__(kThreads, kCombineBlocks)
-    combine_kernel(const float* __restrict__ q, const float* __restrict__ nr_g,
+__device__ __forceinline__ void load_bilateral(
+    Bilateral& r, int pix, int m, const void* __restrict__ prod, int ld,
+    const float* __restrict__ nr_b, const Planes& g, float compat_b) {
+  r.cb = __fmul_rn(compat_b, __ldg(nr_b + pix));
+  const size_t row = (size_t)pix * ld + m * g.cp;
+#pragma unroll
+  for (int q = 0; q < kMaxCap / 4; ++q)
+    if (4 * q < g.cap) {
+      if constexpr (kInt8) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(
+            static_cast<const int32_t*>(prod) + row) + q);
+        r.a[q] = make_float4(__int2float_rn(v.x), __int2float_rn(v.y),
+                             __int2float_rn(v.z), __int2float_rn(v.w));
+      } else {
+        r.a[q] = __ldg(reinterpret_cast<const float4*>(
+            static_cast<const float*>(prod) + row) + q);
+      }
+    }
+}
+
+// One pixel's end of the combine: l_c = RN(l_c + mb_c) over its logits
+// l_c (stride kCPix floats in shared memory) with the bilateral message
+// mb_c = RN(cb RN(x_c sc_c)) (int8: sc_c = RN(qscale_c / 127^2) from s_sc)
+// or RN(cb x_c), then the softmax in place -- the max, expf of the
+// differences and their sum in channel order, the divisions -- q_{i+1}
+// into q_out when store. Returns the first c of the largest q_c. The exp
+// and division loops walk groups of 4 channels without unrolling (small
+// code, nothing per channel in registers); a group's 4 exps and 4
+// divisions are independent of each other.
+template <bool kInt8>
+__device__ __forceinline__ int finish_pixel(float* l, const Bilateral& r,
+                                            const float* s_sc, int pix, int m,
+                                            float* __restrict__ q_out,
+                                            bool store, const Planes& g,
+                                            int n) {
+  float mx = 0.f;
+#pragma unroll
+  for (int q = 0; q < kMaxCap / 4; ++q) {
+    if (4 * q >= g.cap) break;
+    const float x[4] = {r.a[q].x, r.a[q].y, r.a[q].z, r.a[q].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * q + e;
+      if (c < g.cap) {
+        const float mb =
+            __fmul_rn(r.cb, kInt8 ? __fmul_rn(x[e], s_sc[c]) : x[e]);
+        const float v = __fadd_rn(l[c * kCPix], mb);
+        l[c * kCPix] = v;
+        mx = c == 0 ? v : fmaxf(mx, v);
+      }
+    }
+  }
+  float s = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < g.cap; c0 += 4) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + e < g.cap) x[e] = expf(__fsub_rn(l[(c0 + e) * kCPix], mx));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e;
+      if (c < g.cap) {
+        l[c * kCPix] = x[e];
+        s = c == 0 ? x[e] : __fadd_rn(s, x[e]);
+      }
+    }
+  }
+  int best = 0;
+  float top = 0.f;
+  float* dst = q_out + (size_t)m * g.cap * n + pix;
+#pragma unroll 1
+  for (int c0 = 0; c0 < g.cap; c0 += 4) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + e < g.cap) x[e] = quotient(l[(c0 + e) * kCPix], s);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e;
+      if (c < g.cap) {
+        if (c == 0 || x[e] > top) {
+          top = x[e];
+          best = c;
+        }
+        if (store) dst[(size_t)c * n] = x[e];
+      }
+    }
+  }
+  return best;
+}
+
+// The combine's dynamic shared memory at cap channels: 128 bytes of
+// alignment slack, the ring, two buffers of row sums, the logits, the
+// ring's full and empty mbarriers, the scale table (152 KB at cap 21, 197
+// KB at cap 32).
+constexpr int combine_smem(int cap) {
+  return 128 + kStages * (int)kStageBytes + 2 * kYFloats * (int)sizeof(float) +
+         cap * kCPix * (int)sizeof(float) +
+         2 * kStages * (int)sizeof(uint64_t) + kMaxCap * (int)sizeof(float);
+}
+
+// kInt8: the product is int32 with per-column qscale, else f32. q arrives
+// as qmap, a tensor map over [2 cap, H, W] with 60 x 40 x 1 boxes. Tile t
+// of the 2 x tiles_y x tiles_x tiles is map t % 2's tile t / 2 (row-major);
+// block i walks the tiles i, i + gridDim.x, ...
+template <bool kInt8>
+__global__ void __launch_bounds__(kCombineThreads, 1)
+    combine_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const float* __restrict__ nr_g,
                    const float* __restrict__ nr_b,
                    const uint8_t* __restrict__ labels,
                    const void* __restrict__ prod, int ld,
                    const float* __restrict__ qscale, float* __restrict__ q_out,
                    uint8_t* __restrict__ lab_out, Planes g, float compat_g,
                    float compat_b, Taps taps) {
-  extern __shared__ float s_l[];  // [cap][kTileH * kTileW]
-  __shared__ __align__(16) float s_x[kHaloH][kXPitch];
-  __shared__ __align__(16) float s_y[kHaloH][kYPitch];
-  __shared__ float s_sc[kMaxCap];
-  const int m = blockIdx.z;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t n = (size_t)g.h * g.w;
-  const int tx = threadIdx.x % kTileW;
-  const int ty0 = threadIdx.x / kTileW * kPixRows;
-  if (kInt8 && threadIdx.x < g.cap)
-    s_sc[threadIdx.x] =
-        __fmul_rn(qscale[m * g.cp + threadIdx.x], kInv127Sq);
-
-  // this thread's halo elements: column sc, rows sr0 + kStageStep i; the
-  // pixel of the first, and nr_g at each (0 outside the bucket)
-  const int sc = threadIdx.x % kStageCols;
-  const int sr0 = threadIdx.x / kStageCols;
-  const int sx = x0 - kRadius + sc;
-  const bool scol = sc < kHaloW && sx >= 0 && sx < g.w;
-  const int src0 = (y0 - kRadius + sr0) * g.w + sx;
-  unsigned in_rows = 0;
-  float nrg[kStage];
-#pragma unroll
-  for (int i = 0; i < kStage; ++i) {
-    const int y = y0 - kRadius + sr0 + kStageStep * i;
-    const bool in = scol && y >= 0 && y < g.h;
-    in_rows |= (unsigned)in << i;
-    nrg[i] = in ? __ldg(nr_g + src0 + kStageStep * i * g.w) : 0.f;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  float* s_y = ring + kStages * kStageFloats;
+  float* s_l = s_y + 2 * kYFloats;  // [cap][kCPix]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_l + g.cap * kCPix);
+  uint64_t* empty = full + kStages;
+  float* s_sc = reinterpret_cast<float*>(empty + kStages);  // [kMaxCap]
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kRowThreads);
+    }
+    hp::fence_barrier_init();
   }
-  size_t pix[kPixRows];
-  bool inside[kPixRows];
-  int lab[kPixRows];
-  float cg[kPixRows];
-#pragma unroll
-  for (int k = 0; k < kPixRows; ++k) {
-    const int y = y0 + ty0 + k;
-    const int xx = x0 + tx;
-    inside[k] = y < g.h && xx < g.w;
-    pix[k] = inside[k] ? (size_t)y * g.w + xx : 0;
-    lab[k] = inside[k] ? labels[m * n + pix[k]] : 0;
-    cg[k] = __fmul_rn(compat_g, inside[k] ? __ldg(nr_g + pix[k]) : 0.f);
-  }
+  __syncthreads();
 
-  // per channel: stage RN(nr_g q) from the values loaded one channel
-  // ahead, blur, keep u + mg in shared memory
-  const float* qm = q + (size_t)m * g.cap * n;
-  float pre[kStage];
+  const int tiles_x = (g.w + kTileW - 1) / kTileW;
+  const int n_tiles = 2 * tiles_x * ((g.h + kTileH - 1) / kTileH);
+  const int n = g.h * g.w;
+  // the channels this block walks over all its tiles: the row sums' k-th
+  // buffer use is channel k's, k counted across tiles
+  const int n_ch = ((n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+                   g.cap;
+
+  // a row thread's channels of one tile: nr_g's halo values of its item
+  // (r, j0) in registers, per channel RN(nr_g q) formed as q is read from
+  // the ring, the 8 row sums into the k-th buffer
+  auto row_tile = [&](int x0, int y0, int& k) {
+    const int r = threadIdx.x / (kTileW / kSpan);
+    const int j0 = (threadIdx.x - r * (kTileW / kSpan)) * kSpan;
+    const int gy = y0 - kRadius + r;
+    const bool row_in = gy >= 0 && gy < g.h;
+    float nrg[kSpan + 2 * kRadius];
 #pragma unroll
-  for (int i = 0; i < kStage; ++i)
-    pre[i] = in_rows >> i & 1 ? __ldg(qm + src0 + kStageStep * i * g.w)
-                              : 0.f;
+    for (int i = 0; i < kSpan + 2 * kRadius; ++i) {
+      const int gx = x0 - kRadius + j0 + i;
+      nrg[i] = row_in && gx >= 0 && gx < g.w
+                   ? __ldg(nr_g + (size_t)gy * g.w + gx)
+                   : 0.f;
+    }
 #pragma unroll 1
-  for (int c = 0; c < g.cap; ++c) {
-    if (sc < kHaloW) {
+    for (int c = 0; c < g.cap; ++c, ++k) {
+      const int s = k % kStages;
+      const int b = k & 1;
+      hp::mbar_wait(&full[s], (uint32_t)(k / kStages) & 1);
+      if (k >= 2) hp::named_sync(kBarEmpty + b, kPipeThreads);
+      float v[kSpan + 2 * kRadius];
+      const float4* src = reinterpret_cast<const float4*>(
+          ring + s * kStageFloats + r * kXPitch + j0);
 #pragma unroll
-      for (int i = 0; i < kStage; ++i)
-        s_x[sr0 + kStageStep * i][sc] = __fmul_rn(nrg[i], pre[i]);
-    }
-    __syncthreads();
-    if (c + 1 < g.cap) {
-      const float* qc = qm + (size_t)(c + 1) * n;
-#pragma unroll
-      for (int i = 0; i < kStage; ++i)
-        pre[i] = in_rows >> i & 1 ? __ldg(qc + src0 + kStageStep * i * g.w)
-                                  : 0.f;
-    }
-    row_pass(s_x, s_y, taps);
-    __syncthreads();
-    float z[kPixRows];
-    col_pass(s_y, tx, ty0, taps, z);
-#pragma unroll
-    for (int k = 0; k < kPixRows; ++k)
-      s_l[c * (kTileH * kTileW) + (ty0 + k) * kTileW + tx] =
-          __fadd_rn(unary(c, lab[k], g), __fmul_rn(cg[k], z[k]));
-  }
-
-  // per pixel: the bilateral message from the product's row (16 bytes at
-  // a time, the row's loads in flight together), the softmax, the output
-#pragma unroll
-  for (int k = 0; k < kPixRows; ++k) {
-    if (!inside[k]) continue;
-    float l[kMaxCap];
-#pragma unroll
-    for (int c = 0; c < kMaxCap; ++c)
-      if (c < g.cap)
-        l[c] = s_l[c * (kTileH * kTileW) + (ty0 + k) * kTileW + tx];
-    const float cb = __fmul_rn(compat_b, __ldg(nr_b + pix[k]));
-    const size_t row = pix[k] * ld + m * g.cp;
-#pragma unroll
-    for (int c4 = 0; c4 < kMaxCap / 4; ++c4) {
-      if (4 * c4 >= g.cap) continue;
-      float acc[4];
-      if constexpr (kInt8) {
-        const int4 a = __ldg(reinterpret_cast<const int4*>(
-            static_cast<const int32_t*>(prod) + row) + c4);
-        acc[0] = __fmul_rn(__int2float_rn(a.x), s_sc[4 * c4]);
-        acc[1] = __fmul_rn(__int2float_rn(a.y), s_sc[4 * c4 + 1]);
-        acc[2] = __fmul_rn(__int2float_rn(a.z), s_sc[4 * c4 + 2]);
-        acc[3] = __fmul_rn(__int2float_rn(a.w), s_sc[4 * c4 + 3]);
-      } else {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(
-            static_cast<const float*>(prod) + row) + c4);
-        acc[0] = a.x;
-        acc[1] = a.y;
-        acc[2] = a.z;
-        acc[3] = a.w;
+      for (int i = 0; i < (kSpan + 2 * kRadius) / 4; ++i) {
+        const float4 f = src[i];
+        v[4 * i] = __fmul_rn(nrg[4 * i], f.x);
+        v[4 * i + 1] = __fmul_rn(nrg[4 * i + 1], f.y);
+        v[4 * i + 2] = __fmul_rn(nrg[4 * i + 2], f.z);
+        v[4 * i + 3] = __fmul_rn(nrg[4 * i + 3], f.w);
       }
+      // the stage's reads are done: release it to the producer
+      hp::fence_proxy_async();
+      hp::mbar_arrive(&empty[s]);
+      float acc[kSpan];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (4 * c4 + i < g.cap)
-          l[4 * c4 + i] = __fadd_rn(l[4 * c4 + i], __fmul_rn(cb, acc[i]));
-    }
-    const int best = softmax(l, g.cap);
-    if (lab_out != nullptr) {
-      lab_out[m * n + pix[k]] = (uint8_t)best;
-      continue;
-    }
-    float* dst = q_out + (size_t)m * g.cap * n + pix[k];
+      for (int i = 0; i < kSpan; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxCap; ++c)
-      if (c < g.cap) dst[c * n] = l[c];
+      for (int tap = 0; tap < kTaps; ++tap)
+#pragma unroll
+        for (int i = 0; i < kSpan; ++i)
+          acc[i] = __fmaf_rn(taps.t[tap], v[i + tap], acc[i]);
+      float4* dst =
+          reinterpret_cast<float4*>(s_y + b * kYFloats + r * kYPitch + j0);
+#pragma unroll
+      for (int i = 0; i < kSpan / 4; ++i)
+        dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                             acc[4 * i + 3]);
+      hp::named_arrive(kBarFull + b, kPipeThreads);
+    }
+  };
+
+  // a column thread's channels of one tile: pixels (ty0 + i, tx), i <
+  // kColRows; per channel u + mg into the logits
+  auto col_tile = [&](int m, int x0, int y0, int& k) {
+    const int tc = threadIdx.x - kRowThreads;
+    const int tx = tc % kTileW;
+    const int ty0 = tc / kTileW * kColRows;
+    const int xx = x0 + tx;
+    int lab[kColRows];
+    float cg[kColRows];
+#pragma unroll
+    for (int i = 0; i < kColRows; ++i) {
+      const int y = y0 + ty0 + i;
+      const bool inside = y < g.h && xx < g.w;
+      const int pix = inside ? y * g.w + xx : 0;
+      lab[i] = inside ? labels[(size_t)m * n + pix] : 0;
+      cg[i] = __fmul_rn(compat_g, inside ? __ldg(nr_g + pix) : 0.f);
+    }
+#pragma unroll 1
+    for (int c = 0; c < g.cap; ++c, ++k) {
+      const int b = k & 1;
+      hp::named_sync(kBarFull + b, kPipeThreads);
+      float z[kColRows];
+      col_pass(reinterpret_cast<const float(*)[kYPitch]>(s_y + b * kYFloats),
+               tx, ty0, taps, z);
+      if (k + 2 < n_ch) hp::named_arrive(kBarEmpty + b, kPipeThreads);
+#pragma unroll
+      for (int i = 0; i < kColRows; ++i)
+        s_l[c * kCPix + (ty0 + i) * kTileW + tx] =
+            __fadd_rn(unary(c, lab[i], g), __fmul_rn(cg[i], z[i]));
+    }
+  };
+
+  if (threadIdx.x < kPipeThreads) {
+    const bool row_thread = threadIdx.x < kRowThreads;
+    int k = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int m = t & 1;
+      const int sp = t >> 1;
+      const int y0 = sp / tiles_x * kTileH;
+      const int x0 = (sp - sp / tiles_x * tiles_x) * kTileW;
+      // the int8 product's column scales RN(qscale / 127^2) of map m,
+      // read by the softmax after the logits barrier
+      if (kInt8 && threadIdx.x < g.cap)
+        s_sc[threadIdx.x] =
+            __fmul_rn(qscale[m * g.cp + threadIdx.x], kInv127Sq);
+      if (row_thread)
+        row_tile(x0, y0, k);
+      else
+        col_tile(m, x0, y0, k);
+      hp::named_sync(kBarLogits, kPipeThreads);
+      // per pixel, spread over the row and column threads (the producer
+      // meanwhile loads the next tile's first channels): the bilateral
+      // message and the softmax over the logits where they lie
+#pragma unroll 1
+      for (int j = 0; j < kTailPixels; ++j) {
+        const int pi = threadIdx.x + kPipeThreads * j;
+        const int y = y0 + pi / kTileW;
+        const int xx = x0 + pi % kTileW;
+        if (pi >= kCPix || y >= g.h || xx >= g.w) continue;
+        const int pix = y * g.w + xx;
+        Bilateral r;
+        load_bilateral<kInt8>(r, pix, m, prod, ld, nr_b, g, compat_b);
+        const int best = finish_pixel<kInt8>(s_l + pi, r, s_sc, pix, m,
+                                             q_out, lab_out == nullptr, g, n);
+        if (lab_out != nullptr) lab_out[(size_t)m * n + pix] = (uint8_t)best;
+      }
+      // the logits and scales are read: the next tile may write them
+      hp::named_sync(kBarTail, kPipeThreads);
+    }
+  } else if (threadIdx.x == kPipeThreads) {
+    // producer: per channel the q halo box into the next free stage
+    int k = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int m = t & 1;
+      const int sp = t >> 1;
+      const int y0 = sp / tiles_x * kTileH;
+      const int x0 = (sp - sp / tiles_x * tiles_x) * kTileW;
+#pragma unroll 1
+      for (int c = 0; c < g.cap; ++c, ++k) {
+        const int s = k % kStages;
+        if (k >= kStages)
+          hp::mbar_wait(&empty[s], (uint32_t)(k / kStages - 1) & 1);
+        hp::mbar_expect_tx(&full[s], kStageBytes);
+        hp::tma_load_3d(ring + s * kStageFloats, &qmap, &full[s],
+                        x0 - kRadius, y0 - kRadius, m * g.cap + c);
+      }
+    }
   }
 }
+
+// per device, whether combine_kernel<false / true> may take combine_smem(
+// kMaxCap) bytes of shared memory
+std::atomic<unsigned long long> combine_smem_set[2];
 
 template <bool kInt8>
 int launch_combine(const float* q, const float* nr_g, const float* nr_b,
@@ -469,14 +688,30 @@ int launch_combine(const float* q, const float* nr_g, const float* nr_b,
                    const float* qscale, float* q_out, uint8_t* lab_out,
                    const Planes& g, float compat_g, float compat_b,
                    const Taps& taps, cudaStream_t stream) {
-  const int smem = g.cap * kTileH * kTileW * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      combine_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  CUtensorMap qmap;
+  const cuuint64_t dims[3] = {(cuuint64_t)g.w, (cuuint64_t)g.h,
+                              (cuuint64_t)(2 * g.cap)};
+  const cuuint64_t strides[2] = {(cuuint64_t)g.w * sizeof(float),
+                                 (cuuint64_t)g.h * g.w * sizeof(float)};
+  const cuuint32_t box[3] = {kXPitch, kHaloH, 1};
+  if (!hp::f32_map(&qmap, q, 3, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = irn::allow_smem(combine_kernel<kInt8>,
+                                  combine_smem_set[kInt8],
+                                  combine_smem(kMaxCap));
   if (e != cudaSuccess) return (int)e;
-  combine_kernel<kInt8><<<tiles(g.h, g.w, 2), kThreads, smem, stream>>>(
-      q, nr_g, nr_b, labels, prod, ld, qscale, q_out, lab_out, g, compat_g,
-      compat_b, taps);
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = 2 * ((g.w + kTileW - 1) / kTileW) *
+                      ((g.h + kTileH - 1) / kTileH);
+  combine_kernel<kInt8>
+      <<<min(n_tiles, sms), kCombineThreads,
+         combine_smem(g.cap), stream>>>(qmap, nr_g, nr_b, labels, prod, ld,
+                                        qscale, q_out, lab_out, g, compat_g,
+                                        compat_b, taps);
   return 0;
 }
 
@@ -534,7 +769,8 @@ IRN_API int irn_crf_quantize(const float* q, const float* nr_b, void* opnd,
 }
 
 // one combine (1 launch): q_{i+1} into q_out, or the labels into lab_out
-// when it is not null; prod [N, ld] int32 (int8 != 0, with qscale) or f32
+// when it is not null; q 16-byte aligned and w a multiple of 4 (its TMA
+// tensor map); prod [N, ld] int32 (int8 != 0, with qscale) or f32
 IRN_API int irn_crf_mean_field(const float* q, const float* nr_g,
                                const float* nr_b, const uint8_t* labels,
                                const void* prod, int ld, const float* qscale,

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
 // split product of K2 square_banded, K5 square_dense and K6
-// square_fused_first, K9 conv3x3), the cluster-resident K0 diag_chain and
-// the cooperative K3 packed_chain: mbarriers, thread-block cluster
-// barriers and distributed shared memory, a grid barrier, TMA tile loads,
-// the wgmma shared-memory descriptor and two wgmma shapes with 128 output
-// columns. Written as inline PTX; the tensor maps are encoded on the host
-// through the driver entry point that the runtime hands out, so the
-// library needs no link against libcuda.
+// square_fused_first, K9 conv3x3), the cluster-resident K0 diag_chain,
+// the cooperative K3 packed_chain and K17's combine: mbarriers, named
+// barriers, thread-block cluster barriers and distributed shared memory, a
+// grid barrier, TMA tile loads, the wgmma shared-memory descriptor and two
+// wgmma shapes with 128 output columns. Written as inline PTX; the tensor
+// maps are encoded on the host through the driver entry point that the
+// runtime hands out, so the library needs no link against libcuda.
 //
 // Layout convention of both kernels: every operand tile in shared memory is
 // K-major with 128-byte rows (64 bf16) in TMA's 128-byte swizzle, which
@@ -95,6 +95,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (a TMA load into a slot that plain loads just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// -- named barriers ----------------------------------------------------------
+
+// Barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads, whole
+// warps: sync waits for count arrivals, arrive adds one and goes on. Both
+// order this thread's earlier shared-memory accesses before the barrier
+// completes.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- thread-block clusters ---------------------------------------------------
@@ -336,6 +356,21 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
             const_cast<void*>(base), dims, strides, box, ones,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 tensor map as bf16_map, without swizzle: a box lands in shared
+// memory as dense rows of box[0] floats (box[0] * 4 a multiple of 16).
+inline bool f32_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

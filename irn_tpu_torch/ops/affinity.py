@@ -471,8 +471,9 @@ def irn_total_loss(maps: AffinityLossMaps, bg_pos_label: torch.Tensor,
 
 N_CLASSES_WITH_BG = 21
 LOSS_KEYS = ("loss_pos_aff", "loss_neg_aff", "loss_dp_fg", "loss_dp_bg")
-# K16's blocks: 32 x 8 threads, one pixel each
-_LOSS_LANES, _LOSS_ROWS = 32, 8
+# K16 forward's blocks: 256 threads, two adjacent pixels of one image's
+# flattened window each (512 pixels per block)
+_LOSS_THREADS, _LOSS_PIXELS = 256, 2
 # the second launch's threads (the block partials' f64 sum)
 _LOSS_TOTAL_THREADS = 256
 
@@ -536,19 +537,25 @@ def _block_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _loss_sum(per_thread: torch.Tensor) -> torch.Tensor:
-    """K16's f64 sum of per-thread values [B, ch, cw]: per block of 32 x 8
-    window pixels its tree (pixels outside the window add +0), then thread
-    t of the second launch sums blocks t, t + 256, ... from +0 in order,
-    then the same tree."""
-    b, ch, cw = per_thread.shape
-    gy = -(-ch // _LOSS_ROWS)
-    gx = -(-cw // _LOSS_LANES)
-    x = torch.nn.functional.pad(
-        per_thread.double(),
-        (0, gx * _LOSS_LANES - cw, 0, gy * _LOSS_ROWS - ch))
-    x = x.reshape(b, gy, _LOSS_ROWS, gx, _LOSS_LANES).permute(0, 1, 3, 2, 4)
-    parts = _block_sum(x).reshape(-1)  # block order (b, y, x)
+def _loss_blocks(b: int, ch: int, cw: int) -> int:
+    """K16 forward's first-launch blocks: ceil(ch cw / 512) per image."""
+    return -(-(ch * cw) // (_LOSS_THREADS * _LOSS_PIXELS)) * b
+
+
+def _loss_sum(per_pixel: torch.Tensor) -> torch.Tensor:
+    """K16's f64 sum of per-pixel values [B, ch, cw]: per block of 512
+    consecutive pixels of one image's flattened window, each thread's
+    f64(pixel 2t) + f64(pixel 2t + 1), then the block's tree (pixels past
+    the window add +0); then thread t of the second launch sums blocks t, t
+    + 256, ... (image-major) from +0 in order, then the same tree."""
+    b, ch, cw = per_pixel.shape
+    span = _LOSS_THREADS * _LOSS_PIXELS
+    nb = -(-(ch * cw) // span)
+    x = torch.nn.functional.pad(per_pixel.double().reshape(b, ch * cw),
+                                (0, nb * span - ch * cw))
+    x = x.reshape(b, nb, _LOSS_THREADS, _LOSS_PIXELS)
+    x = x[..., 0] + x[..., 1]
+    parts = _block_sum(x.reshape(b, nb, _LOSS_THREADS // 32, 32)).reshape(-1)
     n = parts.shape[0]
     k = -(-n // _LOSS_TOTAL_THREADS)
     parts = torch.nn.functional.pad(parts, (0, k * _LOSS_TOTAL_THREADS - n))
@@ -682,8 +689,7 @@ def irn_loss_fwd(maxed: torch.Tensor, dp: torch.Tensor,
         return irn_loss_fwd_plain(maxed, dp, labels, table, n_classes)
     _loss_kernel_checks("irn_loss_fwd", table, maxed, dp, labels)
     b = dp.shape[0]
-    ch, cw = maxed.shape[-2:]
-    n_blocks = (-(-cw // _LOSS_LANES)) * (-(-ch // _LOSS_ROWS)) * b
+    n_blocks = _loss_blocks(b, *maxed.shape[-2:])
     dev = maxed.device
     partials = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
     loss = torch.empty(5, device=dev)

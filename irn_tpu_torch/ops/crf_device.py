@@ -545,6 +545,19 @@ def combine_plain(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
     return out.copy_(q_next)
 
 
+def check_q_map(q: torch.Tensor) -> None:
+    """Raises unless q [2, cap, H, W] f32 can back K17's combine's TMA
+    tensor map: its base 16-byte aligned and a row, W * 4 bytes, a multiple
+    of 16 (W a multiple of 4; the pipeline's buckets are multiples of
+    ``pad_multiple``, 64 by default)."""
+    _, _, h, w = q.shape
+    if w % 4 or q.data_ptr() % 16 or not q.is_contiguous():
+        raise ValueError(f"crf_mean_field: the combine reads q {tuple(q.shape)}"
+                         f" through a TMA tensor map: W a multiple of 4 and a "
+                         f"contiguous, 16-byte aligned q, got W {w}, address "
+                         f"{q.data_ptr()} % 16 = {q.data_ptr() % 16}")
+
+
 def combine(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
             nr_b: torch.Tensor, taps: torch.Tensor, prod: torch.Tensor,
             qscale: Optional[torch.Tensor], n_labels: int, lg: float,
@@ -554,8 +567,8 @@ def combine(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
     [2, cap, H, W] f32, the label maps [2, H, W] uint8, the row norms [H, W],
     the product's output prod [N, >= 2 cp] (int32 with qscale, or f32, map
     m's channel c in column m cp + c, read in place) -> ``out`` (q_{i+1}, a
-    buffer apart from q, or the labels). On the card one K17 launch, on the
-    CPU the twin."""
+    buffer apart from q, or the labels). On the card one K17 launch (q
+    as :func:`check_q_map` asks), on the CPU the twin."""
     kw = dict(compat_gaussian=compat_gaussian,
               compat_bilateral=compat_bilateral)
     if _build.is_plain(q):
@@ -568,6 +581,7 @@ def combine(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
     _build.check_cuda("crf_mean_field", q, nr_g, nr_b,
                       *([qscale] if int8 else []))
     _build.check_cuda("crf_mean_field", labels, dtype=torch.uint8)
+    check_q_map(q)
     if (labels.shape != (2, h, w) or nr_g.shape != (h, w)
             or nr_b.shape != (h, w) or prod.device != q.device
             or prod.dtype not in (torch.int32, torch.float32)

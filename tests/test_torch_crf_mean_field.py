@@ -248,3 +248,23 @@ def test_mean_field_pair_runs_the_pieces(monkeypatch):
     assert calls == ["start"] + ["quantize", "combine"] * 3
     assert a.shape == b.shape == (20, 28) and a.max() < 4 and b.max() < 3
     assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("shape,offset,ok", [
+    ((2, 21, 92, 84), 0, True), ((2, 5, 20, 24), 0, True),
+    ((2, 21, 92, 86), 0, False), ((2, 3, 24, 30), 0, False),
+    ((2, 5, 24, 28), 1, False)])
+def test_combine_tensor_map_check(shape, offset, ok):
+    """The card's combine reads q through a TMA tensor map, so
+    ``check_q_map`` takes q only with W a multiple of 4 and a 16-byte
+    aligned base (the pipeline's 64-multiple buckets pass), and names the
+    shape when it refuses; the twin on the CPU takes any width."""
+    n = int(np.prod(shape))
+    q = torch.zeros(n + 4)[offset:offset + n].view(shape)
+    if ok:
+        cd.check_q_map(q)
+    else:
+        with pytest.raises(ValueError, match=str(shape[-1])):
+            cd.check_q_map(q)
+    for h, w in ((64, 128), (512, 512), (448, 320)):
+        cd.check_q_map(torch.zeros((2, 21, h, w)))

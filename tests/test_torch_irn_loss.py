@@ -312,3 +312,53 @@ def test_irn_loss_checks():
     with pytest.raises(ValueError, match="expected \\(5,\\)"):
         affinity.irn_loss_bwd(loss[:4], stats, maxed, dp, lab, table)
     assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 75), (3, 28, 11), (1, 4, 4)])
+def test_irn_loss_fwd_sum_order(shape):
+    """The twin's f64 sum of per-pixel values follows K16 forward's
+    threads bit for bit, emulated here pixel by pixel: per image blocks of
+    512 consecutive window pixels, thread t adds f64 of its pixels 2t and
+    2t + 1 (a pixel past the window adds +0), each warp's shuffle-down tree
+    and the warps in order, then thread t of the second launch adds blocks
+    t, t + 256, ... from +0 and the same tree. Shapes with a partial last
+    block, an odd plane (a thread with one pixel) and a single block."""
+    g = np.random.default_rng(sum(shape))
+    vals = (g.standard_normal(shape) * 10.0 ** g.integers(-6, 6, shape)
+            ).astype(np.float32)
+    got = affinity._loss_sum(torch.from_numpy(vals))
+
+    def tree(v):
+        v = list(v)
+        for off in (16, 8, 4, 2, 1):
+            v = [v[i] + v[i + off] if i + off < 32 else v[i]
+                 for i in range(32)]
+        return v[0]
+
+    def block(v):
+        acc = tree(v[:32])
+        for w in range(1, len(v) // 32):
+            acc = acc + tree(v[32 * w:32 * (w + 1)])
+        return acc
+
+    b = shape[0]
+    flat = vals.reshape(b, -1).astype(np.float64)
+    n = flat.shape[1]
+    parts = []
+    for i in range(b):
+        for blk in range(-(-n // 512)):
+            v = []
+            for t in range(256):
+                e = 512 * blk + 2 * t
+                x0 = flat[i, e] if e < n else 0.0
+                x1 = flat[i, e + 1] if e + 1 < n else 0.0
+                v.append(np.float64(x0) + np.float64(x1))
+            parts.append(block(v))
+    sums = []
+    for t in range(256):
+        acc = np.float64(0.0)
+        for k in range(t, len(parts), 256):
+            acc = acc + parts[k]
+        sums.append(acc)
+    want = block(sums)
+    assert float(got) == float(want)

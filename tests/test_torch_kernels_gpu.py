@@ -894,14 +894,26 @@ def _loss_inputs(kind, radius, shape, seed):
 @pytest.mark.parametrize("radius,shape", [(10, (32, 128, 128)),
                                           (5, (32, 128, 128)),
                                           (4, (32, 128, 128)),
-                                          (10, (3, 37, 29))])
+                                          (10, (3, 37, 29)),
+                                          (10, (2, 36, 29)),
+                                          (4, (2, 20, 150)),
+                                          (5, (2, 40, 300)),
+                                          (14, (2, 40, 60)),
+                                          (20, (1, 540, 39))])
 def test_irn_loss_bit_equal(cuda, kind, radius, shape):
     """K16 forward (two launches) and backward (one) against their twins
     run on the card: the f64 stats (five sums, three counts) and the five
     loss values bit-equal (the twins emulate the kernels' f64 block and
     warp trees, so no ulp of slack is needed), d_maxed and d_dp bit-equal,
     NaN where the twin has NaN; the backward also bit-equal to the host
-    twin given the same stats (it takes no transcendental)."""
+    twin given the same stats (it takes no transcendental). Beyond the
+    default: [3, 37, 29] (window width 11, odd: the forward's pixel pairs
+    straddle rows, the backward's items are single columns), [2, 36, 29]
+    (an odd plane: the forward's 4-byte path and a thread with one pixel),
+    [2, 20, 150] and [2, 40, 300] (two and three backward column tiles,
+    odd rf), radius 14 (rf 13) and a one-column window at radius 20
+    whose 512-pixel blocks reach more grid rows than shared memory holds
+    (the forward reads them through L1)."""
     from chip_smoke import _same_bits
     from irn_tpu_torch.ops import affinity
 
@@ -1161,13 +1173,14 @@ MF_STORES = {"int8": torch.int8, "bf16": torch.bfloat16,
 
 def _mf_state(cuda, bucket, extent, n_labels=6, cap=21, seed=0):
     """K17's inputs on the card: q (a softmax, channels >= n_labels at 0,
-    map 1's channel 2 all zero), labels < n_labels, nr_g and nr_b > 0
-    inside the extent, the taps, the unary's logs."""
+    map 1's channel 2, or its last below 3 channels, all zero), labels <
+    n_labels, nr_g and nr_b > 0 inside the extent, the taps, the unary's
+    logs."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     h, w = bucket
     logits = torch.randn((2, cap, h, w), generator=g, device=cuda) * 2
     logits[:, n_labels:] = -1e30
-    logits[1, 2] = -1e30
+    logits[1, min(2, cap - 1)] = -1e30
     q = torch.softmax(logits, 1)
     valid = torch.zeros((h, w), device=cuda)
     valid[:extent[0], :extent[1]] = 1
@@ -1265,6 +1278,61 @@ def test_crf_combine_bit_equal(cuda, bucket, extent, store, last):
     crf_device.combine_plain(q, labels, nr_g, nr_b, taps, prod, qscale, 6,
                              lg, lo, outs[1])
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("sxy", [1.0, 2.0, 3.0])
+@pytest.mark.parametrize("cap", [2, 5, 21, 32])
+@pytest.mark.parametrize("bucket,extent", [((92, 84), (89, 81)),
+                                           ((20, 24), (17, 22))])
+def test_crf_combine_caps_taps(cuda, bucket, extent, cap, sxy):
+    """K17's combine at 2, 5, 21 and 32 channels per map (cp = cap rounded
+    up to 4: 4, 8, 24, 32 columns per map), with the 9, 17 and 25 taps of
+    sxy 1, 2 and 3, on a bucket that is no multiple of the 32 x 32 tile and
+    on one narrower and shorter than a tile: q_{i+1} and the labels from an
+    int32 product with qscale and from an f32 product bit-equal to the
+    twin, one launch each."""
+    n_labels = min(cap, 4)
+    q, labels, nr_g, nr_b, _, lg, lo = _mf_state(cuda, bucket, extent,
+                                                 n_labels=n_labels, cap=cap)
+    taps = crf_device.gaussian_taps(sxy)
+    g = torch.Generator(device=cuda).manual_seed(cap)
+    n = bucket[0] * bucket[1]
+    m = 2 * crf_device.map_columns(cap)
+    prods = ((torch.randint(0, 2 ** 20, (n, m), generator=g, device=cuda,
+                            dtype=torch.int32),
+              torch.rand(m, generator=g, device=cuda)),
+             (torch.rand((n, m), generator=g, device=cuda) * 200, None))
+    for prod, qscale in prods:
+        for last in (False, True):
+            outs = [torch.empty((2, *bucket), dtype=torch.uint8, device=cuda)
+                    if last else torch.empty_like(q) for _ in range(2)]
+            _build.reset_launches()
+            crf_device.combine(q, labels, nr_g, nr_b, taps, prod, qscale,
+                               n_labels, lg, lo, outs[0])
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["crf_mean_field"] == 1
+            crf_device.combine_plain(q, labels, nr_g, nr_b, taps, prod,
+                                     qscale, n_labels, lg, lo, outs[1])
+            assert torch.equal(outs[0], outs[1]), (prod.dtype, last)
+
+
+def test_crf_combine_refuses_tensor_map(cuda):
+    """The combine reads q through a TMA tensor map: a width that is no
+    multiple of 4 and a q whose base is not 16-byte aligned are refused
+    before a launch, naming the shape."""
+    q, labels, nr_g, nr_b, taps, lg, lo = _mf_state(cuda, (24, 30), (24, 30))
+    prod = torch.zeros((24 * 30, 48), device=cuda)
+    with pytest.raises(ValueError, match="tensor map"):
+        crf_device.combine(q, labels, nr_g, nr_b, taps, prod, None, 6, lg, lo,
+                           torch.empty_like(q))
+    q, labels, nr_g, nr_b, taps, lg, lo = _mf_state(cuda, (24, 28), (24, 28))
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    prod = torch.zeros((24 * 28, 48), device=cuda)
+    with pytest.raises(ValueError, match="tensor map"):
+        crf_device.combine(shifted, labels, nr_g, nr_b, taps, prod, None, 6,
+                           lg, lo, torch.empty_like(q))
+    assert not any(_build.LAUNCHES.values())
 
 
 def test_crf_combine_argmax_ties(cuda):
