@@ -116,16 +116,20 @@ loss, backward, optimizer), the device's busy share and the peak memory.
 
 The phase ``stage: make_ins_seg -> eval_ins_seg -> make_cocoann`` runs the
 instance stages through the CLI on make_sem_seg's tree, GT cams and
-checkpoint: two passes at the defaults (K11 one launch per image; K12a and
-K12b three launches per call, two calls each per image), eval_ins_seg and
+checkpoint: two passes at the defaults (K11 one launch per image; two K12
+calls per image, the clusters and the component split, each one launch
+that runs K12a and K12b and counts under both), eval_ins_seg and
 the rle COCO json, then every flow (host clustering, host split, both, a
 cluster cap of 1, a seed cap of 8) on 4 images with the displacement head
 x2, each writing the default run's dicts; the card's dicts of two images
 against the port on the host (same instances and classes, masks >= 99.9%
 equal, scores within 2e-3), a per-step breakdown and the device's busy
-share. The kernels phase holds K11 (300 steps at the 128x128 cap) and K12
-(the basin plane, a 384x512 label map) to their twins exactly and K0 at
-128 seed rows bit-equal.
+share; its profiled pass counts the card's K12 launches (2 per image). The
+kernels phase holds K11 (300 steps at the 128x128 cap) and K12 (the basin
+plane and a 384x512 label map, each kernel alone and both in the stage's
+one launch, and a 512x512 speckle map past the component cap) to their
+twins exactly, with the card's own time per call beside the CUDA-event
+time, and K0 at 128 seed rows bit-equal.
 
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
@@ -740,18 +744,33 @@ def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
         **bound(300 * n * ADVECT_OPS, 4 * 2 * n + 4 * 2 * n + n, PEAK_F32),
     )
 
-    # K12a + K12b on the basin plane: the clusters (k_cap 8)
+    # K12 on the basin plane: the clusters (k_cap 8) as make_ins_seg calls
+    # them (K12a and K12b in one launch), and each kernel alone
     lab = ccl.min_label_plane(basin, *hw4)
     check(torch.equal(lab.cpu(), ccl.min_label_plane(basin.cpu(), *hw4)),
           "ccl_label (basin) differs from its twin")
-    masks, n_found = ccl.cluster_masks(lab, cent, *hw4, 8)
-    want_masks, want_n = ccl.cluster_masks_plain(lab, cent, *hw4, 8)
-    check(torch.equal(masks, want_masks) and int(n_found) == int(want_n),
-          "cluster_masks differ from their twin")
-    cluster_ms = cuda_ms(lambda: ccl.cluster_masks(lab, cent, *hw4, 8), 20)
-    basin_ms = cuda_ms(lambda: ccl.min_label_plane(basin, *hw4), 20)
+    masks, n_found = ccl.cluster_from_basin(basin, cent, *hw4, 8)
+    want_masks, want_n = ccl.cluster_from_basin(basin.cpu(), cent.cpu(),
+                                                *hw4, 8)
+    check(torch.equal(masks.cpu(), want_masks)
+          and int(n_found) == int(want_n),
+          "cluster_from_basin differs from its twin")
+    alone = ccl.cluster_masks(lab, cent, *hw4, 8)
+    check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        alone, ccl.cluster_masks_plain(lab, cent, *hw4, 8))),
+        "cluster_masks differ from their twin")
 
-    # K12a + K12b on a decoded label map of the (96, 128) bucket
+    def per_call(fn):
+        return dict(ms=cuda_ms(fn, 20), device_ms=device_ms(fn, 20))
+
+    calls = {
+        "basin K12a": per_call(lambda: ccl.min_label_plane(basin, *hw4)),
+        "basin K12b": per_call(lambda: ccl.cluster_masks(lab, cent, *hw4, 8)),
+        "cluster_from_basin": per_call(
+            lambda: ccl.cluster_from_basin(basin, cent, *hw4, 8))}
+
+    # K12 on a decoded label map of the (96, 128) bucket: the component
+    # split (comp_cap 128) as make_ins_seg calls it, and each kernel alone
     hl, wl = INS_LABELS
     blocks = torch.randint(0, 9, (hl // 64, wl // 64), generator=gen)
     labels = torch.kron(blocks, torch.ones((64, 64), dtype=torch.int64))
@@ -763,33 +782,65 @@ def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
     got = ccl.rank_tables(labels, minidx, best, 128)
     want = ccl.rank_tables_plain(labels, minidx, best, 128)
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
-          "component tables differ from their twin")
+          "rank tables differ from their twin")
+    check(all(torch.equal(a, b) for a, b in zip(
+        ccl.component_tables(labels, best, 128), want)),
+        "component tables differ from their twin")
+    calls["component_tables"] = per_call(
+        lambda: ccl.component_tables(labels, best, 128))
+    # the rank's worst case: 512x512 labels 0-3 drawn per pixel (~10^5
+    # components through the radix select), comp_cap 128
+    speck = torch.randint(0, 4, (512, 512), generator=gen,
+                          dtype=torch.int32).to(dev)
+    sbest = torch.rand((512, 512), generator=gen).to(dev)
+    sgot = ccl.component_tables(speck, sbest, 128)
+    check(all(torch.equal(a, b) for a, b in zip(
+        sgot, ccl.component_tables_plain(speck, sbest, 128)))
+          and int(sgot[4]) == 129,
+          "component tables (speckle) differ from their twin")
+    calls["speckle component_tables"] = per_call(
+        lambda: ccl.component_tables(speck, sbest, 128))
     n_comp = int(got[4])
     nl = hl * wl
+    stage = "; ".join(f"{k} {v['ms']:.4f} ms ({v['device_ms']:.4f} on the "
+                      f"card)" for k, v in calls.items())
+    dev_label = device_ms(lambda: ccl.min_label_plane_multi(labels), 20)
     res["ccl_label"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: ccl.min_label_plane_multi(labels), 20),
+        device_ms=dev_label,
         plain_ms=cuda_ms(lambda: ccl.min_label_plane_multi_plain(labels), 3),
-        shape=(f"label map [{hl}, {wl}] int32, {n_comp} components, three "
-               f"launches (init, merge, compress); equal to the twin; the "
-               f"basin plane [{INS_CAP}, {INS_CAP}] at extent {hw4} "
-               f"{basin_ms:.4f} ms, equal"),
+        shape=(f"label map [{hl}, {wl}] int32, {n_comp} components, one "
+               f"cooperative launch (tiles, tile borders, two compress "
+               f"passes) after a 4-byte memset; the card's own time per "
+               f"call {dev_label:.4f} ms; equal to the twin; the basin "
+               f"plane [{INS_CAP}, {INS_CAP}] at extent {hw4} equal"),
         library_ms=None,
+        # read the map, write the plane
         **bound(0, 4 * nl + 4 * nl, PEAK_F32),
     )
+    dev_tables = device_ms(lambda: ccl.rank_tables(labels, minidx, best, 128),
+                           20)
     res["ccl_tables"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: ccl.rank_tables(labels, minidx, best, 128), 20),
+        device_ms=dev_tables,
         plain_ms=cuda_ms(lambda: ccl.rank_tables_plain(labels, minidx, best,
                                                        128), 3),
-        shape=(f"component tables of the [{hl}, {wl}] map, comp_cap 128, "
-               f"{n_comp} components, three launches; all five outputs "
-               f"equal to the twin; cluster masks at the basin plane "
-               f"(k_cap 8, {int(n_found)} found) {cluster_ms:.4f} ms, equal"),
+        shape=(f"component tables of the [{hl}, {wl}] map given its K12a "
+               f"plane, comp_cap 128, {n_comp} components, one cooperative "
+               f"launch; the card's own time per call {dev_tables:.4f} ms; "
+               f"all five outputs equal to the twin; cluster masks at the "
+               f"basin plane (k_cap 8, {int(n_found)} found) equal, alone "
+               f"and after K12a in the same launch; the speckle map "
+               f"[512, 512] ({int(sgot[4])} = comp_cap + 1) equal. The "
+               f"stage's calls and each kernel alone, CUDA events (wrapper "
+               f"included): {stage}"),
         library_ms=None,
-        # read labels, minidx and best, write the id map and the tables;
-        # ranking compares each candidate key with every other
-        **bound(n_comp * n_comp, 12 * nl + 4 * nl + 12 * 128, PEAK_F32),
+        calls=calls,
+        # read labels, minidx and best, write the id map, the tables and
+        # the count
+        **bound(0, 12 * nl + 4 * nl + 12 * 128 + 4, PEAK_F32),
     )
 
 
@@ -3625,12 +3676,12 @@ def run_ins_stages(dev, stage: dict, card: str) -> dict:
     n = len(names)
     summ, summ1 = again["make_ins_seg_labels"], first["make_ins_seg_labels"]
     ld = launches["ins default"]
-    # per image: one K11; K12a on the basin and on the label map, K12b's
-    # cluster masks and tables, three launches each; per walk (an image's,
-    # and a redo's) one K10, then one K0 and two K15 (upsample, argmax), or
-    # past ins_seed_cap one K0 and one K15 upsample per chunk
-    check(ld["advect"] == 2 * n and ld["ccl_label"] == 2 * 6 * n
-          and ld["ccl_tables"] == 2 * 6 * n, f"ins default launches {ld}")
+    # per image: one K11; the clusters and the component split, one launch
+    # each that runs K12a and K12b and counts under both; per walk (an
+    # image's, and a redo's) one K10, then one K0 and two K15 (upsample,
+    # argmax), or past ins_seed_cap one K0 and one K15 upsample per chunk
+    check(ld["advect"] == 2 * n and ld["ccl_label"] == 2 * 2 * n
+          and ld["ccl_tables"] == 2 * 2 * n, f"ins default launches {ld}")
     walks = 2 * n + summ1["redo"] + summ["redo"]
     chunked = summ1["chunked"] + summ["chunked"]
     check(ld["diag_operator"] == walks
@@ -3844,6 +3895,17 @@ def ins_layers(dev, ins: dict, card: str) -> None:
     )
     wall_ms = summ["seconds"] * 1e3
     if device_us > 0:
+        # the card's own K12 launches: the clusters and the component split,
+        # one each per image (a redo takes the host flow); the profiler may
+        # drop a few device events, never add one
+        k12 = sum(e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA and "ccl_kernel" in e.key)
+        check(0 < k12 <= 2 * summ["n_images"],
+              f"make_ins_seg: {k12} K12 launches on the card for "
+              f"{summ['n_images']} images")
+        print(f"profiled make_ins_seg pass: {k12} K12 launches on the card "
+              f"for {summ['n_images']} images", flush=True)
         print(f"profiled make_ins_seg pass: {summ['n_images']} images in "
               f"{wall_ms:.1f} ms, device busy {device_us / 1e3:.1f} ms "
               f"({100 * device_us / 1e3 / wall_ms:.1f}% of the loop; "
@@ -3960,7 +4022,7 @@ def main() -> int:
                             "combine_ms", "product_ms", "iteration_ms",
                             "ten_iterations_ms", "dense_ms",
                             "dense_product_ms", "dense_iteration_ms",
-                            "dense_ten_iterations_ms", "eager_ms")
+                            "dense_ten_iterations_ms", "eager_ms", "calls")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -12,7 +12,8 @@ entry point reports how many kernels it launched (a chain through K0, K3
 or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
 call is its split pass and its product, 2; one K10 operator build 1; one
-K11 advection 1; one K12a labeling or K12b table call 3; one K15 decode 2,
+K11 advection 1; one K12a labeling or K12b call 1, and a K12b call that
+labels first 1 under each of the two; one K15 decode 2,
 its upsample pass and its argmax pass, or 1 for the upsample alone; one
 K14 landmark-kernel build 2, its table pass and its rows, whatever its row
 range, or 1 for the table pass alone; K17's blur, start, quantize and
@@ -33,7 +34,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -178,10 +179,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
     lib.irn_advect.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p, n]
-    lib.irn_ccl_label.argtypes = [p, i, p, i, i, i, i, p, n]
-    lib.irn_cluster_masks.argtypes = [p, p, p, p, p, i, i, i, i, i, p, n]
+    lib.irn_ccl_label.argtypes = [p, i, p, p, i, i, i, i, p, n]
+    lib.irn_ccl_scratch_words.argtypes = [i, i, i]
+    lib.irn_cluster_masks.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, n]
     lib.irn_component_tables.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, p, n,
+        p, p, i, p, p, p, p, p, p, p, i, i, i, p, n,
     ]
     lib.irn_path_max_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
     lib.irn_path_max_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p,
@@ -216,6 +218,7 @@ def _declare(lib: ctypes.CDLL) -> None:
               "square_dense_split", "square_fused_first_split",
               "square_banded_split",
               "packed_chain_occupancy", "cluster_masks", "component_tables",
+              "ccl_scratch_words",
               "upsample_scores", "crf_landmark_table", "crf_blur",
               "crf_start", "crf_quantize"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
@@ -249,11 +252,12 @@ def check_cuda(name: str, *tensors: torch.Tensor,
 
 
 def launch(name: str, device: torch.device, *args,
-           entry: Optional[str] = None) -> None:
+           entry: Optional[str] = None, also: Tuple[str, ...] = ()) -> None:
     """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``) with
     ``args``, then the current stream of ``device`` and the launch-count
     out-argument; raise on a non-zero cudaError, else add the kernels it
-    launched to ``LAUNCHES[name]``."""
+    launched to ``LAUNCHES[name]``, and to each of ``also``: the kernels
+    whose phases the same launches ran (K12a inside a K12b launch)."""
     fn = getattr(load(), f"irn_{entry or name}")
     launched = ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -264,7 +268,8 @@ def launch(name: str, device: torch.device, *args,
             f"{name}: CUDA launch failed with cudaError {status}"
         )
     with _count_lock:
-        LAUNCHES[name] += launched.value
+        for k in (name, *also):
+            LAUNCHES[k] += launched.value
 
 
 def is_plain(t: torch.Tensor) -> bool:

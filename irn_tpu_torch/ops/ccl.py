@@ -4,17 +4,26 @@ counterpart of :mod:`irn_tpu.ops.ccl_tpu`.
 - K12a (:func:`min_label_plane`, :func:`min_label_plane_multi`,
   ``csrc/ccl.cu``): every nonzero pixel gets the smallest flat index of
   its 4-connected same-value component, background the sentinel ``H*W``.
-  The fixpoint is unique, so the kernel's union-find (three launches:
-  init, merge by ``atomicMin`` links from larger to smaller roots,
-  compress) and the twin's segmented min-scans give the same plane.
-- K12b (:func:`cluster_masks`, :func:`component_tables`, ``csrc/ccl.cu``):
-  rank the distinct values ascending (the escape bucket, -1, first) into
-  the ``[k_cap, H, W]`` cluster masks, and the components of a decoded
-  label map by ``label * HW + minidx`` into the component id map, seed
-  rows, sizes and max scores. The kernel compacts the candidates (the
-  component roots), ranks each by counting the smaller keys, and scatters
-  back; the twin is the JAX scan of ``k_cap + 1`` / ``comp_cap + 1``
-  masked minimums.
+  The fixpoint is unique, so the kernel's union-find (32 x 32 tiles
+  labelled in shared memory, then the tile borders united in global
+  memory by ``atomicMin`` links from larger to smaller roots, then the
+  tile roots and the pixels compressed) and the twin's segmented
+  min-scans give the same plane.
+- K12b (:func:`cluster_masks`, :func:`rank_tables`, ``csrc/ccl.cu``): rank
+  the distinct values ascending (the escape bucket, -1, first) into the
+  ``[k_cap, H, W]`` cluster masks, and the components of a decoded label
+  map by ``label * HW + minidx`` into the component id map, seed rows,
+  sizes and max scores. The kernel compacts the candidates (the component
+  roots), keeps the ``cap + 1`` smallest keys (a radix select when there
+  are more), ranks those among themselves and scatters back (on the card
+  ``cap`` is at most 4096); the twin is the JAX scan of ``k_cap + 1`` /
+  ``comp_cap + 1`` masked minimums.
+
+Every call is one cooperative launch (after a 4-byte memset of its grid
+barrier's counter): K12a alone, K12b alone on a given labelling, or both,
+as :func:`cluster_from_basin` and :func:`component_tables` run them. A
+launch that runs both counts once under each in ``_build.LAUNCHES``. Each
+call allocates one buffer, its outputs and scratch being views of it.
 
 Counts (``n_found``, ``n_comp``) stay 0-dim device tensors: nothing here
 waits for the host. A count of ``cap + 1`` flags overflow, and the stage
@@ -31,9 +40,28 @@ import torch
 from irn_tpu_torch.ops import _build
 
 _BIG = int(np.iinfo(np.int32).max // 2)  # > any flat index or -1
-# K12b's component tables accumulate sizes and scores per block in shared
-# memory: one int and one float per component
+# K12b keeps the cap + 1 smallest keys sorted in each block's shared
+# memory, and the component tables sizes and scores per component there
 TABLES_CAP_MAX = 4096
+
+
+def _buffer(device, *words: int):
+    """One int32 allocation cut into 1-D views of ``words`` elements each."""
+    return torch.empty(sum(words), dtype=torch.int32,
+                       device=device).split(words)
+
+
+def _scratch_words(h: int, w: int, cap: int, clusters: bool) -> int:
+    """K12b's scratch (csrc/ccl.cu: the launch's header, for the cluster
+    masks the slot flags and each pixel's slot, candidates, kept keys)."""
+    return int(_build.load().irn_ccl_scratch_words(h * w, cap,
+                                                   int(clusters)))
+
+
+def _check_cap(name: str, cap: int) -> None:
+    if cap > TABLES_CAP_MAX:
+        raise ValueError(f"{name}: cap {cap} over {TABLES_CAP_MAX} on the "
+                         f"card")
 
 
 def _seg_cummin(vals: torch.Tensor, brk: torch.Tensor, dim: int,
@@ -97,19 +125,23 @@ def min_label_plane_multi_plain(labels: torch.Tensor) -> torch.Tensor:
                                          (0, True))])
 
 
-def _label(values: torch.Tensor, h_ext: int, w_ext: int) -> torch.Tensor:
-    """One K12a launch sequence: ``values`` uint8 (a mask, read inside the
-    (h_ext, w_ext) extent) or int32 (a label map, 0 or below background)."""
-    h, w = values.shape
+def _check_grid(name: str, h: int, w: int) -> None:
     if h * w >= 1 << 30:
-        raise ValueError(f"ccl_label: grid {(h, w)} too large")
+        raise ValueError(f"{name}: grid {(h, w)} too large")
+
+
+def _label(values: torch.Tensor, h_ext: int, w_ext: int) -> torch.Tensor:
+    """One K12a launch: ``values`` uint8 (a mask, read inside the (h_ext,
+    w_ext) extent) or int32 (a label map, 0 or below background)."""
+    h, w = values.shape
+    _check_grid("ccl_label", h, w)
     dtype = torch.uint8 if values.dtype == torch.uint8 else torch.int32
     _build.check_cuda("ccl_label", values, dtype=dtype)
-    out = torch.empty((h, w), dtype=torch.int32, device=values.device)
+    out, header = _buffer(values.device, h * w, 1)
     _build.launch("ccl_label", values.device, values.data_ptr(),
-                  int(dtype == torch.uint8), out.data_ptr(), h, w, h_ext,
-                  w_ext)
-    return out
+                  int(dtype == torch.uint8), out.data_ptr(),
+                  header.data_ptr(), h, w, h_ext, w_ext)
+    return out.view(h, w)
 
 
 def min_label_plane(mask: torch.Tensor, h_ext: int = -1,
@@ -169,6 +201,36 @@ def cluster_masks_plain(lab: torch.Tensor, cent: torch.Tensor, h4: int,
     return masks.to(torch.uint8), found.sum().to(torch.int32)
 
 
+def _cluster_launch(basin, lab: torch.Tensor, cent: torch.Tensor, h4: int,
+                    w4: int, k_cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K12b cluster-mask launch: on the given K12a plane ``lab``, or
+    with K12a on the uint8 ``basin`` first (``lab`` None)."""
+    h, w = cent.shape[1:]
+    _check_grid("cluster_masks", h, w)
+    _check_cap("cluster_masks", k_cap)
+    dev = cent.device
+    masks, n_found, scratch, *plane = _buffer(
+        dev, -(-k_cap * h * w // 4), 1, _scratch_words(h, w, k_cap, True),
+        *([h * w] if lab is None else []))
+    lab = plane[0] if lab is None else lab
+    _build.launch("ccl_tables", dev,
+                  None if basin is None else basin.data_ptr(),
+                  lab.data_ptr(), cent.data_ptr(), masks.data_ptr(),
+                  n_found.data_ptr(), scratch.data_ptr(), h, w, h4, w4,
+                  k_cap, entry="cluster_masks",
+                  also=() if basin is None else ("ccl_label",))
+    masks = masks.view(torch.uint8)[: k_cap * h * w].view(k_cap, h, w)
+    return masks, n_found[0]
+
+
+def _check_cluster_args(h: int, w: int, cent: torch.Tensor, k_cap: int,
+                        what: str) -> None:
+    if cent.shape != (2, h, w) or k_cap < 1:
+        raise ValueError(f"cluster_masks: {what} {(h, w)}, cent "
+                         f"{tuple(cent.shape)}, k_cap {k_cap}")
+
+
 def cluster_masks(lab: torch.Tensor, cent: torch.Tensor, h4: int, w4: int,
                   k_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank the distinct centroid-landing clusters ascending into a fixed
@@ -180,22 +242,11 @@ def cluster_masks(lab: torch.Tensor, cent: torch.Tensor, h4: int, w4: int,
     (a centroid on no basin) ranks first, then clusters by ascending min
     flat index: the host union-find's first-appearance order."""
     h, w = lab.shape
-    if cent.shape != (2, h, w) or k_cap < 1:
-        raise ValueError(f"cluster_masks: lab {tuple(lab.shape)}, cent "
-                         f"{tuple(cent.shape)}, k_cap {k_cap}")
+    _check_cluster_args(h, w, cent, k_cap, "lab")
     if _build.is_plain(lab):
         return cluster_masks_plain(lab, cent, h4, w4, k_cap)
     _build.check_cuda("ccl_tables", lab, cent, dtype=torch.int32)
-    dev = lab.device
-    masks = torch.empty((k_cap, h, w), dtype=torch.uint8, device=dev)
-    n_found = torch.empty((), dtype=torch.int32, device=dev)
-    # per slot (flat index, escape last): taken flag, then rank; the
-    # candidate list and its count
-    scratch = torch.empty(2 * (h * w + 1) + 1, dtype=torch.int32, device=dev)
-    _build.launch("ccl_tables", dev, lab.data_ptr(), cent.data_ptr(),
-                  masks.data_ptr(), n_found.data_ptr(), scratch.data_ptr(),
-                  h, w, h4, w4, k_cap, entry="cluster_masks")
-    return masks, n_found
+    return _cluster_launch(None, lab, cent, h4, w4, k_cap)
 
 
 def cluster_from_basin(basin: torch.Tensor, cent: torch.Tensor, h4: int,
@@ -204,8 +255,20 @@ def cluster_from_basin(basin: torch.Tensor, cent: torch.Tensor, h4: int,
     """The device twin of ``centroids.cluster_centroids_from_basin``: the
     basin [H, W] bool (the raw ``|dp| < thres`` predicate) is cut to the
     (h4, w4) extent and labelled (K12a), then the clusters are ranked
-    (K12b). Returns (masks [k_cap, H, W] uint8, n_found)."""
-    return cluster_masks(min_label_plane(basin, h4, w4), cent, h4, w4, k_cap)
+    (K12b), both in one launch on the card. Returns (masks [k_cap, H, W]
+    uint8, n_found)."""
+    h, w = basin.shape
+    _check_cluster_args(h, w, cent, k_cap, "basin")
+    if _build.is_plain(basin):
+        return cluster_masks_plain(min_label_plane(basin, h4, w4), cent, h4,
+                                   w4, k_cap)
+    basin = basin.contiguous().view(torch.uint8)
+    _build.check_cuda("ccl_label", basin, dtype=torch.uint8)
+    _build.check_cuda("ccl_tables", cent, dtype=torch.int32)
+    if cent.device != basin.device:
+        raise ValueError(f"cluster_from_basin: basin on {basin.device}, "
+                         f"cent on {cent.device}")
+    return _cluster_launch(basin, None, cent, h4, w4, k_cap)
 
 
 def _check_key_range(h: int, w: int) -> None:
@@ -252,6 +315,35 @@ def component_tables_plain(labels: torch.Tensor, best: torch.Tensor,
                              best, comp_cap)
 
 
+def _tables_launch(labels: torch.Tensor, minidx, best: torch.Tensor,
+                   comp_cap: int):
+    """One K12b table launch: on the given K12a plane ``minidx``, or with
+    K12a on ``labels`` first (``minidx`` None)."""
+    h, w = labels.shape
+    _check_grid("component_tables", h, w)
+    _check_cap("component_tables", comp_cap)
+    _build.check_cuda("ccl_tables", labels, dtype=torch.int32)
+    _build.check_cuda("ccl_tables", best)
+    dev = labels.device
+    if best.device != dev:
+        raise ValueError(f"component_tables: labels on {dev}, best on "
+                         f"{best.device}")
+    comp_map, rows, sizes, scores, n_comp, scratch, *plane = _buffer(
+        dev, h * w, comp_cap, comp_cap, comp_cap, 1,
+        _scratch_words(h, w, comp_cap, False),
+        *([h * w] if minidx is None else []))
+    label = minidx is None
+    minidx = plane[0] if label else minidx
+    _build.launch("ccl_tables", dev, labels.data_ptr(), minidx.data_ptr(),
+                  int(label), best.data_ptr(), comp_map.data_ptr(),
+                  rows.data_ptr(), sizes.data_ptr(), scores.data_ptr(),
+                  n_comp.data_ptr(), scratch.data_ptr(), h, w, comp_cap,
+                  entry="component_tables",
+                  also=("ccl_label",) if label else ())
+    return (comp_map.view(h, w), rows, sizes, scores.view(torch.float32),
+            n_comp[0])
+
+
 def rank_tables(labels: torch.Tensor, minidx: torch.Tensor,
                 best: torch.Tensor, comp_cap: int):
     """K12b's table half: ``minidx`` is K12a of ``labels``
@@ -264,25 +356,8 @@ def rank_tables(labels: torch.Tensor, minidx: torch.Tensor,
                          f"{tuple(minidx.shape)}, best {tuple(best.shape)}")
     if _build.is_plain(labels):
         return rank_tables_plain(labels, minidx, best, comp_cap)
-    if comp_cap > TABLES_CAP_MAX:
-        raise ValueError(f"component_tables: comp_cap {comp_cap} over "
-                         f"{TABLES_CAP_MAX} on the card")
     _build.check_cuda("ccl_tables", labels, minidx, dtype=torch.int32)
-    _build.check_cuda("ccl_tables", best)
-    dev = labels.device
-    comp_map = torch.empty((h, w), dtype=torch.int32, device=dev)
-    rows = torch.empty(comp_cap, dtype=torch.int32, device=dev)
-    sizes = torch.empty(comp_cap, dtype=torch.int32, device=dev)
-    scores = torch.empty(comp_cap, dtype=torch.float32, device=dev)
-    n_comp = torch.empty((), dtype=torch.int32, device=dev)
-    # per pixel: its root's rank; the candidate keys and their count
-    scratch = torch.empty(2 * h * w + 1, dtype=torch.int32, device=dev)
-    _build.launch("ccl_tables", dev, labels.data_ptr(), minidx.data_ptr(),
-                  best.data_ptr(), comp_map.data_ptr(), rows.data_ptr(),
-                  sizes.data_ptr(), scores.data_ptr(), n_comp.data_ptr(),
-                  scratch.data_ptr(), h, w, comp_cap,
-                  entry="component_tables")
-    return comp_map, rows, sizes, scores, n_comp
+    return _tables_launch(labels, minidx, best, comp_cap)
 
 
 def component_tables(labels: torch.Tensor, best: torch.Tensor,
@@ -294,7 +369,7 @@ def component_tables(labels: torch.Tensor, best: torch.Tensor,
     rows [comp_cap] int32 seed row = label - 1; sizes [comp_cap] int32;
     scores [comp_cap] f32 = max of ``best`` over the component, floored
     at 0; n_comp int32 = min(components, comp_cap + 1)). K12a labels, K12b
-    ranks."""
+    ranks: one launch on the card."""
     h, w = labels.shape
     _check_key_range(h, w)
     if best.shape != (h, w) or comp_cap < 1:
@@ -302,4 +377,4 @@ def component_tables(labels: torch.Tensor, best: torch.Tensor,
                          f"best {tuple(best.shape)}, comp_cap {comp_cap}")
     if _build.is_plain(labels):
         return component_tables_plain(labels, best, comp_cap)
-    return rank_tables(labels, _label(labels, h, w), best, comp_cap)
+    return _tables_launch(labels, None, best, comp_cap)

@@ -678,94 +678,190 @@ def _spiral(h):
     return mask
 
 
-@pytest.mark.parametrize("case", ["sparse", "dense", "spiral", "extent"])
-def test_ccl_label_masks(cuda, case):
-    """K12a on 128x128 masks (the basin plane) equals its twin, the extent
-    cut included."""
+@pytest.mark.parametrize("case,grid,hw", [
+    ("sparse", (128, 128), None), ("dense", (128, 128), None),
+    ("spiral", (128, 128), None), ("extent", (128, 128), (97, 113)),
+    ("dense", (92, 84), None), ("dense", (97, 113), None),
+    ("dense", (128, 128), (92, 84)), ("dense", (2048, 2048), None),
+    ("spiral", (2048, 2048), None)])
+def test_ccl_label_masks(cuda, case, grid, hw):
+    """K12a on masks equals its twin in one launch: the basin plane
+    (128x128), the extent cut (97x113, 92x84), grids that are not
+    multiples of the 32x32 tile (92x84, 97x113), and 2048x2048 (4096
+    tiles, more than the card's resident CTAs: each CTA loops)."""
     from irn_tpu_torch.ops import ccl
 
     g = np.random.default_rng(1)
-    mask = {"sparse": g.random((128, 128)) < 0.3,
-            "dense": g.random((128, 128)) < 0.6,
-            "spiral": _spiral(128),
-            "extent": g.random((128, 128)) < 0.55}[case]
-    hw = (97, 113) if case == "extent" else (128, 128)
+    mask = {"sparse": lambda: g.random(grid) < 0.3,
+            "dense": lambda: g.random(grid) < 0.6,
+            "spiral": lambda: _spiral(grid[0]),
+            "extent": lambda: g.random(grid) < 0.55}[case]()
+    hw = hw or grid
     m = torch.from_numpy(mask).to(cuda)
     got = ccl.min_label_plane(m, *hw)
-    want = ccl.min_label_plane(m.cpu(), *hw)
+    # the twin on the card: its sweeps at 2048x2048 take minutes on a host
+    want = ccl.min_label_plane_plain(m & ccl._extent(*grid, *hw, cuda))
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["ccl_label"] == 3
-    assert torch.equal(got.cpu(), want)
-
-
-@pytest.mark.parametrize("case", ["blobby", "speckle", "spiral_touching"])
-def test_ccl_label_maps(cuda, case):
-    """K12a on 512x512 label maps (the decoded walk at the 128x128 bucket):
-    same-value components only, equal to its twin."""
-    from irn_tpu_torch.ops import ccl
-
-    g = np.random.default_rng(2)
-    labels = {
-        "blobby": np.kron(g.integers(0, 9, (32, 32)), np.ones((16, 16), int)),
-        "speckle": g.integers(0, 4, (512, 512)),
-        "spiral_touching": np.where(_spiral(512), 1, 2),
-    }[case].astype(np.int32)
-    t = torch.from_numpy(labels).to(cuda)
-    got = ccl.min_label_plane_multi(t)
-    want = ccl.min_label_plane_multi_plain(t)
-    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_label"] == 1
+    assert _build.LAUNCHES["ccl_tables"] == 0
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["random", "overflow", "escape", "empty"])
-def test_cluster_masks_exact(cuda, case):
-    """K12b cluster masks and n_found at the basin plane (128x128, k_cap 8)
-    equal the twin's, overflow (n_found = k_cap + 1) included."""
+def _label_map(case, shape, g):
+    h, w = shape
+    return {
+        "blobby": lambda: np.kron(g.integers(0, 9, (-(-h // 16), -(-w // 16))),
+                                  np.ones((16, 16), int))[:h, :w],
+        "speckle": lambda: g.integers(0, 4, shape),
+        "spiral_touching": lambda: np.where(_spiral(h), 1, 2),
+        "empty": lambda: np.zeros(shape, int),
+    }[case]().astype(np.int32)
+
+
+@pytest.mark.parametrize("case,shape", [
+    ("blobby", (512, 512)), ("speckle", (512, 512)),
+    ("spiral_touching", (512, 512)), ("blobby", (500, 500)),
+    ("speckle", (500, 500)), ("speckle", (97, 113))])
+def test_ccl_label_maps(cuda, case, shape):
+    """K12a on label maps (the decoded walk at the 128x128 bucket, VOC's
+    largest image, a grid that is not a multiple of the tile): same-value
+    components only, equal to its twin."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(2)
+    t = torch.from_numpy(_label_map(case, shape, g)).to(cuda)
+    got = ccl.min_label_plane_multi(t)
+    want = ccl.min_label_plane_multi_plain(t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_label"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case,k_cap", [
+    ("random", 8), ("overflow", 8), ("escape", 8), ("empty", 8),
+    ("escape", 1), ("overflow", 1), ("random", 1), ("speckle", 8)])
+def test_cluster_masks_exact(cuda, case, k_cap):
+    """K12b cluster masks and n_found at the basin plane (128x128, extent
+    97x121) equal the twin's, K12a and K12b in one launch, overflow
+    (n_found = k_cap + 1) included; k_cap 1 with the escape bucket (it
+    takes the one mask) and past it; a speckled basin whose landing slots
+    outnumber k_cap + 1 many times (the radix select)."""
     from irn_tpu_torch.ops import ccl
 
     g = np.random.default_rng(3)
     h4, w4 = 97, 121
     basin = g.random((128, 128)) < {"random": 0.3, "overflow": 0.05,
-                                     "escape": 0.02, "empty": 0.0}[case]
+                                     "escape": 0.02, "empty": 0.0,
+                                     "speckle": 0.3}[case]
     if case == "random":  # a few large basins
         basin = np.kron(g.random((8, 8)) < 0.4, np.ones((16, 16), bool))
     cent = np.stack([g.integers(0, h4, (128, 128)),
                      g.integers(0, w4, (128, 128))]).astype(np.int32)
     b, c = torch.from_numpy(basin).to(cuda), torch.from_numpy(cent).to(cuda)
-    masks, n_found = ccl.cluster_from_basin(b, c, h4, w4, 8)
-    want_masks, want_n = ccl.cluster_from_basin(b.cpu(), c.cpu(), h4, w4, 8)
+    masks, n_found = ccl.cluster_from_basin(b, c, h4, w4, k_cap)
+    want_masks, want_n = ccl.cluster_from_basin(b.cpu(), c.cpu(), h4, w4,
+                                                k_cap)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["ccl_tables"] == 3
+    assert _build.LAUNCHES["ccl_tables"] == 1  # the one launch runs both
+    assert _build.LAUNCHES["ccl_label"] == 1
+    assert masks.shape == (k_cap, 128, 128) and masks.dtype == torch.uint8
     assert torch.equal(masks.cpu(), want_masks)
     assert int(n_found) == int(want_n)
-    if case == "overflow":
-        assert int(n_found) == 9
+    if case in ("overflow", "speckle") or (case == "escape" and k_cap == 1):
+        assert int(n_found) == k_cap + 1
+    if case == "escape":  # the escape bucket ranks first
+        esc = (b.cpu() == 0) | (torch.arange(128)[:, None] >= h4)
+        esc = esc[c[0].long().cpu(), c[1].long().cpu()]
+        assert bool(esc.any()) and torch.equal(
+            masks[0].cpu().bool()[:h4, :w4], esc[:h4, :w4])
 
 
-@pytest.mark.parametrize("case,cap", [("blobby", 128), ("blobby", 8),
-                                      ("speckle", 128), ("empty", 128)])
-def test_component_tables_exact(cuda, case, cap):
-    """K12b component tables at 512x512: all five outputs equal the twin's,
-    overflow (cap 8 on the blobby map, 128 on speckle) included."""
+def test_cluster_masks_on_a_given_plane(cuda):
+    """K12b alone (cluster_masks on K12a's plane): one launch, no K12a,
+    equal to the twin."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(5)
+    h4, w4 = 92, 84
+    basin = torch.from_numpy(g.random((96, 96)) < 0.2).to(cuda)
+    cent = torch.from_numpy(np.stack([g.integers(0, h4, (96, 96)),
+                                      g.integers(0, w4, (96, 96))]).astype(
+        np.int32)).to(cuda)
+    lab = ccl.min_label_plane(basin, h4, w4)
+    _build.reset_launches()
+    masks, n_found = ccl.cluster_masks(lab, cent, h4, w4, 8)
+    want_masks, want_n = ccl.cluster_masks_plain(lab, cent, h4, w4, 8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_tables"] == 1
+    assert _build.LAUNCHES["ccl_label"] == 0
+    assert torch.equal(masks, want_masks) and int(n_found) == int(want_n)
+
+
+@pytest.mark.parametrize("case,shape,cap", [
+    ("blobby", (512, 512), 128), ("blobby", (512, 512), 8),
+    ("speckle", (512, 512), 128), ("empty", (512, 512), 128),
+    ("blobby", (500, 500), 128), ("speckle", (512, 512), 1),
+    ("speckle", (512, 512), 4096), ("speckle", (97, 113), 4096),
+    ("blobby", (92, 84), 1)])
+def test_component_tables_exact(cuda, case, shape, cap):
+    """K12b component tables: all five outputs equal the twin's, K12a and
+    K12b in one launch; overflow (cap 8 on the blobby map, 1, 128 and 4096
+    on speckle: tens of thousands of components through the radix select)
+    included; VOC's largest image (500x500); a grid under the cap's
+    count (97x113 at cap 4096: every component ranked)."""
     from irn_tpu_torch.ops import ccl
 
     g = np.random.default_rng(4)
-    labels = {
-        "blobby": np.kron(g.integers(0, 5, (16, 16)), np.ones((32, 32), int)),
-        "speckle": g.integers(0, 4, (512, 512)),
-        "empty": np.zeros((512, 512), int),
-    }[case].astype(np.int32)
-    best = g.random((512, 512), dtype=np.float32)
+    labels = _label_map(case, shape, g)
+    best = g.random(shape, dtype=np.float32)
     lt, bt = torch.from_numpy(labels).to(cuda), torch.from_numpy(best).to(cuda)
     got = ccl.component_tables(lt, bt, cap)
     want = ccl.component_tables_plain(lt, bt, cap)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_tables"] == 1
+    assert _build.LAUNCHES["ccl_label"] == 1
     for name, a, b in zip(("comp_map", "rows", "sizes", "scores", "n_comp"),
                           got, want):
         assert a.dtype == b.dtype, name
         assert torch.equal(a, b), name
-    if case != "empty" and not (case == "blobby" and cap == 128):
-        assert int(got[4]) == cap + 1
+    roots = ccl.min_label_plane_multi_plain(lt) == torch.arange(
+        lt.numel(), device=cuda, dtype=torch.int32).view(shape)
+    n = int((roots & (lt > 0)).sum())  # the components
+    assert int(got[4]) == min(n, cap + 1)
+
+
+def test_rank_tables_on_a_given_plane(cuda):
+    """K12b alone (rank_tables on K12a's plane): one launch, no K12a,
+    equal to the twin."""
+    from irn_tpu_torch.ops import ccl
+
+    g = np.random.default_rng(6)
+    lt = torch.from_numpy(_label_map("speckle", (200, 300), g)).to(cuda)
+    bt = torch.from_numpy(g.random((200, 300), dtype=np.float32)).to(cuda)
+    minidx = ccl.min_label_plane_multi(lt)
+    _build.reset_launches()
+    got = ccl.rank_tables(lt, minidx, bt, 128)
+    want = ccl.rank_tables_plain(lt, minidx, bt, 128)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ccl_tables"] == 1
+    assert _build.LAUNCHES["ccl_label"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ccl_caps_refused_on_the_card(cuda):
+    """The card keeps the cap + 1 smallest keys in shared memory: a cap over
+    4096 raises before any launch."""
+    from irn_tpu_torch.ops import ccl
+
+    b = torch.zeros((32, 32), dtype=torch.bool, device=cuda)
+    c = torch.zeros((2, 32, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ccl.cluster_from_basin(b, c, 32, 32, ccl.TABLES_CAP_MAX + 1)
+    lt = torch.ones((32, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ccl.component_tables(lt, torch.zeros((32, 32), device=cuda),
+                             ccl.TABLES_CAP_MAX + 1)
+    assert _build.LAUNCHES["ccl_label"] == _build.LAUNCHES["ccl_tables"] == 0
 
 
 def _edge_map(kind, shape, seed=0):

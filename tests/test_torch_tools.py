@@ -70,6 +70,34 @@ def test_bench_conv_sweep_on_cpu():
     assert float((got - ref).abs().max()) <= 2.0 ** -6 * float(ref.abs().max())
 
 
+def test_probe_ccl_plain_path(monkeypatch, capsys):
+    """The K12 probe (tools/probe_ccl.py) through main() on the CPU at its
+    small size: each case through the stage's wrapper (their plain twins
+    here), equal, timed on the host clock, with no device rows; the
+    speckle map flags overflow at comp_cap 128; a missing card raises."""
+    from irn_tpu_torch.ops import ccl
+    from irn_tpu_torch.tools import probe_ccl
+
+    clusters = _spy(monkeypatch, ccl, "cluster_from_basin")
+    tables = _spy(monkeypatch, ccl, "component_tables")
+    res = probe_ccl.main(["--device", "cpu", "--small", "--reps", "1"])
+    cases = res["cases"]
+    assert list(cases) == ["basin", "map 384x512", "map 500x500",
+                           "speckle cap 128", "speckle cap 4096"]
+    for r in cases.values():
+        assert r["equal"] and r["ms"] > 0 and "device_us" not in r
+    assert 1 < cases["basin"]["count"] <= probe_ccl.K_CAP + 1
+    assert cases["map 384x512"]["count"] <= probe_ccl.COMP_CAP
+    assert cases["speckle cap 128"]["count"] == probe_ccl.COMP_CAP + 1
+    # per case: the check, the twin, and a warm-up and one timed call for
+    # each of the two clocks
+    assert len(clusters) == 6 and len(tables) == 4 * 6
+    assert "not a device time" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        probe_ccl.main(["--small"])
+
+
 def test_tools_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
