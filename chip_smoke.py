@@ -32,14 +32,17 @@ conv) and ``tools.bench_banded``'s batched sweep at B 1, 2, 4 (K8); the
 pure route of one image through the plain twins on the card, one image's
 default walk through the twins on the host, and a per-layer breakdown.
 
-The default walk is three hand-kernel launches per image and pass: K10
-builds the operator (``csrc/diag_operator.cu``, one launch), K0 runs the
-chain, K15 decodes (``csrc/decode.cu``: the x4 upsample and global max,
-then the normalize and argmax, two launches); the default runs count them
-per walk, and the kernels phase holds K10 (the three buckets, a sigmoid
-map, its 8-level ties and all ones, beta 1 and 10) and K15 (C 8 and 128,
-odd extents, zeros, planted ties) to their twins bit for bit. The host
-twin walk of one image equals the card's, label for label.
+The default walk is three hand-kernel launches per image and pass, and no
+other device operation in K10 and K15: K10 builds the operator
+(``csrc/diag_operator.cu``, one launch, its schedule a kernel parameter),
+K0 runs the chain, K15 decodes (``csrc/decode.cu``: one cooperative launch,
+the x4 upsample and global max, a grid barrier, the normalize and argmax);
+the default runs count them per walk, and the kernels phase holds K10 (the
+three buckets, a sigmoid map, its 8-level ties, all ones and NaN / -inf
+planted, beta 1 and 10, radius 4 and 14) and K15 (C 1, 8, 16, 17 and 128,
+odd extents, zeros, planted ties and NaN, int64 and int32 labels) to their
+twins bit for bit and counts each call's device rows in the profiler. The
+host twin walk of one image equals the card's, label for label.
 
 The phase ``stage: make_cam -> cam_to_ir_label`` runs the front of the
 pipeline through the CLI on the same tree with a seeded random CAMNet
@@ -1155,9 +1158,16 @@ def check_irn_loss(dev, gen, res: dict, sass: str) -> None:
     del maxed, dp, lab, m_leaf, dp_leaf
 
 
-# K10 at the three buckets of the default 128 x 128 grid cap (radius 5)
+# K10 at the three buckets of the default 128 x 128 grid cap (radius 5),
+# and at radius 4 and 14 (the staged schedule's smallest tables, the direct
+# schedule)
 WALK_BUCKETS = ((96, 128), (128, 96), (128, 128))
+WALK_RADII = ((4, (96, 128)), (14, (64, 80)))
 WALK_ROWS = (8, 128)  # K15: make_sem_seg's seed rows, ins_seed_cap
+# K15 either side of its register cut-off (C 16) at the walk's largest and
+# smallest buckets
+DECODE_EDGES = tuple((c, b) for b in ((128, 128), (32, 32))
+                     for c in (1, 16, 17))
 
 
 def _pow_mults(beta: int) -> int:
@@ -1167,25 +1177,32 @@ def _pow_mults(beta: int) -> int:
 
 def _walk_edge(gen, kind: str, cap: tuple) -> torch.Tensor:
     """A capped edge map: a sigmoid of normals, the same quantized to 8
-    levels (ties along every path), or all ones (w 0, inv 1)."""
+    levels (ties along every path), all ones (w 0, inv 1), or the sigmoid
+    with NaN and -inf planted."""
     if kind == "ones":
         return torch.ones(cap)
     e = torch.sigmoid(torch.randn(cap, generator=gen))
+    if kind == "nan":
+        e.view(-1)[::37] = float("nan")
+        e.view(-1)[5::41] = float("-inf")
     return torch.round(e * 7) / 7 if kind == "ties" else e
 
 
-def _decode_scores(gen, kind: str, c: int) -> tuple:
-    """(rw [C, 96, 128], h4, w4, h0, w0, bg_thres) at the main path's
-    bucket with odd extents: random rows, all zeros, or planted ties: rows
-    0 and 1 equal on the left half (the first wins), row 2 at exactly
-    bg_thres once normalized (the background wins on the right half), row
-    3 on a block (the max)."""
-    ch, cw = BUCKET
+def _decode_scores(gen, kind: str, c: int, bucket=None) -> tuple:
+    """(rw [C, ch, cw], h4, w4, h0, w0, bg_thres) at a bucket (the main
+    path's by default) with odd extents: random rows, all zeros, random
+    rows with a NaN planted, or planted ties (C >= 4): rows 0 and 1 equal
+    on the left half (the first wins), row 2 at exactly bg_thres once
+    normalized (the background wins on the right half), row 3 on a block
+    (the max)."""
+    ch, cw = bucket or BUCKET
     h4, w4 = ch - 3, cw - 5
     rw_ = torch.zeros((c, ch, cw))
     bg = 0.35
-    if kind == "random":
+    if kind in ("random", "nan"):
         rw_[:, :h4, :w4] = torch.rand((c, h4, w4), generator=gen)
+    if kind == "nan":
+        rw_[c // 2, h4 // 2, w4 // 3] = float("nan")
     elif kind == "ties":
         rw_[0, :h4, : w4 // 2] = 1 + torch.rand((h4, w4 // 2),
                                                 generator=gen)
@@ -1196,23 +1213,54 @@ def _decode_scores(gen, kind: str, c: int) -> tuple:
     return rw_, h4, w4, 4 * h4 - 2, 4 * w4 - 3, bg
 
 
+def _same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal in value and dtype, NaN where the other has NaN."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def device_rows(fn, reps: int) -> dict:
+    """The card's rows (kernels, copies, memsets) per call of ``fn`` under
+    torch.profiler, after a warm-up call: name -> count per call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count / reps for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA}
+
+
 def check_walk_kernels(dev, gen, res: dict) -> None:
     """K10 and K15 vs their twins on the card, bit for bit: K10 at the
-    three buckets on a sigmoid map, its 8-level ties and all ones, at beta
-    1 and 10; K15 at C 8 and 128 on odd extents, zero scores and planted
-    ties (every output: labels, max, normalized scores, best)."""
+    three buckets on a sigmoid map, its 8-level ties, all ones and NaN /
+    -inf planted (NaN where the twin has NaN), at beta 1 and 10, and at
+    radius 4 and 14; K15 at C 8 and 128 on odd extents, zero scores,
+    planted ties and a planted NaN, and at C 1, 16 and 17 at the 128 x 128
+    and 32 x 32 buckets (every output: labels int64 and int32, max,
+    normalized scores, best). Each is one device operation per call in the
+    profiler's rows: K10 with no table copy, K15 with no memset."""
     from irn_tpu_torch.ops import random_walk as rw
 
-    for cap in WALK_BUCKETS:
-        geom = rw.build_geometry(*cap, radius=5)
-        for kind in ("sigmoid", "ties", "ones"):
+    def same(got, want):
+        return all((a is None and b is None) or _same_nan(a, b)
+                   for a, b in zip(got, want))
+
+    cases = [(5, cap) for cap in WALK_BUCKETS] + list(WALK_RADII)
+    for radius, cap in cases:
+        geom = rw.build_geometry(*cap, radius=radius)
+        for kind in ("sigmoid", "ties", "ones", "nan"):
             edge = _walk_edge(gen, kind, cap).to(dev)
             for beta in (1, 10):
                 got = rw.build_diag_operator(geom, edge, beta)
                 want = rw.build_diag_operator_plain(geom, edge, beta)
-                check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                      f"diag_operator {cap} {kind} beta {beta} not "
-                      f"bit-equal to its twin")
+                check(same(got, want),
+                      f"diag_operator {cap} radius {radius} {kind} beta "
+                      f"{beta} not bit-equal to its twin")
     geom = rw.build_geometry(*BUCKET, radius=5)
     edge = _walk_edge(gen, "sigmoid", BUCKET).to(dev)
     n, n_pairs = geom.n_pad, geom.path_set.n_pairs
@@ -1220,18 +1268,26 @@ def check_walk_kernels(dev, gen, res: dict) -> None:
     window = (geom.padded[0] - geom.path_set.radius_floor) * (
         geom.padded[1] - 2 * geom.path_set.radius_floor)
     dev_ms = device_ms(lambda: rw.build_diag_operator(geom, edge), 20)
+    rows = device_rows(lambda: rw.build_diag_operator(geom, edge), 5)
+    # the profiler may drop a call's events, never add one
+    check(len(rows) == 1 and 0 < sum(rows.values()) <= 1
+          and "diag_operator" in next(iter(rows)),
+          f"diag_operator: device rows per call {rows}, expected its one "
+          f"kernel and no table copy")
     res["diag_operator"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: rw.build_diag_operator(geom, edge), 20),
         device_ms=dev_ms,
+        device_ops=len(rows),
         plain_ms=cuda_ms(lambda: rw.build_diag_operator_plain(geom, edge),
                          3),
         shape=(f"edge {BUCKET} f32 -> w [{n_pairs}, {n}], inv [{n}], radius "
-               f"5 ({cells} path cells), beta 10, one launch; the card's own "
-               f"time per call (profiler: the kernel and the two table "
-               f"copies) {dev_ms:.4f} ms; bit-equal to "
-               f"the twin at the buckets {WALK_BUCKETS} on a sigmoid map, its "
-               f"8-level ties and all ones, beta 1 and 10"),
+               f"5 ({cells} path cells), beta 10, one launch and no other "
+               f"device operation (profiler rows per call {rows}); the "
+               f"card's own time per call {dev_ms:.4f} ms; bit-equal to "
+               f"the twin at the buckets {WALK_BUCKETS}, radius 4 and 14 on "
+               f"a sigmoid map, its 8-level ties, all ones and NaN / -inf, "
+               f"beta 1 and 10"),
         library_ms=None,
         # the path max's compares, 1 - m and the powers once per (pair,
         # window cell); two adds per (pair, column), an add and a division
@@ -1241,49 +1297,66 @@ def check_walk_kernels(dev, gen, res: dict) -> None:
                 4 * (edge.numel() + n_pairs * n + n), PEAK_F32),
     )
 
-    for c in WALK_ROWS:
-        for kind in ("random", "zeros", "ties"):
-            x, h4, w4, h0, w0, bg = _decode_scores(gen, kind, c)
-            x = x.to(dev)
-            got = rw.decode(x, h4, w4, h0, w0, bg, scores=True, best=True)
-            want = rw.decode_plain(x, h4, w4, h0, w0, bg, scores=True,
-                                   best=True)
-            lean = rw.decode(x, h4, w4, h0, w0, bg, best=True)
-            up = rw.upsample_scores(x, h4, w4, h0, w0)
-            check(all(torch.equal(a, b) for a, b in zip(got, want))
-                  and torch.equal(lean.labels, want.labels)
-                  and torch.equal(lean.best, want.best)
-                  and torch.equal(up, rw.upsample_scores_plain(
-                      x, h4, w4, h0, w0)),
-                  f"decode C {c} {kind} not bit-equal to its twin")
-            if kind == "ties":
-                seen = torch.unique(want.labels[:h0, :w0]).tolist()
-                check(seen == [0, 1, 4], f"decode C {c}: planted ties "
-                      f"decoded to {seen}")
+    decode_cases = [(c, BUCKET, kind) for c in WALK_ROWS
+                    for kind in ("random", "zeros", "ties", "nan")]
+    decode_cases += [(c, b, kind) for c, b in DECODE_EDGES
+                     for kind in ("random", "nan")]
+    for c, bucket, kind in decode_cases:
+        x, h4, w4, h0, w0, bg = _decode_scores(gen, kind, c, bucket)
+        x = x.to(dev)
+        got = rw.decode(x, h4, w4, h0, w0, bg, scores=True, best=True)
+        want = rw.decode_plain(x, h4, w4, h0, w0, bg, scores=True,
+                               best=True)
+        lean = rw.decode(x, h4, w4, h0, w0, bg, best=True,
+                         labels_dtype=torch.int32)
+        up = rw.upsample_scores(x, h4, w4, h0, w0)
+        check(same(got, want)
+              and torch.equal(lean.labels, want.labels.to(torch.int32))
+              and same((lean.best,), (want.best,))
+              and same((up,), (rw.upsample_scores_plain(x, h4, w4, h0, w0),)),
+              f"decode C {c} {bucket} {kind} not bit-equal to its twin")
+        if kind == "ties":
+            seen = torch.unique(want.labels[:h0, :w0]).tolist()
+            check(seen == [0, 1, 4], f"decode C {c}: planted ties "
+                  f"decoded to {seen}")
     x, h4, w4, h0, w0, bg = _decode_scores(gen, "random", 8)
     x = x.to(dev)
     hw = 16 * x.shape[1] * x.shape[2]
     x128 = _decode_scores(gen, "random", 128)[0].to(dev)
     full_ms = cuda_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg, scores=True,
                                         best=True), 20)
-    c128_ms = cuda_ms(lambda: rw.decode(x128, h4, w4, h0, w0, bg,
-                                        best=True), 20)
+    c128_ms = cuda_ms(lambda: rw.decode(x128, h4, w4, h0, w0, bg, best=True,
+                                        labels_dtype=torch.int32), 20)
+    c128_dev = device_ms(lambda: rw.decode(x128, h4, w4, h0, w0, bg,
+                                           best=True,
+                                           labels_dtype=torch.int32), 10)
     up_ms = cuda_ms(lambda: rw.upsample_scores(x, h4, w4, h0, w0), 20)
     dev_ms = device_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg), 20)
+    rows = device_rows(lambda: rw.decode(x, h4, w4, h0, w0, bg), 5)
+    check(len(rows) == 1 and 0 < sum(rows.values()) <= 1
+          and "decode" in next(iter(rows)),
+          f"decode: device rows per call {rows}, expected its one kernel")
     res["decode"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: rw.decode(x, h4, w4, h0, w0, bg), 20),
         device_ms=dev_ms,
+        device_ops=len(rows),
+        scores_best_ms=full_ms,
+        c128_best_int32_ms=c128_ms,
+        c128_best_int32_device_ms=c128_dev,
+        upsample_ms=up_ms,
         plain_ms=cuda_ms(lambda: rw.decode_plain(x, h4, w4, h0, w0, bg), 5),
         shape=(f"rw [8, {BUCKET[0]}, {BUCKET[1]}] f32 -> labels "
                f"[{4 * BUCKET[0]}, {4 * BUCKET[1]}] int64 (make_sem_seg's "
-               f"call), two launches; the card's own time per call "
-               f"(profiler: both passes and the key's memset) {dev_ms:.4f} "
-               f"ms; bit-equal to the twin at C 8 and 128 on "
-               f"odd extents, zeros and planted ties; with the scores and "
-               f"best {full_ms:.4f} ms; C 128 with best (the instance walk) "
-               f"{c128_ms:.4f} ms; the upsample alone (one launch) "
-               f"{up_ms:.4f} ms"),
+               f"call), one cooperative launch and no other device "
+               f"operation (profiler rows per call {rows}); the card's own "
+               f"time per call {dev_ms:.4f} ms; bit-equal to the twin at C "
+               f"8 and 128 on odd extents, zeros, planted ties and NaN, and "
+               f"at C 1, 16, 17 at the 128 and 32 buckets, int64 and int32 "
+               f"labels; with the scores and best {full_ms:.4f} ms; C 128 "
+               f"with best and int32 labels (the instance walk) "
+               f"{c128_ms:.4f} ms ({c128_dev:.4f} ms on the card); the "
+               f"upsample alone (one launch) {up_ms:.4f} ms"),
         library_ms=None,
         # per value the masked taps (4), the bilinear (9), the quotient and
         # the pixel mask (2), the normalization and the compare (2); per
@@ -1484,6 +1557,49 @@ def _combine_edges(dev, gen) -> int:
     return n_cases
 
 
+# the device CRF at pad_multiples that are not multiples of 4, on an image
+# 375 px wide (a VOC width): buckets 61 x 376 and 100 x 400
+CRF_PAD_IMAGE, CRF_PAD_MULTIPLES = (61, 375), (1, 50)
+
+
+def _crf_pad_multiples(dev, gen) -> None:
+    """LandmarkCRF.pair on the card at ``pad_multiple`` 1 and 50, int8 and
+    dense: the bucket's width a multiple of lcm(pad_multiple, 4), so K17's
+    tensor map takes q, and the labels equal the same pair with K17's
+    start, quantize and combine through their twins on the card."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import crf_device as cd
+
+    h, w = CRF_PAD_IMAGE
+    img = _crf_planes(gen, "scene", (h, w)).permute(1, 2, 0).numpy()
+    lab = _crf_labels(gen, (h, w), (h, w)).numpy()
+    kernels = {k: getattr(cd, k) for k in ("start", "quantize", "combine")}
+    for pm in CRF_PAD_MULTIPLES:
+        for store in ("int8", "dense"):
+            crf = cd.LandmarkCRF(pad_multiple=pm, kernel_store=store,
+                                 device=dev)
+            _build.reset_launches()
+            got = crf.pair(img, lab[0], lab[1], CRF_LABELS, CRF_GT)
+            torch.cuda.synchronize()
+            launches = _build.LAUNCHES["crf_mean_field"]
+            try:
+                for k in kernels:
+                    setattr(cd, k, getattr(cd, k + "_plain"))
+                want = crf.pair(img, lab[0], lab[1], CRF_LABELS, CRF_GT)
+            finally:
+                for k, f in kernels.items():
+                    setattr(cd, k, f)
+            check(launches == 2 + 2 * crf.t
+                  and all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"device CRF at pad_multiple {pm} ({store}, bucket "
+                  f"{crf._bucket(h, w)}): {launches} K17 launches, labels "
+                  f"equal to the twins' "
+                  f"{[float(np.mean(a == b)) for a, b in zip(got, want)]}")
+            print(f"device CRF at pad_multiple {pm} {store}: a {h}x{w} image "
+                  f"in the {crf._bucket(h, w)} bucket, labels equal to the "
+                  f"twins' on the card", flush=True)
+
+
 def check_crf_mean_field(dev, gen, res: dict, sass: str) -> None:
     """K17 vs its twins on the card at the largest bucket and the odd one,
     on one image's kernels (K14's int8 and bf16 stores): the blur (the
@@ -1612,6 +1728,7 @@ def check_crf_mean_field(dev, gen, res: dict, sass: str) -> None:
                     + opnd.numel() * opnd.element_size())
             del kern, q, opnd, prod, got, want
             torch.cuda.empty_cache()
+    _crf_pad_multiples(dev, gen)
     n_edges = _combine_edges(dev, gen)
     loops = sass_loops(sass, "combine_kernelILb1E")
     print(f"K17 combine: {n_edges} edge cases bit-equal; SASS loops "
@@ -2084,15 +2201,15 @@ def run_stage(dev, work: str) -> dict:
     check(lp["square_fused_first"] == 2 * N_PURE
           and lp["square_dense"] == 2 * 7 * N_PURE,
           f"pure launches {lp}")
-    # the default walk is K10 -> K0 -> K15 (one K10 launch, one K0 launch,
-    # two K15 launches per walk): two passes over the tree, then one
+    # the default walk is K10 -> K0 -> K15 (one launch each per walk): two
+    # passes over the tree, then one
     for tag, walks in (("default", 2 * N_IMAGES), ("e3_diag", N_IMAGES)):
         l_ = launches[tag]
         check(l_["diag_operator"] == walks and l_["diag_chain"] == walks
-              and l_["decode"] == 2 * walks,
+              and l_["decode"] == walks,
               f"{tag} launches K10 {l_['diag_operator']}, K0 "
               f"{l_['diag_chain']}, K15 {l_['decode']} for {walks} walks")
-    check(launches["banded"]["decode"] == 2 * 2 * N_IMAGES
+    check(launches["banded"]["decode"] == 2 * N_IMAGES
           and launches["banded"]["diag_operator"] == 0,
           f"banded launches {launches['banded']}")
     check(le["apply_banded"] == N_IMAGES
@@ -2552,6 +2669,13 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
                                  "tpu", "--crf_kernel_store", "dense",
                                  ir="ir_dense"))["cam_to_ir_label"]
         stage["launches"]["cam dense"] = dict(_build.LAUNCHES)
+        # the device CRF at pad_multiples that are not multiples of 4
+        for pm in CRF_PAD_MULTIPLES:
+            _build.reset_launches()
+            runs[f"pad {pm}"] = cli(argv(
+                "--cam_to_ir_label_pass", "--pad_multiple", str(pm),
+                ir=f"ir_pad{pm}"))["cam_to_ir_label"]
+            stage["launches"][f"cam pad {pm}"] = dict(_build.LAUNCHES)
     finally:
         stages_cam.CAMScalePass.forward = forward
         crf_device.LandmarkKernel = build
@@ -2566,7 +2690,8 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
     per_pass = {"crf_landmark": 2,
                 "crf_mean_field": 2 + 2 * Config.crf_iters}
     for run, passes in (("cam stages", 2), ("cam native", 0),
-                        ("cam dense", 1)):
+                        ("cam dense", 1),
+                        *((f"cam pad {pm}", 1) for pm in CRF_PAD_MULTIPLES)):
         counts = stage["launches"][run]
         want = {k: passes * per_pass.get(k, 0) * len(names)
                 for k in counts}
@@ -2617,6 +2742,19 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
                       os.path.join(work, "ir_dense"), names)
     print(f"stage ir_label agreement int8 vs dense: min {min(agree):.6f} "
           f"mean {np.mean(agree):.6f}", flush=True)
+    for pm in CRF_PAD_MULTIPLES:
+        # padded pixels join no landmark, normaliser or message: the labels
+        # of pad_multiple 64's buckets
+        agree = agreement(os.path.join(work, "ir_auto"),
+                          os.path.join(work, f"ir_pad{pm}"), names)
+        print(f"stage cam_to_ir_label int8 at --pad_multiple {pm}: "
+              f"{runs[f'pad {pm}']['n_images']} images, agreement with "
+              f"--pad_multiple 64: min {min(agree):.6f} mean "
+              f"{np.mean(agree):.6f}", flush=True)
+        check(runs[f"pad {pm}"]["n_images"] == len(names)
+              and min(agree) >= 0.999,
+              f"cam_to_ir_label at --pad_multiple {pm}: {runs[f'pad {pm}']}, "
+              f"agreement with 64 {agree}")
 
     # make_sem_seg's default walk on make_cam's own CAMs: K10, K0, K15
     _build.reset_launches()
@@ -2632,7 +2770,7 @@ def run_cam_stages(dev, stage: dict, card: str) -> dict:
     check(summ["n_images"] == len(names)
           and _build.LAUNCHES["diag_operator"] == len(names)
           and _build.LAUNCHES["diag_chain"] == len(names)
-          and _build.LAUNCHES["decode"] == 2 * len(names)
+          and _build.LAUNCHES["decode"] == len(names)
           and all(os.path.exists(os.path.join(out, n_ + ".png"))
                   for n_ in names),
           f"make_sem_seg on make_cam's CAMs: {summ}, {_build.LAUNCHES}")
@@ -3678,14 +3816,14 @@ def run_ins_stages(dev, stage: dict, card: str) -> dict:
     ld = launches["ins default"]
     # per image: one K11; the clusters and the component split, one launch
     # each that runs K12a and K12b and counts under both; per walk (an
-    # image's, and a redo's) one K10, then one K0 and two K15 (upsample,
-    # argmax), or past ins_seed_cap one K0 and one K15 upsample per chunk
+    # image's, and a redo's) one K10, then one K0 and one K15, or past
+    # ins_seed_cap one K0 and one K15 upsample per chunk
     check(ld["advect"] == 2 * n and ld["ccl_label"] == 2 * 2 * n
           and ld["ccl_tables"] == 2 * 2 * n, f"ins default launches {ld}")
     walks = 2 * n + summ1["redo"] + summ["redo"]
     chunked = summ1["chunked"] + summ["chunked"]
     check(ld["diag_operator"] == walks
-          and (ld["diag_chain"] == walks and ld["decode"] == 2 * walks
+          and (ld["diag_chain"] == walks and ld["decode"] == walks
                if not chunked else
                ld["diag_chain"] > walks and ld["decode"] >= walks),
           f"ins default walk launches {ld} for {walks} walks, {chunked} "
@@ -3862,11 +4000,11 @@ def ins_layers(dev, ins: dict, card: str) -> None:
             labels, _, _, best = timed(
                 "decode (x4 upsample, argmax)",
                 lambda: rw.decode(out, h4, w4, size[0], size[1],
-                                  cfg.ins_seg_bg_thres, best=True))
+                                  cfg.ins_seg_bg_thres, best=True,
+                                  labels_dtype=torch.int32))
             tables = timed("K12 component split (K12a, K12b tables)",
                            lambda: ccl.component_tables(
-                               labels.to(torch.int32), best,
-                               cfg.ins_comp_cap))
+                               labels, best, cfg.ins_comp_cap))
 
             def save():
                 cmap, rows, sizes, scores, n_comp = (
@@ -4022,7 +4160,10 @@ def main() -> int:
                             "combine_ms", "product_ms", "iteration_ms",
                             "ten_iterations_ms", "dense_ms",
                             "dense_product_ms", "dense_iteration_ms",
-                            "dense_ten_iterations_ms", "eager_ms", "calls")
+                            "dense_ten_iterations_ms", "eager_ms", "calls",
+                            "device_ops", "scores_best_ms",
+                            "c128_best_int32_ms",
+                            "c128_best_int32_device_ms", "upsample_ms")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -13,8 +13,8 @@ or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
 call is its split pass and its product, 2; one K10 operator build 1; one
 K11 advection 1; one K12a labeling or K12b call 1, and a K12b call that
-labels first 1 under each of the two; one K15 decode 2,
-its upsample pass and its argmax pass, or 1 for the upsample alone; one
+labels first 1 under each of the two; one K15 decode 1 (one cooperative
+launch), or 1 for the upsample alone; one
 K14 landmark-kernel build 2, its table pass and its rows, whatever its row
 range, or 1 for the table pass alone; K17's blur, start, quantize and
 combine 1 each; one K16 forward 2, its block sums and their total, one
@@ -188,11 +188,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.irn_path_max_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, n]
     lib.irn_path_max_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p,
                                      n]
-    lib.irn_diag_operator.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                      p, n]
+    lib.irn_diag_operator.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i,
+                                      i, i, p, n]
     lib.irn_upsample_scores.argtypes = [p, p, i, i, i, i, i, i, i, p, n]
     lib.irn_decode.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p, n,
+        p, p, p, p, i, p, p, i, i, i, i, i, i, i, ctypes.c_float, p, n,
     ]
     f = ctypes.c_float
     lib.irn_crf_landmark.argtypes = [
@@ -251,18 +251,33 @@ def check_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as a cudaStream_t integer,
+    without building a ``torch.cuda.Stream`` (several microseconds a call
+    on the card's host)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, device: torch.device, *args,
            entry: Optional[str] = None, also: Tuple[str, ...] = ()) -> None:
     """Call the C entry point ``irn_<entry>`` (default ``irn_<name>``) with
     ``args``, then the current stream of ``device`` and the launch-count
     out-argument; raise on a non-zero cudaError, else add the kernels it
     launched to ``LAUNCHES[name]``, and to each of ``also``: the kernels
-    whose phases the same launches ran (K12a inside a K12b launch)."""
+    whose phases the same launches ran (K12a inside a K12b launch). The
+    device is made current around the call only when it is not already."""
     fn = getattr(load(), f"irn_{entry or name}")
     launched = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = fn(*args, stream, ctypes.byref(launched))
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index == torch.cuda.current_device():
+        status = fn(*args, _raw_stream(index), ctypes.byref(launched))
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, _raw_stream(index), ctypes.byref(launched))
     if status != 0:
         raise RuntimeError(
             f"{name}: CUDA launch failed with cudaError {status}"
@@ -270,6 +285,24 @@ def launch(name: str, device: torch.device, *args,
     with _count_lock:
         for k in (name, *also):
             LAUNCHES[k] += launched.value
+
+
+_scratch: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def stream_scratch(name: str, device: torch.device,
+                   words: int) -> torch.Tensor:
+    """``words`` int32 of zeros for kernel ``name`` on ``device``'s current
+    stream, allocated at the first call and then reused: a kernel that
+    leaves its scratch zeroed (K15's barrier counters) needs no memset
+    before its next launch on the same stream."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (name, index, _raw_stream(index))
+    if key not in _scratch:
+        _scratch[key] = torch.zeros((words,), dtype=torch.int32,
+                                    device=device)
+    return _scratch[key]
 
 
 def is_plain(t: torch.Tensor) -> bool:

@@ -545,11 +545,21 @@ def combine_plain(q: torch.Tensor, labels: torch.Tensor, nr_g: torch.Tensor,
     return out.copy_(q_next)
 
 
+def bucket_shape(h: int, w: int, pad_multiple: int) -> Tuple[int, int]:
+    """:class:`LandmarkCRF`'s bucket of an [h, w] image: h rounded up to a
+    multiple of ``pad_multiple``, w to a multiple of lcm(``pad_multiple``,
+    4), the row a multiple of 16 bytes that :func:`check_q_map` asks."""
+    if pad_multiple < 1:
+        raise ValueError(f"pad_multiple {pad_multiple} < 1")
+    mw = math.lcm(pad_multiple, 4)
+    return -(-h // pad_multiple) * pad_multiple, -(-w // mw) * mw
+
+
 def check_q_map(q: torch.Tensor) -> None:
     """Raises unless q [2, cap, H, W] f32 can back K17's combine's TMA
     tensor map: its base 16-byte aligned and a row, W * 4 bytes, a multiple
-    of 16 (W a multiple of 4; the pipeline's buckets are multiples of
-    ``pad_multiple``, 64 by default)."""
+    of 16 (W a multiple of 4, as :func:`bucket_shape` makes it). A guard
+    against a q that :class:`LandmarkCRF` did not shape."""
     _, _, h, w = q.shape
     if w % 4 or q.data_ptr() % 16 or not q.is_contiguous():
         raise ValueError(f"crf_mean_field: the combine reads q {tuple(q.shape)}"
@@ -777,8 +787,12 @@ class LandmarkCRF:
         self.device = torch.device(device)
 
     def _bucket(self, h: int, w: int) -> Tuple[int, int]:
-        m = self.pad_multiple
-        return (-(-h // m) * m, -(-w // m) * m)
+        """(ph, pw): h up to a multiple of ``pad_multiple``, w up to a
+        multiple of lcm(``pad_multiple``, 4), so that K17's combine can
+        read q [2, cap, ph, pw] through its tensor map (:func:`check_q_map`)
+        at every ``pad_multiple``. The labels do not depend on the bucket:
+        padded pixels join no landmark, normaliser or message."""
+        return bucket_shape(h, w, self.pad_multiple)
 
     def upload(self, img: np.ndarray, labels_a: np.ndarray,
                labels_b: np.ndarray) -> torch.Tensor:

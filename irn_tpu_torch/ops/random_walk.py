@@ -25,8 +25,9 @@ environment switches):
 bucket; on the banded route their application chains run together (K8).
 
 The default route's operator build, :func:`build_diag_operator`, is K10
-(one launch) and the decode, :func:`decode`, is K15 (two launches), so
-make_sem_seg's walk is K10 -> K0 -> K15 on the card.
+(one launch) and the decode, :func:`decode`, is K15 (one cooperative
+launch), so make_sem_seg's walk is K10 -> K0 -> K15 on the card, three
+device operations.
 
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
@@ -142,13 +143,121 @@ def build_diag_operator_plain(geom: RandomWalkGeometry,
     return w, 1.0 / (1.0 + total)
 
 
+# K10's staged schedule: csrc/diag_operator.cu's tile (kTileH, kTileW),
+# threads per CTA, parameter words and shared memory per CTA
+K10_TILE = (8, 16)
+K10_THREADS = 1024
+K10_WORDS = 960
+K10_SMEM = 232448
+
+
+def _k10_split(costs: Sequence[int], groups: int) -> Tuple[int, ...]:
+    """Cut the costs into ``groups`` contiguous runs of about equal sums:
+    each run's first index, then len(costs)."""
+    total, acc, cuts = sum(costs), 0, [0]
+    for i, c in enumerate(costs):
+        if len(cuts) < groups and i > cuts[-1] and \
+                acc + c / 2 > total * len(cuts) / groups:
+            cuts.append(i)
+        acc += c
+    return tuple(cuts) + (len(costs),)
+
+
+def diag_operator_schedule(table) -> Optional[np.ndarray]:
+    """K10's staged schedule for an :class:`affinity.PathTable`, int32 in
+    host memory (built once per path set, cached on the table), or None
+    when the path set is too large to stage (the kernel then runs its
+    direct schedule).
+
+    Layout (``csrc/diag_operator.cu``, ``Schedule``): groups G, stack
+    levels, nodes N, head cells, each group's first node (G + 1 words),
+    then N nodes of two words (pair | depth << 12 | flags << 20, flags 1 a
+    suffix, 2 extensions, 4 stored; head begin | head end << 16), the head
+    cells as offsets dy * (tile_w + 4 rf) + dx into the staged edge, and per
+    pair its destination's offset dy * (tile_w + 2 rf) + dx in the staged
+    region. The pairs run in ``table.order`` (depth first over shared
+    suffixes), cut into the most groups that a CTA of ``K10_THREADS``
+    holds, of about equal cost; a group that starts below a root first
+    runs its first node's ancestors unstored."""
+    if "k10" in table.packed:
+        return table.packed["k10"]
+    rf, n_pairs = table.rf, table.n_pairs
+    th, tw = K10_TILE
+    ew, rw = tw + 4 * rf, tw + 2 * rf
+    nq = (th + rf) * rw
+    nq_pad = _round_up(nq, 32)
+    parents = {s for s in table.suffix if s >= 0}
+    levels = 1 + max((table.depth[p] for p in parents), default=-1)
+    heads, span = [], {}
+    for p in table.order:
+        span[p] = (len(heads), len(heads) + table.head_length(p))
+        heads += [dy * ew + dx for dy, dx in
+                  table.cells[p][: table.head_length(p)]]
+    order = list(table.order)
+    cuts = (0, n_pairs)
+    for g in range(min(K10_THREADS // nq_pad, n_pairs), 0, -1):
+        smem = 4 * (n_pairs * nq + (th + 2 * rf) * ew + levels * g * nq_pad)
+        if smem <= K10_SMEM:
+            cuts = _k10_split([table.head_length(p) + 3 for p in order], g)
+            break
+    else:
+        table.packed["k10"] = None
+        return None
+
+    def node(p, store):
+        flags = ((table.suffix[p] >= 0) | (p in parents) << 1
+                 | store << 2)
+        b, e = span[p]
+        return (p | table.depth[p] << 12 | flags << 20, b | e << 16)
+
+    nodes, starts = [], []
+    for g in range(len(cuts) - 1):
+        starts.append(len(nodes))
+        chain, a = [], table.suffix[order[cuts[g]]]
+        while a >= 0:
+            chain.append(a)
+            a = table.suffix[a]
+        nodes += [node(a, 0) for a in reversed(chain)]
+        nodes += [node(p, 1) for p in order[cuts[g]: cuts[g + 1]]]
+    starts.append(len(nodes))
+    nb = [dy * rw + dx for dy, dx in (c[0] for c in table.cells)]
+    words = np.asarray(
+        [len(starts) - 1, levels, len(nodes), len(heads), *starts,
+         *(v for nd in nodes for v in nd), *heads, *nb], np.int32)
+    table.packed["k10"] = words if words.size <= K10_WORDS else None
+    return table.packed["k10"]
+
+
+@functools.lru_cache(maxsize=None)
+def k10_args(cap: Tuple[int, int], radius: int,
+             device: torch.device) -> tuple:
+    """K10's launch arguments between its three tensors and beta, built
+    once per grid, radius and device: the staged schedule's host address
+    and words (the array lives on the cached PathTable), or the direct
+    schedule's device tables, then the grid."""
+    geom = build_geometry(*cap, radius=radius)
+    table = path_table(geom.path_set)
+    sched = diag_operator_schedule(table)
+    if sched is None:
+        check_table(table)
+        cells, starts = table.tables(device)[:2]
+        head = (None, 0, cells.data_ptr(), starts.data_ptr())
+        n_cells = cells.shape[0]
+    else:
+        head = (sched.ctypes.data, sched.size, None, None)
+        n_cells = 0
+    return head + (geom.cap[0], geom.cap[1], geom.radius, table.rf,
+                   geom.n_pad, geom.path_set.n_pairs, n_cells)
+
+
 def build_diag_operator(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
                         beta: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
     """T as its nonzero diagonals: (w [n_pairs, n_pad], inv [n_pad]) with
     T[c-d, c] = w[k, c-d], T[c+d, c] = w[k, c], T[c, c] = 1, all divided by
     colsum[c] = 1 + sum_k (w[k, c-d_k] + w[k, c]). ``edge_capped``:
-    [cap_h, cap_w] f32. On the card one launch (K10,
-    ``csrc/diag_operator.cu``), bit-equal to
+    [cap_h, cap_w] f32. On the card one launch and no other device
+    operation (K10, ``csrc/diag_operator.cu``; its schedule from
+    :func:`diag_operator_schedule`), bit-equal to
     :func:`build_diag_operator_plain`."""
     if tuple(edge_capped.shape) != geom.cap or beta < 1:
         raise ValueError(f"diag_operator: edge {tuple(edge_capped.shape)} "
@@ -157,16 +266,12 @@ def build_diag_operator(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
         return build_diag_operator_plain(geom, edge_capped, beta)
     edge = edge_capped.contiguous()
     _build.check_cuda("diag_operator", edge)
-    table = path_table(geom.path_set)
-    check_table(table)
-    cells, starts = table.tables(edge.device)[:2]
-    n_pairs, n = geom.path_set.n_pairs, geom.n_pad
-    w = torch.empty((n_pairs, n), device=edge.device)
-    inv = torch.empty((n,), device=edge.device)
-    _build.launch("diag_operator", edge.device, edge.data_ptr(), w.data_ptr(),
-                  inv.data_ptr(), cells.data_ptr(), starts.data_ptr(),
-                  geom.cap[0], geom.cap[1], geom.radius, table.rf, n, n_pairs,
-                  cells.shape[0], beta)
+    dev = edge.device
+    w = torch.empty((geom.path_set.n_pairs, geom.n_pad), device=dev)
+    inv = torch.empty((geom.n_pad,), device=dev)
+    _build.launch("diag_operator", dev, edge.data_ptr(), w.data_ptr(),
+                  inv.data_ptr(), *k10_args(geom.cap, geom.radius, dev),
+                  beta)
     return w, inv
 
 
@@ -633,7 +738,7 @@ def upsample_scores(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
                     w0: int) -> torch.Tensor:
     """x4 bilinear upsample with true extents: mask-normalized bilinear
     over the (h4, w4) valid cells, zero beyond the (h0, w0) pixels.
-    Returns [C, 4H, 4W]. On the card K15's pass 1 alone (one launch),
+    Returns [C, 4H, 4W]. On the card K15's values alone (one launch),
     bit-equal to :func:`upsample_scores_plain`."""
     if _build.is_plain(rw_capped):
         return upsample_scores_plain(rw_capped, h4, w4, h0, w0)
@@ -645,28 +750,38 @@ def upsample_scores(rw_capped: torch.Tensor, h4: int, w4: int, h0: int,
     return out
 
 
+# K15's scratch: its barrier and exit counters and the max key
+DECODE_SCRATCH_WORDS = 3
+
+
 def decode(rw_capped: torch.Tensor, h4: int, w4: int, h0: int, w0: int,
-           bg_thres: float, scores: bool = False,
-           best: bool = False) -> Decoded:
+           bg_thres: float, scores: bool = False, best: bool = False,
+           labels_dtype: torch.dtype = torch.int64) -> Decoded:
     """x4 upsample, max-normalize, bg-threshold plane, argmax of the walk's
-    [C, H, W] scores; ``scores`` / ``best`` ask for those outputs. On the
-    card two launches (K15, ``csrc/decode.cu``), bit-equal to
-    :func:`decode_plain`; without ``scores`` the [C, 4H, 4W] tensor is
-    never written."""
+    [C, H, W] scores; ``scores`` / ``best`` ask for those outputs, and the
+    labels come as ``labels_dtype`` (int64 or int32). On the card one
+    cooperative launch and no other device operation (K15,
+    ``csrc/decode.cu``), bit-equal to :func:`decode_plain`; without
+    ``scores`` the [C, 4H, 4W] tensor is never written. The call allocates
+    only what it returns; the kernel's scratch is allocated once per device
+    and stream."""
+    if labels_dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"decode: labels int64 or int32, not {labels_dtype}")
     if _build.is_plain(rw_capped):
-        return decode_plain(rw_capped, h4, w4, h0, w0, bg_thres, scores,
-                            best)
+        out = decode_plain(rw_capped, h4, w4, h0, w0, bg_thres, scores, best)
+        return out._replace(labels=out.labels.to(labels_dtype))
     rw = _decode_input(rw_capped)
     c, ch, cw = rw.shape
     dev = rw.device
-    key = torch.empty((1,), dtype=torch.int32, device=dev)
+    labels = torch.empty((4 * ch, 4 * cw), dtype=labels_dtype, device=dev)
     max_score = torch.empty((), device=dev)
-    labels = torch.empty((4 * ch, 4 * cw), dtype=torch.int64, device=dev)
+    top = torch.empty((4 * ch, 4 * cw), device=dev) if best else None
     rw_up = (torch.empty((c, 4 * ch, 4 * cw), device=dev) if scores
              else None)
-    top = torch.empty((4 * ch, 4 * cw), device=dev) if best else None
-    _build.launch("decode", dev, rw.data_ptr(), key.data_ptr(),
+    scratch = _build.stream_scratch("decode", dev, DECODE_SCRATCH_WORDS)
+    _build.launch("decode", dev, rw.data_ptr(), scratch.data_ptr(),
                   max_score.data_ptr(), labels.data_ptr(),
+                  int(labels_dtype == torch.int64),
                   top.data_ptr() if best else None,
                   rw_up.data_ptr() if scores else None, c, ch, cw, h4, w4,
                   h0, w0, ctypes.c_float(bg_thres))

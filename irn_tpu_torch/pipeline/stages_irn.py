@@ -386,8 +386,8 @@ class RandomWalkRunner:
         cam_t = F.pad(seeds, (0, 0, 0, 0, 0, pad)) if pad else seeds
         rw = self._propagate(cam_t, edge, ch, cw)
         out = rw_mod.decode(rw, h4, w4, size[0], size[1], bg_thres,
-                            best=True)
-        return out.labels.to(torch.int32), out.best
+                            best=True, labels_dtype=torch.int32)
+        return out.labels, out.best
 
     def propagate_all(self, seeds: torch.Tensor, edge: torch.Tensor,
                       h4: int, w4: int, size: Tuple[int, int],

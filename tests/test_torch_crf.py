@@ -132,6 +132,26 @@ def test_landmark_pair_matches_jax(store, shape, rng):
         assert (g == w_).mean() >= GATE, (store, (g == w_).mean())
 
 
+@pytest.mark.parametrize("store,gate", [("int8", 0.999), ("dense", 0.995)])
+@pytest.mark.parametrize("pm", [1, 50])
+def test_landmark_pad_multiple_matches_jax(store, gate, pm, rng):
+    """Any ``pad_multiple`` the JAX package takes: at 1 and 50 a 45 x 47
+    image pads to 45 x 48 and 50 x 100 in the port (w a multiple of
+    lcm(pad_multiple, 4), as K17's tensor map needs) and to 45 x 47 and 50
+    x 50 in JAX; padded pixels change no label, so the port meets the
+    stores' gates against JAX all the same."""
+    img, labels = _scene(rng, 45, 47)
+    la, lb = labels % 6, (labels > 0).astype(np.int32) * 3
+    kw = dict(stride=4, pad_multiple=pm, t=5, kernel_store=store)
+    port = crf_device.LandmarkCRF(device="cpu", **kw)
+    assert port._bucket(45, 47) == {1: (45, 48), 50: (50, 100)}[pm]
+    want = crf_tpu.LandmarkCRF(**kw).pair(img, la, lb, n_labels=6)
+    got = port.pair(img, la, lb, n_labels=6)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape == (45, 47) and g.dtype == np.uint8
+        assert (g == w_).mean() >= gate, (store, pm, (g == w_).mean())
+
+
 def test_landmark_int8_padding_and_single(rng):
     """36 landmarks (not a multiple of 8) under int8, and single()."""
     img, labels = _scene(rng, 20, 20)

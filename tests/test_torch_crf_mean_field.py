@@ -268,3 +268,18 @@ def test_combine_tensor_map_check(shape, offset, ok):
             cd.check_q_map(q)
     for h, w in ((64, 128), (512, 512), (448, 320)):
         cd.check_q_map(torch.zeros((2, 21, h, w)))
+
+
+@pytest.mark.parametrize("pm", [1, 3, 50, 64])
+def test_bucket_gives_a_q_the_tensor_map_takes(pm):
+    """LandmarkCRF's bucket at any ``pad_multiple``: h rounded up to it, w
+    to lcm(pad_multiple, 4), so q [2, cap, ph, pw] always passes
+    ``check_q_map``; the bucket holds the image and is the smallest such."""
+    crf = cd.LandmarkCRF(pad_multiple=pm, device="cpu")
+    mw = 4 * pm // np.gcd(4, pm)
+    for h, w in [(h, w) for h in (1, 7, 64) for w in range(1, 131)] + [
+            (w, h) for h in (1, 7, 64) for w in range(1, 131)]:
+        ph, pw = crf._bucket(h, w)
+        assert ph % pm == 0 and h <= ph < h + pm, (pm, h, ph)
+        assert pw % mw == 0 and w <= pw < w + mw, (pm, w, pw)
+        cd.check_q_map(torch.zeros((2, 3, ph, pw)))

@@ -2,6 +2,8 @@
 (``--device cpu``: the kernels' plain twins, host clock), reach the kernel
 wrappers they exist for, and refuse a CUDA device where there is none."""
 
+import functools
+
 import pytest
 import torch
 
@@ -17,6 +19,7 @@ def _spy(monkeypatch, module, name):
     calls = []
     orig = getattr(module, name)
 
+    @functools.wraps(orig)
     def spy(*args, **kw):
         calls.append(name)
         return orig(*args, **kw)
@@ -96,6 +99,64 @@ def test_probe_ccl_plain_path(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         probe_ccl.main(["--small"])
+
+
+def test_probe_walk_ops_plain_path(monkeypatch, capsys):
+    """The K10 / K15 probe (tools/probe_walk_ops.py) through main() on the
+    CPU at its small size: each case through the walk's wrappers (their
+    plain twins here), equal, timed on the host clock, with no device rows;
+    the instance case asks for int32 labels; a missing card raises."""
+    from irn_tpu_torch.tools import probe_walk_ops
+
+    ops = _spy(monkeypatch, trw, "build_diag_operator")
+    decodes = _spy(monkeypatch, trw, "decode")
+    ups = _spy(monkeypatch, trw, "upsample_scores")
+    res = probe_walk_ops.main(["--device", "cpu", "--small", "--reps", "1"])
+    cases = res["cases"]
+    assert list(cases) == ["diag_operator", "decode C 8",
+                           "decode C 8 scores best", "decode C 16 best int32",
+                           "upsample C 8"]
+    for r in cases.values():
+        assert r["equal"] and r["ms"] > 0 and r["host_us"] > 0
+        assert "device_us" not in r
+    assert "labels_dtype in this tree: True" in \
+        cases["decode C 16 best int32"]["shape"]
+    assert "host_pieces_us" not in res
+    # per case: the check, and a warm-up and one timed call for each of the
+    # three clocks
+    assert len(ops) == 7 and len(decodes) == 3 * 7 and len(ups) == 7
+    assert "not a device time" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        probe_walk_ops.main(["--small"])
+
+
+def test_probe_walk_variants_sources(monkeypatch):
+    """The K10 / K15 variant probe (tools/probe_walk_variants.py): every
+    variant's edits and phase stamps apply to the sources as they are (a
+    source edit that no longer matches raises), each variant that edits a
+    source differs from the source as built, and without a card it
+    refuses to run."""
+    from irn_tpu_torch.tools import probe_walk_variants as pv
+
+    vs = pv.variants()
+    assert len(vs) == 8
+    for name, (kernel, text, overrides) in vs.items():
+        assert kernel in name.replace("K10", "diag_operator").replace(
+            "K15", "decode")
+        assert text.count("stamp(") == 5 and "irn_get_stamps" in text
+        built = vs["K10 as built" if kernel == "diag_operator"
+                   else "K15 as built"][1]
+        assert (text != built) == (name in (
+            "K10 beta at run time", "K10 4x32 tiles", "K15 256-thread CTAs",
+            "K15 recomputed"))
+        assert bool(overrides) == (name in (
+            "K10 4x32 tiles", "K10 two groups", "K10 one group"))
+    with pytest.raises(ValueError, match="found 0 times"):
+        pv._edit("abc", "x", "y")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        pv.main([])
 
 
 def test_tools_refuse_a_missing_card(monkeypatch):

@@ -205,3 +205,38 @@ def test_decode_refuses():
     with pytest.raises(ValueError, match="meta"):
         trw.upsample_scores(torch.zeros((2, 4, 4), device="meta"), 4, 4, 16,
                             16)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_decode_labels_dtype(dtype):
+    """K15 writes the labels in the caller's dtype (the instance walk's
+    int32, as the JAX walk hands them on); the values do not change, and
+    any other dtype is refused."""
+    rw, h4, w4, h0, w0, bg = _scores("c4")
+    want = trw.decode_plain(_t(rw), h4, w4, h0, w0, bg)
+    out = trw.decode(_t(rw), h4, w4, h0, w0, bg, labels_dtype=dtype)
+    assert out.labels.dtype == dtype
+    assert torch.equal(out.labels, want.labels.to(dtype))
+    with pytest.raises(ValueError, match="int64 or int32"):
+        trw.decode(_t(rw), h4, w4, h0, w0, bg, labels_dtype=torch.uint8)
+
+
+def test_walk_labels_int32_on_the_cpu():
+    """RandomWalkRunner.walk hands on int32 labels (no conversion after the
+    decode), equal to the twin's labels, with best."""
+    from irn_tpu_torch.pipeline.config import Config
+    from irn_tpu_torch.pipeline.stages_irn import RandomWalkRunner
+
+    cfg = Config(voc12_root=".", train_list="-", infer_list="-",
+                 rw_grid_cap=32)
+    runner = RandomWalkRunner(cfg, 8, torch.device("cpu"))
+    g = torch.Generator().manual_seed(0)
+    seeds = torch.rand((3, 32, 32), generator=g)
+    edge = torch.rand((32, 32), generator=g)
+    labels, best = runner.walk(seeds, edge, 30, 27, (118, 105), 0.25)
+    pad = torch.nn.functional.pad(seeds, (0, 0, 0, 0, 0, 5))
+    want = trw.decode_plain(runner._propagate(pad, edge, 32, 32), 30, 27,
+                            118, 105, 0.25, best=True)
+    assert labels.dtype == torch.int32 and labels.shape == (128, 128)
+    assert torch.equal(labels, want.labels.to(torch.int32))
+    assert torch.equal(best, want.best)
