@@ -4,8 +4,8 @@
 Builds the hand-written CUDA kernels from ``irn_tpu_torch/csrc`` (printing
 each source's registers and spills and, from ``cuobjdump -sass``, its HGMMA
 count: K2, K5, K6 and K9 must run on ``wgmma`` without a spill, K13's
-``path_max.cu``, K14's ``crf_landmark.cu``, K16's ``irn_loss.cu`` and K17's
-``crf_mean_field.cu`` without a spill), checks each
+``path_max.cu``, K14's ``crf_landmark.cu``, K16's ``irn_loss.cu``, K17's
+``crf_mean_field.cu`` and K11's ``advect.cu`` without a spill), checks each
 kernel against its plain PyTorch twin at the main path's shapes and times
 it beside the twin, one library call where there is one and its bound,
 then drives make_sem_seg end to end through the port's CLI
@@ -271,7 +271,8 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 WGMMA_KERNELS = ("conv3x3", "square_banded", "square_dense",
                  "square_fused_first")
 # other sources whose build fails on a register spill
-SPILL_CHECKED = ("path_max", "crf_landmark", "crf_mean_field", "irn_loss")
+SPILL_CHECKED = ("path_max", "crf_landmark", "crf_mean_field", "irn_loss",
+                 "advect")
 # K0 launch plans timed beside the chosen one: (seed rows, CTAs) per
 # cluster, w in shared memory or from L2
 DIAG_PLANS = ((1, 16, True), (2, 16, True), (4, 16, True), (1, 16, False),
@@ -651,7 +652,7 @@ def check_kernels(dev, card: str, sass: str) -> dict:
     check_dense_kernels(dev, geom, edge, x, res)
     check_batched_chain(dev, geom, gen, res)
     check_conv(dev, res)
-    check_instance_kernels(dev, geom, edge, gen, res)
+    check_instance_kernels(dev, geom, edge, gen, res, sass)
     check_path_max_kernels(dev, gen, res)
     check_irn_loss(dev, gen, res, sass)
     check_walk_kernels(dev, gen, res)
@@ -701,7 +702,191 @@ def basin_field(gen, cap: int, hw4: tuple) -> torch.Tensor:
     return dp
 
 
-def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
+def _advect_profile(calls: dict, reps: int) -> dict:
+    """One torch.profiler session over every named call of ``calls`` (a
+    warm-up, then ``reps`` launches each, 20 ms apart from the next call's,
+    so that each call's device rows form a run of their own): name ->
+    (the K11 instances it ran, ``advect_kernel<true>``: staged rows,
+    ``<false>``: taps through L1; the card's own ms per launch over the
+    launches the profiler saw). One session, as more of them in one
+    process have left later sessions with no device events. The profiler
+    may drop a call's events: up to three tries for a run per call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for fn in calls.values():
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in calls.values():
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+        evs = sorted((e for e in prof.events()
+                      if getattr(e, "device_type", None)
+                      == torch.autograd.DeviceType.CUDA
+                      and "advect_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+        runs = []
+        for e in evs:
+            if not runs or e.time_range.start - runs[-1][-1].time_range.end \
+                    > 5000:
+                runs.append([])
+            runs[-1].append(e)
+        if len(runs) == len(calls):
+            break
+    check(len(runs) == len(calls),
+          f"advect: the profiler saw {len(runs)} runs of device rows for "
+          f"{len(calls)} calls")
+    return {name: (sorted(set(re.findall(r"advect_kernel<(\w+)>",
+                                         " ".join(e.name for e in run)))),
+                   sum(e.time_range.end - e.time_range.start for e in run)
+                   / len(run) / 1e3)
+            for name, run in zip(calls, runs)}
+
+
+def _ptxas_registers(source: str) -> list:
+    """(kernel, registers, spill stores + loads) of each entry function of
+    ``source`` in the build's ptxas log."""
+    from irn_tpu_torch.ops import _build
+
+    out, name = [], None
+    for line in _build.BUILD_INFO.get("logs", {}).get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name[-48:], int(m.group(1)), spills))
+            name = None
+    return out
+
+
+def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
+    """K11 vs its twin at the instance stage's 128x128 cap and extent:
+    chip_smoke's basin field and a random one, tools/probe_advect's
+    full-gain field and cycles of 2 and 3 columns, NaN planted, step
+    counts around the chunk of 8, a 192x192 grid (the instance whose taps
+    go through L1) and a width of 30; each call one launch, each output
+    bit-equal. Reads the instances and the card's own time per launch on
+    the probe's four fields from one profiler session, counts the steps
+    the early stop runs on the probe's basin field (the bound's work,
+    from ``centroids.advect_schedule``) and reads the SASS step loop.
+    Returns chip_smoke's basin field."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import centroids
+    from irn_tpu_torch.tools import probe_advect as pa
+
+    hw4 = INS_EXTENT
+    n = INS_CAP * INS_CAP
+
+    def same(dp, ext, iterations=300, twin=centroids.advect_plain):
+        before = _build.LAUNCHES["advect"]
+        got = centroids.advect(dp, *ext, iterations)
+        want = twin(dp, *ext, iterations)
+        return (_build.LAUNCHES["advect"] == before + 1
+                and all(torch.equal(a, b) for a, b in zip(got, want)))
+
+    dp = basin_field(gen, INS_CAP, hw4).to(dev)
+    check(same(dp, hw4), "advect not bit-equal to its twin")
+    rdp = (torch.randn((2, INS_CAP, INS_CAP), generator=gen) * 3).to(dev)
+    check(same(rdp, hw4), "advect not bit-equal to its twin on a random "
+                          "field")
+    fields = {
+        "full gain": pa.pull_field(INS_CAP, hw4, 1.0, 0.05),
+        "period 2": pa.cycle_field(INS_CAP, INS_CAP, hw4, 2),
+        "period 3": pa.cycle_field(INS_CAP, INS_CAP, hw4, 3)}
+    for name, f in fields.items():
+        check(same(torch.from_numpy(f).to(dev), hw4),
+              f"advect not bit-equal to its twin on the {name} field")
+    for iterations in (0, 1, 7, 9, 299):
+        check(same(dp, hw4, iterations),
+              f"advect not bit-equal to its twin at {iterations} steps")
+    # NaN: inside the extent the kernel clips a NaN sum to 0 (the twin's
+    # loop with that clip); beyond the taps' reach the twin itself
+    ndp = torch.from_numpy(pa.nan_field(INS_CAP, hw4)).to(dev)
+    check(same(ndp, hw4, twin=lambda *a: centroids.advect_schedule(
+        *a, chunk=0)[:2]),
+          "advect with NaN differs from the twin's loop with its clip")
+    outside = ndp.clone()
+    outside[:, : hw4[0] + 1, : hw4[1] + 1] = dp[:, : hw4[0] + 1,
+                                                : hw4[1] + 1]
+    check(same(outside, hw4), "advect with NaN beyond the taps' reach not "
+                              "bit-equal to its twin")
+    # the instances and the card's own time per launch, in one profiler
+    # session: the cap's basin field, the two grids whose taps go through
+    # L1, and the probe's four fields
+    calls = {"cap": lambda: centroids.advect(dp, *hw4)}
+    for grid, ext in (((192, 192), (188, 181)), ((36, 30), (29, 27))):
+        g = torch.from_numpy(pa.pull_field(max(grid), ext, 0.3, 0.1)[
+            :, : grid[0], : grid[1]].copy()).to(dev)
+        check(same(g, ext) and same(torch.from_numpy(
+            pa.random_field(*grid)).to(dev), ext),
+            f"advect not bit-equal to its twin at {grid}")
+        calls[f"{grid[0]}x{grid[1]}"] = (
+            lambda g=g, ext=ext: centroids.advect(g, *ext))
+        check(not centroids.advect_staged(grid[1], ext[0]),
+              f"advect at {grid} should read its taps through L1")
+    cases = pa.cases(dev, False)
+    for name, (f, ext) in cases.items():
+        calls[name] = lambda f=f, ext=ext: centroids.advect(f, *ext)
+    prof = _advect_profile(calls, 20)
+    instances = {k: prof[k][0] for k in ("cap", "192x192", "36x30")}
+    check(instances == {"cap": ["true"], "192x192": ["false"],
+                        "36x30": ["false"]},
+          f"advect ran other instances than the size rule: {instances}")
+    on_card = {name: prof[name][1] for name in calls
+               if name not in instances}
+    # the timed input: the probe's basin field; the steps the kernel's
+    # rule runs there, per particle (the bound's operations)
+    bdp, bext = cases["basin"]
+    cent, _, steps = centroids.advect_schedule(bdp, *bext)
+    check(torch.equal(cent, centroids.advect(bdp, *bext)[0]),
+          "advect's schedule model differs from the kernel")
+    total_steps = int(steps.sum())
+    loops = sass_loops(sass, "advect_kernelILb1E")
+    regs = _ptxas_registers("advect")
+    print(f"K11 SASS loops (staged instance): {loops}; ptxas: {regs}",
+          flush=True)
+    res["advect"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: centroids.advect(bdp, *bext), 20),
+        device_ms=on_card["basin"],
+        fields_device_ms=on_card,
+        plain_ms=cuda_ms(lambda: centroids.advect_plain(bdp, *bext), 2),
+        sass_loops=loops,
+        sass_per_step=loops[0] / 8,
+        registers=regs,
+        instances=instances,
+        steps_mean=total_steps / n,
+        shape=(f"dp [2, {INS_CAP}, {INS_CAP}] f32 (tools/probe_advect's "
+               f"basin field), extent {bext}, 300 steps, "
+               f"one launch (staged rows); end points and basin bit-equal "
+               f"on the basin, random, full-gain, period-2 and period-3 "
+               f"fields, at 0, 1, 7, 9 and 299 steps, with NaN (the twin's "
+               f"loop with the kernel's clip; beyond the taps' reach the "
+               f"twin), at 192x192 and 36x30 (taps through L1); the card's "
+               f"own ms per launch: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in on_card.items())
+               + f"; {loops[0] / 8:.1f} SASS instructions per step; "
+               f"{total_steps / n:.2f} steps per particle on the basin field "
+               f"under the early stop (the bound's operations)"),
+        library_ms=None,
+        # the operations of the steps the early stop leaves on the timed
+        # (basin) field; dp read, outputs written
+        **bound(total_steps * ADVECT_OPS, 4 * 2 * n + 4 * 2 * n + n,
+                PEAK_F32),
+    )
+    return dp
+
+
+def check_instance_kernels(dev, geom, edge, gen, res: dict,
+                           sass: str) -> None:
     """K11 and K12 vs their twins at the instance stage's shapes, and K0 at
     the instance walk's 128 seed rows."""
     from irn_tpu_torch.ops import ccl
@@ -726,26 +911,8 @@ def check_instance_kernels(dev, geom, edge, gen, res: dict) -> None:
 
     # K11: 300 steps over the 128x128 cap at a VOC image's extent
     hw4 = INS_EXTENT
-    n = INS_CAP * INS_CAP
-    dp = basin_field(gen, INS_CAP, hw4).to(dev)
+    dp = check_advect(dev, gen, res, sass)
     cent, basin = centroids.advect(dp, *hw4)
-    want_cent, want_basin = centroids.advect_plain(dp, *hw4)
-    check(torch.equal(cent, want_cent) and torch.equal(basin, want_basin),
-          "advect not bit-equal to its twin")
-    rdp = (torch.randn((2, INS_CAP, INS_CAP), generator=gen) * 3).to(dev)
-    check(all(torch.equal(a, b) for a, b in zip(
-        centroids.advect(rdp, *hw4), centroids.advect_plain(rdp, *hw4))),
-        "advect not bit-equal to its twin on a random field")
-    res["advect"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: centroids.advect(dp, *hw4), 20),
-        plain_ms=cuda_ms(lambda: centroids.advect_plain(dp, *hw4), 2),
-        shape=(f"dp [2, {INS_CAP}, {INS_CAP}] f32, extent {hw4}, 300 steps, "
-               f"one launch; end points and basin bit-equal (a basin field "
-               f"and a random one)"),
-        library_ms=None,
-        **bound(300 * n * ADVECT_OPS, 4 * 2 * n + 4 * 2 * n + n, PEAK_F32),
-    )
 
     # K12 on the basin plane: the clusters (k_cap 8) as make_ins_seg calls
     # them (K12a and K12b in one launch), and each kernel alone
@@ -1221,18 +1388,24 @@ def _same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def device_rows(fn, reps: int) -> dict:
     """The card's rows (kernels, copies, memsets) per call of ``fn`` under
-    torch.profiler, after a warm-up call: name -> count per call."""
+    torch.profiler, after a warm-up call: name -> count per call. A
+    session that saw no device row at all (the profiler's fault: every
+    call launches at least one kernel) is run again, up to three times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.count / reps for e in prof.key_averages()
-            if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA}
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key[:60]: e.count / reps for e in prof.key_averages()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA}
+        if rows:
+            break
+    return rows
 
 
 def check_walk_kernels(dev, gen, res: dict) -> None:
@@ -4163,7 +4336,9 @@ def main() -> int:
                             "dense_ten_iterations_ms", "eager_ms", "calls",
                             "device_ops", "scores_best_ms",
                             "c128_best_int32_ms",
-                            "c128_best_int32_device_ms", "upsample_ms")
+                            "c128_best_int32_device_ms", "upsample_ms",
+                            "fields_device_ms", "sass_per_step", "registers",
+                            "instances")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

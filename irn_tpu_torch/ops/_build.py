@@ -179,6 +179,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
     lib.irn_advect.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p, n]
+    lib.irn_advect_staged_bytes.argtypes = [i, i]
     lib.irn_ccl_label.argtypes = [p, i, p, p, i, i, i, i, p, n]
     lib.irn_ccl_scratch_words.argtypes = [i, i, i]
     lib.irn_cluster_masks.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, n]
@@ -220,6 +221,7 @@ def _declare(lib: ctypes.CDLL) -> None:
               "packed_chain_occupancy", "cluster_masks", "component_tables",
               "ccl_scratch_words",
               "upsample_scores", "crf_landmark_table", "crf_blur",
+              "advect_staged_bytes",
               "crf_start", "crf_quantize"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 

@@ -6,7 +6,10 @@ reference).
   through the displacement field for 300 steps with bilinear sampling,
   clipped to the true extent, and rounds the end point; the same kernel
   evaluates the ``|dp| < thres`` basin predicate. The JAX package runs the
-  steps as one XLA loop; eager PyTorch would launch ~15 ops per step.
+  steps as one XLA loop; eager PyTorch would launch ~15 ops per step. The
+  kernel reads dp from shared memory when the rows its particles reach fit
+  (:func:`advect_staged`) and stops a particle early, exactly, once its
+  orbit repeats within a chunk of steps.
 - The host side (numpy, copied from the JAX module): the union-find
   clustering of the centroids by basin, the (instance x class) seed rows,
   the component split of a decoded label map and ``detect_instance``.
@@ -25,6 +28,10 @@ from irn_tpu_torch.ops import cc
 
 ITERATIONS = 300
 BASIN_THRES = 2.5
+# K11's steps between two compares of a particle's position (kChunk)
+CHUNK = 8
+# K11 floors a position by adding 2^23, exact below it
+MAX_SIDE = 1 << 23
 
 
 def _fma_f32_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -114,6 +121,85 @@ def advect_plain(dp: torch.Tensor, h4: int, w4: int,
     return cent, basin
 
 
+def advect_step(fdy: torch.Tensor, fdx: torch.Tensor, y: torch.Tensor,
+                x: torch.Tensor, h: int, w: int, ymax: torch.Tensor,
+                xmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of K11's particles at (y, x) through the flat dp planes
+    ``fdy``, ``fdx`` of an [h, w] grid: the body of :func:`advect_plain`'s
+    loop, its operations in its order, with the kernel's clip
+    (``torch.fmax`` / ``fmin``, as its ``fmaxf`` / ``fminf``: a NaN sum
+    clips to 0, where the twin's ``torch.maximum`` carries it on)."""
+    zero = torch.zeros((), device=y.device)
+    ly, lx = torch.floor(y), torch.floor(x)
+    fy, fx = y - ly, x - lx
+    gy, gx = 1.0 - fy, 1.0 - fx
+    iy, ix = ly.long(), lx.long()
+    i00 = iy * w + ix
+    i10 = torch.clamp(iy + 1, max=h - 1) * w + ix
+    dx1 = torch.clamp(ix + 1, max=w - 1) - ix
+    s = []
+    for f in (fdy, fdx):
+        r0 = fma_f32(fy, f[i10], gy * f[i00])
+        r1 = fma_f32(fy, f[i10 + dx1], gy * f[i00 + dx1])
+        s.append(gx * r0 + fx * r1)
+    return (torch.fmin(torch.fmax(y + s[0], zero), ymax),
+            torch.fmin(torch.fmax(x + s[1], zero), xmax))
+
+
+def advect_schedule(dp: torch.Tensor, h4: int, w4: int,
+                    iterations: int = ITERATIONS, chunk: int = CHUNK,
+                    thres: float = BASIN_THRES
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11 as its threads run it, in torch on any device: (cent [2, H, W]
+    int32, basin [H, W] bool, the steps each particle ran [H, W] int64).
+    Steps of :func:`advect_step` in chunks of ``chunk``: a particle whose
+    position bits after a chunk equal those before it has an orbit whose
+    period divides ``chunk``, so it runs the ``left mod chunk`` steps
+    still due and stops; fewer than ``chunk`` steps left run one by one.
+    ``chunk`` 0 runs every step: the twin's loop with the kernel's clip.
+    Equal to :func:`advect_plain` wherever no NaN reaches a particle
+    (tests/test_torch_advect_schedule.py), and the kernel's end points
+    where one does; the step counts are the work the kernel's rule does."""
+    _, h, w = dp.shape
+    dev = dp.device
+    ymax = torch.tensor(float(h4 - 1), device=dev)
+    xmax = torch.tensor(float(w4 - 1), device=dev)
+    y = torch.minimum(torch.arange(h, dtype=torch.float32, device=dev)[
+        :, None], ymax).expand(h, w).reshape(-1).clone()
+    x = torch.minimum(torch.arange(w, dtype=torch.float32, device=dev)[
+        None, :], xmax).expand(h, w).reshape(-1).clone()
+    fdy, fdx = dp[0].reshape(-1), dp[1].reshape(-1)
+    left = torch.full((h * w,), iterations, dtype=torch.int64, device=dev)
+    ran = torch.zeros_like(left)
+    on = left >= chunk if chunk > 0 else torch.zeros_like(left, dtype=torch.bool)
+    while bool(on.any()):
+        by, bx = y.view(torch.int32).clone(), x.view(torch.int32).clone()
+        for _ in range(chunk):
+            ny, nx = advect_step(fdy, fdx, y, x, h, w, ymax, xmax)
+            y, x = torch.where(on, ny, y), torch.where(on, nx, x)
+        left = torch.where(on, left - chunk, left)
+        ran += chunk * on
+        rep = on & (y.view(torch.int32) == by) & (x.view(torch.int32) == bx)
+        left = torch.where(rep, left % chunk, left)
+        on = on & ~rep & (left >= chunk)
+    while bool((left > 0).any()):
+        on = left > 0
+        ny, nx = advect_step(fdy, fdx, y, x, h, w, ymax, xmax)
+        y, x = torch.where(on, ny, y), torch.where(on, nx, x)
+        left -= on.long()
+        ran += on
+    cent = torch.stack([torch.round(y), torch.round(x)]).to(torch.int32)
+    basin = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1]) < thres
+    return cent.reshape(2, h, w), basin, ran.reshape(h, w)
+
+
+def advect_staged(w: int, h4: int) -> bool:
+    """Whether K11 reads its taps from rows staged in shared memory (else
+    through L1) on a grid of width ``w`` at extent height ``h4``: the
+    kernel's own rule (``irn_advect_staged_bytes``), so the card only."""
+    return _build.load().irn_advect_staged_bytes(w, h4) > 0
+
+
 def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
            thres: float = BASIN_THRES) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11: (cent [2, H, W] int32, basin [H, W] bool) from dp [2, H, W]
@@ -121,7 +207,10 @@ def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
     (min(row, h4 - 1), min(col, w4 - 1)) and stay in [0, h4 - 1] x
     [0, w4 - 1]; the end points round half to even. basin is
     ``sqrt(dy^2 + dx^2) < thres`` over the whole grid. One launch on the
-    card, bit-equal to :func:`advect_plain`."""
+    card, bit-equal to :func:`advect_plain` (where a NaN in dp reaches a
+    particle, the kernel clips the NaN sum to 0 and the twin, whose
+    ``torch.maximum`` carries NaN on, has no defined end point: there it
+    equals :func:`advect_schedule`)."""
     if dp.dim() != 3 or dp.shape[0] != 2:
         raise ValueError(f"advect: dp must be [2, H, W], got {tuple(dp.shape)}")
     _, h, w = dp.shape
@@ -131,6 +220,10 @@ def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
     if _build.is_plain(dp):
         return advect_plain(dp, h4, w4, iterations, thres)
     _build.check_cuda("advect", dp)
+    if max(h, w) > MAX_SIDE:
+        raise ValueError(f"advect: grid {(h, w)} has a side over {MAX_SIDE}")
+    if dp.data_ptr() % 16:  # the staged rows are loaded 16 bytes at a time
+        dp = dp.clone()
     cent = torch.empty((2, h, w), dtype=torch.int32, device=dp.device)
     basin = torch.empty((h, w), dtype=torch.bool, device=dp.device)
     _build.launch("advect", dp.device, dp.data_ptr(), cent.data_ptr(),

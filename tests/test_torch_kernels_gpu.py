@@ -632,9 +632,20 @@ def test_diag_chain_many_rows(cuda, c):
 
 def _dp_field(kind, grid, hw4, seed=0):
     """A random field or a basin field (two attractors plus noise), zero
-    beyond the (h4, w4) extent, as the forward hands it over."""
+    beyond the (h4, w4) extent, as the forward hands it over; or one of
+    ``tools/probe_advect``'s: a full-gain field (dp = centre - position,
+    every particle still after a step or two), or particles running in
+    cycles of 2 or 3 columns (a period that divides K11's chunk of 8, and
+    one that does not)."""
+    from irn_tpu_torch.tools import probe_advect as pa
+
     g = np.random.default_rng(seed)
     h, w = grid
+    if kind == "full gain":
+        dp = pa.pull_field(max(h, w), hw4, 1.0, 0.05, seed)[:, :h, :w]
+        return torch.from_numpy(np.ascontiguousarray(dp))
+    if kind.startswith("period"):
+        return torch.from_numpy(pa.cycle_field(h, w, hw4, int(kind[-1])))
     if kind == "random":
         dp = (g.standard_normal((2, h, w)) * 3.0).astype(np.float32)
     else:
@@ -649,13 +660,17 @@ def _dp_field(kind, grid, hw4, seed=0):
     return torch.from_numpy(dp)
 
 
-@pytest.mark.parametrize("kind", ["random", "basin"])
-@pytest.mark.parametrize("grid,hw4", [((128, 128), (128, 128)),
-                                      ((128, 128), (97, 128)),
-                                      ((32, 32), (19, 27))])
-def test_advect_bit_equal(cuda, kind, grid, hw4):
+@pytest.mark.parametrize("kind", ["random", "basin", "full gain",
+                                  "period 2", "period 3"])
+@pytest.mark.parametrize("grid,hw4,staged", [
+    ((128, 128), (128, 128), True), ((128, 128), (97, 128), True),
+    ((32, 32), (19, 27), True), ((192, 192), (188, 181), False),
+    ((36, 30), (29, 27), False)])
+def test_advect_bit_equal(cuda, kind, grid, hw4, staged):
     """K11: end points and basin bit-equal to the twin after 300 steps, in
-    one launch."""
+    one launch, by the instance the size picks (the 192 x 192 grid's
+    staged rows exceed a CTA's shared memory, and a width of 30 is no
+    multiple of 4: their taps go through L1)."""
     from irn_tpu_torch.ops import centroids
 
     dp = _dp_field(kind, grid, hw4).to(cuda)
@@ -665,6 +680,68 @@ def test_advect_bit_equal(cuda, kind, grid, hw4):
     assert _build.LAUNCHES["advect"] == 1
     assert torch.equal(cent, want_cent) and torch.equal(basin, want_basin)
     assert int(cent[0].max()) < hw4[0] and int(cent[1].max()) < hw4[1]
+    # the launch's own rule (chip_smoke reads the instance's name from the
+    # profiler's device rows)
+    assert centroids.advect_staged(grid[1], hw4[0]) == staged
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 7, 8, 9, 299])
+@pytest.mark.parametrize("kind", ["basin", "full gain", "period 3"])
+@pytest.mark.parametrize("grid,hw4", [((128, 128), (94, 125)),
+                                      ((192, 192), (188, 181))])
+def test_advect_iterations(cuda, kind, grid, hw4, iterations):
+    """K11 at step counts around its chunk of 8 (the early stop's tail of
+    ``left mod 8`` steps, and fewer than a chunk), both instances."""
+    from irn_tpu_torch.ops import centroids
+
+    dp = _dp_field(kind, grid, hw4).to(cuda)
+    got = centroids.advect(dp, *hw4, iterations)
+    want = centroids.advect_plain(dp, *hw4, iterations)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["advect"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_advect_unaligned(cuda):
+    """K11 on a dp view whose storage starts 4 bytes past a 16-byte
+    boundary (the staged rows are copied in 16-byte units): bit-equal."""
+    from irn_tpu_torch.ops import centroids
+
+    full = _dp_field("basin", (128, 128), (94, 125)).reshape(-1)
+    buf = torch.empty(full.numel() + 1, device=cuda)
+    buf[1:] = full.to(cuda)
+    dp = buf[1:].view(2, 128, 128)
+    assert dp.data_ptr() % 16 == 4
+    got = centroids.advect(dp, 94, 125)
+    want = centroids.advect_plain(dp, 94, 125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("grid,hw4", [((128, 128), (94, 125)),
+                                      ((192, 192), (188, 181))])
+def test_advect_nan(cuda, grid, hw4):
+    """K11 with NaN in dp: where no particle taps it (rows past h4, columns
+    past w4), bit-equal to the twin; inside the extent the kernel clips a
+    NaN sum to 0, bit-equal to the twin's loop with that clip
+    (``centroids.advect_schedule`` at chunk 0; the twin itself carries NaN
+    into its indices there)."""
+    from irn_tpu_torch.ops import centroids
+    from irn_tpu_torch.tools import probe_advect as pa
+
+    dp = torch.from_numpy(pa.nan_field(grid[0], hw4)).to(cuda)
+    got = centroids.advect(dp, *hw4)
+    want = centroids.advect_schedule(dp, *hw4, chunk=0)[:2]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    outside = dp.clone()
+    outside[:, : hw4[0] + 1, : hw4[1] + 1] = _dp_field(
+        "basin", grid, hw4).to(cuda)[:, : hw4[0] + 1, : hw4[1] + 1]
+    got = centroids.advect(outside, *hw4)
+    want = centroids.advect_plain(outside, *hw4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not bool(got[1][hw4[0] + 1:].any())
+    assert _build.LAUNCHES["advect"] == 2
 
 
 def _spiral(h):

@@ -159,6 +159,52 @@ def test_probe_walk_variants_sources(monkeypatch):
         pv.main([])
 
 
+def test_probe_advect_plain_path(monkeypatch, capsys):
+    """The K11 probe (tools/probe_advect.py) through main() on the CPU at
+    its small size: the four cases (basin, full gain, random, the IRN
+    forward's dp) through ``centroids.advect`` (its plain twin here),
+    equal, timed on the host clock, with no device rows; ``--variants``
+    and a missing card refuse."""
+    from irn_tpu_torch.ops import centroids
+    from irn_tpu_torch.tools import probe_advect
+
+    calls = _spy(monkeypatch, centroids, "advect")
+    res = probe_advect.main(["--device", "cpu", "--small", "--reps", "1"])
+    cases = res["cases"]
+    assert list(cases) == ["basin", "full gain", "random", "irn forward"]
+    for r in cases.values():
+        assert r["equal"] and r["ms"] > 0 and "device_us" not in r
+    # per case: the check, a warm-up and one timed call for each of the
+    # three clocks
+    assert len(calls) == 4 * 7
+    assert "not a device time" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="the card only"):
+        probe_advect.main(["--device", "cpu", "--small", "--variants"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        probe_advect.main(["--small"])
+
+
+def test_probe_advect_variants_name_the_source_constants():
+    """The K11 variant builds (tools/probe_advect.py): every variant's edits
+    of the source's constants and stop rule apply to ``csrc/advect.cu`` as
+    it is (an edit that no longer matches raises), each variant but the
+    one as built differs from it, and the clock stamps and their readers
+    go into every variant; the source itself has no build-time option."""
+    from irn_tpu_torch.tools import probe_advect as pa
+
+    vs = pa.variants()
+    assert len(vs) == 9
+    for name, text in vs.items():
+        assert (text != vs["as built"]) == (name != "as built"), name
+        st = pa.stamped(text)
+        assert st.count("stamp(") == 6 and "irn_advect_probe_read" in st
+    assert "#ifndef" not in vs["as built"] and "#ifdef" not in vs["as built"]
+    assert "constexpr int kChunk = 16;" in vs["chunk 16"]
+    with pytest.raises(ValueError, match="found 0 times"):
+        pa._edit("abc", "x", "y")
+
+
 def test_tools_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
