@@ -134,6 +134,21 @@ one launch, and a 512x512 speckle map past the component cap) to their
 twins exactly, with the card's own time per call beside the CUDA-event
 time, and K0 at 128 seed rows bit-equal.
 
+The phase ``bf16`` runs the five model stages through the CLI at
+``--model_dtype bfloat16`` on the same tree, CAMs, IR labels and initial
+checkpoints: make_cam, make_sem_seg (two passes), make_ins_seg, train_irn
+and train_cam (2 epochs, then 3 resumed), with TF32 and bf16-reduced
+cuBLAS reductions switched on before and every backbone convolution
+required to see a bf16 input with both off; each run's hand-kernel
+launches equal to the f32 run's, the artifacts in the f32 runs' formats,
+the checkpoints f32 with the frozen parameters equal to the f32 runs'. On
+the tree's first image pair at the 512 px cap, the card's bf16 forward
+against the card's f32 forward and the host's bf16 forward (the gates of
+PERF.md, PR 23), the profiler's device rows of one bf16 backbone forward
+(no convolution kernel of the f32 forward among them), both forwards'
+time per pair, and the train_irn and train_cam steps by part in bf16
+beside the f32 ones of their phases.
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -428,10 +443,10 @@ def hgmma_counts(sass: str) -> dict:
             for k, src in SOURCES.items()}
 
 
-def sass_loops(sass: str, kernel: str) -> list:
-    """The SASS instruction counts of the loops (a branch back to a lower
-    address, the branch included) of the one function whose mangled name
-    holds ``kernel``, largest first."""
+def _sass_spans(sass: str, kernel: str) -> tuple:
+    """(instructions [(address, text)], loops [(first, last address)]: a
+    branch back to a lower address, the branch included) of the one
+    function whose mangled name holds ``kernel``."""
     from irn_tpu_torch.ops import _build
 
     fns = [v for k, v in _build.sass_functions(sass).items() if kernel in k]
@@ -441,13 +456,34 @@ def sass_loops(sass: str, kernel: str) -> list:
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m:
             ins.append((int(m.group(1), 16), m.group(2)))
-    loops = []
+    spans = []
     for addr, text in ins:
         m = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
         if m and int(m.group(1), 16) < addr:
-            loops.append(sum(1 for a, _ in ins
-                             if int(m.group(1), 16) <= a <= addr))
-    return sorted(loops, reverse=True)
+            spans.append((int(m.group(1), 16), addr))
+    return ins, spans
+
+
+def sass_loops(sass: str, kernel: str) -> list:
+    """The SASS instruction counts of the loops of the one function whose
+    mangled name holds ``kernel``, largest first."""
+    ins, spans = _sass_spans(sass, kernel)
+    return sorted((sum(1 for a, _ in ins if lo <= a <= hi)
+                   for lo, hi in spans), reverse=True)
+
+
+def sass_load_loop(sass: str, kernel: str) -> int:
+    """The SASS instruction count of the loop that holds no other loop and
+    the most shared or global loads (K11's unrolled chunk of steps: 4 taps
+    a step)."""
+    ins, spans = _sass_spans(sass, kernel)
+    inner = [(lo, hi) for lo, hi in spans
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b in spans)]
+    body = max(([t for a, t in ins if lo <= a <= hi] for lo, hi in inner),
+               key=lambda b: sum(t.split()[0].startswith(("LDS", "LDG"))
+                                 for t in b if t))
+    return len(body)
 
 
 def build_report(here: str) -> tuple:
@@ -770,7 +806,8 @@ def _ptxas_registers(source: str) -> list:
 def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
     """K11 vs its twin at the instance stage's 128x128 cap and extent:
     chip_smoke's basin field and a random one, tools/probe_advect's
-    full-gain field and cycles of 2 and 3 columns, NaN planted, step
+    full-gain field and cycles of 2 and 3 columns, NaN and infinities
+    planted (JAX's end points, at the cap and at 192x192), step
     counts around the chunk of 8, a 192x192 grid (the instance whose taps
     go through L1) and a width of 30; each call one launch, each output
     bit-equal. Reads the instances and the card's own time per launch on
@@ -807,17 +844,26 @@ def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
     for iterations in (0, 1, 7, 9, 299):
         check(same(dp, hw4, iterations),
               f"advect not bit-equal to its twin at {iterations} steps")
-    # NaN: inside the extent the kernel clips a NaN sum to 0 (the twin's
-    # loop with that clip); beyond the taps' reach the twin itself
-    ndp = torch.from_numpy(pa.nan_field(INS_CAP, hw4)).to(dev)
-    check(same(ndp, hw4, twin=lambda *a: centroids.advect_schedule(
-        *a, chunk=0)[:2]),
-          "advect with NaN differs from the twin's loop with its clip")
-    outside = ndp.clone()
-    outside[:, : hw4[0] + 1, : hw4[1] + 1] = dp[:, : hw4[0] + 1,
-                                                : hw4[1] + 1]
-    check(same(outside, hw4), "advect with NaN beyond the taps' reach not "
-                              "bit-equal to its twin")
+    # NaN and infinities, planted inside the extent and beyond the taps'
+    # reach, then beyond it alone, at the cap (staged rows) and at 192x192
+    # (taps through L1): JAX's end points, the twin's
+    for grid, ext in (((INS_CAP, INS_CAP), hw4), ((192, 192), (188, 181))):
+        clean = torch.from_numpy(pa.pull_field(grid[0], ext, 0.3, 0.1)).to(
+            dev)
+        for value in (float("nan"), float("inf"), float("-inf")):
+            ndp = torch.from_numpy(pa.nan_field(grid[0], ext, value=value)
+                                   ).to(dev)
+            check(same(ndp, ext), f"advect with {value} planted at {grid} "
+                                  f"not bit-equal to its twin")
+            outside = ndp.clone()
+            outside[:, : ext[0] + 1, : ext[1] + 1] = clean[
+                :, : ext[0] + 1, : ext[1] + 1]
+            check(same(outside, ext), f"advect with {value} beyond the "
+                                      f"taps' reach at {grid} not bit-equal "
+                                      f"to its twin")
+        # a clean field after the poisoned ones: the scratch was left ready
+        check(same(clean, ext), f"advect on a clean field after the "
+                                f"non-finite ones at {grid}")
     # the instances and the card's own time per launch, in one profiler
     # session: the cap's basin field, the two grids whose taps go through
     # L1, and the probe's four fields
@@ -850,6 +896,7 @@ def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
           "advect's schedule model differs from the kernel")
     total_steps = int(steps.sum())
     loops = sass_loops(sass, "advect_kernelILb1E")
+    chunk = sass_load_loop(sass, "advect_kernelILb1E")
     regs = _ptxas_registers("advect")
     print(f"K11 SASS loops (staged instance): {loops}; ptxas: {regs}",
           flush=True)
@@ -860,7 +907,7 @@ def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
         fields_device_ms=on_card,
         plain_ms=cuda_ms(lambda: centroids.advect_plain(bdp, *bext), 2),
         sass_loops=loops,
-        sass_per_step=loops[0] / 8,
+        sass_per_step=chunk / 8,
         registers=regs,
         instances=instances,
         steps_mean=total_steps / n,
@@ -868,12 +915,13 @@ def check_advect(dev, gen, res: dict, sass: str) -> torch.Tensor:
                f"basin field), extent {bext}, 300 steps, "
                f"one launch (staged rows); end points and basin bit-equal "
                f"on the basin, random, full-gain, period-2 and period-3 "
-               f"fields, at 0, 1, 7, 9 and 299 steps, with NaN (the twin's "
-               f"loop with the kernel's clip; beyond the taps' reach the "
-               f"twin), at 192x192 and 36x30 (taps through L1); the card's "
+               f"fields, at 0, 1, 7, 9 and 299 steps, with NaN and +-inf "
+               f"inside and beyond the extent (JAX's end points) at the "
+               f"cap and 192x192, at 192x192 and 36x30 (taps through L1); "
+               f"the card's "
                f"own ms per launch: "
                + ", ".join(f"{k} {v:.4f}" for k, v in on_card.items())
-               + f"; {loops[0] / 8:.1f} SASS instructions per step; "
+               + f"; {chunk / 8:.1f} SASS instructions per step; "
                f"{total_steps / n:.2f} steps per particle on the basin field "
                f"under the early stop (the bound's operations)"),
         library_ms=None,
@@ -3320,15 +3368,16 @@ def _train_loader(cfg, batch: int):
                                   num_workers=cfg.num_workers)
 
 
-def _train_model(cfg, dev, max_step: int):
-    """The stage's seeded initial model on ``dev``, its optimizer and the
-    path table."""
+def _train_model(cfg, dev, max_step: int, model_dtype=torch.float32):
+    """The stage's seeded initial model on ``dev`` (its backbone computing
+    in ``model_dtype``), its optimizer and the path table."""
     from irn_tpu_torch.models.irn import IRNet
     from irn_tpu_torch.pipeline import common
     from irn_tpu_torch.train import irn_train, optim
 
     with contextlib.redirect_stdout(io.StringIO()):
-        model = common.init_model_variables(IRNet(), cfg).to(dev)
+        model = common.init_model_variables(IRNet(dtype=model_dtype),
+                                            cfg).to(dev)
     opt = optim.poly_sgd(model.named_parameters(), cfg.irn_learning_rate,
                          max_step=max_step, power=0.9,
                          momentum=cfg.irn_weight_decay,
@@ -3401,19 +3450,23 @@ def train_host_check(dev, train: dict) -> None:
 TRAIN_TIMED_STEPS = 5
 
 
-def train_layers(dev, train: dict, card: str) -> None:
+def train_layers(dev, train: dict, card: str,
+                 model_dtype=torch.float32) -> dict:
     """Step ms (median over the steps after the first, each ended by a
     synchronize) and img/s at batch 32; a per-step breakdown, each part
     run alone and ended by a synchronize; the device's busy share over one
-    step under torch.profiler; the peak memory allocated."""
+    step under torch.profiler; the peak memory allocated. The backbone
+    computes in ``model_dtype``. Returns the step ms and the parts'."""
     from collections import defaultdict
 
     from irn_tpu_torch.ops import affinity
     from irn_tpu_torch.train import irn_train
 
     cfg = train["cfg"]
+    tag = "" if model_dtype == torch.float32 else f" ({model_dtype})"
     dl = _train_loader(cfg, cfg.irn_batch_size)
-    model, opt, table = _train_model(cfg, dev, len(dl) * cfg.irn_num_epoches)
+    model, opt, table = _train_model(cfg, dev, len(dl) * cfg.irn_num_epoches,
+                                     model_dtype)
     step_fn = irn_train.make_train_step(model, opt, table)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3431,12 +3484,14 @@ def train_layers(dev, train: dict, card: str) -> None:
                 break
     peak = torch.cuda.max_memory_allocated(dev)
     step_ms = float(np.median(steps[1:]))
-    print(f"train step at batch {cfg.irn_batch_size}, crop "
+    print(f"train step{tag} at batch {cfg.irn_batch_size}, crop "
           f"{cfg.irn_crop_size}, radius {cfg.path_radius}: "
           f"{step_ms:.2f} ms median over {len(steps) - 1} steps after the "
           f"first ({', '.join(f'{t:.2f}' for t in steps)}), "
           f"{cfg.irn_batch_size / step_ms * 1e3:.1f} img/s; peak memory "
-          f"allocated {peak / 2**30:.2f} GiB ({card})", flush=True)
+          f"allocated {peak / 2**30:.2f} GiB; predicted "
+          f"{PREDICTED_MS['train_irn'][model_dtype]} ms ({card})",
+          flush=True)
 
     ms = defaultdict(float)
 
@@ -3486,8 +3541,9 @@ def train_layers(dev, train: dict, card: str) -> None:
         timed("optimizer", opt.step)
         del maxed, winner, g, loss, edge_logit, dp, dp_d, feats, stats
     for name, v in ms.items():
-        print(f"layer train {name}: {v / reps:.3f} ms/step ({card})",
+        print(f"layer train{tag} {name}: {v / reps:.3f} ms/step ({card})",
               flush=True)
+    parts = {name: v / reps for name, v in ms.items()}
 
     x, red = _batch_to(batch, dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -3503,12 +3559,14 @@ def train_layers(dev, train: dict, card: str) -> None:
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     )
     if device_us > 0:
-        print(f"profiled train step: {wall_ms:.1f} ms, device busy "
+        print(f"profiled train step{tag}: {wall_ms:.1f} ms, device busy "
               f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}"
               f"% of the step; profiler on) ({card})", flush=True)
     else:
         print("profiled train step: the profiler saw no device time; device "
               "busy share not measured", flush=True)
+    return dict(step_ms=step_ms, parts=parts,
+                device_ms=device_us / 1e3 if device_us > 0 else None)
 
 
 CAM_TRAIN_REPEAT = 4  # the train list: the tree's 8 images, 4 times each
@@ -3698,13 +3756,15 @@ def _cam_batch_to(batch, dev, dtype=torch.float32):
             torch.from_numpy(batch["label"]).to(dev).to(dtype))
 
 
-def _cam_train_model(cfg, state: dict, dev, max_step: int, dtype):
-    """A CAMNet holding ``state`` on ``dev`` at ``dtype`` and the stage's
-    optimizer."""
+def _cam_train_model(cfg, state: dict, dev, max_step: int, dtype,
+                     model_dtype=torch.float32):
+    """A CAMNet holding ``state`` on ``dev`` at ``dtype`` (its backbone
+    computing in ``model_dtype``) and the stage's optimizer."""
     from irn_tpu_torch.models.cam import CAMNet
     from irn_tpu_torch.train import optim
 
-    model = CAMNet(stop_grad_at=cfg.cam_stop_grad or None)
+    model = CAMNet(stop_grad_at=cfg.cam_stop_grad or None,
+                   dtype=model_dtype)
     model.load_state_dict(state)
     model = model.to(device=dev, dtype=dtype)
     opt = optim.poly_sgd(model.named_parameters(), cfg.cam_learning_rate,
@@ -3791,12 +3851,14 @@ def train_cam_host_check(dev, tc: dict) -> None:
           "the card step moved a frozen parameter")
 
 
-def train_cam_layers(dev, tc: dict, card: str) -> None:
+def train_cam_layers(dev, tc: dict, card: str,
+                     model_dtype=torch.float32) -> dict:
     """5 synchronized steps at batch 16 (median after the first) and
     img/s; a per-step breakdown, each part run alone and ended by a
     synchronize: loader wait, upload, stem..c3 forward without autograd,
     c4..head forward + loss, backward, optimizer; the device's busy share
-    over one profiled step; the peak memory allocated."""
+    over one profiled step; the peak memory allocated. The backbone
+    computes in ``model_dtype``. Returns the step ms and the parts'."""
     from collections import defaultdict
 
     import torch.nn.functional as F
@@ -3805,22 +3867,24 @@ def train_cam_layers(dev, tc: dict, card: str) -> None:
     from irn_tpu_torch.train import cam_train
 
     cfg = tc["cfg"]
+    tag = "" if model_dtype == torch.float32 else f" ({model_dtype})"
     dl = _cam_train_loader(cfg, cfg.cam_batch_size)
     max_step = len(dl) * cfg.cam_num_epoches
     state = _calibrated_state(cfg, next(iter(dl)), dev)
-    model, opt = _cam_train_model(cfg, state, dev, max_step, torch.float32)
+    model, opt = _cam_train_model(cfg, state, dev, max_step, torch.float32,
+                                  model_dtype)
     step_fn = cam_train.make_train_step(model, opt)
     r = model.resnet50
 
     def front(x):
         with torch.no_grad():
-            x = F.max_pool2d(F.relu(r.bn1(r.conv1(x))), 3, stride=2,
-                             padding=1)
+            x = F.max_pool2d(F.relu(r.bn1(r.conv1(x.to(r.dtype)))), 3,
+                             stride=2, padding=1)
             return r.layer2(r.layer1(x))
 
     def back(c3, labels):
         c5 = r.layer4(r.layer3(c3))
-        logits = model.classifier(c5.mean(dim=(2, 3), keepdim=True))
+        logits = model.classifier(c5.mean(dim=(2, 3), keepdim=True).float())
         return multilabel_soft_margin_loss(logits.flatten(1), labels)
 
     # the split forward of the breakdown is the model's forward
@@ -3847,12 +3911,14 @@ def train_cam_layers(dev, tc: dict, card: str) -> None:
                 break
     peak = torch.cuda.max_memory_allocated(dev)
     step_ms = float(np.median(steps[1:]))
-    print(f"train_cam step at batch {cfg.cam_batch_size}, crop "
+    print(f"train_cam step{tag} at batch {cfg.cam_batch_size}, crop "
           f"{cfg.cam_crop_size}: {step_ms:.2f} ms median over "
           f"{len(steps) - 1} steps after the first "
           f"({', '.join(f'{t:.2f}' for t in steps)}), "
           f"{cfg.cam_batch_size / step_ms * 1e3:.1f} img/s; peak memory "
-          f"allocated {peak / 2**30:.2f} GiB ({card})", flush=True)
+          f"allocated {peak / 2**30:.2f} GiB; predicted "
+          f"{PREDICTED_MS['train_cam'][model_dtype]} ms ({card})",
+          flush=True)
 
 
     ms = defaultdict(float)
@@ -3883,8 +3949,9 @@ def train_cam_layers(dev, tc: dict, card: str) -> None:
         timed("optimizer", opt.step)
         del loss, c3
     for name, v in ms.items():
-        print(f"layer train_cam {name}: {v / reps:.3f} ms/step ({card})",
-              flush=True)
+        print(f"layer train_cam{tag} {name}: {v / reps:.3f} ms/step "
+              f"({card})", flush=True)
+    parts = {name: v / reps for name, v in ms.items()}
 
     x, y = _cam_batch_to(batch, dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -3900,12 +3967,14 @@ def train_cam_layers(dev, tc: dict, card: str) -> None:
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     )
     if device_us > 0:
-        print(f"profiled train_cam step: {wall_ms:.1f} ms, device busy "
+        print(f"profiled train_cam step{tag}: {wall_ms:.1f} ms, device busy "
               f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}"
               f"% of the step; profiler on) ({card})", flush=True)
     else:
         print("profiled train_cam step: the profiler saw no device time; "
               "device busy share not measured", flush=True)
+    return dict(step_ms=step_ms, parts=parts,
+                device_ms=device_us / 1e3 if device_us > 0 else None)
 
 
 N_INS_FLOWS = 4  # images of each flow run of the instance stage
@@ -4226,6 +4295,330 @@ def ins_layers(dev, ins: dict, card: str) -> None:
               "device busy share not measured", flush=True)
 
 
+# ms of a train_irn step (batch 32), a train_cam step (batch 16) and the
+# IRNet forward of one 512 px pair as PERF.md (PR 23) predicted them before
+# the first bf16 run; f32: the figures measured before
+PREDICTED_MS = {
+    "train_irn": {torch.float32: "181.19 (PR 19)", torch.bfloat16: "100-115"},
+    "train_cam": {torch.float32: "106.39 (PR 11)", torch.bfloat16: "20-35"},
+    "forward": {torch.float32: "14.8 (PR 12)", torch.bfloat16: "9-15"},
+}
+# --model_dtype bfloat16: the gates on one full-size image pair's raw edge
+# logits and dp (relative Frobenius distance), fixed in PERF.md (PR 23)
+# before the first bf16 run on the card from the CPU figures: bf16 noise
+# against the card's f32 forward, and the host's bf16 forward (oneDNN's
+# kernels against cuDNN's) at most as far
+BF16_VS_F32 = (1e-3, 5e-2)
+BF16_VS_HOST = 5e-2
+# conv, GEMM and transpose kernels of cuDNN / cuBLAS / CUTLASS by name
+CONV_KERNEL = re.compile(r"conv|fprop|dgrad|wgrad|implicit|gemm|xmma|"
+                         r"cutlass|cudnn|nchw|nhwc", re.I)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def run_bf16_stages(dev, stage: dict, cam: dict, card: str) -> dict:
+    """The five model stages through the port's CLI at ``--model_dtype
+    bfloat16`` on the f32 runs' tree, CAMs, IR labels and initial
+    checkpoints: make_cam, make_sem_seg (two passes), make_ins_seg,
+    train_irn (2 epochs, then 3 resumed from ``.train``) and train_cam
+    (likewise). TF32 and bf16-reduced cuBLAS reductions are switched on
+    before the runs; every backbone convolution must see a bf16 input with
+    both off. Each run's hand-kernel launches are read on their own and
+    held to the f32 run's; the artifacts are in the f32 runs' formats, the
+    checkpoints f32 with the f32 runs' keys, the frozen parameters equal to
+    the f32 runs' (the same seeded start)."""
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.models import resnet
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.utils.checkpoint import load_checkpoint
+
+    work, names = stage["work"], stage["names"]
+    n = len(names)
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    bf = os.path.join(work, "bf16")
+    os.makedirs(bf, exist_ok=True)
+    irn_init = stage["cfg"].irn_weights_name
+    base = ["--voc12_root", root, "--infer_list", ids, "--train_list", ids,
+            "--val_list", ids, "--cam_out_dir", os.path.join(work, "cam"),
+            "--ir_label_out_dir", os.path.join(work, "ir_auto"),
+            "--irn_weights_name", irn_init,
+            "--cam_weights_name", cam["weights"],
+            "--session_dir", os.path.join(work, "sess"),
+            "--log_name", os.path.join(work, "log_bf16"),
+            "--model_dtype", "bfloat16", "--device", str(dev)]
+    seen = []
+    forward = resnet.Conv2d.forward
+
+    def forward_seen(self, x):
+        seen.append((x.dtype, torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cuda.matmul
+                     .allow_bf16_reduced_precision_reduction))
+        return forward(self, x)
+
+    launches, logs, res = {}, [], {}
+
+    def run(tag, *extra):
+        _build.reset_launches()
+        out = cli(base + list(extra), logs)
+        launches[tag] = launches.get(tag, 0) or {}
+        for k, v in _build.LAUNCHES.items():
+            launches[tag][k] = launches[tag].get(k, 0) + v
+        return out
+
+    dirs = {k: os.path.join(bf, k) for k in ("cam", "sem", "ins")}
+    irn_w = os.path.join(bf, "irn_trained.ckpt")
+    cam_w = os.path.join(bf, "cam_trained.ckpt")
+    irn_train = ("--train_list", os.path.join(root, "train64.txt"),
+                 "--irn_weights_name", irn_w, "--train_irn_pass")
+    cam_train = ("--train_list", os.path.join(root, "train_cam32.txt"),
+                 "--cam_weights_name", cam_w,
+                 "--cam_out_dir", os.path.join(bf, "cam_trained"),
+                 "--train_cam_pass")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resnet.Conv2d.forward = forward_seen
+    t0 = time.perf_counter()
+    try:
+        res["make_cam"] = run("make_cam", "--cam_out_dir", dirs["cam"],
+                              "--make_cam_pass")["make_cam"]
+        sem = ("--sem_seg_out_dir", dirs["sem"], "--make_sem_seg_pass")
+        run("make_sem_seg", *sem)
+        res["make_sem_seg"] = run("make_sem_seg", *sem, "--overwrite")[
+            "make_sem_seg_labels"]
+        res["make_ins_seg"] = run(
+            "make_ins_seg", "--ins_seg_out_dir", dirs["ins"],
+            "--coco_ann_path", os.path.join(dirs["ins"], "coco.json"),
+            "--coco_seg_format", "rle", "--make_ins_seg_pass")[
+                "make_ins_seg_labels"]
+        first = run("train_irn", *irn_train, "--irn_num_epoches", "2")[
+            "train_irn"]
+        resumed = run("train_irn", *irn_train, "--irn_num_epoches", "3")[
+            "train_irn"]
+        res["train_irn"] = (first, resumed)
+        cfirst = run("train_cam", *cam_train, "--cam_num_epoches", "2")[
+            "train_cam"]
+        cresumed = run("train_cam", *cam_train, "--cam_num_epoches", "3")[
+            "train_cam"]
+        res["train_cam"] = (cfirst, cresumed)
+    finally:
+        resnet.Conv2d.forward = forward
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+    seconds = time.perf_counter() - t0
+    kinds = sorted(set(seen), key=str)
+    check(seen and kinds == [(torch.bfloat16, False, False, False)],
+          f"bf16 backbone convolutions saw (input dtype, TF32 cudnn, TF32 "
+          f"matmul, bf16-reduced reductions): {kinds}")
+    print(f"bf16 stages: {len(seen)} backbone convolutions, every one on a "
+          f"bf16 input with TF32 and bf16-reduced reductions off; "
+          f"{seconds:.1f} s for the runs", flush=True)
+
+    # hand-kernel launches: the f32 runs' (make_ins_seg here one pass of
+    # the f32 run's two; make_sem_seg two passes as there)
+    f32 = stage["launches"]
+    zero = {k: 0 for k in _build.KERNELS}
+    want = {"make_cam": zero,
+            "make_sem_seg": dict(zero, diag_operator=2 * n, diag_chain=2 * n,
+                                 decode=2 * n),
+            "make_ins_seg": {k: v // 2 for k, v in f32["ins default"].items()},
+            "train_irn": f32["train irn"], "train_cam": f32["train cam"]}
+    for tag, w in want.items():
+        check(launches[tag] == w,
+              f"bf16 {tag}: launches {launches[tag]}, the f32 run's {w}")
+        stage["launches"][f"bf16 {tag}"] = launches[tag]
+    print(f"bf16 launches: {launches}", flush=True)
+
+    # the artifacts, in the f32 runs' formats
+    for n_ in names:
+        a = np.load(os.path.join(dirs["cam"], n_ + ".npy"),
+                    allow_pickle=True).item()
+        b = np.load(os.path.join(cam["cams"], n_ + ".npy"),
+                    allow_pickle=True).item()
+        check(sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            for k in a) and bool(np.isfinite(a["high_res"]).all())
+            and float(a["high_res"].max(initial=0)) <= 1.0,
+            f"bf16 make_cam {n_}: "
+            f"{[(k, v.dtype, v.shape) for k, v in a.items()]}")
+        a = imread(os.path.join(dirs["sem"], n_ + ".png"))
+        b = imread(os.path.join(work, "sem_default", n_ + ".png"))
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"bf16 make_sem_seg {n_}: {a.dtype} {a.shape}")
+        a = np.load(os.path.join(dirs["ins"], n_ + ".npy"),
+                    allow_pickle=True).item()
+        b = np.load(os.path.join(work, "ins_default", n_ + ".npy"),
+                    allow_pickle=True).item()
+        check(sorted(a) == sorted(b) and a["size"] == b["size"] and all(
+            a[k].dtype == b[k].dtype and a[k].shape[1:] == b[k].shape[1:]
+            for k in ("mask", "score", "class")),
+            f"bf16 make_ins_seg {n_}")
+    agree = agreement(dirs["sem"], os.path.join(work, "sem_default"), names)
+    cam_rel = []
+    for n_ in names:
+        a = np.load(os.path.join(dirs["cam"], n_ + ".npy"),
+                    allow_pickle=True).item()["cam"]
+        b = np.load(os.path.join(cam["cams"], n_ + ".npy"),
+                    allow_pickle=True).item()["cam"]
+        cam_rel.append(float(np.linalg.norm(a - b) / max(
+            np.linalg.norm(b), 1e-30)))
+    for tag in ("make_cam", "make_sem_seg", "make_ins_seg"):
+        r_ = res[tag]
+        print(f"bf16 stage {tag}: {r_['n_images'] / r_['seconds']:.3f} img/s"
+              f"{' (second pass)' if tag == 'make_sem_seg' else ''} over "
+              f"{r_['n_images']} images ({card})", flush=True)
+    print(f"bf16 make_sem_seg labels vs the f32 run's: min {min(agree):.6f} "
+          f"mean {np.mean(agree):.6f}; bf16 make_cam CAMs vs the f32 run's, "
+          f"relative distance per image: max {max(cam_rel):.3e} mean "
+          f"{np.mean(cam_rel):.3e} (the same seeded random weights)",
+          flush=True)
+
+    # the trained checkpoints: f32, the f32 runs' keys, frozen parameters
+    # equal to the f32 runs' (the same seeded start), every loss finite
+    for tag, path, ref, frozen in (
+            ("train_irn", irn_w, os.path.join(work, "irn_trained.ckpt"),
+             ("",)),
+            ("train_cam", cam_w, os.path.join(work, "cam_trained.ckpt"),
+             ("conv1", "bn1", "layer1_", "layer2_"))):
+        a = dict(_leaves(load_checkpoint(path)))
+        b = dict(_leaves(load_checkpoint(ref)))
+        check(sorted(a) == sorted(b) and all(
+            v.dtype == np.float32 and v.shape == b[k].shape
+            for k, v in a.items()),
+            f"bf16 {tag}: checkpoint layout differs from the f32 run's")
+        same = [k for k in a if k[:2] == ("params", "resnet50")
+                and k[2].startswith(frozen)]
+        check(same and all(np.array_equal(a[k], b[k]) for k in same),
+              f"bf16 {tag}: frozen parameters differ from the f32 run's")
+        first, resumed = res[tag]
+        check((first["n_steps"], resumed["n_steps"], resumed["start_epoch"])
+              == (4, 2, 2), f"bf16 {tag}: {first['n_steps']} + "
+              f"{resumed['n_steps']} steps from {resumed['start_epoch']}")
+    losses = [v for r_ in res["train_irn"] for row in r_["losses"]
+              for v in row.values()]
+    closs = [v for r_ in res["train_cam"] for v in r_["losses"]]
+    check(all(np.isfinite(v) for v in losses + closs),
+          f"bf16 train losses {losses} {closs}")
+    print(f"bf16 train_irn losses (total per step): "
+          + ", ".join(f"{row['loss']:.4f}" for r_ in res["train_irn"]
+                      for row in r_["losses"])
+          + f"; train_cam losses: {', '.join(f'{v:.4f}' for v in closs)}",
+          flush=True)
+    return res
+
+
+def bf16_forward_checks(dev, stage: dict, card: str) -> dict:
+    """On the tree's first image as make_sem_seg's forward takes it (the
+    normalized image and its flip, padded to the 512 px cap: [2, 3, 512,
+    512]), the seeded random IRNet: the card's bf16 forward against the
+    card's f32 forward and the host's bf16 forward (raw edge logits and
+    dp, relative Frobenius distance, PERF.md's gates); the device rows of
+    one bf16 backbone forward hold a convolution kernel and none that the
+    f32 backbone forward ran; both forwards' time per pair (CUDA events,
+    and the card's own time from the profiler)."""
+    from irn_tpu_torch.data.image_io import imread
+    from irn_tpu_torch.models.irn import IRNet, init_irnet
+    from irn_tpu_torch.pipeline import stages_irn
+
+    cfg = stage["cfg"]
+    img = imread(os.path.join(cfg.voc12_root, "JPEGImages",
+                              stage["names"][0] + ".jpg"))
+    cap_px = cfg.rw_grid_cap * 4
+    buf = np.zeros((cap_px, cap_px, 3), np.uint8)
+    buf[: img.shape[0], : img.shape[1]] = img
+    models = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = init_irnet(IRNet(dtype=dt), torch.Generator().manual_seed(SEED))
+        models[dt] = m.eval()
+    runner = stages_irn.EdgeDisplacementRunner(cfg, models[torch.float32],
+                                               dev)
+    x = runner._prep(torch.from_numpy(buf).to(dev), *img.shape[:2])
+    out = {}
+    with torch.no_grad():
+        for dt, m in models.items():
+            m.to(dev)
+            out[dt] = [t.float() for t in m(x)]
+        host = [t.float() for t in models[torch.bfloat16].to("cpu")(x.cpu())]
+        models[torch.bfloat16].to(dev)
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    dist = {}
+    for i, name in enumerate(("edge", "dp")):
+        dist[name] = dict(
+            vs_f32=rel(out[torch.bfloat16][i], out[torch.float32][i]),
+            vs_host=rel(out[torch.bfloat16][i], host[i]))
+        d = dist[name]
+        print(f"bf16 forward {name}: card bf16 vs card f32 {d['vs_f32']:.3e} "
+              f"(gate {BF16_VS_F32}), card bf16 vs host bf16 "
+              f"{d['vs_host']:.3e} (gate <= {BF16_VS_HOST})", flush=True)
+        check(BF16_VS_F32[0] <= d["vs_f32"] <= BF16_VS_F32[1]
+              and d["vs_host"] <= BF16_VS_HOST,
+              f"bf16 forward {name}: distances {d}")
+        check(out[torch.bfloat16][i].dtype == torch.float32
+              and bool(torch.isfinite(out[torch.bfloat16][i]).all()),
+              f"bf16 forward {name}: not finite f32")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    names, device = {}, {}
+    with torch.no_grad():
+        for dt, m in models.items():
+            m.features(x)
+            for _ in range(3):  # a session may see no device row at all
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    m.features(x)
+                    torch.cuda.synchronize()
+                rows = [e for e in prof.events()
+                        if getattr(e, "device_type", None)
+                        == torch.autograd.DeviceType.CUDA]
+                if rows:
+                    break
+            names[dt] = {e.name for e in rows if CONV_KERNEL.search(e.name)}
+            device[dt] = sum(e.time_range.end - e.time_range.start
+                             for e in rows) / 1e3
+    f32_only = names[torch.float32] - names[torch.bfloat16]
+    both = names[torch.float32] & names[torch.bfloat16]
+    print(f"bf16 backbone forward: {len(names[torch.bfloat16])} convolution "
+          f"kernel names, e.g. {sorted(names[torch.bfloat16])[:4]}; the f32 "
+          f"forward's: {len(names[torch.float32])}, e.g. "
+          f"{sorted(f32_only)[:4]}; in both: {sorted(both)}", flush=True)
+    check(names[torch.bfloat16] and names[torch.float32] and not both,
+          f"an f32 convolution kernel in the bf16 backbone forward: "
+          f"{sorted(both)}")
+    times = {}
+    with torch.no_grad():
+        for dt, m in models.items():
+            times[dt] = dict(
+                pair_ms=cuda_ms(lambda m=m: m(x), 10),
+                backbone_ms=cuda_ms(lambda m=m: m.features(x), 10),
+                backbone_device_ms=device[dt])
+            print(f"IRNet forward per 512 px image pair ({dt}): "
+                  f"{times[dt]['pair_ms']:.3f} ms (events; predicted "
+                  f"{PREDICTED_MS['forward'][dt]}), backbone "
+                  f"{times[dt]['backbone_ms']:.3f} ms (events), backbone "
+                  f"device rows {device[dt]:.3f} ms ({card})", flush=True)
+    for m in models.values():
+        m.to("cpu")
+    torch.cuda.empty_cache()
+    return dict(dist=dist, times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -4299,6 +4692,11 @@ def main() -> int:
         ins = run_ins_stages(dev, stage, card)
         ins_host_check(dev, ins)
         ins_layers(dev, ins, card)
+        phase("bf16: the model stages at --model_dtype bfloat16")
+        run_bf16_stages(dev, stage, cam, card)
+        bf16_forward_checks(dev, stage, card)
+        train_layers(dev, train, card, torch.bfloat16)
+        train_cam_layers(dev, tc, card, torch.bfloat16)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

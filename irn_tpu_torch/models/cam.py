@@ -13,6 +13,10 @@
 - :meth:`CAMNet.calibrate_stats` writes one batch's statistics into every
   frozen batch norm (train_cam without a pretrained backbone).
 - Flip fusion is the make_cam stage's (``pipeline/stages_cam.py``).
+- ``dtype`` is the backbone's compute dtype; the head has none (f32, as
+  the JAX ``classifier``): the pooled or per-pixel c5 is upcast into it,
+  so logits and maps are f32 either way. The pooling runs in the backbone's
+  dtype, as ``jnp.mean`` of a bf16 c5 does.
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ class CAMNet(nn.Module):
     blocked; None trains the whole backbone."""
 
     def __init__(self, n_classes: int = 20,
-                 stop_grad_at: Optional[str] = "c3"):
+                 stop_grad_at: Optional[str] = "c3",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_classes = n_classes
         self.stop_grad_at = stop_grad_at
-        self.resnet50 = ResNet50(strides=(2, 2, 2, 1))
+        self.resnet50 = ResNet50(strides=(2, 2, 2, 1), dtype=dtype)
         self.classifier = nn.Conv2d(2048, n_classes, 1, bias=False)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -47,13 +52,13 @@ class CAMNet(nn.Module):
         feats = self.resnet50(
             x, stop_grad_after=self.stop_grad_at if train else None)
         x = feats["c5"].mean(dim=(2, 3), keepdim=True)
-        return self.classifier(x).flatten(1)
+        return self.classifier(x.to(self.classifier.weight.dtype)).flatten(1)
 
     @torch.no_grad()
     def calibrate_stats(self, x: torch.Tensor) -> torch.Tensor:
         """One calibration forward: every frozen batch norm writes this
         batch's statistics and normalizes with them. Returns the pooled
-        c5 features [B, 2048]."""
+        c5 features [B, 2048] in the backbone's dtype."""
         return self.resnet50(x, calibrate=True)["c5"].mean(dim=(2, 3))
 
     def cam(self, x: torch.Tensor, extent: Extent = None) -> torch.Tensor:
@@ -62,7 +67,8 @@ class CAMNet(nn.Module):
         ``extent``: the true (h, w) when ``x`` is a padded buffer; the
         backbone masks beyond it, so in-extent maps match an exact-size
         run."""
-        return F.relu(self.classifier(self.resnet50(x, extent)["c5"]))
+        c5 = self.resnet50(x, extent)["c5"]
+        return F.relu(self.classifier(c5.to(self.classifier.weight.dtype)))
 
 
 def multilabel_soft_margin_loss(logits: torch.Tensor,

@@ -12,6 +12,9 @@ reference's torch module names (net/resnet50_irn.py): ``resnet50.*``,
   size; concat(160) -> 1x1 conv with bias -> 1-channel logit at stride 4.
 - Displacement branch: fc_dp1..7 to a 2-channel (dy, dx) field at stride
   4, minus the calibrated mean at eval (MeanShift).
+- ``dtype`` is the backbone's compute dtype; the heads take its features
+  upcast to f32 and compute in f32 (the JAX heads have no dtype, so Flax
+  promotes their bf16 inputs), so edge and dp are f32 either way.
 """
 
 from __future__ import annotations
@@ -50,9 +53,9 @@ class MeanShift(nn.Module):
 class IRNet(nn.Module):
     """Two-headed inter-pixel relation network over a frozen backbone."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.resnet50 = ResNet50(strides=(2, 2, 2, 1))
+        self.resnet50 = ResNet50(strides=(2, 2, 2, 1), dtype=dtype)
         self.fc_edge1 = _conv_gn(64, 32, 4)
         self.fc_edge2 = _conv_gn(256, 32, 4)
         self.fc_edge3 = _conv_gn(512, 32, 4, upsample=2)
@@ -82,9 +85,11 @@ class IRNet(nn.Module):
 
     def heads(self, f, apply_mean_shift: bool = False):
         """Stage features -> (edge logit [B, 1, h4, w4], displacement
-        [B, 2, h4, w4]); MeanShift only when ``apply_mean_shift`` (never in
-        training)."""
-        x1, x2, x3, x4, x5 = f["stem"], f["c2"], f["c3"], f["c4"], f["c5"]
+        [B, 2, h4, w4]) in the heads' dtype (f32); MeanShift only when
+        ``apply_mean_shift`` (never in training)."""
+        dt = self.fc_edge6.weight.dtype  # the heads' own (f32)
+        x1, x2, x3, x4, x5 = (f[k].to(dt)
+                              for k in ("stem", "c2", "c3", "c4", "c5"))
 
         e2 = self.fc_edge2(x2)
         h2, w2 = e2.shape[-2:]

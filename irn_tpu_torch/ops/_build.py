@@ -12,8 +12,8 @@ entry point reports how many kernels it launched (a chain through K0, K3
 or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
 call is its split pass and its product, 2; one K10 operator build 1; one
-K11 advection 1; one K12a labeling or K12b call 1, and a K12b call that
-labels first 1 under each of the two; one K15 decode 1 (one cooperative
+K11 advection 1 (one cooperative launch); one K12a labeling or K12b call
+1, and a K12b call that labels first 1 under each of the two; one K15 decode 1 (one cooperative
 launch), or 1 for the upsample alone; one
 K14 landmark-kernel build 2, its table pass and its rows, whatever its row
 range, or 1 for the table pass alone; K17's blur, start, quantize and
@@ -178,7 +178,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         n,
     ]
     lib.irn_conv3x3.argtypes = [p, p, p, i, i, i, i, i, p, n]
-    lib.irn_advect.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p, n]
+    lib.irn_advect.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                               p, n]
+    lib.irn_advect_scratch_words.argtypes = []
     lib.irn_advect_staged_bytes.argtypes = [i, i]
     lib.irn_ccl_label.argtypes = [p, i, p, p, i, i, i, i, p, n]
     lib.irn_ccl_scratch_words.argtypes = [i, i, i]
@@ -221,7 +223,7 @@ def _declare(lib: ctypes.CDLL) -> None:
               "packed_chain_occupancy", "cluster_masks", "component_tables",
               "ccl_scratch_words",
               "upsample_scores", "crf_landmark_table", "crf_blur",
-              "advect_staged_bytes",
+              "advect_staged_bytes", "advect_scratch_words",
               "crf_start", "crf_quantize"):
         getattr(lib, f"irn_{k}").restype = ctypes.c_int
 

@@ -5,7 +5,8 @@ reference).
 - K11 (:func:`advect`, ``csrc/advect.cu``): every pixel advects a particle
   through the displacement field for 300 steps with bilinear sampling,
   clipped to the true extent, and rounds the end point; the same kernel
-  evaluates the ``|dp| < thres`` basin predicate. The JAX package runs the
+  evaluates the ``|dp| < thres`` basin predicate. A NaN or infinity in dp
+  gives JAX's end points (:func:`advect_step`). The JAX package runs the
   steps as one XLA loop; eager PyTorch would launch ~15 ops per step. The
   kernel reads dp from shared memory when the rows its particles reach fit
   (:func:`advect_staged`) and stops a particle early, exactly, once its
@@ -17,7 +18,8 @@ reference).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,75 +77,132 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     return out
 
 
-def advect_plain(dp: torch.Tensor, h4: int, w4: int,
-                 iterations: int = ITERATIONS,
-                 thres: float = BASIN_THRES
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K11's plain twin: the JAX package's default
-    ``_find_centroids_matmul`` (centroids.py:140-168), step for step in the
-    rounding its CPU build performs. Per step, with ly = floor(y),
-    fy = y - ly (likewise for x): the row interpolation is the two-tap
-    matmul, which XLA's CPU dot accumulates by fused multiply-adds,
-    r(c) = fma(fy, f[ly + 1, c], (1 - fy) * f[ly, c]) at c = lx, lx + 1;
-    the column step is a product and a sum, s = (1 - fx) r(lx) +
-    fx r(lx + 1). Both channels are sampled at the old (y, x) before
-    either moves. A tap past the grid carries weight exactly 0 (an integer
-    position), so its index is clamped and its product is 0, as the
-    matmul form drops it."""
-    _, h, w = dp.shape
-    dev = dp.device
-    ymax = torch.tensor(float(h4 - 1), device=dev)
-    xmax = torch.tensor(float(w4 - 1), device=dev)
-    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    y = torch.minimum(rows, ymax).expand(h, w).contiguous()
-    x = torch.minimum(cols, xmax).expand(h, w).contiguous()
-    fdy = dp[0].reshape(-1)
-    fdx = dp[1].reshape(-1)
-    zero = torch.zeros((), device=dev)
-    for _ in range(iterations):
-        ly, lx = torch.floor(y), torch.floor(x)
-        fy, fx = y - ly, x - lx
-        gy, gx = 1.0 - fy, 1.0 - fx
-        iy, ix = ly.long(), lx.long()
-        i00 = iy * w + ix
-        i10 = torch.clamp(iy + 1, max=h - 1) * w + ix
-        dx1 = (torch.clamp(ix + 1, max=w - 1) - ix)
-        samples = []
-        for f in (fdy, fdx):
-            r0 = fma_f32(fy, f[i10], gy * f[i00])
-            r1 = fma_f32(fy, f[i10 + dx1], gy * f[i00 + dx1])
-            samples.append(gx * r0 + fx * r1)
-        y = torch.minimum(torch.maximum(y + samples[0], zero), ymax)
-        x = torch.minimum(torch.maximum(x + samples[1], zero), xmax)
-    cent = torch.stack([torch.round(y), torch.round(x)]).to(torch.int32)
-    basin = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1]) < thres
-    return cent, basin
+# A plane's non-finite cells, as K11 gathers them: (kinds, r0, r1, c0, c1),
+# kinds a mask of NAN / POS_INF / NEG_INF, (r0, r1, c0, c1) the rows and
+# columns the infinities span; None for a finite plane.
+NAN, POS_INF, NEG_INF = 1, 2, 4
+Poison = Tuple[int, int, int, int, int]
+
+
+def plane_poison(f: torch.Tensor) -> Optional[Poison]:
+    """What K11 gathers of the non-finite cells of one [H, W] plane of dp,
+    over the whole plane (padding included): None when it is finite."""
+    nan, pos, neg = torch.isnan(f), f == float("inf"), f == float("-inf")
+    kinds = (NAN * bool(nan.any()) | POS_INF * bool(pos.any())
+             | NEG_INF * bool(neg.any()))
+    if not kinds:
+        return None
+    r, c = torch.nonzero(pos | neg, as_tuple=True)
+    if not len(r):
+        return kinds, 0, -1, 0, -1
+    return kinds, int(r.min()), int(r.max()), int(c.min()), int(c.max())
+
+
+def _poisoned_sample(q: Poison, fin: torch.Tensor, y: torch.Tensor,
+                     ly: torch.Tensor, x: torch.Tensor, lx: torch.Tensor
+                     ) -> torch.Tensor:
+    """The JAX form's sample of a plane that holds a non-finite cell: its
+    two-tap matmul and masked sum multiply every cell by a weight, and a
+    weight is 0 everywhere but at the particle's taps, so 0 * inf and 0 *
+    NaN make the sample NaN unless every non-finite cell is an infinity of
+    one sign on a tap of positive weight, rows {ly, ly + 1 if fy > 0} x
+    columns {lx, lx + 1 if fx > 0}: then it is that infinity."""
+    kinds, r0, r1, c0, c1 = q
+    nan = torch.full_like(y, float("nan"))
+    if kinds & NAN or kinds == POS_INF | NEG_INF:
+        return nan
+    inside = (fin & (r0 >= ly) & (r1 <= ly + (y > ly).float())
+              & (c0 >= lx) & (c1 <= lx + (x > lx).float()))
+    inf = float("inf") if kinds == POS_INF else float("-inf")
+    return torch.where(inside, torch.full_like(y, inf), nan)
 
 
 def advect_step(fdy: torch.Tensor, fdx: torch.Tensor, y: torch.Tensor,
                 x: torch.Tensor, h: int, w: int, ymax: torch.Tensor,
-                xmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step of K11's particles at (y, x) through the flat dp planes
-    ``fdy``, ``fdx`` of an [h, w] grid: the body of :func:`advect_plain`'s
-    loop, its operations in its order, with the kernel's clip
-    (``torch.fmax`` / ``fmin``, as its ``fmaxf`` / ``fminf``: a NaN sum
-    clips to 0, where the twin's ``torch.maximum`` carries it on)."""
+                xmax: torch.Tensor,
+                poison: Tuple[Optional[Poison], Optional[Poison]] = (
+                    None, None)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the particles at (y, x) through the flat dp planes
+    ``fdy``, ``fdx`` of an [h, w] grid whose non-finite cells ``poison``
+    describes (:func:`plane_poison`), as JAX's ``_find_centroids_matmul``
+    takes it. With ly = floor(y), fy = y - ly (likewise for x): the row
+    interpolation is the two-tap matmul, which XLA's CPU dot accumulates by
+    fused multiply-adds, r(c) = fma(fy, f[ly + 1, c], (1 - fy) f[ly, c]) at
+    c = lx, lx + 1; the column step is a product and a sum, s = (1 - fx)
+    r(lx) + fx r(lx + 1). Both channels are sampled at the old (y, x)
+    before either moves. A tap past the grid carries weight exactly 0 (an
+    integer position), so its index is clamped and its product is 0, as
+    the matmul form drops it. A NaN position has no tap of positive weight:
+    a finite plane samples 0 there. A plane with a non-finite cell samples
+    NaN or an infinity (:func:`_poisoned_sample`). The clip carries a NaN
+    on, as XLA's max and min do."""
     zero = torch.zeros((), device=y.device)
-    ly, lx = torch.floor(y), torch.floor(x)
-    fy, fx = y - ly, x - lx
+    fin = ~(torch.isnan(y) | torch.isnan(x))
+    ys, xs = torch.where(fin, y, zero), torch.where(fin, x, zero)
+    ly, lx = torch.floor(ys), torch.floor(xs)
+    fy, fx = ys - ly, xs - lx
     gy, gx = 1.0 - fy, 1.0 - fx
     iy, ix = ly.long(), lx.long()
     i00 = iy * w + ix
     i10 = torch.clamp(iy + 1, max=h - 1) * w + ix
     dx1 = torch.clamp(ix + 1, max=w - 1) - ix
     s = []
-    for f in (fdy, fdx):
+    for f, q in zip((fdy, fdx), poison):
+        if q is not None:
+            s.append(_poisoned_sample(q, fin, ys, ly, xs, lx))
+            continue
         r0 = fma_f32(fy, f[i10], gy * f[i00])
         r1 = fma_f32(fy, f[i10 + dx1], gy * f[i00 + dx1])
-        s.append(gx * r0 + fx * r1)
-    return (torch.fmin(torch.fmax(y + s[0], zero), ymax),
-            torch.fmin(torch.fmax(x + s[1], zero), xmax))
+        s.append(torch.where(fin, gx * r0 + fx * r1, zero))
+    return (torch.minimum(torch.maximum(y + s[0], zero), ymax),
+            torch.minimum(torch.maximum(x + s[1], zero), xmax))
+
+
+def _start(h: int, w: int, h4: int, w4: int, dev: torch.device):
+    """Each pixel's particle, flat: (min(row, h4 - 1), min(col, w4 - 1)),
+    and the clip bounds (h4 - 1, w4 - 1)."""
+    ymax = torch.tensor(float(h4 - 1), device=dev)
+    xmax = torch.tensor(float(w4 - 1), device=dev)
+    y = torch.minimum(torch.arange(h, dtype=torch.float32, device=dev)[
+        :, None], ymax).expand(h, w).reshape(-1).clone()
+    x = torch.minimum(torch.arange(w, dtype=torch.float32, device=dev)[
+        None, :], xmax).expand(h, w).reshape(-1).clone()
+    return y, x, ymax, xmax
+
+
+def _end_points(y: torch.Tensor, x: torch.Tensor, h: int, w: int
+                ) -> torch.Tensor:
+    """[2, h, w] int32: each position rounded half to even, a NaN to 0 (as
+    XLA's CPU conversion gives it; never a cast of NaN)."""
+    p = torch.stack([y, x])
+    p = torch.where(torch.isnan(p), torch.zeros((), device=p.device),
+                    torch.round(p))
+    return p.to(torch.int32).reshape(2, h, w)
+
+
+def advect_plain(dp: torch.Tensor, h4: int, w4: int,
+                 iterations: int = ITERATIONS,
+                 thres: float = BASIN_THRES
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11's plain twin: the JAX package's default
+    ``_find_centroids_matmul`` (centroids.py:140-168), step for step in the
+    rounding its CPU build performs (:func:`advect_step`), NaN and
+    infinities in dp included. The loop ends early, exactly, once no
+    particle's position bits change in a step."""
+    _, h, w = dp.shape
+    y, x, ymax, xmax = _start(h, w, h4, w4, dp.device)
+    fdy = dp[0].reshape(-1)
+    fdx = dp[1].reshape(-1)
+    poison = (plane_poison(dp[0]), plane_poison(dp[1]))
+    for _ in range(iterations):
+        ny, nx = advect_step(fdy, fdx, y, x, h, w, ymax, xmax, poison)
+        still = (torch.equal(ny.view(torch.int32), y.view(torch.int32))
+                 and torch.equal(nx.view(torch.int32), x.view(torch.int32)))
+        y, x = ny, nx
+        if still:
+            break
+    basin = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1]) < thres
+    return _end_points(y, x, h, w), basin
 
 
 def advect_schedule(dp: torch.Tensor, h4: int, w4: int,
@@ -152,25 +211,34 @@ def advect_schedule(dp: torch.Tensor, h4: int, w4: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K11 as its threads run it, in torch on any device: (cent [2, H, W]
     int32, basin [H, W] bool, the steps each particle ran [H, W] int64).
-    Steps of :func:`advect_step` in chunks of ``chunk``: a particle whose
-    position bits after a chunk equal those before it has an orbit whose
-    period divides ``chunk``, so it runs the ``left mod chunk`` steps
-    still due and stops; fewer than ``chunk`` steps left run one by one.
-    ``chunk`` 0 runs every step: the twin's loop with the kernel's clip.
-    Equal to :func:`advect_plain` wherever no NaN reaches a particle
-    (tests/test_torch_advect_schedule.py), and the kernel's end points
-    where one does; the step counts are the work the kernel's rule does."""
+    On a finite dp, steps of :func:`advect_step` in chunks of ``chunk``: a
+    particle whose position bits after a chunk equal those before it has an
+    orbit whose period divides ``chunk``, so it runs the ``left mod
+    chunk`` steps still due and stops; fewer than ``chunk`` steps left run
+    one by one; ``chunk`` 0 runs every step. Where dp holds a non-finite
+    value, the kernel's second pass: each particle steps again from its
+    start, one step at a time, until its bits stop changing (the steps
+    counted are that pass's). Equal to :func:`advect_plain`
+    (tests/test_torch_advect_schedule.py); the step counts are the work
+    the kernel's rule does."""
     _, h, w = dp.shape
-    dev = dp.device
-    ymax = torch.tensor(float(h4 - 1), device=dev)
-    xmax = torch.tensor(float(w4 - 1), device=dev)
-    y = torch.minimum(torch.arange(h, dtype=torch.float32, device=dev)[
-        :, None], ymax).expand(h, w).reshape(-1).clone()
-    x = torch.minimum(torch.arange(w, dtype=torch.float32, device=dev)[
-        None, :], xmax).expand(h, w).reshape(-1).clone()
+    y, x, ymax, xmax = _start(h, w, h4, w4, dp.device)
     fdy, fdx = dp[0].reshape(-1), dp[1].reshape(-1)
-    left = torch.full((h * w,), iterations, dtype=torch.int64, device=dev)
+    poison = (plane_poison(dp[0]), plane_poison(dp[1]))
+    left = torch.full((h * w,), iterations, dtype=torch.int64,
+                      device=dp.device)
     ran = torch.zeros_like(left)
+    if poison != (None, None):
+        on = left > 0
+        while bool(on.any()):
+            ny, nx = advect_step(fdy, fdx, y, x, h, w, ymax, xmax, poison)
+            moved = ((ny.view(torch.int32) != y.view(torch.int32))
+                     | (nx.view(torch.int32) != x.view(torch.int32)))
+            y, x = torch.where(on, ny, y), torch.where(on, nx, x)
+            ran += on
+            left -= on.long()
+            on = on & moved & (left > 0)
+        left.zero_()
     on = left >= chunk if chunk > 0 else torch.zeros_like(left, dtype=torch.bool)
     while bool(on.any()):
         by, bx = y.view(torch.int32).clone(), x.view(torch.int32).clone()
@@ -188,9 +256,8 @@ def advect_schedule(dp: torch.Tensor, h4: int, w4: int,
         y, x = torch.where(on, ny, y), torch.where(on, nx, x)
         left -= on.long()
         ran += on
-    cent = torch.stack([torch.round(y), torch.round(x)]).to(torch.int32)
     basin = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1]) < thres
-    return cent.reshape(2, h, w), basin, ran.reshape(h, w)
+    return _end_points(y, x, h, w), basin, ran.reshape(h, w)
 
 
 def advect_staged(w: int, h4: int) -> bool:
@@ -200,17 +267,23 @@ def advect_staged(w: int, h4: int) -> bool:
     return _build.load().irn_advect_staged_bytes(w, h4) > 0
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_words() -> int:
+    """uint32 words of K11's scratch (the source's irn_advect_scratch_words,
+    asked once)."""
+    return _build.load().irn_advect_scratch_words()
+
+
 def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
            thres: float = BASIN_THRES) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11: (cent [2, H, W] int32, basin [H, W] bool) from dp [2, H, W]
     f32 (zero beyond the (h4, w4) extent). Particles start at
     (min(row, h4 - 1), min(col, w4 - 1)) and stay in [0, h4 - 1] x
     [0, w4 - 1]; the end points round half to even. basin is
-    ``sqrt(dy^2 + dx^2) < thres`` over the whole grid. One launch on the
-    card, bit-equal to :func:`advect_plain` (where a NaN in dp reaches a
-    particle, the kernel clips the NaN sum to 0 and the twin, whose
-    ``torch.maximum`` carries NaN on, has no defined end point: there it
-    equals :func:`advect_schedule`)."""
+    ``sqrt(dy^2 + dx^2) < thres`` over the whole grid. One cooperative
+    launch on the card, bit-equal to :func:`advect_plain`, JAX's end points
+    where dp holds NaN or infinities too; its scratch (the CTAs' pooled
+    check of dp) is per stream and left ready for the next launch."""
     if dp.dim() != 3 or dp.shape[0] != 2:
         raise ValueError(f"advect: dp must be [2, H, W], got {tuple(dp.shape)}")
     _, h, w = dp.shape
@@ -226,8 +299,10 @@ def advect(dp: torch.Tensor, h4: int, w4: int, iterations: int = ITERATIONS,
         dp = dp.clone()
     cent = torch.empty((2, h, w), dtype=torch.int32, device=dp.device)
     basin = torch.empty((h, w), dtype=torch.bool, device=dp.device)
+    scratch = _build.stream_scratch("advect", dp.device, _scratch_words())
     _build.launch("advect", dp.device, dp.data_ptr(), cent.data_ptr(),
-                  basin.data_ptr(), h, w, h4, w4, iterations, float(thres))
+                  basin.data_ptr(), scratch.data_ptr(), h, w, h4, w4,
+                  iterations, float(thres))
     return cent, basin
 
 

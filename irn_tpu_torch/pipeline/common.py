@@ -1,6 +1,6 @@
-"""Model initialisation shared by the port's train stages — the
-counterpart of ``irn_tpu.pipeline.common``'s ``load_backbone_variables``
-and ``init_model_variables``."""
+"""Model initialisation shared by the port's stages — the counterpart of
+``irn_tpu.pipeline.common``'s ``load_backbone_variables`` and
+``init_model_variables`` — and the numerics every model stage pins."""
 
 from __future__ import annotations
 
@@ -14,6 +14,30 @@ from irn_tpu_torch.utils import checkpoint as ckpt
 from irn_tpu_torch.utils import weights as W
 
 INIT_SEED = 0
+
+# --model_dtype values the port runs, as torch dtypes
+MODEL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def model_dtype(cfg: Config) -> torch.dtype:
+    """The backbone's compute dtype of ``cfg.model_dtype`` (the JAX stages'
+    ``jnp.dtype(cfg.model_dtype)``); any other value than the two ported
+    raises (ROADMAP queue 1: ``float16`` is refused)."""
+    if cfg.model_dtype not in MODEL_DTYPES:
+        raise NotImplementedError(
+            f"model_dtype={cfg.model_dtype!r}: the port runs "
+            f"{' and '.join(map(repr, MODEL_DTYPES))}")
+    return MODEL_DTYPES[cfg.model_dtype]
+
+
+def pin_numerics() -> None:
+    """The reference's convolutions and products accumulate in f32: no TF32
+    convolution or matmul, and no cuBLAS reduction in bf16 (a bf16
+    backbone's convolutions are cuDNN's bf16 kernels, which accumulate in
+    f32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def load_backbone_variables(cfg: Config) -> Optional[Dict]:

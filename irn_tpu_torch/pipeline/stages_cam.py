@@ -82,12 +82,6 @@ def _label_dict(cfg: Config) -> Dict[str, np.ndarray]:
     return voc12.make_label_dict(sorted(names), cfg.voc12_root)
 
 
-def _no_tf32() -> None:
-    # the reference's numerics are f32: a TF32 conv or matmul is not
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def train_cam(cfg: Config, device="cuda") -> Dict:
     """Train the CAM classifier (step/train_cam.py): poly SGD with a 10x
     head, the stem and layers 1-2 frozen under ``cam_stop_grad`` "c3", the
@@ -99,15 +93,13 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
     Returns a summary: the steps this run took, the seconds its epoch loop
     took (every step and validation finished), each step's loss, each
     epoch's validate loss, the epoch it started from and max_step."""
-    if cfg.model_dtype != "float32":
-        raise NotImplementedError(
-            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    dtype = common.model_dtype(cfg)
     if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
         raise NotImplementedError(
             "data-parallel or multi-process training is ROADMAP queue 1 "
             "item 10 (Multi-GPU)")
     dev = resolve_device(device)
-    _no_tf32()
+    common.pin_numerics()
 
     labels = _label_dict(cfg)
     train_ds = voc12.ClassificationDataset(
@@ -128,7 +120,8 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
     max_step = (len(train_ds) // cfg.cam_batch_size) * cfg.cam_num_epoches
 
     model = common.init_model_variables(
-        CAMNet(stop_grad_at=cfg.cam_stop_grad or None), cfg).to(dev)
+        CAMNet(stop_grad_at=cfg.cam_stop_grad or None, dtype=dtype),
+        cfg).to(dev)
     if cfg.calibrate_bn and not cfg.pretrained_backbone:
         # no ImageNet running statistics exist: calibrate the frozen BN
         # statistics from one real batch so a from-scratch backbone is
@@ -316,15 +309,13 @@ def save_cam(out_path: str, valid_cat: np.ndarray, s: torch.Tensor,
 
 
 def load_cam_net(cfg: Config, device: torch.device) -> CAMNet:
-    model = CAMNet()
+    model = CAMNet(dtype=common.model_dtype(cfg))
     model.load_state_dict(cam_from_jax(load_checkpoint(cfg.cam_weights_name)))
     return model.to(device).eval()
 
 
 def _check_cam_flags(cfg: Config) -> None:
-    if cfg.model_dtype != "float32":
-        raise NotImplementedError(
-            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    common.model_dtype(cfg)
     if cfg.infer_devices > 1:
         raise NotImplementedError(
             "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
@@ -353,7 +344,7 @@ def make_cam(cfg: Config, device="cuda") -> Dict:
     model load; every npy written)."""
     _check_cam_flags(cfg)
     dev = resolve_device(device)
-    _no_tf32()
+    common.pin_numerics()
     ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
                                      _label_dict(cfg), img_normal=False)
     scale_pass = CAMScalePass(load_cam_net(cfg, dev), dev,
@@ -476,7 +467,7 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
     from irn_tpu_torch.ops.crf_device import LandmarkCRF
 
     dev = resolve_device(device)
-    _no_tf32()
+    common.pin_numerics()
     backend = resolve_crf_backend(cfg, dev)
     ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.ir_label_out_dir, exist_ok=True)

@@ -78,10 +78,7 @@ def check_slice_flags(cfg: Config) -> None:
             f"rw_matmul_dtype={cfg.rw_matmul_dtype!r}: bf16 operand modes "
             "for K2/K3 are later work (ROADMAP queue 2)"
         )
-    if cfg.model_dtype != "float32":
-        raise NotImplementedError(
-            f"model_dtype={cfg.model_dtype!r}: only float32 is ported"
-        )
+    common.model_dtype(cfg)
     if cfg.sem_monolith:
         raise NotImplementedError(
             "sem_monolith: the relay-transport monolith is not ported "
@@ -108,17 +105,13 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
     Returns a summary: the steps this run took, the seconds its epoch loop
     took (every step finished), each step's losses, the epoch it started
     from, max_step and the calibrated dp_mean."""
-    if cfg.model_dtype != "float32":
-        raise NotImplementedError(
-            f"model_dtype={cfg.model_dtype!r}: only float32 is ported")
+    dtype = common.model_dtype(cfg)
     if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
         raise NotImplementedError(
             "data-parallel or multi-process training is ROADMAP queue 1 "
             "item 10 (Multi-GPU)")
     dev = resolve_device(device)
-    # the reference's numerics are f32: a TF32 conv or matmul is not
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    common.pin_numerics()
 
     ds = voc12.AffinityDataset(
         cfg.train_list, label_dir=cfg.ir_label_out_dir,
@@ -129,7 +122,7 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
                                 drop_last=True, num_workers=cfg.num_workers)
     max_step = (len(ds) // cfg.irn_batch_size) * cfg.irn_num_epoches
 
-    model = common.init_model_variables(IRNet(), cfg).to(dev)
+    model = common.init_model_variables(IRNet(dtype=dtype), cfg).to(dev)
     table = irn_train.build_train_geometry(cfg.irn_crop_size,
                                            cfg.path_radius)
     opt = optim.poly_sgd(
@@ -455,7 +448,7 @@ class RandomWalkRunner:
 
 
 def _load_irn(cfg: Config, device: torch.device) -> EdgeDisplacementRunner:
-    model = IRNet()
+    model = IRNet(dtype=common.model_dtype(cfg))
     model.load_state_dict(irn_from_jax(load_checkpoint(cfg.irn_weights_name)))
     return EdgeDisplacementRunner(cfg, model, device)
 
@@ -477,9 +470,7 @@ def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
     the edge map inside each image's extent."""
     check_slice_flags(cfg)
     dev = resolve_device(device)
-    # the reference's numerics are f32: a TF32 conv or matmul is not
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    common.pin_numerics()
 
     runner = _load_irn(cfg, dev)
     walker = RandomWalkRunner(cfg, n_seed_rows=20, device=dev)
@@ -706,9 +697,7 @@ def make_ins_seg_labels(cfg: Config, device="cuda") -> Dict:
     redo."""
     check_slice_flags(cfg)
     dev = resolve_device(device)
-    # the reference's numerics are f32: a TF32 conv or matmul is not
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    common.pin_numerics()
 
     runner = _load_irn(cfg, dev)
     walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap, device=dev)

@@ -29,7 +29,9 @@ trees in turns; run the file by its path for that.
 ``--variants`` (the card only) builds this checkout's ``csrc/advect.cu``
 as it is and as variants (:func:`variants`: string edits of the source:
 no early stop, the taps through L1, 256 or 512 staging threads, chunks of
-4 and 16, 256 particles per CTA), each twice by nvcc with
+4 and 16, 256 particles per CTA, and the pooled check of a non-finite dp
+left out: no wait for the helper warp, no check of the staged rows;
+right on finite fields only), each twice by nvcc with
 ``_build.NVCC_FLAGS`` into ``_kernels/variants/``: as edited, timed by the
 profiler's device rows, and with clock64 stamps added (:func:`stamped`),
 which give per CTA the staging cycles, thread 0's cycles per step and the
@@ -115,18 +117,20 @@ def cycle_field(h: int, w: int, ext, period: int):
     return dp
 
 
-def nan_field(cap: int, ext, seed: int = 0):
-    """The basin field with NaN planted: on a few pixels inside the extent
-    (particles that tap them clip the NaN sum to 0) and beyond the taps'
-    reach (rows past h4, columns past w4: only the basin sees them)."""
+def nan_field(cap: int, ext, seed: int = 0, value: float = float("nan")):
+    """The basin field with ``value`` (NaN or an infinity) planted: on a few
+    pixels inside the extent and beyond the taps' reach (rows past h4,
+    columns past w4). Either makes every sample of its plane NaN (JAX's
+    form multiplies it by weight 0), so the end points are JAX's for a
+    non-finite dp (``centroids.advect_step``)."""
     dp = pull_field(cap, ext, 0.3, 0.1, seed)
     h4, w4 = ext
-    dp[0, h4 // 2, w4 // 3] = float("nan")
-    dp[1, h4 // 3, w4 // 2] = float("nan")
+    dp[0, h4 // 2, w4 // 3] = value
+    dp[1, h4 // 3, w4 // 2] = value
     if h4 + 1 < cap:
-        dp[:, h4 + 1:, :] = float("nan")
+        dp[:, h4 + 1:, :] = value
     if w4 + 1 < cap:
-        dp[:, :, w4 + 1:] = float("nan")
+        dp[:, :, w4 + 1:] = value
     return dp
 
 
@@ -317,27 +321,28 @@ def stamped(text: str) -> str:
          STAMP_DEF + "template <bool kStaged>\n__global__"),
         ("  extern __shared__ float2 staged[];\n",
          "  extern __shared__ float2 staged[];\n  stamp(0);\n"),
-        ("  if (kStaged) stage_rows(staged, fdy, fdx, H, W, h4);\n",
-         "  if (kStaged) stage_rows(staged, fdy, fdx, H, W, h4);\n"
-         "  stamp(1);\n"),
-        ("  int left = iterations;\n",
-         "  int left = iterations;\n  int ran = 0;\n"),
-        ("    left -= kChunk;\n",
-         "    left -= kChunk;\n    ran += kChunk;\n"
-         "    if (ran >= 50 && ran % 50 < kChunk && ran <= 300)\n"
-         "      stamp(1 + ran / 50);\n"),
-        ("  for (; left > 0; --left) step(taps, y, x, ymax, xmax);\n",
-         "  for (; left > 0; --left) {\n"
-         "    step(taps, y, x, ymax, xmax);\n"
-         "    ++ran;\n"
-         "    if (ran % 50 == 0 && ran <= 300) stamp(1 + ran / 50);\n"
-         "  }\n"
-         "  stamp(8);\n"
-         "  __syncwarp(__activemask());\n"
-         "  if (p < kProbeCtas * kThreads) {\n"
-         "    g_steps[p] = ran;\n"
-         "    if (threadIdx.x % 32 == 0) g_warp_end[p / 32] = clock64();\n"
-         "  }\n"))
+        ("  if (kStaged) bad = stage_rows(staged, fdy, fdx, H, W, h4, "
+         "s_poison);\n",
+         "  if (kStaged) bad = stage_rows(staged, fdy, fdx, H, W, h4, "
+         "s_poison);\n  stamp(1);\n"),
+        ("    int left = p < HW ? iterations : 0;\n",
+         "    int left = p < HW ? iterations : 0;\n    int ran = 0;\n"),
+        ("      left -= kChunk;\n",
+         "      left -= kChunk;\n      ran += kChunk;\n"
+         "      if (ran >= 50 && ran % 50 < kChunk && ran <= 300)\n"
+         "        stamp(1 + ran / 50);\n"),
+        ("    for (; left > 0; --left) step(taps, y, x, ymax, xmax);\n",
+         "    for (; left > 0; --left) {\n"
+         "      step(taps, y, x, ymax, xmax);\n"
+         "      ++ran;\n"
+         "      if (ran % 50 == 0 && ran <= 300) stamp(1 + ran / 50);\n"
+         "    }\n"
+         "    stamp(8);\n"
+         "    __syncwarp(__activemask());\n"
+         "    if (p < kProbeCtas * kThreads) {\n"
+         "      g_steps[p] = ran;\n"
+         "      if (threadIdx.x % 32 == 0) g_warp_end[p / 32] = clock64();\n"
+         "    }\n"))
     for old, new in marks:
         text = _edit(text, old, new)
     return text + STAMP_API
@@ -348,10 +353,20 @@ def variants() -> dict:
     with each variant's edits."""
     with open(os.path.join(CSRC, "advect.cu")) as f:
         src = f.read()
-    no_stop = ("    if (__float_as_uint(y) == by && __float_as_uint(x) == bx) {",
-               "    if (false) {")
+    no_stop = ("if (__float_as_uint(y) == by && __float_as_uint(x) == bx) {",
+               "if (false) {")
     l1 = ("  return W % 4 == 0 && bytes <= kSmemMax ? (int)bytes : 0;",
           "  return 0;")
+
+    # the pooled check of a non-finite dp left out (clean fields only): the
+    # steppers neither meet the helper nor read what it found, or the
+    # staged rows go unchecked
+    no_wait = (("      irn::hopper::named_sync(kBarrier, kThreads + 32);\n"
+                "      poisoned = (s_poison[0] | s_poison[5]) != 0;",
+                "      poisoned = false;"),
+               ("  irn::hopper::named_arrive(kBarrier, kThreads + 32);", ""))
+    no_check = (("  if (!__syncthreads_or(isnan(z))) return false;",
+                 "  __syncthreads();\n  return false;"),)
 
     def const(name, value):
         m = re.search(rf"constexpr int {name} = \d+;", src)
@@ -368,6 +383,8 @@ def variants() -> dict:
         "chunk 4": (const("kChunk", 4),),
         "chunk 16": (const("kChunk", 16),),
         "256 particles per CTA": (const("kThreads", 256),),
+        "no pooled wait": no_wait,
+        "no staged check": no_check,
     }
     out = {}
     for name, pairs in edits.items():
@@ -396,11 +413,13 @@ def _build_variant(name: str, text: str, probe: bool, out_dir: str):
 def _load_variant(path: str, probe: bool):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.irn_advect.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p,
-                               ctypes.POINTER(i)]
+    lib.irn_advect.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                               p, ctypes.POINTER(i)]
     lib.irn_advect.restype = i
     lib.irn_advect_staged_bytes.argtypes = [i, i]
     lib.irn_advect_staged_bytes.restype = i
+    lib.irn_advect_scratch_words.argtypes = []
+    lib.irn_advect_scratch_words.restype = i
     if probe:
         lib.irn_advect_probe_read.argtypes = [p, p, p]
         lib.irn_advect_probe_clear.argtypes = []
@@ -455,8 +474,9 @@ def _stamps(lib, n_px: int, iterations: int) -> dict:
 
 
 def _sass_summary(path: str, sass_out) -> dict:
-    """Opcode counts of the staged instance's largest loop (the unrolled
-    chunk of steps) from the library's SASS; the listing to ``sass_out``."""
+    """Opcode counts of each instance's chunk of steps (the innermost loop
+    with the most shared or global loads) from the library's SASS; the
+    listing to ``sass_out``."""
     from irn_tpu_torch.ops import _build
 
     sass = _build.cuobjdump_sass(path)
@@ -472,17 +492,25 @@ def _sass_summary(path: str, sass_out) -> dict:
             m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
             if m:
                 ins.append((int(m.group(1), 16), m.group(2)))
-        loops = []
+        spans = []
         for addr, text in ins:
             m = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
             if m and int(m.group(1), 16) < addr:
-                lo = int(m.group(1), 16)
-                loops.append([t for a, t in ins if lo <= a <= addr])
-        loops.sort(key=len, reverse=True)
+                spans.append((int(m.group(1), 16), addr))
+        # the loops that hold no other, the one with the most shared or
+        # global loads first: the chunk of steps (4 taps a step)
+        spans = [(lo, hi) for lo, hi in spans
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in spans)]
+        loops = sorted(([t for a, t in ins if lo <= a <= hi]
+                        for lo, hi in spans),
+                       key=lambda b: sum(t.split()[0].startswith(
+                           ("LDS", "LDG")) for t in b if t), reverse=True)
         ops = collections.Counter(
             re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
             for t in (loops[0] if loops else []))
-        out[fn] = dict(loop_sizes=[len(lp) for lp in loops],
+        out[fn] = dict(loop_sizes=sorted((len(lp) for lp in loops),
+                                         reverse=True),
                        largest_loop_ops=dict(sorted(ops.items())))
     return out
 

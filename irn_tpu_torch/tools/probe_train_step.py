@@ -1,13 +1,16 @@
 """Profile one train_irn step on one card, part by part:
 
   python irn_tpu_torch/tools/probe_train_step.py [--root DIR]
-      [--batch 32] [--crop 512] [--radius 10] [--reps 3] [--out FILE]
+      [--batch 32] [--crop 512] [--radius 10] [--reps 3]
+      [--model_dtype float32 [bfloat16]] [--out FILE]
 
 Input: a seeded random IRNet (``init_irnet``, seed 0), images of normals
 and reduced labels of a few class ellipses on background with 255 bands
 along their borders and 255 blocks, made from seed 0 with numpy (a
 synthetic stand-in for cam_to_ir_label's output; the step's work does not
-depend on the images' content). TF32 off.
+depend on the images' content). TF32 off, no bf16-reduced cuBLAS
+reduction. ``--model_dtype`` takes one or both backbone dtypes; each is
+profiled in turn, from the same seeded weights, in the same process.
 
 Parts, each run alone under torch.profiler after a warm-up, ``--reps``
 times: the card's own time per call (the device rows' sum) and its device
@@ -26,6 +29,9 @@ launches per call (kernels, copies and memsets):
   the heads' parameters (the sigmoid included);
 - ``optimizer``: ``PolySGD.step``.
 
+The backbone forward's device rows are also summed by kind (convolution,
+layout transform, elementwise, other; by kernel name).
+
 Then the whole step, ``irn_train.make_train_step`` of the tree: its time
 (host clock around a synchronized step, median over ``--reps`` steps
 after one), its device time and launches under the profiler, and the peak
@@ -35,8 +41,9 @@ The loss is the tree's ``affinity.irn_loss`` where it has one (K16),
 else the eager composition, so the parts and the whole step run the same
 loss. ``--root`` imports ``irn_tpu_torch`` from another checkout (a parent's
 ``git archive``), so one script profiles both trees; run the file by its
-path for that. Prints the card's name and power limit (nvidia-smi) and one
-JSON line; ``--out`` writes the JSON there too. Needs a CUDA card.
+path for that (a tree before bf16 runs float32 only). Prints the card's
+name and power limit (nvidia-smi) and one JSON line, each dtype's results
+under ``runs``; ``--out`` writes the JSON there too. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -87,10 +94,11 @@ def reduced_labels(batch: int, grid: int, seed: int = 0):
     return out
 
 
-def profile(fn, reps: int):
+def profile(fn, reps: int, top: dict = None):
     """(device ms, device launches) per call of fn: torch.profiler's device
     rows after a warm-up call (ctypes launches appear there by name, under
-    no torch op)."""
+    no torch op). ``top``, when given, receives the device rows by kind
+    (:func:`kind`): ms and launches per call."""
     import torch
 
     fn()
@@ -106,7 +114,24 @@ def profile(fn, reps: int):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us += e.self_device_time_total
             n += e.count
+            if top is not None:
+                row = top.setdefault(kind(e.key), [0.0, 0.0])
+                row[0] += e.self_device_time_total / 1e3 / reps
+                row[1] += e.count / reps
     return us / 1e3 / reps, n / reps
+
+
+def kind(name: str) -> str:
+    """A device row's kind, from its kernel name: convolution, layout
+    transform, elementwise or other."""
+    low = name.lower()
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "gemm")):
+        return "convolution"
+    if any(k in low for k in ("nchwtonhwc", "nhwctonchw", "transpose")):
+        return "layout transform"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    return "other"
 
 
 def main(argv=None) -> dict:
@@ -117,28 +142,49 @@ def main(argv=None) -> dict:
     ap.add_argument("--crop", type=int, default=512)
     ap.add_argument("--radius", type=int, default=10)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--model_dtype", nargs="+", default=["float32"],
+                    choices=["float32", "bfloat16"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("probe_train_step needs a CUDA card")
-    from irn_tpu_torch.models.irn import IRNet, init_irnet
-    from irn_tpu_torch.ops import affinity
-    from irn_tpu_torch.train import irn_train, optim
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    res = dict(card=card, root=os.path.abspath(args.root), runs={})
+    for name in args.model_dtype:
+        res["runs"][name] = probe(args, name, card)
+        torch.cuda.empty_cache()
+    line = json.dumps(res)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return res
+
+
+def probe(args, dtype_name: str, card: str) -> dict:
+    """One train_irn step by part with the backbone in ``dtype_name``."""
+    import numpy as np
+    import torch
+
+    from irn_tpu_torch.models.irn import IRNet, init_irnet
+    from irn_tpu_torch.ops import affinity
+    from irn_tpu_torch.train import irn_train, optim
+
     kernel = hasattr(affinity, "irn_loss")
     dev = torch.device("cuda")
-    model = init_irnet(IRNet(), torch.Generator().manual_seed(0)).to(dev)
+    net = (IRNet() if dtype_name == "float32"
+           else IRNet(dtype=getattr(torch, dtype_name)))
+    model = init_irnet(net, torch.Generator().manual_seed(0)).to(dev)
     opt = optim.poly_sgd(model.named_parameters(), 0.1, max_step=1000,
                          power=0.9, momentum=1e-4, weight_decay=1e-4,
                          mult_fn=optim.irn_lr_mult)
@@ -190,6 +236,8 @@ def main(argv=None) -> dict:
 
     heads_fwd_out = heads_fwd()
     parts = {}
+    backbone_rows = {}
+    profile(lambda: model.features(x), args.reps, backbone_rows)
     for name, fn in (
             ("backbone forward", lambda: model.features(x)),
             ("heads forward", heads_fwd),
@@ -226,7 +274,9 @@ def main(argv=None) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     step_dev = profile(lambda: step(x, red), args.reps)
     res = dict(
-        card=card, root=os.path.abspath(args.root),
+        model_dtype=dtype_name,
+        backbone_rows={k: dict(device_ms=v[0], launches=v[1])
+                       for k, v in backbone_rows.items()},
         loss="kernel" if kernel else "eager", batch=args.batch,
         crop=args.crop, radius=args.radius, ignore_share=ignore,
         parts={k: dict(device_ms=v[0], launches=v[1])
@@ -235,17 +285,16 @@ def main(argv=None) -> dict:
         step_device_ms=step_dev[0], step_launches=step_dev[1],
         peak_gib=peak / 2 ** 30, before_step_gib=base / 2 ** 30)
     for k, v in parts.items():
-        print(f"{k}: {v[0]:.3f} ms device, {v[1]:.0f} launches ({card})",
-              flush=True)
-    print(f"step: {res['step_ms']:.2f} ms (host clock, median), device "
+        print(f"{dtype_name} {k}: {v[0]:.3f} ms device, {v[1]:.0f} "
+              f"launches ({card})", flush=True)
+    for k, v in sorted(backbone_rows.items()):
+        print(f"{dtype_name} backbone forward, {k} rows: {v[0]:.3f} ms "
+              f"device, {v[1]:.0f} launches ({card})", flush=True)
+    print(f"{dtype_name} step: {res['step_ms']:.2f} ms (host clock, "
+          f"median), device "
           f"{step_dev[0]:.2f} ms in {step_dev[1]:.0f} launches; peak "
           f"{res['peak_gib']:.2f} GiB ({res['before_step_gib']:.2f} before "
           f"the step); loss {res['loss']} ({card})", flush=True)
-    line = json.dumps(res)
-    print(line, flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
     return res
 
 

@@ -4,8 +4,11 @@ reference).
 
 One step: the CAMNet training forward (no autograd through the stem and
 layers 1-2 under ``stop_grad_at="c3"``), the multilabel soft-margin loss,
-the backward and the poly SGD step over the CAM groups (head 10x). The
-evaluation step is the same forward and loss without autograd."""
+the backward and the poly SGD step over the CAM groups (head 10x). Under
+``--model_dtype bfloat16`` layers 3-4 train through bf16 convolutions
+whose f32 weights are cast in the forward, so the parameters and their
+gradients stay f32; the loss is taken on the f32 logits. The evaluation
+step is the same forward and loss without autograd."""
 
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ The loss side runs as two pairs of kernels: the path max (K13a forward,
 K13b backward), then the affinity labels, the four masked affinity /
 displacement losses and the reference's weighting in one pass each way
 (K16 forward and backward), from the reduced label map on the device; no
-per-pair mask or loss map is made. After training, the displacement mean
-calibrates MeanShift (train_irn.py:95-107). The stage's ``.train`` checkpoint is
+per-pair mask or loss map is made. Under ``--model_dtype bfloat16`` the
+frozen backbone runs in bf16 without autograd and the heads in f32, so
+K13a, K16 and K13b see f32 as in an f32 run. After training, the
+displacement mean calibrates MeanShift (train_irn.py:95-107). The stage's ``.train`` checkpoint is
 :func:`irn_tpu_torch.train.optim.train_state`'s."""
 
 from __future__ import annotations

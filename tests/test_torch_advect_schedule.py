@@ -2,9 +2,9 @@
 model of the kernel's schedule (steps in chunks of 8; when a particle's
 position bits after a chunk equal those before it, only the ``left mod
 8`` steps still due run, then it stops; fewer than 8 steps run one by
-one), built on ``centroids.advect_step`` (the twin's operations with the
-kernel's clip), held equal to the unchanged ``centroids.advect_plain`` on
-the fields and step counts that decide whether the rule is exact; the
+one), built on ``centroids.advect_step`` (the twin's step), held equal to
+``centroids.advect_plain`` on the fields and step counts that decide
+whether the rule is exact, and to JAX on a non-finite dp; the
 staged rows' layout (pitch W + 1, the last column and row repeated)
 against the twin's clamped taps; and ``advect`` on the CPU against JAX's
 ``_find_centroids_matmul``."""
@@ -127,24 +127,30 @@ def test_bit_compare_keeps_signed_zeros():
     assert bool(z[0] == z[1])
 
 
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
 @pytest.mark.parametrize("hw4", EXTENTS)
-def test_schedule_nan(hw4):
-    """NaN in dp: beyond the taps' reach (rows past h4, columns past w4)
-    the twin's end points, NaN only in the basin; inside the extent the
-    kernel's clip (a NaN sum to 0): the twin's loop with it, every step
-    run (``advect_schedule`` at chunk 0)."""
+def test_schedule_nan(hw4, value):
+    """A non-finite value in dp (NaN or an infinity), planted inside the
+    extent and beyond the taps' reach (rows past h4, columns past w4), or
+    beyond it alone: the schedule's end points are JAX's
+    (``_find_centroids_matmul``: its weight-0 products make every sample
+    of the plane NaN, and a NaN end point converts to 0), the basin the
+    twin's (``sqrt(NaN) < 2.5`` is false)."""
     h, w = GRID
-    dp = torch.from_numpy(pa.nan_field(w, hw4)[:, :h].copy())
-    cent, _, _ = schedule(dp, *hw4, 300)
-    want, _, _ = centroids.advect_schedule(dp, *hw4, 300, chunk=0)
-    assert torch.equal(cent, want)
+    dp = torch.from_numpy(pa.nan_field(w, hw4, value=value)[:, :h].copy())
     outside = dp.clone()
     outside[:, : hw4[0] + 1, : hw4[1] + 1] = _field("basin", hw4)[
         :, : hw4[0] + 1, : hw4[1] + 1]
-    cent, _, _ = schedule(outside, *hw4, 300)
-    want, want_basin = centroids.advect_plain(outside, *hw4)
-    assert torch.equal(cent, want)
-    assert torch.equal(centroids.advect(outside, *hw4)[1], want_basin)
+    for field in (dp, outside):
+        cent, _, _ = schedule(field, *hw4, 300)
+        want = jax_centroids._find_centroids_matmul(
+            jnp.asarray(field.numpy()), jnp.int32(hw4[0]), jnp.int32(hw4[1]),
+            300)
+        np.testing.assert_array_equal(cent.numpy(), np.asarray(want))
+        want_cent, want_basin = centroids.advect_plain(field, *hw4)
+        assert torch.equal(cent, want_cent)
+        assert torch.equal(centroids.advect(field, *hw4)[1], want_basin)
+        assert not bool(want_basin[hw4[0] + 1:].any())
 
 
 def staged_rows(dp, h4):

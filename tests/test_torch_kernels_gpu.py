@@ -718,20 +718,21 @@ def test_advect_unaligned(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")])
 @pytest.mark.parametrize("grid,hw4", [((128, 128), (94, 125)),
                                       ((192, 192), (188, 181))])
-def test_advect_nan(cuda, grid, hw4):
-    """K11 with NaN in dp: where no particle taps it (rows past h4, columns
-    past w4), bit-equal to the twin; inside the extent the kernel clips a
-    NaN sum to 0, bit-equal to the twin's loop with that clip
-    (``centroids.advect_schedule`` at chunk 0; the twin itself carries NaN
-    into its indices there)."""
+def test_advect_nan(cuda, grid, hw4, value):
+    """K11 with NaN or an infinity in dp, inside the extent and beyond the
+    taps' reach (rows past h4, columns past w4), or beyond it alone:
+    bit-equal to the twin, whose end points are JAX's
+    (tests/test_torch_advect_nan.py), in one launch per call."""
     from irn_tpu_torch.ops import centroids
     from irn_tpu_torch.tools import probe_advect as pa
 
-    dp = torch.from_numpy(pa.nan_field(grid[0], hw4)).to(cuda)
+    dp = torch.from_numpy(pa.nan_field(grid[0], hw4, value=value)).to(cuda)
     got = centroids.advect(dp, *hw4)
-    want = centroids.advect_schedule(dp, *hw4, chunk=0)[:2]
+    want = centroids.advect_plain(dp, *hw4)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     outside = dp.clone()
     outside[:, : hw4[0] + 1, : hw4[1] + 1] = _dp_field(
@@ -742,6 +743,34 @@ def test_advect_nan(cuda, grid, hw4):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert not bool(got[1][hw4[0] + 1:].any())
     assert _build.LAUNCHES["advect"] == 2
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_advect_nan_plants(cuda, seed):
+    """K11 on small grids with NaN and infinities planted as
+    tests/test_torch_advect_nan.py plants them (blocks of one-signed
+    infinities that some particles tap with positive weight; several kinds
+    at once; both instances): bit-equal to the twin; then on the clean
+    field again, bit-equal (the scratch's next set was left ready)."""
+    from irn_tpu_torch.ops import centroids
+
+    g = np.random.default_rng(seed)
+    for grid in ((32, 32), (36, 30), (6, 8)):
+        h, w = grid
+        hw4 = (int(g.integers(1, h + 1)), int(g.integers(1, w + 1)))
+        clean = (g.standard_normal((2, h, w)) * 1.5).astype(np.float32)
+        dp = clean.copy()
+        v = g.choice([np.nan, np.inf, -np.inf])
+        r, c = int(g.integers(0, hw4[0])), int(g.integers(0, hw4[1]))
+        for k in ((0,), (1,), (0, 1))[seed % 3]:
+            dp[k, r:r + 2, c:c + 2] = v if seed % 2 else np.inf
+        for field in (dp, clean):
+            t = torch.from_numpy(field).to(cuda)
+            for iterations in (1, 2, 300):
+                got = centroids.advect(t, *hw4, iterations)
+                want = centroids.advect_plain(t, *hw4, iterations)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    grid, hw4, iterations)
 
 
 def _spiral(h):

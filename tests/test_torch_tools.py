@@ -194,13 +194,15 @@ def test_probe_advect_variants_name_the_source_constants():
     from irn_tpu_torch.tools import probe_advect as pa
 
     vs = pa.variants()
-    assert len(vs) == 9
+    assert len(vs) == 11
     for name, text in vs.items():
         assert (text != vs["as built"]) == (name != "as built"), name
         st = pa.stamped(text)
         assert st.count("stamp(") == 6 and "irn_advect_probe_read" in st
     assert "#ifndef" not in vs["as built"] and "#ifdef" not in vs["as built"]
     assert "constexpr int kChunk = 16;" in vs["chunk 16"]
+    assert "named_sync" not in vs["no pooled wait"]
+    assert "__syncthreads_or" not in vs["no staged check"]
     with pytest.raises(ValueError, match="found 0 times"):
         pa._edit("abc", "x", "y")
 
