@@ -149,6 +149,24 @@ PERF.md, PR 23), the profiler's device rows of one bf16 backbone forward
 time per pair, and the train_irn and train_cam steps by part in bf16
 beside the f32 ones of their phases.
 
+The phase ``multi: two workers, two processes, DDP on one card`` (the
+card host has one card, so it shows the multi-device code working, not
+scaling) runs (a) make_sem_seg and make_ins_seg over the
+tree serially and with ``devices=[cuda, cuda]`` (``common.DeviceSpreader``:
+two threads, two streams), every PNG and npy byte-equal and every
+kernel's launches, summed over the workers, equal to the serial run's;
+(b) make_cam and make_sem_seg as two processes of the CLI on the card
+(``--dist_coordinator 127.0.0.1:<port>``, ``--device cuda:0``; NCCL
+default group, barriers over gloo), every file byte-equal to the same CLI
+in this process and each rank its strided share; (c) train_irn and
+train_cam for 2 steps (crop 256, batch 16) plain twice and under DDP at
+world 1 over NCCL: the first loss bit-equal and the update within the
+one-step f32 gate (the plain run does not repeat itself bit for bit on
+the card, and the phase prints by how much); (d) both stages over two
+ranks sharing the card through gloo (one spawned group): the f32 train
+gates of the world-1 run and train_cam's statistics bit-equal. Each part
+prints its backend, world size, images per rank or worker and seconds.
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -4619,6 +4637,357 @@ def bf16_forward_checks(dev, stage: dict, card: str) -> dict:
     return dict(dist=dist, times=times)
 
 
+MULTI_CROP = 256  # the multi phase's train crops (its steps check DDP)
+MULTI_TIMEOUT_S = 300
+
+
+def _files_equal(dir_a: str, dir_b: str) -> int:
+    """Every file of dir_a byte-equal in dir_b (the same names); returns the
+    count."""
+    fa, fb = sorted(os.listdir(dir_a)), sorted(os.listdir(dir_b))
+    check(fa == fb and bool(fa), f"{dir_b}: files {fb[:4]} vs {fa[:4]}")
+    for f in fa:
+        with open(os.path.join(dir_a, f), "rb") as x, \
+                open(os.path.join(dir_b, f), "rb") as y:
+            check(x.read() == y.read(), f"{dir_b}/{f} differs from {dir_a}")
+    return len(fa)
+
+
+def _multi_spread(dev, stage: dict) -> None:
+    """(a) make_sem_seg and make_ins_seg over the smoke tree, serially and
+    with the spreader's two workers on this card (two threads, two
+    streams): the same PNGs and npys, and every kernel's launches, summed
+    over the workers, equal to the serial run's."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.pipeline import stages_irn
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    for tag, fn, flag in (
+            ("make_sem_seg", stages_irn.make_sem_seg_labels, "sem_seg"),
+            ("make_ins_seg", stages_irn.make_ins_seg_labels, "ins_seg")):
+        outs, counts, res = {}, {}, {}
+        for mode, devices in (("serial", None), ("spread", [dev, dev])):
+            out = os.path.join(work, f"multi_{flag}_{mode}")
+            cfg, _ = port_run.parse([
+                "--voc12_root", root, "--infer_list", ids,
+                "--train_list", ids, "--cam_out_dir",
+                os.path.join(work, "cam"), "--irn_weights_name",
+                stage["cfg"].irn_weights_name, f"--{flag}_out_dir", out,
+                "--device", str(dev)])
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res[mode] = fn(cfg, dev, devices=devices)
+            torch.cuda.synchronize()
+            res[mode]["wall"] = time.perf_counter() - t0
+            counts[mode] = {k: v for k, v in _build.LAUNCHES.items() if v}
+            outs[mode] = out
+        n = _files_equal(outs["serial"], outs["spread"])
+        check(n == len(names), f"{tag}: {n} files")
+        check(counts["spread"] == counts["serial"] and counts["serial"],
+              f"{tag} launches spread {counts['spread']} vs serial "
+              f"{counts['serial']}")
+        per = res["spread"]["assigned"]
+        check(len(per) == 2 and min(per) > 0, f"{tag} workers took {per}")
+        for mode in ("serial", "spread"):
+            print(f"multi (a) {tag} {mode}: backend threads + CUDA streams, "
+                  f"world 1, workers {len(res[mode]['assigned'])}, images "
+                  f"per worker {res[mode]['assigned']}, "
+                  f"{res[mode]['wall']:.2f} s with the stage's set-up "
+                  f"(the checkpoint, a model copy per worker), the image "
+                  f"loop {res[mode]['seconds']:.2f} s", flush=True)
+        print(f"multi (a) {tag}: {n} files byte-equal, launches "
+              f"{counts['spread']} in both runs", flush=True)
+
+
+def _multi_processes(dev, stage: dict, here: str) -> None:
+    """(b) make_cam and make_sem_seg as two processes of the CLI on this
+    card (``--dist_coordinator``, ``--device cuda:0`` in each), against the
+    same CLI run in this process: every npy and PNG byte-equal, each rank
+    its strided share."""
+    from irn_tpu_torch.parallel import mesh
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    weights = os.path.join(work, "cam.ckpt")  # the cam phase's CAMNet
+    check(os.path.exists(weights), "no CAMNet checkpoint from the cam phase")
+
+    def argv(out):
+        os.makedirs(out, exist_ok=True)
+        return ["--voc12_root", root, "--infer_list", ids,
+                "--train_list", ids, "--cam_weights_name", weights,
+                "--irn_weights_name", stage["cfg"].irn_weights_name,
+                "--cam_out_dir", os.path.join(out, "cam"),
+                "--sem_seg_out_dir", os.path.join(out, "sem"),
+                "--cam_scales", "1.0", "0.5", "--session_dir",
+                os.path.join(out, "sess"), "--log_name",
+                os.path.join(out, "log"), "--make_cam_pass",
+                "--make_sem_seg_pass", "--device", f"cuda:{dev.index or 0}"]
+
+    one = os.path.join(work, "multi_one")
+    t0 = time.perf_counter()
+    cli(argv(one))
+    t_one = time.perf_counter() - t0
+    two = os.path.join(work, "multi_two")
+    port = mesh.free_port()
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "irn_tpu_torch.pipeline.run", *argv(two),
+         "--dist_coordinator", f"127.0.0.1:{port}",
+         "--dist_num_processes", "2", "--dist_process_id", str(r)],
+        cwd=here, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = []
+    try:
+        for p_ in procs:
+            errs.append(p_.communicate(timeout=MULTI_TIMEOUT_S)[1])
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    t_two = time.perf_counter() - t0
+    for r, (p_, e) in enumerate(zip(procs, errs)):
+        if p_.returncode:
+            print(e[-4000:], flush=True)
+        check(p_.returncode == 0, f"multi (b) rank {r} exit {p_.returncode}")
+    for sub in ("cam", "sem"):
+        n = _files_equal(os.path.join(one, sub), os.path.join(two, sub))
+        check(n == len(names), f"multi (b) {sub}: {n} files")
+    shares = []
+    for r, log in enumerate(("log.log", "log.p1.log")):
+        with open(os.path.join(two, log)) as f:
+            text = f.read()
+        sem = sorted(int(i) for i in re.findall(
+            rf"^make_sem_seg (\d+)/{len(names)}$", text, re.M))
+        cam = re.findall(rf"^make_cam (\d+)/{len(names)}$", text, re.M)
+        check(sem == list(range(r, len(names), 2)),
+              f"multi (b) rank {r} walked images {sem}")
+        shares.append((len(cam), len(sem)))
+    check(sum(c for c, _ in shares) == len(names),
+          f"multi (b) make_cam shares {shares}")
+    print(f"multi (b) make_cam + make_sem_seg one process: world 1, "
+          f"{len(names)} images, {t_one:.2f} s", flush=True)
+    print(f"multi (b) make_cam + make_sem_seg two processes on one card: "
+          f"backend nccl (host barriers over gloo), world 2, images per rank "
+          f"(make_cam, make_sem_seg) {shares}, {t_two:.2f} s wall with "
+          f"process start; files byte-equal to one process", flush=True)
+
+
+def _multi_train(dev, stage: dict) -> None:
+    """(c) train_irn and train_cam for 2 steps (crop 256, batch 16) under
+    DDP at world 1 over NCCL against the plain run: bit-equal checkpoints
+    and losses where the plain run repeats itself bit for bit; on the card
+    it does not (cuDNN's and the atomics' backward), so the same first
+    loss and the update within the one-step f32 gate (1e-3 IRN, 1e-2 CAM);
+    (d) both stages over two ranks on this one card through gloo (one
+    spawned group), within the f32 train gates of the world-1 run (the
+    losses, the heads' or trained tensors' update; train_cam's statistics,
+    which every rank calibrates from the same whole batch, bit-equal)."""
+    from irn_tpu_torch.parallel import mesh
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.pipeline import stages_cam, stages_irn
+    from irn_tpu_torch.utils.checkpoint import load_checkpoint
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    train_ids = os.path.join(root, "train_multi.txt")
+    with open(train_ids, "w") as f:
+        f.write("\n".join(names * 4) + "\n")  # 32 images: 2 steps of 16
+    kinds = (
+        ("train_irn", stages_irn.train_irn,
+         ["--irn_crop_size", str(MULTI_CROP), "--irn_batch_size", "16",
+          "--irn_num_epoches", "1", "--ir_label_out_dir",
+          os.path.join(work, "ir_auto"), "--train_irn_pass"],
+         "irn_weights_name"),
+        ("train_cam", stages_cam.train_cam,
+         ["--cam_crop_size", str(MULTI_CROP), "--cam_batch_size", "16",
+          "--cam_num_epoches", "1", "--val_list", ids, "--train_cam_pass"],
+         "cam_weights_name"),
+    )
+    res = {tag: {} for tag, *_ in kinds}
+    ckpts = {tag: {} for tag, *_ in kinds}
+    cfgs = {}
+
+    def config(tag, extra, key, run):
+        weights = os.path.join(work, f"multi_{tag}_{run}", "w.ckpt")
+        os.makedirs(os.path.dirname(weights), exist_ok=True)
+        cfgs[tag, run] = port_run.parse([
+            "--voc12_root", root, "--train_list", train_ids,
+            "--infer_list", ids, f"--{key}", weights, "--session_dir",
+            os.path.join(work, "sess"), "--device", str(dev), *extra])[0]
+        return cfgs[tag, run]
+
+    def report(tag, run, backend, wall, how):
+        r_ = res[tag][run]
+        ckpts[tag][run] = dict(_leaves(load_checkpoint(getattr(
+            cfgs[tag, run], dict((k[0], k[3]) for k in kinds)[tag]))))
+        print(f"multi ({'d' if run == 'gloo2' else 'c'}) {tag} {run}: "
+              f"backend {backend}, world {r_['world']}, images per rank "
+              f"{16 // r_['world']} per step, {r_['n_steps']} steps, "
+              f"{wall:.2f} s with {how}", flush=True)
+
+    for tag, fn, extra, key in kinds:
+        for run, ranks in (
+                ("plain", None), ("plain2", None),
+                ("nccl1", mesh.RankSpec((str(dev),), backend="nccl"))):
+            cfg = config(tag, extra, key, run)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res[tag][run] = fn(cfg, dev, ranks=ranks)
+            torch.cuda.synchronize()
+            report(tag, run, ranks.backend if ranks else "none",
+                   time.perf_counter() - t0, "group set-up")
+    # (d): both stages on the two ranks of one spawned group
+    jobs = [(tag, config(tag, extra, key, "gloo2"))
+            for tag, _, extra, key in kinds]
+    t0 = time.perf_counter()
+    ranks = mesh.run_ranks(_multi_rank_jobs, (jobs,),
+                           mesh.RankSpec((str(dev), str(dev)),
+                                         backend="gloo"),
+                           deadline_s=MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for i, (tag, _) in enumerate(jobs):
+        res[tag]["gloo2"] = dict(
+            ranks[0][i], written_by_rank=[r[i]["written"] for r in ranks])
+        report(tag, "gloo2", "gloo", wall, "spawn, both stages")
+    for tag, *_ in kinds:
+        res_, ckpts_ = res[tag], ckpts[tag]
+        plain, nccl1, gloo2 = (res_[k] for k in ("plain", "nccl1", "gloo2"))
+        check(plain["n_steps"] == 2 and nccl1["world"] == 1
+              and gloo2["world"] == 2, f"{tag} runs {plain['n_steps']} "
+              f"steps, worlds {nccl1['world']} {gloo2['world']}")
+        if tag == "train_irn":
+            trained = [k for k in ckpts_["plain"] if k[0] == "params"
+                       and k[1] != "resnet50"]
+        else:  # the frozen stem and layers 1-2 add nothing to the sums
+            trained = [k for k in ckpts_["plain"] if k[0] == "params"]
+        init = stage.setdefault("multi_init", {})
+        if tag not in init:
+            init[tag] = _multi_init(tag, ckpts_["plain"])
+
+        def update_error(run):
+            num = sum(float(np.sum((ckpts_[run][k].astype(np.float64)
+                                    - ckpts_["plain"][k]) ** 2))
+                      for k in trained)
+            den = sum(float(np.sum((ckpts_["plain"][k].astype(np.float64)
+                                    - init[tag][k]) ** 2)) for k in trained)
+            check(den > 0, f"{tag}: the plain run did not train")
+            return (num / den) ** 0.5
+
+        repeat = _ckpt_diff(ckpts_["plain"], ckpts_["plain2"])
+        ddp1 = _ckpt_diff(ckpts_["plain"], ckpts_["nccl1"])
+        errs = {run: update_error(run) for run in ("plain2", "nccl1",
+                                                   "gloo2")}
+        print(f"multi (c) {tag}: plain vs plain again: max |difference| "
+              f"{repeat:.3e}, update error {errs['plain2']:.3e}; plain vs "
+              f"DDP world 1: {ddp1:.3e}, {errs['nccl1']:.3e}; losses plain "
+              f"{plain['losses']}, again {res_['plain2']['losses']}, DDP "
+              f"{nccl1['losses']}", flush=True)
+        if repeat == 0 and plain["losses"] == res_["plain2"]["losses"]:
+            check(ddp1 == 0 and plain["losses"] == nccl1["losses"],
+                  f"multi (c) {tag}: DDP at world 1 not bit-equal to the "
+                  "plain run, which repeats bit for bit")
+        else:
+            # the plain run does not repeat itself bit for bit (cuDNN's
+            # and the atomics' backward on the card): DDP at world 1 is
+            # held to the first loss bit for bit (the same weights and
+            # batch) and to the one-step f32 gate of the update
+            gate1 = 1e-3 if tag == "train_irn" else 1e-2
+            check(_first_loss(nccl1) == _first_loss(plain)
+                  and errs["nccl1"] <= gate1,
+                  f"multi (c) {tag}: DDP at world 1 first loss "
+                  f"{_first_loss(nccl1)} vs {_first_loss(plain)}, update "
+                  f"error {errs['nccl1']:.3e} (the plain run repeats within "
+                  f"{errs['plain2']:.3e})")
+        check(gloo2["written_by_rank"][1] == [],
+              f"multi (d) {tag}: rank 1 wrote {gloo2['written_by_rank'][1]}")
+        if tag == "train_irn":
+            for a, b in zip(gloo2["losses"], plain["losses"]):
+                for k in b:
+                    check(abs(a[k] - b[k]) <= 1e-3 * abs(b[k]),
+                          f"multi (d) {tag} loss {k}: {a[k]} vs {b[k]}")
+            gate = 2e-2
+        else:
+            check(abs(gloo2["losses"][0] - plain["losses"][0])
+                  <= 1e-4 * abs(plain["losses"][0]),
+                  f"multi (d) {tag} first loss {gloo2['losses'][0]} vs "
+                  f"{plain['losses'][0]}")
+            for k, v in ckpts_["plain"].items():
+                if k[0] == "stats":
+                    check(np.array_equal(ckpts_["gloo2"][k], v),
+                          f"multi (d) {tag}: statistics {k} differ")
+            gate = 5e-2
+        print(f"multi (d) {tag}: update error vs world 1 "
+              f"{errs['gloo2']:.3e} (gate {gate}), losses gloo2 "
+              f"{gloo2['losses']} world 1 {plain['losses']}", flush=True)
+        check(errs["gloo2"] <= gate,
+              f"multi (d) {tag} update error {errs['gloo2']}")
+
+
+def _multi_rank_jobs(jobs, device) -> list:
+    """On each rank of the multi phase's group: the train stages of
+    ``jobs`` ((tag, cfg) pairs) in turn; their summaries."""
+    from irn_tpu_torch.pipeline import stages_cam, stages_irn
+
+    out = []
+    for tag, cfg in jobs:
+        fn = stages_irn.train_irn if tag == "train_irn" else \
+            stages_cam.train_cam
+        with contextlib.redirect_stdout(io.StringIO()):
+            out.append(fn(cfg, device))
+    return out
+
+
+def _ckpt_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over two checkpoints' leaves (same keys)."""
+    check(sorted(a) == sorted(b), "checkpoint keys differ")
+    return max(float(np.max(np.abs(a[k].astype(np.float64) - b[k])))
+               if a[k].size else 0.0 for k in a)
+
+
+def _first_loss(summary: dict):
+    first = summary["losses"][0]
+    return first["loss"] if isinstance(first, dict) else first
+
+
+def _multi_init(tag: str, like: dict) -> dict:
+    """The seeded initial parameters of the stage's model, by JAX path."""
+    from irn_tpu_torch.models.cam import CAMNet
+    from irn_tpu_torch.models.irn import IRNet
+    from irn_tpu_torch.pipeline import common
+    from irn_tpu_torch.pipeline.config import Config
+    from irn_tpu_torch.utils.weights import cam_to_jax, irn_to_jax
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if tag == "train_irn":
+            model = common.init_model_variables(IRNet(), Config())
+            tree = irn_to_jax(model.state_dict())
+        else:
+            model = common.init_model_variables(CAMNet(), Config())
+            tree = cam_to_jax(model.state_dict())
+    init = dict(_leaves(tree))
+    check(sorted(init) == sorted(like), f"{tag}: init keys differ")
+    return init
+
+
+def run_multi(dev, stage: dict, here: str, card: str) -> None:
+    """The multi phase: several workers and ranks on the one card."""
+    print(f"multi: card {card}; one card, so two workers or two ranks "
+          "share it: no claim about several cards", flush=True)
+    t0 = time.perf_counter()
+    _multi_spread(dev, stage)
+    _multi_processes(dev, stage, here)
+    _multi_train(dev, stage)
+    print(f"multi: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -4697,6 +5066,8 @@ def main() -> int:
         bf16_forward_checks(dev, stage, card)
         train_layers(dev, train, card, torch.bfloat16)
         train_cam_layers(dev, tc, card, torch.bfloat16)
+        phase("multi: two workers, two processes, DDP on one card")
+        run_multi(dev, stage, here, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

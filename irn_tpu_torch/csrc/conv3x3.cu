@@ -237,6 +237,10 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// The SM count of the first card that asks, kept for every later call: the
+// same answer on a host of identical cards (one H100 model), which is the
+// only kind the port runs on; cards of mixed models would need it per
+// device.
 int sm_count() {
   static int sms = 0;
   if (!sms) {

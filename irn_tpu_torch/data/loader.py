@@ -4,9 +4,8 @@ reference's torch DataLoader in its train stages.
 
 Batches are collated to stacked numpy arrays ready for one host->device
 copy; a thread pool overlaps JPEG decode and augmentation with the card's
-work. Left out: the JAX loader's ``local_rows`` (each process decodes its
-rows of a global batch), which serves multi-process training (ROADMAP
-queue 1 item 10)."""
+work. ``local_rows`` serves data-parallel training: each rank decodes its
+contiguous rows of every global batch."""
 
 from __future__ import annotations
 
@@ -50,6 +49,12 @@ class BatchLoader:
       num_workers: decode/augment threads.
       prefetch: max batches in flight.
       indices: optional explicit index subset (e.g. a shard).
+      local_rows: optional (lo, hi) — decode only these rows of every
+        (globally shuffled) batch. Data parallelism over ranks: each rank
+        forms the SAME global batch stream (seeded shuffle) and loads only
+        its contiguous row range of each batch
+        (parallel/mesh.local_batch_slice). Requires drop_last (a ragged
+        tail batch has no well-defined row range).
     """
 
     def __init__(
@@ -62,6 +67,7 @@ class BatchLoader:
         prefetch: int = 2,
         seed: int = 0,
         indices: Optional[np.ndarray] = None,
+        local_rows: Optional[tuple] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -73,6 +79,17 @@ class BatchLoader:
         self.indices = (
             np.asarray(indices) if indices is not None else np.arange(len(dataset))
         )
+        if local_rows is not None:
+            lo, hi = local_rows
+            if not (0 <= lo < hi <= batch_size):
+                raise ValueError(f"local_rows {local_rows} outside batch "
+                                 f"[0, {batch_size})")
+            if (lo, hi) != (0, batch_size) and not drop_last:
+                raise ValueError(
+                    "local_rows requires drop_last=True (a ragged tail "
+                    "batch has no well-defined per-rank row range)"
+                )
+        self.local_rows = local_rows
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -104,6 +121,11 @@ class BatchLoader:
             idx[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(n_batches)
         ]
+        if self.local_rows is not None:
+            # slice AFTER forming global batches so every rank sees the
+            # same global shuffle stream and decodes disjoint rows of it
+            lo, hi = self.local_rows
+            batches = [b[lo:hi] for b in batches]
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -20,8 +20,20 @@ range, or 1 for the table pass alone; K17's blur, start, quantize and
 combine 1 each; one K16 forward 2, its block sums and their total, one
 backward 1), and :func:`launch`
 adds that number under a lock (the stages call kernels from a thread
-pool), so a run can show that its main path really went through the
-kernels.
+pool, and the make stages from one worker thread per device and stream),
+so a run can show that its main path really went through the kernels.
+
+Several threads may launch at once: each launch goes to the current
+stream of its thread on the device it names (a worker of
+``pipeline.common.DeviceSpreader`` makes its own stream current), and a
+kernel's per-stream scratch (:func:`stream_scratch`) is made under the
+lock. The cooperative launches (K3, K7, K8, K11, K12, K15) size their
+grids from the card's occupancy as if they had it alone, and CUDA makes a
+cooperative grid co-resident, so a second stream's kernels may delay it
+but cannot leave part of it waiting at a grid barrier; K0's clusters
+synchronize within a cluster only, which the hardware schedules whole.
+K13's and K16's tables sit in ``__constant__`` memory, one copy per
+process, so train_irn launches them from one thread per process.
 """
 
 from __future__ import annotations
@@ -303,10 +315,11 @@ def stream_scratch(name: str, device: torch.device,
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     key = (name, index, _raw_stream(index))
-    if key not in _scratch:
-        _scratch[key] = torch.zeros((words,), dtype=torch.int32,
-                                    device=device)
-    return _scratch[key]
+    with _count_lock:  # several workers' threads make their scratch
+        if key not in _scratch:
+            _scratch[key] = torch.zeros((words,), dtype=torch.int32,
+                                        device=device)
+        return _scratch[key]
 
 
 def is_plain(t: torch.Tensor) -> bool:

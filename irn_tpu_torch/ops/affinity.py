@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from irn_tpu_torch.ops import _build
 from irn_tpu_torch.ops.paths import PathSet, build_path_set
@@ -739,8 +740,16 @@ class IrnLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, maxed: torch.Tensor, dp: torch.Tensor,
-                labels: torch.Tensor, table: PathTable) -> torch.Tensor:
+                labels: torch.Tensor, table: PathTable,
+                group=None) -> torch.Tensor:
         loss, stats = irn_loss_fwd(maxed, dp, labels, table)
+        if group is not None and dist.get_world_size(group) > 1:
+            # the global batch's sums and counts: every rank's loss and
+            # backward then use the global denominators, as JAX's loss
+            # over the whole sharded batch does
+            stats = stats.clone()
+            dist.all_reduce(stats, op=dist.ReduceOp.SUM, group=group)
+            loss = _loss_terms(stats, maxed.dtype)
         ctx.save_for_backward(maxed, dp, labels, stats)
         ctx.table = table
         return loss
@@ -750,15 +759,24 @@ class IrnLoss(torch.autograd.Function):
         maxed, dp, labels, stats = ctx.saved_tensors
         d_maxed, d_dp = irn_loss_bwd(g.contiguous(), stats, maxed, dp,
                                      labels, ctx.table)
-        return d_maxed, d_dp, None, None
+        return d_maxed, d_dp, None, None, None
 
 
 def irn_loss(maxed: torch.Tensor, dp: torch.Tensor, labels: torch.Tensor,
-             table: PathTable):
+             table: PathTable, group=None):
     """train_irn's loss from the path max's output: maxed [B, n_pairs, ch,
     cw] (:func:`path_max`), dp [B, 2, H, W], the reduced labels [B, H, W]
     -> (total, the four loss scalars), as ``irn_total_loss`` over
     ``affinity_displacement_loss_maps`` and ``affinity_labels_2d``;
-    differentiable in maxed and dp."""
-    loss = IrnLoss.apply(maxed, dp.contiguous(), labels.contiguous(), table)
+    differentiable in maxed and dp.
+
+    ``group``: a process group whose ranks each hold a share of one global
+    batch. K16's f64 stats (the five sums and three label counts) are
+    summed over its ranks between the forward kernel and the loss terms,
+    so every rank gets the global batch's loss and the gradient of that
+    loss with respect to its own rows; the sum of the ranks' parameter
+    gradients is then the global batch's gradient (the train step sums,
+    it does not average). A group of one rank changes nothing."""
+    loss = IrnLoss.apply(maxed, dp.contiguous(), labels.contiguous(), table,
+                         group)
     return loss[0], {k: loss[i + 1] for i, k in enumerate(LOSS_KEYS)}

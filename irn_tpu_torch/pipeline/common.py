@@ -1,14 +1,20 @@
 """Model initialisation shared by the port's stages — the counterpart of
 ``irn_tpu.pipeline.common``'s ``load_backbone_variables`` and
-``init_model_variables`` — and the numerics every model stage pins."""
+``init_model_variables`` — the numerics every model stage pins, and the
+make stages' spread over processes (:func:`host_shard_range`) and over the
+devices of one process (:class:`DeviceSpreader`)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import threading
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from irn_tpu_torch.models.irn import init_irnet
+from irn_tpu_torch.parallel import mesh
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.utils import checkpoint as ckpt
 from irn_tpu_torch.utils import weights as W
@@ -78,3 +84,154 @@ def init_model_variables(model: torch.nn.Module, cfg: Config,
             "net/resnet50.py:115)."
         )
     return model
+
+
+def host_shard_range(n: int) -> range:
+    """This rank's strided share of range(n) (JAX ``host_shard_range``;
+    the reference's ``split_dataset``): range(rank, n, world), all of it
+    outside a process group."""
+    return range(mesh.rank(), n, mesh.world_size())
+
+
+def shard_blocks(blocks: Sequence, name: str) -> List:
+    """This rank's strided share of a stage's work ``blocks`` (each a
+    forward's batch of images), after a barrier: every rank lists the
+    work still to do before any rank writes, so all ranks see the same
+    list, and each forward's batch is the one-process run's."""
+    mesh.process_barrier(f"{name}.listed")
+    return [blocks[c] for c in host_shard_range(len(blocks))]
+
+
+def spread_devices(device, n_devices: int = 0) -> List[torch.device]:
+    """The devices of :class:`DeviceSpreader` for ``--infer_devices``: on
+    the CPU, the CPU (n times when n > 1 is asked for); on CUDA outside a
+    process group, the first n visible cards (0: every card, or the one
+    ``device`` names); in a group, n cards from the rank's own (0: the
+    rank's card alone). More cards than are visible raise."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * max(n_devices, 1)
+    count = torch.cuda.device_count()
+    if n_devices > count:
+        raise ValueError(f"infer_devices {n_devices}: {count} CUDA "
+                         "device(s) visible")
+    if mesh.is_distributed():
+        base = dev.index if dev.index is not None else 0
+        return [torch.device("cuda", (base + j) % count)
+                for j in range(max(n_devices, 1))]
+    if n_devices:
+        return [torch.device("cuda", i) for i in range(n_devices)]
+    if dev.index is not None:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+class DeviceSpreader:
+    """Round-robin placement of a make stage's blocks over devices (JAX
+    ``DeviceSpreader``; the reference's one process per GPU): block c goes
+    to worker c % n. Each worker has its own device, its own CUDA stream
+    and its own copies of the stage's runners and models (:meth:`setup`),
+    and runs its blocks on a thread of its own (:meth:`run`), so the
+    launches of several workers interleave on one card or spread over
+    several. ``devices`` lists the workers' devices (a device may repeat:
+    two workers on one card, or on the CPU). A single worker can run
+    inline (``inline``), on the calling thread and its current stream.
+    ``assigned`` counts the blocks each worker took (keyed by worker
+    index; thread-safe)."""
+
+    def __init__(self, devices: Sequence, inline: bool = False):
+        self.devices = [mesh.indexed(d) for d in devices]
+        if not self.devices:
+            raise ValueError("DeviceSpreader: no devices")
+        if inline and len(self.devices) > 1:
+            raise ValueError("DeviceSpreader: inline needs one worker")
+        self.inline = inline
+        self.assigned = Counter({w: 0 for w in range(len(self.devices))})
+        self.streams = [
+            torch.cuda.Stream(d) if d.type == "cuda" and not inline else None
+            for d in self.devices]
+        self.contexts: List[Any] = []
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __call__(self, c: int) -> int:
+        """The worker of block c (counted)."""
+        w = c % len(self.devices)
+        self.assigned.update([w])  # atomic, unlike a dict read-modify-write
+        return w
+
+    def taken(self) -> List[int]:
+        """The blocks each worker took, in worker order."""
+        return [self.assigned[w] for w in range(len(self.devices))]
+
+    def _scope(self, w: int) -> contextlib.ExitStack:
+        """Worker w's device and stream made current."""
+        scope = contextlib.ExitStack()
+        dev = self.devices[w]
+        if dev.type == "cuda":
+            scope.enter_context(torch.cuda.device(dev))
+            if self.streams[w] is not None:
+                scope.enter_context(torch.cuda.stream(self.streams[w]))
+        return scope
+
+    def setup(self, make: Callable[[torch.device], Any]) -> List[Any]:
+        """Each worker's context, ``make(device)`` under its device and
+        stream (its models and runners)."""
+        self.contexts = []
+        for w, dev in enumerate(self.devices):
+            with self._scope(w):
+                self.contexts.append(make(dev))
+        return self.contexts
+
+    def run(self, blocks: Sequence, work: Callable[[Any, int, Any], None],
+            done: Optional[Callable[[Any], None]] = None) -> List[Any]:
+        """``work(ctx, c, blocks[c])`` for every block on its worker, then
+        ``done(ctx)`` there (finish queued work), each worker on a thread
+        of its own under its device and stream, whose work is finished on
+        return; returns the contexts. The first worker's exception stops
+        the others at their next block and is raised here."""
+        n = len(self.devices)
+        errors: List[BaseException] = []
+        stop = threading.Event()
+
+        def loop(w: int) -> None:
+            try:
+                with self._scope(w):
+                    for c in range(w, len(blocks), n):
+                        if stop.is_set():
+                            return
+                        self(c)
+                        work(self.contexts[w], c, blocks[c])
+                    if done is not None:
+                        done(self.contexts[w])
+                    if self.streams[w] is not None:
+                        self.streams[w].synchronize()
+            except BaseException as exc:  # re-raised by the caller
+                errors.append(exc)
+                stop.set()
+
+        if self.inline:
+            loop(0)
+        else:
+            threads = [threading.Thread(target=loop, args=(w,), daemon=True,
+                                        name=f"spread-{w}")
+                       for w in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        if errors:
+            raise errors[0]
+        return self.contexts
+
+
+def make_spreader(device, n_devices: int = 0,
+                  devices: Optional[Sequence] = None) -> DeviceSpreader:
+    """The stage's spreader: over ``devices`` when given (a worker thread
+    each), else over :func:`spread_devices`, where a single device runs
+    inline."""
+    if devices is not None:
+        return DeviceSpreader(devices)
+    found = spread_devices(device, n_devices)
+    return DeviceSpreader(found, inline=len(found) == 1)

@@ -30,7 +30,7 @@ import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +41,11 @@ from irn_tpu_torch.data import transforms as T
 from irn_tpu_torch.data import voc12
 from irn_tpu_torch.models.cam import CAMNet
 from irn_tpu_torch.ops.resize import resize_bilinear_dynamic
+from irn_tpu_torch.parallel import mesh
 from irn_tpu_torch.pipeline import common
 from irn_tpu_torch.pipeline import stages_eval
 from irn_tpu_torch.pipeline.config import Config
-from irn_tpu_torch.pipeline.stages_irn import _images, resolve_device
+from irn_tpu_torch.pipeline.stages_irn import _images, resolve_device, run_train
 from irn_tpu_torch.train import cam_train, optim
 from irn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from irn_tpu_torch.utils.logging import AverageMeter, DeviceMeter, Timer
@@ -82,7 +83,8 @@ def _label_dict(cfg: Config) -> Dict[str, np.ndarray]:
     return voc12.make_label_dict(sorted(names), cfg.voc12_root)
 
 
-def train_cam(cfg: Config, device="cuda") -> Dict:
+def train_cam(cfg: Config, device="cuda",
+              ranks: Optional[mesh.RankSpec] = None) -> Dict:
     """Train the CAM classifier (step/train_cam.py): poly SGD with a 10x
     head, the stem and layers 1-2 frozen under ``cam_stop_grad`` "c3", the
     frozen batch norms calibrated from one batch when there is no
@@ -90,16 +92,28 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
     (resumed from when ``cfg.resume``) after every epoch, then
     ``cfg.cam_weights_name`` in the JAX layout.
 
-    Returns a summary: the steps this run took, the seconds its epoch loop
-    took (every step and validation finished), each step's loss, each
-    epoch's validate loss, the epoch it started from and max_step."""
+    Data-parallel over ranks as ``stages_irn.train_irn`` (DDP averaging
+    the gradients of each rank's mean loss over its equal share of the
+    global batch, which is the global mean's gradient): every rank
+    calibrates from the same full first batch; rank 0 alone validates and
+    writes the checkpoints.
+
+    Returns a summary (rank 0's): the steps this run took, the seconds its
+    epoch loop took (every step and validation finished), each step's
+    loss (the global batch's), each epoch's validate loss, the epoch it
+    started from, max_step, the rank count and the files this rank
+    wrote."""
+    common.model_dtype(cfg)
+    return run_train(_train_cam, cfg, device, ranks, cfg.cam_batch_size)
+
+
+def _train_cam(cfg: Config, dev: torch.device) -> Dict:
+    """train_cam in this process: alone, or as one rank of the group."""
     dtype = common.model_dtype(cfg)
-    if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
-        raise NotImplementedError(
-            "data-parallel or multi-process training is ROADMAP queue 1 "
-            "item 10 (Multi-GPU)")
-    dev = resolve_device(device)
     common.pin_numerics()
+    world = (mesh.group_ranks(cfg.cam_batch_size, cfg.mesh_data)
+             if mesh.is_distributed() else 1)
+    main = mesh.is_main()
 
     labels = _label_dict(cfg)
     train_ds = voc12.ClassificationDataset(
@@ -111,7 +125,9 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
         crop_size=cfg.cam_crop_size)
     train_dl = loader_mod.BatchLoader(
         train_ds, cfg.cam_batch_size, shuffle=True, drop_last=True,
-        num_workers=cfg.num_workers)
+        num_workers=cfg.num_workers,
+        local_rows=mesh.local_batch_slice(cfg.cam_batch_size)
+        if world > 1 else None)
     # drop_last=False: the reference's validate loader keeps the tail batch
     # (step/train_cam.py:24-27)
     val_dl = loader_mod.BatchLoader(
@@ -126,8 +142,12 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
         # no ImageNet running statistics exist: calibrate the frozen BN
         # statistics from one real batch so a from-scratch backbone is
         # trainable (this pass advances the loader's epoch; set_epoch below
-        # puts every epoch back on its own stream)
-        model.calibrate_stats(_images(next(iter(train_dl)), dev))
+        # puts every epoch back on its own stream). Every rank calibrates
+        # from the same whole first batch, so the statistics agree
+        cal_dl = train_dl if world == 1 else loader_mod.BatchLoader(
+            train_ds, cfg.cam_batch_size, shuffle=True, drop_last=True,
+            num_workers=cfg.num_workers)
+        model.calibrate_stats(_images(next(iter(cal_dl)), dev))
         print("calibrated frozen-BN statistics from one batch")
 
     # the reference's effective hypers: real weight decay + stray momentum
@@ -148,18 +168,25 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
             cam_from_jax)
         print(f"resumed {train_ckpt_path} at epoch {start_epoch}")
 
-    step_fn = cam_train.make_train_step(model, opt)
+    net = model
+    if mesh.is_distributed():
+        net = mesh.data_parallel(model, optim.trained_params(opt), dev,
+                                 sum_gradients=False)
+    step_fn = cam_train.make_train_step(net, opt)
     eval_fn = cam_train.make_eval_step(model)
-    prof = StageProfiler(cfg.profile_dir, "train_cam", device=dev)
+    prof = StageProfiler(cfg.profile_dir if main else None, "train_cam",
+                         device=dev)
     meter = DeviceMeter()
     timer = Timer()
     steps_per_epoch = len(train_dl)
     history: List[torch.Tensor] = []
     val_losses: List[float] = []
+    written: List[str] = []
     t0 = time.perf_counter()
     try:
         for ep in range(start_epoch, cfg.cam_num_epoches):
-            print(f"Epoch {ep + 1}/{cfg.cam_num_epoches}")
+            if main:
+                print(f"Epoch {ep + 1}/{cfg.cam_num_epoches}")
             # pin the loader's RNG stream to the true epoch, so a resumed
             # run continues the shuffle and augmentation sequence
             train_dl.set_epoch(ep)
@@ -167,37 +194,53 @@ def train_cam(cfg: Config, device="cuda") -> Dict:
                 loss = step_fn(
                     _images(batch, dev),
                     torch.from_numpy(batch["label"]).to(dev))
+                # the global batch's loss: the mean of the ranks' equal
+                # shares' means
+                loss = mesh.all_reduce_mean(loss)
                 prof.tick()
                 meter.add({"loss1": loss})
                 history.append(loss)
                 gstep = ep * steps_per_epoch + it + 1
                 if (gstep - 1) % 100 == 0:
-                    timer.update_progress(gstep / max_step)
-                    print(
-                        f"step:{gstep - 1:5d}/{max_step:5d}",
-                        f"loss:{meter.pop('loss1'):.4f}",
-                        f"imps:{(it + 1) * cfg.cam_batch_size / timer.get_stage_elapsed():.1f}",
-                        f"etc:{timer.str_estimated_complete()}",
-                        flush=True,
-                    )
-            # validation (train_cam.py:14-36)
-            val_meter = AverageMeter()
-            for batch in val_dl:
-                val_meter.add({"loss": float(eval_fn(
-                    _images(batch, dev),
-                    torch.from_numpy(batch["label"]).to(dev)))})
-            val_losses.append(val_meter.get("loss"))
-            print(f"validate loss: {val_losses[-1]:.4f}")
+                    loss1 = meter.pop("loss1")
+                    if main:
+                        timer.update_progress(gstep / max_step)
+                        print(
+                            f"step:{gstep - 1:5d}/{max_step:5d}",
+                            f"loss:{loss1:.4f}",
+                            f"imps:{(it + 1) * cfg.cam_batch_size / timer.get_stage_elapsed():.1f}",
+                            f"etc:{timer.str_estimated_complete()}",
+                            flush=True,
+                        )
+            # validation (train_cam.py:14-36), on rank 0 over its own copy
+            # of the replicated model
+            if main:
+                val_meter = AverageMeter()
+                for batch in val_dl:
+                    val_meter.add({"loss": float(eval_fn(
+                        _images(batch, dev),
+                        torch.from_numpy(batch["label"]).to(dev)))})
+                val_losses.append(val_meter.get("loss"))
+                print(f"validate loss: {val_losses[-1]:.4f}")
             timer.reset_stage()
-            save_checkpoint(train_ckpt_path, optim.train_state(
-                model, opt, ep + 1, cam_to_jax))
+            if main:
+                save_checkpoint(train_ckpt_path, optim.train_state(
+                    model, opt, ep + 1, cam_to_jax))
+                written.append(train_ckpt_path)
     finally:
         prof.close()
     seconds = time.perf_counter() - t0
-
-    save_checkpoint(cfg.cam_weights_name, cam_to_jax(model.state_dict()))
-    print(f"saved {cfg.cam_weights_name}")
-    return dict(n_steps=len(history), seconds=seconds,
+    summary = dict(n_steps=len(history), seconds=seconds, world=world,
+                   written=written)
+    if main:
+        model = mesh.fetch_replicated(net)
+        save_checkpoint(cfg.cam_weights_name, cam_to_jax(model.state_dict()))
+        written.append(cfg.cam_weights_name)
+        print(f"saved {cfg.cam_weights_name}")
+    mesh.process_barrier("train_cam.saved")
+    if not main:
+        return summary
+    return dict(summary,
                 losses=torch.stack(history).tolist() if history else [],
                 val_losses=val_losses, start_epoch=start_epoch,
                 max_step=max_step)
@@ -308,18 +351,14 @@ def save_cam(out_path: str, valid_cat: np.ndarray, s: torch.Tensor,
     })
 
 
-def load_cam_net(cfg: Config, device: torch.device) -> CAMNet:
+def load_cam_net(cfg: Config, device: torch.device,
+                 state: Optional[Dict] = None) -> CAMNet:
+    """CAMNet on ``device`` from ``cfg``'s checkpoint (``state``: its torch
+    state dict, read once for several devices)."""
     model = CAMNet(dtype=common.model_dtype(cfg))
-    model.load_state_dict(cam_from_jax(load_checkpoint(cfg.cam_weights_name)))
+    model.load_state_dict(state if state is not None else cam_from_jax(
+        load_checkpoint(cfg.cam_weights_name)))
     return model.to(device).eval()
-
-
-def _check_cam_flags(cfg: Config) -> None:
-    common.model_dtype(cfg)
-    if cfg.infer_devices > 1:
-        raise NotImplementedError(
-            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
-            "(Multi-GPU)")
 
 
 def group_by_size(cfg: Config, ds: voc12.ImageDataset):
@@ -338,24 +377,12 @@ def group_by_size(cfg: Config, ds: voc12.ImageDataset):
     return groups
 
 
-def make_cam(cfg: Config, device="cuda") -> Dict:
-    """Multi-scale flipped CAM inference (step/make_cam.py). Returns a
-    summary: images written and the seconds the image loop took (after the
-    model load; every npy written)."""
-    _check_cam_flags(cfg)
-    dev = resolve_device(device)
-    common.pin_numerics()
-    ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
-                                     _label_dict(cfg), img_normal=False)
-    scale_pass = CAMScalePass(load_cam_net(cfg, dev), dev,
-                              cfg.rw_grid_cap, 4 * cfg.rw_grid_cap)
-    os.makedirs(cfg.cam_out_dir, exist_ok=True)
-    n = len(ds)
+def cam_chunks(cfg: Config, ds) -> List[Tuple]:
+    """make_cam's work: per size group (list order), its chunks of up to
+    ``cam_infer_batch`` images, each (size, s4, su, [(index, out_path)])."""
     batch_cap = max(1, cfg.cam_infer_batch)
-    t0 = time.perf_counter()
-    groups = group_by_size(cfg, ds)
-    n_done = 0
-    for size, items in groups.items():
+    chunks = []
+    for size, items in group_by_size(cfg, ds).items():
         s4 = T.get_strided_size(size, 4)
         su = T.get_strided_up_size(size, 16)
         if s4[0] > cfg.rw_grid_cap or s4[1] > cfg.rw_grid_cap:
@@ -365,26 +392,66 @@ def make_cam(cfg: Config, device="cuda") -> Dict:
                 f"({cfg.rw_grid_cap * 4}px); raise --rw_grid_cap")
         pos = 0
         for k in _chunk_sizes(len(items), batch_cap):
-            chunk = items[pos:pos + k]
+            chunks.append((size, s4, su, items[pos:pos + k]))
             pos += k
-            samples = [ds[i] for i, _ in chunk]
-            imgs = np.stack([s_["img"] for s_ in samples]).astype(np.uint8)
-            s_acc = torch.zeros((k, N_CLS, scale_pass.s4_cap,
-                                 scale_pass.s4_cap), device=dev)
-            h_acc = torch.zeros((k, N_CLS, scale_pass.su_cap,
-                                 scale_pass.su_cap), device=dev)
-            for scale in cfg.cam_scales:
-                padded, sh, sw = scale_inputs(imgs, scale, cfg.pad_multiple)
-                scale_pass(torch.from_numpy(padded).to(dev), sh, sw, s4, su,
-                           size, s_acc, h_acc)
-            for j, ((i, out_path), sample) in enumerate(zip(chunk, samples)):
-                valid_cat = np.nonzero(np.asarray(sample["label"]))[0]
-                s, h = finalize(s_acc[j], h_acc[j], valid_cat)
-                save_cam(out_path, valid_cat, s, h, s4, size)
-                n_done += 1
-                if i % max(n // 20, 1) == 0:
-                    print(f"make_cam {i}/{n}", flush=True)
-    return {"n_images": n_done, "seconds": time.perf_counter() - t0}
+    return chunks
+
+
+def make_cam(cfg: Config, device="cuda",
+             devices: Optional[List] = None) -> Dict:
+    """Multi-scale flipped CAM inference (step/make_cam.py). In a process
+    group each rank takes a strided share of the chunks (each chunk the
+    one-process run's batch); within the process, chunks go round-robin to
+    the workers of ``common.DeviceSpreader`` (``--infer_devices`` cards, or
+    ``devices``). Returns a summary: images written, the seconds the image
+    loop took (after the model load; every npy written) and the chunks
+    each worker took."""
+    common.model_dtype(cfg)
+    dev = resolve_device(device)
+    common.pin_numerics()
+    ds = voc12.ClassificationDataset(cfg.infer_list, cfg.voc12_root,
+                                     _label_dict(cfg), img_normal=False)
+    state = cam_from_jax(load_checkpoint(cfg.cam_weights_name))
+    os.makedirs(cfg.cam_out_dir, exist_ok=True)
+    n = len(ds)
+    spread = common.make_spreader(dev, cfg.infer_devices, devices)
+
+    def setup(d):
+        return dict(scale_pass=CAMScalePass(load_cam_net(cfg, d, state), d,
+                                            cfg.rw_grid_cap,
+                                            4 * cfg.rw_grid_cap),
+                    n_done=0)
+
+    def work(ctx, c, chunk):
+        size, s4, su, items = chunk
+        scale_pass = ctx["scale_pass"]
+        d = scale_pass.device
+        k = len(items)
+        samples = [ds[i] for i, _ in items]
+        imgs = np.stack([s_["img"] for s_ in samples]).astype(np.uint8)
+        s_acc = torch.zeros((k, N_CLS, scale_pass.s4_cap,
+                             scale_pass.s4_cap), device=d)
+        h_acc = torch.zeros((k, N_CLS, scale_pass.su_cap,
+                             scale_pass.su_cap), device=d)
+        for scale in cfg.cam_scales:
+            padded, sh, sw = scale_inputs(imgs, scale, cfg.pad_multiple)
+            scale_pass(torch.from_numpy(padded).to(d), sh, sw, s4, su,
+                       size, s_acc, h_acc)
+        for j, ((i, out_path), sample) in enumerate(zip(items, samples)):
+            valid_cat = np.nonzero(np.asarray(sample["label"]))[0]
+            s, h = finalize(s_acc[j], h_acc[j], valid_cat)
+            save_cam(out_path, valid_cat, s, h, s4, size)
+            ctx["n_done"] += 1
+            if i % max(n // 20, 1) == 0:
+                print(f"make_cam {i}/{n}", flush=True)
+
+    spread.setup(setup)
+    t0 = time.perf_counter()
+    chunks = common.shard_blocks(cam_chunks(cfg, ds), "make_cam")
+    ctxs = spread.run(chunks, work)
+    return {"n_images": sum(c["n_done"] for c in ctxs),
+            "seconds": time.perf_counter() - t0,
+            "assigned": spread.taken()}
 
 
 def eval_cam(cfg: Config, device=None, sweep: bool = False) -> Dict:
@@ -508,7 +575,7 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=n_pool) as pool:
-        done = sum(pool.map(work, range(n)))
+        done = sum(pool.map(work, common.host_shard_range(n)))
     return {"n_images": done, "seconds": time.perf_counter() - t0,
             "backend": backend,
             "kernel_store": cfg.crf_kernel_store if backend == "tpu" else None}

@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import os
 import time
-from collections import deque
-from typing import Dict, List, Tuple
+from collections import Counter, deque
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from irn_tpu_torch.data import image_io
@@ -45,6 +46,7 @@ from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import ccl
 from irn_tpu_torch.ops import centroids
 from irn_tpu_torch.ops import random_walk as rw_mod
+from irn_tpu_torch.parallel import mesh
 from irn_tpu_torch.pipeline import common
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.train import irn_train, optim
@@ -70,9 +72,9 @@ def check_slice_flags(cfg: Config) -> None:
     something else."""
     if cfg.rw_mesh_model > 1:
         raise NotImplementedError(
-            "rw_mesh_model > 1: multi-GPU random walk is ROADMAP queue 1 "
-            "item 10 (Multi-GPU)"
-        )
+            "rw_mesh_model > 1: the row-sharded random walk (K0 with a "
+            "column halo swap per application, the banded power and apply "
+            "over NCCL) is ROADMAP queue 1 item 10b")
     if cfg.rw_matmul_dtype != "float32":
         raise NotImplementedError(
             f"rw_matmul_dtype={cfg.rw_matmul_dtype!r}: bf16 operand modes "
@@ -84,10 +86,6 @@ def check_slice_flags(cfg: Config) -> None:
             "sem_monolith: the relay-transport monolith is not ported "
             "(ROADMAP queue 1, 'Not ported')"
         )
-    if cfg.infer_devices > 1:
-        raise NotImplementedError(
-            "infer_devices > 1: multi-GPU fan-out is ROADMAP queue 1 item 10 "
-            "(Multi-GPU)")
 
 
 def _images(batch: Dict, dev: torch.device) -> torch.Tensor:
@@ -96,30 +94,75 @@ def _images(batch: Dict, dev: torch.device) -> torch.Tensor:
     return img.permute(0, 3, 1, 2).contiguous()
 
 
-def train_irn(cfg: Config, device="cuda") -> Dict:
+def train_ranks(batch_size: int, cfg: Config, device,
+                ranks: Optional[mesh.RankSpec]) -> Optional[mesh.RankSpec]:
+    """The ranks a train stage starts itself: ``ranks`` when given; else,
+    outside a process group, ``--mesh_data``'s rank count on ``device``
+    (:func:`mesh.ranks_for_batch`; 0 = every visible card) when it is more
+    than one; else None (this process trains, alone or as one rank of its
+    group)."""
+    if ranks is not None or mesh.is_distributed():
+        return ranks
+    dev = resolve_device(device)
+    n = mesh.ranks_for_batch(batch_size, cfg.mesh_data, dev)
+    if n < cfg.mesh_data:
+        print(f"mesh_data {cfg.mesh_data}: the batch of {batch_size} splits "
+              f"over {n} ranks (the largest count that divides it)")
+    return mesh.RankSpec(mesh.rank_devices(dev, n)) if n > 1 else None
+
+
+def run_train(fn, cfg: Config, device, ranks: Optional[mesh.RankSpec],
+              batch_size: int) -> Dict:
+    """``fn(cfg, device)`` in this process, or on the ranks of
+    :func:`train_ranks` (their rank 0's summary, with every rank's
+    ``written`` files as ``written_by_rank``)."""
+    spec = train_ranks(batch_size, cfg, device, ranks)
+    if spec is None:
+        return fn(cfg, resolve_device(device))
+    results = mesh.run_ranks(fn, (cfg,), spec)
+    return dict(results[0], written_by_rank=[r["written"] for r in results])
+
+
+def train_irn(cfg: Config, device="cuda",
+              ranks: Optional[mesh.RankSpec] = None) -> Dict:
     """Train IRNet's heads over a frozen backbone (step/train_irn.py): poly
     SGD, the four affinity / displacement losses through K13a and K13b, a
     ``.train`` checkpoint per epoch (resumed from when ``cfg.resume``),
     then the displacement-mean calibration and ``cfg.irn_weights_name``.
 
-    Returns a summary: the steps this run took, the seconds its epoch loop
-    took (every step finished), each step's losses, the epoch it started
-    from, max_step and the calibrated dp_mean."""
+    Data-parallel over ranks (DDP, one process each) when ``ranks`` is
+    given, when ``--mesh_data`` asks for more than one rank (0: every
+    visible card; the stage spawns them) or in a process group (each
+    process one rank): each rank loads its rows of every global batch, the
+    loss and gradients are the global batch's (``irn_train``), and rank 0
+    alone writes the checkpoints and calibrates while the others wait.
+
+    Returns a summary (rank 0's): the steps this run took, the seconds its
+    epoch loop took (every step finished), each step's losses, the epoch
+    it started from, max_step, the calibrated dp_mean, the rank count and
+    the files this rank wrote."""
+    common.model_dtype(cfg)
+    return run_train(_train_irn, cfg, device, ranks, cfg.irn_batch_size)
+
+
+def _train_irn(cfg: Config, dev: torch.device) -> Dict:
+    """train_irn in this process: alone, or as one rank of the group."""
     dtype = common.model_dtype(cfg)
-    if cfg.mesh_data or cfg.dist_initialize or cfg.dist_coordinator:
-        raise NotImplementedError(
-            "data-parallel or multi-process training is ROADMAP queue 1 "
-            "item 10 (Multi-GPU)")
-    dev = resolve_device(device)
     common.pin_numerics()
+    world = (mesh.group_ranks(cfg.irn_batch_size, cfg.mesh_data)
+             if mesh.is_distributed() else 1)
+    main = mesh.is_main()
 
     ds = voc12.AffinityDataset(
         cfg.train_list, label_dir=cfg.ir_label_out_dir,
         crop_size=cfg.irn_crop_size, voc12_root=cfg.voc12_root,
         rescale=(0.5, 1.5), hor_flip=True, crop_method="random",
     )
-    dl = loader_mod.BatchLoader(ds, cfg.irn_batch_size, shuffle=True,
-                                drop_last=True, num_workers=cfg.num_workers)
+    dl = loader_mod.BatchLoader(
+        ds, cfg.irn_batch_size, shuffle=True, drop_last=True,
+        num_workers=cfg.num_workers,
+        local_rows=mesh.local_batch_slice(cfg.irn_batch_size)
+        if world > 1 else None)
     max_step = (len(ds) // cfg.irn_batch_size) * cfg.irn_num_epoches
 
     model = common.init_model_variables(IRNet(dtype=dtype), cfg).to(dev)
@@ -139,16 +182,24 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
             irn_from_jax)
         print(f"resumed {train_ckpt_path} at epoch {start_epoch}")
 
-    step_fn = irn_train.make_train_step(model, opt, table)
-    prof = StageProfiler(cfg.profile_dir, "train_irn", device=dev)
+    net, group = model, None
+    if mesh.is_distributed():
+        net = mesh.data_parallel(model, optim.trained_params(opt), dev,
+                                 sum_gradients=True)
+        group = dist.group.WORLD
+    step_fn = irn_train.make_train_step(net, opt, table, group)
+    prof = StageProfiler(cfg.profile_dir if main else None, "train_irn",
+                         device=dev)
     meter = DeviceMeter()
     timer = Timer()
     steps_per_epoch = len(dl)
     history: List[Dict[str, torch.Tensor]] = []
+    written: List[str] = []
     t0 = time.perf_counter()
     try:
         for ep in range(start_epoch, cfg.irn_num_epoches):
-            print(f"Epoch {ep + 1}/{cfg.irn_num_epoches}")
+            if main:
+                print(f"Epoch {ep + 1}/{cfg.irn_num_epoches}")
             # pin the loader's RNG stream to the true epoch, so a resumed
             # run continues the shuffle and augmentation sequence
             dl.set_epoch(ep)
@@ -161,26 +212,39 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
                 history.append(metrics)
                 gstep = ep * steps_per_epoch + it + 1
                 if (gstep - 1) % 50 == 0:
+                    # every rank syncs here (a failed rank surfaces); rank
+                    # 0 prints
                     losses = (
                         meter.pop("loss_pos_aff"), meter.pop("loss_neg_aff"),
                         meter.pop("loss_dp_fg"), meter.pop("loss_dp_bg"),
                     )
-                    timer.update_progress(gstep / max_step)
-                    print(
-                        f"step:{gstep - 1:5d}/{max_step:5d}",
-                        "loss:%.4f %.4f %.4f %.4f" % losses,
-                        f"imps:{(it + 1) * cfg.irn_batch_size / timer.get_stage_elapsed():.1f}",
-                        f"etc:{timer.str_estimated_complete()}",
-                        flush=True,
-                    )
+                    if main:
+                        timer.update_progress(gstep / max_step)
+                        print(
+                            f"step:{gstep - 1:5d}/{max_step:5d}",
+                            "loss:%.4f %.4f %.4f %.4f" % losses,
+                            f"imps:{(it + 1) * cfg.irn_batch_size / timer.get_stage_elapsed():.1f}",
+                            f"etc:{timer.str_estimated_complete()}",
+                            flush=True,
+                        )
             timer.reset_stage()
-            save_checkpoint(train_ckpt_path,
-                            optim.train_state(model, opt, ep + 1, irn_to_jax))
+            if main:
+                save_checkpoint(train_ckpt_path, optim.train_state(
+                    model, opt, ep + 1, irn_to_jax))
+                written.append(train_ckpt_path)
     finally:
         prof.close()
     seconds = time.perf_counter() - t0
+    summary = dict(n_steps=len(history), seconds=seconds, world=world,
+                   written=written)
+    if not main:
+        # rank 0 calibrates and saves the trained state, which every rank
+        # holds alike
+        mesh.process_barrier("train_irn.saved")
+        return summary
 
     # displacement mean calibration (train_irn.py:87-107)
+    model = mesh.fetch_replicated(net)
     infer_ds = voc12.ImageDataset(
         cfg.infer_list, cfg.voc12_root, img_normal=True,
         crop_size=cfg.irn_crop_size, crop_method="top_left",
@@ -194,12 +258,13 @@ def train_irn(cfg: Config, device="cuda") -> Dict:
     print("done.")
 
     save_checkpoint(cfg.irn_weights_name, irn_to_jax(model.state_dict()))
+    written.append(cfg.irn_weights_name)
     print(f"saved {cfg.irn_weights_name}")
+    mesh.process_barrier("train_irn.saved")
     keys = list(history[0]) if history else []
     rows = (torch.stack([torch.stack([m[k] for k in keys])
                          for m in history]).tolist() if history else [])
-    return dict(n_steps=len(history), seconds=seconds,
-                losses=[dict(zip(keys, r)) for r in rows],
+    return dict(summary, losses=[dict(zip(keys, r)) for r in rows],
                 start_epoch=start_epoch, max_step=max_step,
                 dp_mean=model.mean_shift.running_mean.cpu().tolist())
 
@@ -447,10 +512,29 @@ class RandomWalkRunner:
         return labels.to(torch.int32), norm
 
 
-def _load_irn(cfg: Config, device: torch.device) -> EdgeDisplacementRunner:
+def _load_irn(cfg: Config, device: torch.device,
+              state: Optional[Dict] = None) -> EdgeDisplacementRunner:
+    """The EdgeDisplacement runner on ``device`` over ``cfg``'s checkpoint
+    (``state``: its torch state dict, read once for several devices)."""
     model = IRNet(dtype=common.model_dtype(cfg))
-    model.load_state_dict(irn_from_jax(load_checkpoint(cfg.irn_weights_name)))
+    model.load_state_dict(state if state is not None else irn_from_jax(
+        load_checkpoint(cfg.irn_weights_name)))
     return EdgeDisplacementRunner(cfg, model, device)
+
+
+def _pending_blocks(ds, out_dir: str, ext: str, cfg: Config,
+                    name: str) -> List[List[int]]:
+    """This rank's share of the stage's work: the images whose output does
+    not exist yet, in blocks of ``edge_infer_batch`` (one forward each),
+    the blocks strided over the ranks (``common.shard_blocks``)."""
+    todo = [
+        i for i in range(len(ds))
+        if cfg.overwrite or not os.path.exists(
+            os.path.join(out_dir, ds.img_name_list[i] + ext))
+    ]
+    bsz = max(1, cfg.edge_infer_batch)
+    return common.shard_blocks(
+        [todo[c0 : c0 + bsz] for c0 in range(0, len(todo), bsz)], name)
 
 
 def _load_sem_cam(cfg: Config, name: str):
@@ -461,31 +545,39 @@ def _load_sem_cam(cfg: Config, name: str):
     return cams, keys
 
 
-def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
+def make_sem_seg_labels(cfg: Config, device="cuda",
+                        devices: Optional[List] = None) -> Dict:
     """Random-walk pseudo semantic masks (step/make_sem_seg_labels.py).
+
+    In a process group each rank takes a strided share of the pending
+    images; within the process, blocks go round-robin to the workers of
+    ``common.DeviceSpreader`` (``--infer_devices`` cards, or ``devices``),
+    each with its own runner, walker and CUDA stream.
 
     Returns a summary: images written, the seconds the image loop took
     (after the model load; every PNG written), the walk mode per grid
-    bucket, and the mean and saturated fraction (< 1e-3 or > 1 - 1e-3) of
-    the edge map inside each image's extent."""
+    bucket, the mean and saturated fraction (< 1e-3 or > 1 - 1e-3) of the
+    edge map inside each image's extent, and the blocks each worker
+    took."""
     check_slice_flags(cfg)
     dev = resolve_device(device)
     common.pin_numerics()
 
-    runner = _load_irn(cfg, dev)
-    walker = RandomWalkRunner(cfg, n_seed_rows=20, device=dev)
+    state = irn_from_jax(load_checkpoint(cfg.irn_weights_name))
     ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.sem_seg_out_dir, exist_ok=True)
     n = len(ds)
-    todo = [
-        i for i in range(n)
-        if cfg.overwrite or not os.path.exists(
-            os.path.join(cfg.sem_seg_out_dir, ds.img_name_list[i] + ".png"))
-    ]
-    edge_sum = torch.zeros((), dtype=torch.float64, device=dev)
-    edge_sat = torch.zeros((), dtype=torch.float64, device=dev)
-    edge_cells = 0
-    pending = deque()  # (i, out_path, size, keys, labels on device)
+    blocks = _pending_blocks(ds, cfg.sem_seg_out_dir, ".png", cfg,
+                             "make_sem_seg")
+    spread = common.make_spreader(dev, cfg.infer_devices, devices)
+
+    def setup(d):
+        return dict(runner=_load_irn(cfg, d, state),
+                    walker=RandomWalkRunner(cfg, n_seed_rows=20, device=d),
+                    edge_sum=torch.zeros((), dtype=torch.float64, device=d),
+                    edge_sat=torch.zeros((), dtype=torch.float64, device=d),
+                    edge_cells=0, n_images=0,
+                    pending=deque())  # (i, out_path, size, keys, labels)
 
     def finish(item):
         i, out_path, size, keys, labels = item
@@ -494,38 +586,48 @@ def make_sem_seg_labels(cfg: Config, device="cuda") -> Dict:
         if i % max(n // 20, 1) == 0:
             print(f"make_sem_seg {i}/{n}", flush=True)
 
-    bsz = runner.batch_size
-    t0 = time.perf_counter()
-    for c0 in range(0, len(todo), bsz):
-        block = todo[c0 : c0 + bsz]
+    def work(ctx, c, block):
         samples = [ds[i] for i in block]
         imgs = [s["img"].astype(np.uint8) for s in samples]
         sizes = [im.shape[:2] for im in imgs]
         for i, sample, size, (edge, _, (h4, w4)) in zip(
-            block, samples, sizes, runner.batch(imgs, sizes)
+            block, samples, sizes, ctx["runner"].batch(imgs, sizes)
         ):
             inside = edge[:h4, :w4].double()
-            edge_sum += inside.sum()
-            edge_sat += ((inside < 1e-3) | (inside > 1 - 1e-3)).sum()
-            edge_cells += h4 * w4
+            ctx["edge_sum"] += inside.sum()
+            ctx["edge_sat"] += ((inside < 1e-3) | (inside > 1 - 1e-3)).sum()
+            ctx["edge_cells"] += h4 * w4
             cams, keys = _load_sem_cam(cfg, sample["name"])
-            labels = walker(cams, edge, h4, w4, size, cfg.sem_seg_bg_thres)
+            labels = ctx["walker"](cams, edge, h4, w4, size,
+                                   cfg.sem_seg_bg_thres)
             out_path = os.path.join(cfg.sem_seg_out_dir,
                                     sample["name"] + ".png")
-            pending.append((i, out_path, size, keys, labels))
+            ctx["pending"].append((i, out_path, size, keys, labels))
+            ctx["n_images"] += 1
             # the host writes image i-1 while the device walks image i
-            while len(pending) > 1:
-                finish(pending.popleft())
-    while pending:
-        finish(pending.popleft())
+            while len(ctx["pending"]) > 1:
+                finish(ctx["pending"].popleft())
+
+    def done(ctx):
+        while ctx["pending"]:
+            finish(ctx["pending"].popleft())
+
+    spread.setup(setup)
+    t0 = time.perf_counter()
+    ctxs = spread.run(blocks, work, done)
     seconds = time.perf_counter() - t0
-    cells = max(edge_cells, 1)
+    cells = max(sum(c["edge_cells"] for c in ctxs), 1)
+    modes = {}
+    for c in ctxs:
+        modes.update(c["walker"].modes)
     return {
-        "n_images": len(todo),
+        "n_images": sum(c["n_images"] for c in ctxs),
         "seconds": seconds,
-        "modes": {f"{h}x{w}": m for (h, w), m in sorted(walker.modes.items())},
-        "edge_mean": float(edge_sum.item()) / cells,
-        "edge_saturated": float(edge_sat.item()) / cells,
+        "modes": {f"{h}x{w}": m for (h, w), m in sorted(modes.items())},
+        "edge_mean": sum(float(c["edge_sum"].item()) for c in ctxs) / cells,
+        "edge_saturated": sum(float(c["edge_sat"].item())
+                              for c in ctxs) / cells,
+        "assigned": spread.taken(),
     }
 
 
@@ -684,63 +786,76 @@ class InstanceTail:
         return self.finish(again, out_path)
 
 
-def make_ins_seg_labels(cfg: Config, device="cuda") -> Dict:
+def make_ins_seg_labels(cfg: Config, device="cuda",
+                        devices: Optional[List] = None) -> Dict:
     """Instance pseudo masks (step/make_ins_seg_labels.py): per image the
     forward, then :class:`InstanceTail`, the npy dict of the JAX stage
     (``score`` f32 [K], ``mask`` bool [K, H, W], ``class`` int32 [K],
-    ``size``) in ``ins_seg_out_dir``.
+    ``size``) in ``ins_seg_out_dir``. Spread over ranks and workers as
+    :func:`make_sem_seg_labels`.
 
     Returns a summary: images written, the seconds the image loop took
     (after the model load; every npy written), the walk mode per grid
-    bucket, and how many images took each flow (device or host
-    clustering, device or host split), the chunked walk and the host
-    redo."""
+    bucket, how many images took each flow (device or host clustering,
+    device or host split), the chunked walk and the host redo, and the
+    blocks each worker took."""
     check_slice_flags(cfg)
     dev = resolve_device(device)
     common.pin_numerics()
 
-    runner = _load_irn(cfg, dev)
-    walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap, device=dev)
-    tail = InstanceTail(cfg, walker)
+    state = irn_from_jax(load_checkpoint(cfg.irn_weights_name))
     ds = voc12.ImageDataset(cfg.infer_list, cfg.voc12_root, img_normal=False)
     os.makedirs(cfg.ins_seg_out_dir, exist_ok=True)
     n = len(ds)
-    todo = [
-        i for i in range(n)
-        if cfg.overwrite or not os.path.exists(
-            os.path.join(cfg.ins_seg_out_dir, ds.img_name_list[i] + ".npy"))
-    ]
-    pending = deque()  # (i, out_path, record of queued device work)
+    blocks = _pending_blocks(ds, cfg.ins_seg_out_dir, ".npy", cfg,
+                             "make_ins_seg")
+    spread = common.make_spreader(dev, cfg.infer_devices, devices)
 
-    def finish(item):
+    def setup(d):
+        walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap,
+                                  device=d)
+        return dict(runner=_load_irn(cfg, d, state), walker=walker,
+                    tail=InstanceTail(cfg, walker), n_images=0,
+                    pending=deque())  # (i, out_path, record)
+
+    def finish(tail, item):
         i, out_path, rec = item
         tail.finish(rec, out_path)
         if i % max(n // 20, 1) == 0:
             print(f"make_ins_seg {i}/{n}", flush=True)
 
-    bsz = runner.batch_size
-    t0 = time.perf_counter()
-    for c0 in range(0, len(todo), bsz):
-        block = todo[c0 : c0 + bsz]
+    def work(ctx, c, block):
         samples = [ds[i] for i in block]
         imgs = [s["img"].astype(np.uint8) for s in samples]
         sizes = [im.shape[:2] for im in imgs]
         for i, sample, size, (edge, dp, (h4, w4)) in zip(
-            block, samples, sizes, runner.batch(imgs, sizes)
+            block, samples, sizes, ctx["runner"].batch(imgs, sizes)
         ):
             out_path = os.path.join(cfg.ins_seg_out_dir,
                                     sample["name"] + ".npy")
-            rec = tail.run(sample["name"], size, edge, dp, h4, w4)
-            pending.append((i, out_path, rec))
+            rec = ctx["tail"].run(sample["name"], size, edge, dp, h4, w4)
+            ctx["pending"].append((i, out_path, rec))
+            ctx["n_images"] += 1
             # the host writes image i-1 while the device works on image i
-            while len(pending) > 1:
-                finish(pending.popleft())
-    while pending:
-        finish(pending.popleft())
+            while len(ctx["pending"]) > 1:
+                finish(ctx["tail"], ctx["pending"].popleft())
+
+    def done(ctx):
+        while ctx["pending"]:
+            finish(ctx["tail"], ctx["pending"].popleft())
+
+    spread.setup(setup)
+    t0 = time.perf_counter()
+    ctxs = spread.run(blocks, work, done)
     seconds = time.perf_counter() - t0
+    modes, counts = {}, Counter()
+    for c in ctxs:
+        modes.update(c["walker"].modes)
+        counts.update(c["tail"].counts)
     return {
-        "n_images": len(todo),
+        "n_images": sum(c["n_images"] for c in ctxs),
         "seconds": seconds,
-        "modes": {f"{h}x{w}": m for (h, w), m in sorted(walker.modes.items())},
-        **tail.counts,
+        "modes": {f"{h}x{w}": m for (h, w), m in sorted(modes.items())},
+        **{k: counts[k] for k in ctxs[0]["tail"].counts},
+        "assigned": spread.taken(),
     }

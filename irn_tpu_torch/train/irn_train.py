@@ -36,18 +36,29 @@ def build_train_geometry(crop_size: int = 512, radius: int = 10
 
 
 def make_train_step(model: IRNet, optimizer: PolySGD,
-                    table: affinity.PathTable):
+                    table: affinity.PathTable, group=None):
     """step(images [B, 3, H, W] f32, reduced_labels [B, H/4, W/4] int) ->
     the four loss scalars and ``loss``, on the device (no sync): forward,
     path max (K13a), loss (K16), backward (K16, K13b, the heads), optimizer
-    step."""
+    step.
+
+    Data-parallel: ``model`` is DDP's wrap with summed gradients
+    (``mesh.data_parallel(..., sum_gradients=True)``) and ``group`` the
+    ranks' group; each rank's batch is its rows of the global batch. The
+    loss is then the global batch's on every rank (``affinity.irn_loss``
+    sums K16's stats over the group), its gradient with respect to each
+    rank's rows is that rank's share, and the summed gradients are the
+    global batch's, as JAX's data-parallel step computes them. DDP's
+    default averaging of per-rank losses would divide each rank's terms by
+    its own label counts instead."""
 
     def train_step(images: torch.Tensor, reduced_labels: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
         edge_logit, dp = model(images)
         maxed = affinity.path_max(
             torch.sigmoid(edge_logit[:, 0]).contiguous(), table)
-        loss, metrics = affinity.irn_loss(maxed, dp, reduced_labels, table)
+        loss, metrics = affinity.irn_loss(maxed, dp, reduced_labels, table,
+                                          group)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()

@@ -21,7 +21,7 @@ through the model's pair of weight converters.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,11 @@ class PolySGD:
 
     def set_momentum_buffer(self, p: torch.Tensor, buf: torch.Tensor) -> None:
         self.sgd.state[p]["momentum_buffer"] = buf
+
+
+def trained_params(optimizer: PolySGD) -> List[torch.nn.Parameter]:
+    """The parameters the optimizer updates (every group's)."""
+    return [p for g in optimizer.sgd.param_groups for p in g["params"]]
 
 
 def poly_sgd(named_params, base_lr: float, max_step: int, power: float = 0.9,

@@ -467,7 +467,8 @@ def test_augmentations(seed):
 def test_train_datasets_and_loader(tmp_path):
     """AffinityDataset and ImageDataset (the calibration's top-left crops)
     items, and BatchLoader batches (shuffled, drop_last, threads, over two
-    epochs through set_epoch), equal to irn_tpu's for the same seed."""
+    epochs through set_epoch; each rank's ``local_rows`` too), equal to
+    irn_tpu's for the same seed."""
     from irn_tpu.data import loader as jax_loader
     from irn_tpu.data import synthetic as jax_synthetic
     from irn_tpu.data import voc12 as jax_voc12
@@ -525,6 +526,33 @@ def test_train_datasets_and_loader(tmp_path):
                 assert np.array_equal(got[0][k], want[0][k]), k
             else:
                 assert got[0][k] == want[0][k]
+    # local_rows: each rank's contiguous rows of every global batch, as
+    # JAX's loader takes them; the ranks' rows together are the batch
+    for epoch in (0, 1):
+        rows = []
+        for lo, hi in ((0, 2), (2, 4)):
+            p = loader.BatchLoader(port, 4, shuffle=True, drop_last=True,
+                                   num_workers=2, local_rows=(lo, hi))
+            j = jax_loader.BatchLoader(ref, 4, shuffle=True, drop_last=True,
+                                       num_workers=2, local_rows=(lo, hi))
+            p.set_epoch(epoch)
+            j.set_epoch(epoch)
+            (got,), (want,) = list(p), list(j)
+            for k in want:
+                if isinstance(want[k], np.ndarray):
+                    assert np.array_equal(got[k], want[k]), (lo, k)
+                else:
+                    assert got[k] == want[k]
+            rows.append(got)
+        dl.set_epoch(epoch)
+        (full,) = list(dl)
+        for k in full:
+            joined = (np.concatenate([r[k] for r in rows])
+                      if isinstance(full[k], np.ndarray)
+                      else rows[0][k] + rows[1][k])
+            assert np.array_equal(joined, full[k]), k
+    with pytest.raises(ValueError, match="drop_last"):
+        loader.BatchLoader(port, 4, local_rows=(0, 2))
     tail = loader.BatchLoader(port, 4, drop_last=False, num_workers=2)
     assert [len(b["name"]) for b in tail] == [4, 2]
     assert loader.collate([{"a": np.zeros(2), "n": "x"},

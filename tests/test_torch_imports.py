@@ -39,7 +39,9 @@ SLICE = ("irn_tpu_torch.data.transforms", "irn_tpu_torch.models.cam",
          "irn_tpu_torch.data.loader", "irn_tpu_torch.train.optim",
          "irn_tpu_torch.train.irn_train", "irn_tpu_torch.pipeline.common",
          # the train_cam slice
-         "irn_tpu_torch.train.cam_train", "irn_tpu_torch.utils.profiling")
+         "irn_tpu_torch.train.cam_train", "irn_tpu_torch.utils.profiling",
+         # several GPUs and processes
+         "irn_tpu_torch.parallel", "irn_tpu_torch.parallel.mesh")
 
 
 def _run_probe(prelude: str = ""):

@@ -266,8 +266,13 @@ def test_tail_on_jax_forward_matches_jax(tree):
                                    atol=2e-3, err_msg=n)
 
 
-def test_infer_devices_raises(tree, tmp_path):
+def test_infer_devices_raises(tree, tmp_path, monkeypatch):
+    """--infer_devices past the visible cards raises instead of running on
+    fewer (the fan-out itself runs since it was ported: two CPU workers in
+    tests/test_torch_multiprocess.py)."""
     cfg = tree[2][3][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="infer_devices 2: 1 CUDA device"):
         port_run.main(_argv(cfg, str(tmp_path / "out"),
-                            ("--infer_devices", "2")))
+                            ("--infer_devices", "2", "--device", "cuda")))

@@ -1771,3 +1771,89 @@ def test_crf_mean_field_refuses(cuda):
     with pytest.raises(ValueError):
         crf_device.blur(q[0], crf_device.gaussian_taps(3.5))
     assert not any(_build.LAUNCHES.values())
+
+
+# -- several workers on one card ---------------------------------------------
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out if o is not None for t in _flat(o)]
+
+
+def _two_streams(cuda, fn, kernels, reps=8):
+    """fn() launched serially, then 2 x ``reps`` times from the two workers
+    of a DeviceSpreader over [cuda, cuda] (two threads, two streams, their
+    launches interleaved on the card): every result bit-equal to the
+    serial one (NaN where it has NaN), and each of ``kernels`` counted once
+    per call on either worker."""
+    from irn_tpu_torch.pipeline import common
+
+    want = _flat(fn())
+    torch.cuda.synchronize()
+    per_call = {k: _build.LAUNCHES[k] for k in kernels}
+    _build.reset_launches()
+    spread = common.DeviceSpreader([cuda, cuda])
+    spread.setup(lambda d: [])
+    outs = spread.run(range(2 * reps), lambda ctx, c, b: ctx.append(
+        _flat(fn())))
+    assert [len(o) for o in outs] == [reps, reps]
+    assert spread.streams[0] != spread.streams[1]
+    for got in outs[0] + outs[1]:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b) or (
+                a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    for k in kernels:
+        assert _build.LAUNCHES[k] == 2 * reps * per_call[k] > 0, k
+
+
+def test_two_streams_diag_chain(cuda):
+    """K10's build and K0's cluster chain (make_sem_seg's walk at the 96 x
+    128 bucket, 8 seed rows, 256 applications) from two workers."""
+    geom = rw.build_geometry(96, 128, radius=5)
+    g = np.random.default_rng(0)
+    edge = torch.from_numpy(g.random((96, 128), dtype=np.float32)).to(cuda)
+    x = torch.from_numpy(g.random((8, geom.n_pad), dtype=np.float32)).to(cuda)
+    doffs = rw.diag_offsets(geom)
+
+    def fn():
+        w, inv = rw.build_diag_operator(geom, edge)
+        return rw.apply_diag_chain(x, w, inv, doffs, 256)
+
+    _two_streams(cuda, fn, ("diag_operator", "diag_chain"))
+
+
+def test_two_streams_advect(cuda):
+    """K11's cooperative advection from two workers."""
+    from irn_tpu_torch.ops import centroids
+
+    dp = _dp_field("basin", (128, 128), (94, 125)).to(cuda)
+    _two_streams(cuda, lambda: centroids.advect(dp, 94, 125), ("advect",))
+
+
+def test_two_streams_ccl(cuda):
+    """K12's cooperative labelling and tables (the instance stage's two
+    calls) from two workers."""
+    from irn_tpu_torch.ops import ccl, centroids
+
+    dp = _dp_field("basin", (128, 128), (94, 125)).to(cuda)
+    cent, basin = centroids.advect(dp, 94, 125)
+    g = np.random.default_rng(4)
+    labels = torch.from_numpy(_label_map("blobby", (512, 512), g)).to(cuda)
+    best = torch.from_numpy(g.random((512, 512), dtype=np.float32)).to(cuda)
+
+    def fn():
+        return (ccl.cluster_from_basin(basin, cent, 94, 125, 8),
+                ccl.component_tables(labels, best, 128))
+
+    _two_streams(cuda, fn, ("ccl_label", "ccl_tables"))
+
+
+def test_two_streams_decode(cuda):
+    """K15's cooperative decode from two workers, its per-stream scratch
+    made once per stream."""
+    x, h4, w4, h0, w0, bg = _decode_case("random", 8)
+    xd = x.to(cuda)
+    _two_streams(cuda, lambda: rw.decode(xd, h4, w4, h0, w0, bg,
+                                          best=True), ("decode",))

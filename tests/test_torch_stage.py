@@ -167,12 +167,16 @@ def test_walk_modes():
         8, 8, 16, 20, 20]
 
 
+# --mesh_data and --infer_devices were cases here until they were ported
+# (tests/test_torch_parallel.py, test_torch_dp_train.py and
+# test_torch_multiprocess.py run them); the flags still unported take
+# their places, on make_ins_seg and beside --infer_devices
 @pytest.mark.parametrize("flags", [
     ("--rw_mesh_model", "2"), ("--rw_matmul_dtype", "bfloat16"),
-    ("--sem_monolith",), ("--train_cam_pass", "--mesh_data", "2"),
-    ("--make_cam_pass", "--infer_devices", "2"),
-    ("--train_irn_pass", "--mesh_data", "2"),
-    ("--infer_devices", "2"),
+    ("--sem_monolith",), ("--make_ins_seg_pass", "--rw_mesh_model", "2"),
+    ("--make_ins_seg_pass", "--rw_matmul_dtype", "bfloat16"),
+    ("--make_ins_seg_pass", "--sem_monolith"),
+    ("--infer_devices", "2", "--rw_mesh_model", "2"),
 ])
 def test_unported_flags_raise(tree, tmp_path, flags):
     _, cfg, _, _ = tree
