@@ -167,6 +167,29 @@ ranks sharing the card through gloo (one spawned group): the f32 train
 gates of the world-1 run and train_cam's statistics bit-equal. Each part
 prints its backend, world size, images per rank or worker and seconds.
 
+The phase ``mesh: the row-sharded walk on one card`` (``--rw_mesh_model``;
+every device of the mesh is this card, so the halos are copies within it:
+no claim about several cards) runs (a) ``rw_sharded.diag_apply`` on
+(cuda,) * k, k = 2, 4, 8, at n_pad 14336 with C 8 and C 128, bit-equal to
+K0 on the whole matrix, with its time per walk, rounds, K0 launches (one
+per device and round), halo bytes per round and the bound of its windowed
+work, at C 8 for m = 1, about half the largest and the largest (the
+default) applications per round; (b) ``propagate`` at square_times 1 on
+the row-split banded route over (cuda, cuda) on a 96x128 image of the
+tree against the single-device banded route, and (c) the dense mesh route
+at a 32x32 bucket against one device's K6 + K5 (labels equal; both
+routes' scores against the walk in f64 on the card, the mesh route's
+within 1e-5 / 1e-4 of it or within twice one device's distance from it);
+(d) make_sem_seg and make_ins_seg through the
+library at ``rw_mesh_model 2`` with ``devices=[cuda, cuda]``, every PNG and
+npy byte-equal to the single-device run's, every walk ``mesh_diag``, K0
+launched, per-image times; (e) the CLI at ``--rw_mesh_model`` past the
+visible cards raises. K0's entry in the kernels line adds the mesh run's
+launches (``mesh_launches``, ``mesh_ins_launches``), the walks of (a)
+(``mesh_walks``) beside the whole chain (``mesh_whole_ms``), the stages'
+seconds per image (``mesh_per_image_s``) and the routes of (b) and (c)
+(``mesh_routes``).
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -4988,6 +5011,274 @@ def run_multi(dev, stage: dict, here: str, card: str) -> None:
     print(f"multi: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# the meshes of the mesh phase: devices per walk, all on the one card
+MESH_SIZES = (2, 4, 8)
+
+
+def _mesh_walk_bound(plan, c: int, n_pairs: int, n_apply: int) -> dict:
+    """The bound of one mesh walk's windowed K0 work: each launch reads its
+    window's x, w and inv once and writes its window's x, and does
+    4 n_pairs + 1 operations per row, column and application over the
+    whole window (the 2mH redundant columns per device and round
+    included)."""
+    ops = nbytes = 0
+    left = n_apply
+    while left:
+        step = min(plan.per_round, left)
+        for lo, hi in plan.windows:
+            cols = hi - lo
+            ops += step * c * cols * (4 * n_pairs + 1)
+            nbytes += 4 * (2 * c * cols + n_pairs * cols + cols)
+        left -= step
+    return bound(ops, nbytes, PEAK_F32)
+
+
+def mesh_walks(dev, card: str) -> dict:
+    """(a) ``rw_sharded.diag_apply`` on (cuda,) * k, k = 2, 4, 8, at the
+    main path's n_pad 14336 with C 8 and C 128: bit-equal to K0 on the
+    whole matrix and so to the twin; per walk its CUDA-event time, K0
+    launches, rounds, halo bytes per round and the windowed work's bound;
+    at C 8 with m = 1, about half the largest and the largest (the
+    default) applications per round."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.ops import random_walk as rw
+    from irn_tpu_torch.parallel import rw_sharded as rs
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    geom = rw.build_geometry(*BUCKET, radius=5)
+    n = geom.n_pad
+    doffs = rw.diag_offsets(geom)
+    edge = torch.rand(BUCKET, generator=gen).to(dev) * 0.9
+    w, inv = rw.build_diag_operator(geom, edge)
+    out = {"whole_ms": {}, "walks": []}
+    for c in (8, 128):
+        x = torch.rand((c, n), generator=gen).to(dev)
+        whole = rw.apply_diag_chain(x, w, inv, doffs, 256)
+        check(torch.equal(whole, rw.apply_diag_chain_plain(x, w, inv, doffs,
+                                                           256)),
+              f"K0 at C {c} not bit-equal to its twin")
+        out["whole_ms"][c] = cuda_ms(
+            lambda: rw.apply_diag_chain(x, w, inv, doffs, 256), 5)
+        for k in MESH_SIZES:
+            mesh = rs.ModelMesh([dev] * k)
+            top = rs.diag_max_per_round(n, doffs, k)
+            for m in sorted({1, max(1, top // 2), top}) if c == 8 else [top]:
+                plan = rs.diag_plan(n, doffs, k, 256, m)
+                _build.reset_launches()
+                got = rs.diag_apply(x, w, inv, doffs, 256, mesh, m)
+                torch.cuda.synchronize()
+                launches = _build.LAUNCHES["diag_chain"]
+                check(launches == plan.rounds * k,
+                      f"mesh k {k} m {m}: {launches} K0 launches for "
+                      f"{plan.rounds} rounds")
+                check(torch.equal(got, whole),
+                      f"mesh k {k} m {m} C {c} not bit-equal to whole K0")
+                row = dict(
+                    k=k, c=c, per_round=m, default=m == top,
+                    rounds=plan.rounds, launches=launches,
+                    ms=cuda_ms(lambda: rs.diag_apply(x, w, inv, doffs, 256,
+                                                     mesh, m), 3),
+                    halo_bytes_per_round=4 * c * plan.halo_columns,
+                    window_columns=sum(hi - lo for lo, hi in plan.windows),
+                    **_mesh_walk_bound(plan, c, len(doffs), 256))
+                if c == 8 and m == top:
+                    row["device_ms"] = device_ms(
+                        lambda: rs.diag_apply(x, w, inv, doffs, 256, mesh,
+                                              m), 2)
+                out["walks"].append(row)
+                print(f"mesh (a) k {k} C {c} m {m}"
+                      f"{' (default)' if m == top else ''}: {row['ms']:.4f} "
+                      f"ms per walk ({card})"
+                      + (f", the card's own {row['device_ms']:.4f} ms"
+                         if "device_ms" in row else "")
+                      + f", {plan.rounds} rounds, "
+                      f"{launches} K0 launches, halo "
+                      f"{row['halo_bytes_per_round']} B per round, windows "
+                      f"{row['window_columns']} columns in all (n {n}), "
+                      f"bound {row['bound_ms']:.4f} ms by "
+                      f"{row['bound_by']}; the whole chain "
+                      f"{out['whole_ms'][c]:.4f} ms; bit-equal", flush=True)
+    return out
+
+
+def _walk_f64(geom, cam, edge, beta: int, sq: int):
+    """The walk in f64 on the card, dense T and ``torch.matmul``: the
+    reference that (b) and (c) hold both f32 routes to."""
+    from irn_tpu_torch.ops import random_walk as rw
+
+    t = rw.dense_affinity(geom, edge).double() ** beta
+    t = t / t.sum(0, keepdim=True)
+    for _ in range(sq):
+        t = t @ t
+    x = rw._flat_seeds(geom, cam, edge).double()
+    for _ in range(1 << (8 - sq)):
+        x = x @ t
+    return rw._unflatten_rw(geom, x)
+
+
+def _close_ratio(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / (1e-5 + 1e-4 |b|): at most 1 when a is within
+    atol 1e-5 / rtol 1e-4 of b."""
+    b = b.double()
+    return float(((a.double() - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+
+
+def mesh_library_checks(dev, stage: dict) -> dict:
+    """(b) ``propagate`` at square_times 1 through the row-split banded
+    route on (cuda, cuda), on a 96x128 image of the tree, against the
+    single-device banded route (K2, K1 + K3); (c) the dense mesh route at a
+    32x32 bucket, pure squaring, against one device's K6 + K5. Labels
+    equal; the normalized scores of both f32 routes against the walk in
+    f64 (:func:`_walk_f64`): the mesh route within 1e-5 / 1e-4 of it, or
+    within twice one device's distance from it; each timed."""
+    from irn_tpu_torch.ops import random_walk as rw
+    from irn_tpu_torch.parallel import rw_sharded as rs
+
+    cfg = stage["cfg"]
+    mesh = rs.ModelMesh([dev, dev])
+    for i in range(len(stage["names"])):
+        name, size, geom, cam, edge, hw4, keys = _walk_inputs(cfg, dev, i)
+        if geom.cap == BUCKET:
+            break
+    check(geom.cap == BUCKET, f"no {BUCKET} image in the tree")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    small = rw.build_geometry(32, 32, radius=5)
+    edge32 = (torch.rand((32, 32), generator=gen) * 0.9).to(dev)
+    cam32 = torch.rand((8, 32, 32), generator=gen).to(dev)
+    res = {}
+    for tag, g_, c_, e_, sq, hw, sz in (
+            ("mesh_banded", geom, cam, edge, 1, hw4, size),
+            ("dense", small, cam32, edge32, 8, (30, 29), (118, 114))):
+        def meshed():
+            return rw.propagate(g_, c_, e_, cfg.beta, 8, square_times=sq,
+                                mesh=mesh, mesh_banded=tag != "dense")
+
+        def single():
+            if tag == "dense":
+                return rw.propagate(g_, c_, e_, cfg.beta, 8, square_times=sq)
+            return rw.propagate_banded(g_, c_, e_, cfg.beta, 8,
+                                       square_times=sq)
+
+        got = rw.decode(meshed(), *hw, *sz, cfg.sem_seg_bg_thres, scores=True)
+        want = rw.decode(single(), *hw, *sz, cfg.sem_seg_bg_thres,
+                         scores=True)
+        ref = rw.decode_plain(_walk_f64(g_, c_, e_, cfg.beta, sq), *hw, *sz,
+                              cfg.sem_seg_bg_thres, scores=True)
+        check(torch.equal(got.labels, want.labels),
+              f"mesh ({tag}) labels differ from one device's")
+        q = dict(mesh_vs_single=_close_ratio(got.scores, want.scores),
+                 mesh_vs_f64=_close_ratio(got.scores, ref.scores),
+                 single_vs_f64=_close_ratio(want.scores, ref.scores))
+        # two f32 routes of 128 applications differ by their rounding alone,
+        # near 1e-4 relative at the extreme pixel (as one device's route
+        # is from f64): the mesh route meets the tolerance against f64, or
+        # stays within twice one device's distance from it
+        check(q["mesh_vs_f64"] <= max(1.0, 2 * q["single_vs_f64"]),
+              f"mesh ({tag}) scores far from f64 beside one device's: {q}")
+        res[tag] = dict(ms=cuda_ms(meshed, 2), single_ms=cuda_ms(single, 2),
+                        max_abs_err=float((got.scores - want.scores).abs()
+                                          .max()),
+                        max_abs_err_f64=float((got.scores.double()
+                                               - ref.scores).abs().max()),
+                        single_max_abs_err_f64=float(
+                            (want.scores.double() - ref.scores).abs().max()),
+                        close_ratios=q, cap=g_.cap)
+        print(f"mesh ({'b' if tag == 'mesh_banded' else 'c'}) {tag} on "
+              f"(cuda, cuda) at {g_.cap} ({name if g_ is geom else 'random'})"
+              f", square_times {sq}: labels equal to one device's; scores "
+              f"max abs err {res[tag]['max_abs_err']:.3e} from one device's, "
+              f"{res[tag]['max_abs_err_f64']:.3e} from f64 (one device "
+              f"{res[tag]['single_max_abs_err_f64']:.3e}); |err| / (1e-5 + "
+              f"1e-4 |ref|) at most {q}; {res[tag]['ms']:.3f} ms, one device "
+              f"{res[tag]['single_ms']:.3f} ms", flush=True)
+    return res
+
+
+def mesh_stages(dev, stage: dict) -> dict:
+    """(d) make_sem_seg and make_ins_seg through the library at
+    ``rw_mesh_model 2`` with ``devices=[cuda, cuda]`` over the smoke tree,
+    each run's launch counts set to 0 just before it and read just after:
+    every PNG and npy byte-equal to the single-device run's, every walk
+    ``mesh_diag``, per-image times; (e) the CLI at ``--rw_mesh_model``
+    past the visible cards raises the "visible" error."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.pipeline import stages_irn
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids = os.path.join(root, "all.txt")
+    per_image = {}
+    for tag, fn, flag in (
+            ("sem", stages_irn.make_sem_seg_labels, "sem_seg"),
+            ("ins", stages_irn.make_ins_seg_labels, "ins_seg")):
+        outs, res = {}, {}
+        for mode, k, devices in (("single", 1, None),
+                                 ("mesh", 2, [dev, dev])):
+            out = os.path.join(work, f"mesh_{flag}_{mode}")
+            cfg, _ = port_run.parse([
+                "--voc12_root", root, "--infer_list", ids,
+                "--train_list", ids, "--cam_out_dir",
+                os.path.join(work, "cam"), "--irn_weights_name",
+                stage["cfg"].irn_weights_name, f"--{flag}_out_dir", out,
+                "--device", str(dev), "--rw_mesh_model", str(k)])
+            _build.reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res[mode] = fn(cfg, dev, devices=devices)
+            torch.cuda.synchronize()
+            stage["launches"][f"mesh {tag} {mode}"] = dict(_build.LAUNCHES)
+            outs[mode] = out
+        n_ = _files_equal(outs["single"], outs["mesh"])
+        check(n_ == len(names), f"mesh {tag}: {n_} files")
+        modes = res["mesh"]["modes"]
+        check(modes and set(modes.values()) == {"mesh_diag"},
+              f"mesh {tag} walk modes {modes}")
+        lm = stage["launches"][f"mesh {tag} mesh"]
+        ls = stage["launches"][f"mesh {tag} single"]
+        check(lm["diag_chain"] > ls["diag_chain"] > 0
+              and lm["decode"] == ls["decode"] > 0,
+              f"mesh {tag} launches {lm} vs one device's {ls}")
+        per_image[tag] = {m: res[m]["seconds"] / res[m]["n_images"]
+                          for m in res}
+        print(f"mesh (d) make_{flag}: {n_} files byte-equal to one "
+              f"device's, modes {modes}, K0 launches {lm['diag_chain']} "
+              f"(one device {ls['diag_chain']}), per image "
+              f"{1e3 * per_image[tag]['mesh']:.2f} ms on the mesh, "
+              f"{1e3 * per_image[tag]['single']:.2f} ms on one device",
+              flush=True)
+    visible = torch.cuda.device_count()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            port_run.main([
+                "--voc12_root", root, "--infer_list", ids, "--train_list",
+                ids, "--cam_out_dir", os.path.join(work, "cam"),
+                "--irn_weights_name", stage["cfg"].irn_weights_name,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log"),
+                "--sem_seg_out_dir", os.path.join(work, "mesh_cli"),
+                "--make_sem_seg_pass", "--rw_mesh_model", str(visible + 1),
+                "--device", "cuda"])
+    except ValueError as e:
+        check("CUDA device(s) visible" in str(e), f"mesh (e) raised {e}")
+        print(f"mesh (e) the CLI at --rw_mesh_model {visible + 1} with "
+              f"{visible} card(s) visible raises: {e}", flush=True)
+    else:
+        check(False, "--rw_mesh_model past the visible cards ran")
+    return per_image
+
+
+def run_mesh(dev, stage: dict, card: str) -> dict:
+    """The mesh phase: one image's walk split over k devices, all of them
+    this card (the halos are copies within the card: no claim about
+    several cards)."""
+    t0 = time.perf_counter()
+    out = dict(walks=mesh_walks(dev, card),
+               library=mesh_library_checks(dev, stage),
+               per_image=mesh_stages(dev, stage))
+    print(f"mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -5068,6 +5359,8 @@ def main() -> int:
         train_cam_layers(dev, tc, card, torch.bfloat16)
         phase("multi: two workers, two processes, DDP on one card")
         run_multi(dev, stage, here, card)
+        phase("mesh: the row-sharded walk on one card")
+        mesh = run_mesh(dev, stage, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5078,6 +5371,17 @@ def main() -> int:
         check(launches[run][k] > 0,
               f"kernel {k} never launched on its path ({run})")
 
+    check(launches["mesh sem mesh"]["diag_chain"] > 0,
+          "K0 never launched on the mesh path")
+    # K0 on the mesh path: its launches in the mesh make_sem_seg run, each
+    # walk of the (a) sweep, the whole chain beside them, the stages' time
+    # per image and the banded and dense mesh routes of (b) and (c)
+    kernels["diag_chain"].update(
+        mesh_launches=launches["mesh sem mesh"]["diag_chain"],
+        mesh_ins_launches=launches["mesh ins mesh"]["diag_chain"],
+        mesh_walks=mesh["walks"]["walks"],
+        mesh_whole_ms=mesh["walks"]["whole_ms"],
+        mesh_per_image_s=mesh["per_image"], mesh_routes=mesh["library"])
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "irn_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -5107,7 +5411,10 @@ def main() -> int:
                             "c128_best_int32_ms",
                             "c128_best_int32_device_ms", "upsample_ms",
                             "fields_device_ms", "sass_per_step", "registers",
-                            "instances")
+                            "instances", "mesh_launches",
+                            "mesh_ins_launches", "mesh_walks",
+                            "mesh_whole_ms", "mesh_per_image_s",
+                            "mesh_routes")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

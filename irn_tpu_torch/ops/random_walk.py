@@ -29,6 +29,16 @@ The default route's operator build, :func:`build_diag_operator`, is K10
 launch), so make_sem_seg's walk is K10 -> K0 -> K15 on the card, three
 device operations.
 
+With a mesh (``--rw_mesh_model k``, :class:`irn_tpu_torch.parallel.
+rw_sharded.ModelMesh`) :func:`propagate` splits one walk over k devices as
+the JAX package does on its model axis: the stencil with its columns split
+(K0 per device and round, :func:`propagate_mesh_diag`) at e = 0 where each
+block covers the stencil's halo, else the banded T with its rows split
+(:func:`build_transition_mesh_banded`) where the band stays under a
+quarter of the matrix, else the dense route with its squarings' rows
+split. The JAX switch ``IRN_TPU_APPLY`` is not read: the stencil is always
+selected (JAX ``diag_selected()`` True).
+
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
 """
@@ -38,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -480,6 +490,91 @@ def banded_fits(geom: RandomWalkGeometry, exp_times: int, square_times: int,
     return 2 * (-(-h_final // bs)) + 1 < n // bs
 
 
+def banded_sharded_fits(geom: RandomWalkGeometry, exp_times: int,
+                        square_times: int, n_model: int) -> bool:
+    """Gate of the row-split banded route: the rows split evenly over
+    ``n_model`` >= 2 devices and the final band stays within a quarter of
+    the matrix (beyond it the halo rows approach the whole matrix)."""
+    if not 0 <= square_times <= exp_times:
+        raise ValueError(f"square_times={square_times} not in [0, {exp_times}]")
+    n = geom.n_pad
+    if n_model < 2 or n % n_model:
+        return False
+    return 4 * (band_halfwidth(geom) << square_times) <= n
+
+
+def diag_sharded_fits(geom: RandomWalkGeometry, n_model: int) -> bool:
+    """Gate of the column-split stencil: the columns split evenly over
+    ``n_model`` >= 2 devices and each block covers the stencil's halo (one
+    neighbour hop per round)."""
+    n = geom.n_pad
+    return (n_model >= 2 and n % n_model == 0
+            and n // n_model >= band_halfwidth(geom))
+
+
+def propagate_mesh_diag(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
+                        edge_capped: torch.Tensor, beta: int, exp_times: int,
+                        mesh) -> torch.Tensor:
+    """:func:`propagate_diag` with the seed columns split over ``mesh``:
+    the operator built on ``mesh.first`` (K10), then
+    :func:`apply_transition_mesh_diag`; bit-equal to :func:`propagate_diag`.
+    """
+    return apply_transition_mesh_diag(
+        geom, cam_capped, edge_capped,
+        build_diag_operator(geom, edge_capped, beta), 1 << exp_times, mesh)
+
+
+def apply_transition_mesh_diag(geom: RandomWalkGeometry,
+                               cam_capped: torch.Tensor,
+                               edge_capped: torch.Tensor,
+                               winv: Tuple[torch.Tensor, torch.Tensor],
+                               n_apply: int, mesh) -> torch.Tensor:
+    """The seeds through ``n_apply`` applications of the diagonal operator
+    ``winv`` = (w, inv), columns split over ``mesh``
+    (:func:`rw_sharded.diag_apply`: K0 per device and round); the result
+    on ``mesh.first``. The operator is seed-independent, so chunks reuse
+    it."""
+    from irn_tpu_torch.parallel import rw_sharded
+
+    w, inv = winv
+    seeds = _flat_seeds(geom, cam_capped, edge_capped)
+    rw = rw_sharded.diag_apply(seeds, w, inv, diag_offsets(geom), n_apply,
+                               mesh)
+    return _unflatten_rw(geom, rw)
+
+
+def build_transition_mesh_banded(geom: RandomWalkGeometry,
+                                 edge_capped: torch.Tensor, beta: int,
+                                 square_times: int, mesh
+                                 ) -> List[torch.Tensor]:
+    """T^(2^square_times) as row blocks over ``mesh``, from end to end:
+    each device assembles its rows of A from the band table, the column
+    sums are summed over the devices, the squarings ship only the band's
+    rows (:mod:`rw_sharded`). Check :func:`banded_sharded_fits` first."""
+    from irn_tpu_torch.parallel import rw_sharded
+
+    vs, doffs = band_values(geom, edge_capped)
+    a = rw_sharded.assemble_rows(vs, doffs, geom.n_pad, mesh)
+    t = rw_sharded.normalize_rows(a, beta, mesh)
+    return rw_sharded.banded_power(t, square_times, band_halfwidth(geom),
+                                   mesh)
+
+
+def apply_transition_mesh_banded(geom: RandomWalkGeometry,
+                                 cam_capped: torch.Tensor,
+                                 edge_capped: torch.Tensor,
+                                 t_blocks: Sequence[torch.Tensor],
+                                 n_apply: int, mesh) -> torch.Tensor:
+    """The seeds through ``n_apply`` applications of the row-split T of
+    :func:`build_transition_mesh_banded` (partials summed in device
+    order); the result on ``mesh.first``."""
+    from irn_tpu_torch.parallel import rw_sharded
+
+    seeds = _flat_seeds(geom, cam_capped, edge_capped)
+    return _unflatten_rw(geom, rw_sharded.banded_apply(seeds, t_blocks,
+                                                       n_apply, mesh))
+
+
 def dense_affinity(geom: RandomWalkGeometry,
                    edge_capped: torch.Tensor) -> torch.Tensor:
     """[n_pad, n_pad] symmetric affinity with a unit diagonal, written
@@ -534,10 +629,21 @@ def transition_matrix(affinity: torch.Tensor, beta: int = 10,
 
 
 def build_transition(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
-                     beta: int = 10, exp_times: int = 8) -> torch.Tensor:
-    """Dense T^(2^e) from the edge map (seed-independent)."""
-    return transition_matrix(dense_affinity(geom, edge_capped), beta,
-                             exp_times)
+                     beta: int = 10, exp_times: int = 8,
+                     mesh=None) -> torch.Tensor:
+    """Dense T^(2^e) from the edge map (seed-independent). With a ``mesh``
+    of two or more devices the squarings run with T's rows split
+    (:func:`rw_sharded.sharded_matrix_power`, ``torch.matmul`` in f32 as
+    the JAX package leaves them to XLA's dot under a sharding) and T is
+    gathered on ``mesh.first``."""
+    if mesh is None or len(mesh) < 2:
+        return transition_matrix(dense_affinity(geom, edge_capped), beta,
+                                 exp_times)
+    from irn_tpu_torch.parallel import rw_sharded
+
+    t = normalize_transition(dense_affinity(geom, edge_capped), beta)
+    return mesh.gather(rw_sharded.sharded_matrix_power(t, exp_times, mesh),
+                       0)
 
 
 def propagate_with_transition(geom: RandomWalkGeometry,
@@ -554,17 +660,35 @@ def propagate_with_transition(geom: RandomWalkGeometry,
 
 def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
               edge_capped: torch.Tensor, beta: int = 10, exp_times: int = 8,
-              square_times: Optional[int] = None) -> torch.Tensor:
-    """Dense single-device propagation: T^(2^e) from
-    :func:`build_transition`, then 2^(E-e) applications
-    (:func:`propagate_with_transition`). ``square_times`` None is the
-    reference's pure squaring (e = E).
+              square_times: Optional[int] = None, mesh=None,
+              mesh_banded: bool = True) -> torch.Tensor:
+    """Dense propagation: T^(2^e) from :func:`build_transition`, then
+    2^(E-e) applications (:func:`propagate_with_transition`).
+    ``square_times`` None is the reference's pure squaring (e = E).
+
+    With ``mesh`` (a :class:`rw_sharded.ModelMesh` of two or more devices;
+    seeds and edge on ``mesh.first``) the walk splits over it as the JAX
+    ``propagate(..., mesh=)`` dispatches: when ``mesh_banded``, at e = 0
+    the column-split stencil (:func:`propagate_mesh_diag`) where
+    :func:`diag_sharded_fits`, else the row-split banded T where
+    :func:`banded_sharded_fits`; otherwise the dense T with its squarings'
+    rows split.
 
     Returns [C, cap_h, cap_w] propagated scores (zero beyond extent)."""
     e = exp_times if square_times is None else square_times
     if not 0 <= e <= exp_times:
         raise ValueError(f"square_times={e} not in [0, {exp_times}]")
-    t = build_transition(geom, edge_capped, beta, e)
+    k = len(mesh) if mesh is not None else 1
+    if mesh_banded and k > 1 and e == 0 and diag_sharded_fits(geom, k):
+        return propagate_mesh_diag(geom, cam_capped, edge_capped, beta,
+                                   exp_times, mesh)
+    if mesh_banded and k > 1 and banded_sharded_fits(geom, exp_times, e, k):
+        t_blocks = build_transition_mesh_banded(geom, edge_capped, beta, e,
+                                                mesh)
+        return apply_transition_mesh_banded(geom, cam_capped, edge_capped,
+                                            t_blocks, 1 << (exp_times - e),
+                                            mesh)
+    t = build_transition(geom, edge_capped, beta, e, mesh)
     return propagate_with_transition(geom, cam_capped, edge_capped, t,
                                      n_apply=1 << (exp_times - e))
 

@@ -102,18 +102,20 @@ def shard_blocks(blocks: Sequence, name: str) -> List:
     return [blocks[c] for c in host_shard_range(len(blocks))]
 
 
-def spread_devices(device, n_devices: int = 0) -> List[torch.device]:
-    """The devices of :class:`DeviceSpreader` for ``--infer_devices``: on
-    the CPU, the CPU (n times when n > 1 is asked for); on CUDA outside a
-    process group, the first n visible cards (0: every card, or the one
-    ``device`` names); in a group, n cards from the rank's own (0: the
-    rank's card alone). More cards than are visible raise."""
+def spread_devices(device, n_devices: int = 0,
+                   flag: str = "infer_devices") -> List[torch.device]:
+    """The devices of :class:`DeviceSpreader` for ``--infer_devices`` (or
+    of the walk's mesh for ``--rw_mesh_model``, the ``flag`` that errors
+    name): on the CPU, the CPU (n times when n > 1 is asked for); on CUDA
+    outside a process group, the first n visible cards (0: every card, or
+    the one ``device`` names); in a group, n cards from the rank's own (0:
+    the rank's card alone). More cards than are visible raise."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return [dev] * max(n_devices, 1)
     count = torch.cuda.device_count()
     if n_devices > count:
-        raise ValueError(f"infer_devices {n_devices}: {count} CUDA "
+        raise ValueError(f"{flag} {n_devices}: {count} CUDA "
                          "device(s) visible")
     if mesh.is_distributed():
         base = dev.index if dev.index is not None else 0

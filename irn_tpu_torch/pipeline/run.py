@@ -10,9 +10,14 @@ Usage:
         --eval_ins_seg_pass --make_cocoann_pass [--device cuda|cpu]
 
 All ten stages are ported (``--train_cam_pass`` too). A flag whose code
-path is not ported (the row-sharded walk ``--rw_mesh_model``, among a few
-others) raises ``NotImplementedError`` naming the ROADMAP item that ports
-it, so nothing is skipped silently.
+path is not ported (``--rw_matmul_dtype bfloat16``, ``--sem_monolith``,
+among a few others) raises ``NotImplementedError`` naming the ROADMAP item
+that ports it, so nothing is skipped silently.
+
+``--rw_mesh_model k`` splits each image's random walk in make_sem_seg and
+make_ins_seg over k devices of this process (the CPU k times with
+``--device cpu``; else the first k visible cards, or k from a rank's own),
+one image at a time (``--infer_devices`` is then ignored).
 
 Several processes: one process per rank, each on one card. ``torchrun
 --nproc_per_node N -m irn_tpu_torch.pipeline.run --dist_initialize ...``

@@ -47,6 +47,7 @@ from irn_tpu_torch.ops import ccl
 from irn_tpu_torch.ops import centroids
 from irn_tpu_torch.ops import random_walk as rw_mod
 from irn_tpu_torch.parallel import mesh
+from irn_tpu_torch.parallel import rw_sharded
 from irn_tpu_torch.pipeline import common
 from irn_tpu_torch.pipeline.config import Config
 from irn_tpu_torch.train import irn_train, optim
@@ -70,11 +71,6 @@ def resolve_device(device) -> torch.device:
 def check_slice_flags(cfg: Config) -> None:
     """Flags whose code paths are not ported yet raise instead of running
     something else."""
-    if cfg.rw_mesh_model > 1:
-        raise NotImplementedError(
-            "rw_mesh_model > 1: the row-sharded random walk (K0 with a "
-            "column halo swap per application, the banded power and apply "
-            "over NCCL) is ROADMAP queue 1 item 10b")
     if cfg.rw_matmul_dtype != "float32":
         raise NotImplementedError(
             f"rw_matmul_dtype={cfg.rw_matmul_dtype!r}: bf16 operand modes "
@@ -338,22 +334,47 @@ class EdgeDisplacementRunner:
         return out
 
 
-def _mode(sq: int, banded: bool) -> str:
-    if banded:
-        return "diag" if sq == 0 else "banded"
-    return "dense"
+def walk_mesh(cfg: Config, device,
+              devices: Optional[List] = None
+              ) -> Optional[rw_sharded.ModelMesh]:
+    """The devices of one image's walk under ``--rw_mesh_model k`` > 1
+    (None otherwise): ``devices`` when given (k of them; a device may
+    repeat), else :func:`common.spread_devices` for k (the CPU k times; on
+    CUDA the first k visible cards, or k from a process rank's own, more
+    than are visible raise). The JAX package takes its model mesh from the
+    global device list instead."""
+    k = cfg.rw_mesh_model
+    if k <= 1:
+        return None
+    if devices is not None:
+        if len(devices) != k:
+            raise ValueError(f"rw_mesh_model {k}: {len(devices)} devices "
+                             "given")
+        return rw_sharded.ModelMesh(devices)
+    return rw_sharded.ModelMesh(common.spread_devices(device, k,
+                                                      "rw_mesh_model"))
 
 
 class RandomWalkRunner:
     """Bucketed walk + decode. Grids round up to ``BUCKET`` cells (capped at
     ``rw_grid_cap``); seed rows pad to a power-of-two bucket from
-    ``ROW_BUCKET``, capped at ``n_seed_rows``."""
+    ``ROW_BUCKET``, capped at ``n_seed_rows``.
+
+    Under ``--rw_mesh_model k`` > 1 each walk splits over ``mesh`` (default
+    :func:`walk_mesh` of ``device``), the JAX runner's long-context mode;
+    the runner's device is then the mesh's first, where the seeds, the
+    operator build and the decode live and the walk's result is
+    gathered."""
 
     BUCKET = 32
     ROW_BUCKET = 8
 
-    def __init__(self, cfg: Config, n_seed_rows: int, device: torch.device):
-        self.device = device
+    def __init__(self, cfg: Config, n_seed_rows: int, device: torch.device,
+                 mesh: Optional[rw_sharded.ModelMesh] = None):
+        if cfg.rw_mesh_model > 1 and mesh is None:
+            mesh = walk_mesh(cfg, device)
+        self.mesh = mesh if cfg.rw_mesh_model > 1 else None
+        self.device = self.mesh.first if self.mesh is not None else device
         self.cap = cfg.rw_grid_cap
         self.radius = cfg.rw_radius
         self.beta = cfg.beta
@@ -369,24 +390,56 @@ class RandomWalkRunner:
         return rw_mod.pick_square_times(geom.n_pad, self.exp_times)
 
     def _use_banded(self, geom, sq: int) -> bool:
-        """The hand-kernel routes (stencil or banded) on every device: on
-        the CPU they run through the kernels' plain twins."""
-        return self.banded_cfg and rw_mod.banded_fits(geom, self.exp_times, sq)
+        """The single-device hand-kernel routes (stencil or banded) on every
+        device, never under a mesh: on the CPU they run through the
+        kernels' plain twins."""
+        return (self.banded_cfg and self.mesh is None
+                and rw_mod.banded_fits(geom, self.exp_times, sq))
+
+    def _mesh_banded(self, geom, sq: int) -> bool:
+        """The row-split banded route: a mesh, the band under its gate."""
+        return (self.mesh is not None and self.banded_cfg
+                and rw_mod.banded_sharded_fits(geom, self.exp_times, sq,
+                                               len(self.mesh)))
+
+    def _mesh_diag(self, geom, sq: int) -> bool:
+        """The column-split stencil: a mesh at e = 0 (the stencil applies T
+        itself), each block covering the halo."""
+        return (sq == 0 and self.mesh is not None and self.banded_cfg
+                and rw_mod.diag_sharded_fits(geom, len(self.mesh)))
 
     def _resolve(self, geom) -> Tuple[int, bool]:
         """(square_times, banded): the banded split (e = 0) when its band
-        fits, else the pinned or cost-model split."""
+        fits on one device, or its row-split or column-split route fits
+        the mesh; else the pinned or cost-model split."""
         if self.square_times_cfg < 0:
             sqb = rw_mod.pick_square_times_banded(self.exp_times)
             if self._use_banded(geom, sqb):
                 return sqb, True
+            if self._mesh_banded(geom, sqb) or self._mesh_diag(geom, sqb):
+                return sqb, False
         sq = self._square_times(geom)
         return sq, self._use_banded(geom, sq)
 
+    def _route(self, geom) -> Tuple[int, str]:
+        """(square_times, mode): ``diag`` (K0 stencil) | ``banded`` (K2 +
+        K1 + K3) | ``mesh_diag`` (K0 per device and round) |
+        ``mesh_banded`` (the row-split band) | ``dense`` (on one device,
+        or its squarings' rows split over the mesh)."""
+        sq, banded = self._resolve(geom)
+        if banded:
+            return sq, "diag" if sq == 0 else "banded"
+        if self._mesh_diag(geom, sq):
+            return sq, "mesh_diag"
+        if self._mesh_banded(geom, sq):
+            return sq, "mesh_banded"
+        return sq, "dense"
+
     def resolve_mode(self, cap_h: int, cap_w: int) -> str:
-        """``diag`` (K0 stencil) | ``banded`` (K2 + K1 + K3) | ``dense``."""
-        geom = rw_mod.build_geometry(cap_h, cap_w, radius=self.radius)
-        return _mode(*self._resolve(geom))
+        """The mode :meth:`_route` gives the (cap_h, cap_w) bucket (JAX
+        ``resolve_mode``)."""
+        return self._route(rw_mod.build_geometry(cap_h, cap_w,
+                                                 radius=self.radius))[1]
 
     def _bucket(self, x: int) -> int:
         b = ((x + self.BUCKET - 1) // self.BUCKET) * self.BUCKET
@@ -404,13 +457,14 @@ class RandomWalkRunner:
         map at the (ch, cw) bucket, by the resolved route."""
         edge_b = edge[:ch, :cw]
         geom = rw_mod.build_geometry(ch, cw, radius=self.radius)
-        sq, banded = self._resolve(geom)
-        self.modes[(ch, cw)] = _mode(sq, banded)
-        if banded:
+        sq, mode = self._route(geom)
+        self.modes[(ch, cw)] = mode
+        if mode in ("diag", "banded"):
             return rw_mod.propagate_banded(geom, cam_t, edge_b, self.beta,
                                            self.exp_times, square_times=sq)
         return rw_mod.propagate(geom, cam_t, edge_b, self.beta,
-                                self.exp_times, square_times=sq)
+                                self.exp_times, square_times=sq,
+                                mesh=self.mesh, mesh_banded=self.banded_cfg)
 
     def __call__(self, cam_rows: np.ndarray, edge: torch.Tensor, h4: int,
                  w4: int, size: Tuple[int, int], bg_thres: float):
@@ -467,10 +521,11 @@ class RandomWalkRunner:
             raise ValueError(f"seeds {tuple(seeds.shape)} vs bucket {(ch, cw)}")
         edge_b = edge[:ch, :cw]
         geom = rw_mod.build_geometry(ch, cw, radius=self.radius)
-        sq, banded = self._resolve(geom)
-        self.modes[(ch, cw)] = _mode(sq, banded)
+        sq, mode = self._route(geom)
+        self.modes[(ch, cw)] = mode
         n_apply = 1 << (self.exp_times - sq)
-        if banded and sq == 0:
+        mesh_ = self.mesh
+        if mode == "diag":
             w, inv = rw_mod.build_diag_operator(geom, edge_b, self.beta)
             doffs = rw_mod.diag_offsets(geom)
 
@@ -478,15 +533,29 @@ class RandomWalkRunner:
                 x = rw_mod._flat_seeds(geom, cam, edge_b)
                 return rw_mod._unflatten_rw(geom, rw_mod.apply_diag_chain(
                     x, w, inv, doffs, n_apply))
-        elif banded:
+        elif mode == "mesh_diag":
+            winv = rw_mod.build_diag_operator(geom, edge_b, self.beta)
+
+            def apply(cam):
+                return rw_mod.apply_transition_mesh_diag(
+                    geom, cam, edge_b, winv, n_apply, mesh_)
+        elif mode == "banded":
             t, band = rw_mod.build_transition_banded(geom, edge_b,
                                                      self.beta, sq)
 
             def apply(cam):
                 return rw_mod.apply_transition_banded(geom, cam, edge_b, t,
                                                       band, n_apply)
+        elif mode == "mesh_banded":
+            # T stays row-split over the mesh for every chunk
+            blocks = rw_mod.build_transition_mesh_banded(geom, edge_b,
+                                                         self.beta, sq, mesh_)
+
+            def apply(cam):
+                return rw_mod.apply_transition_mesh_banded(
+                    geom, cam, edge_b, blocks, n_apply, mesh_)
         else:
-            t = rw_mod.build_transition(geom, edge_b, self.beta, sq)
+            t = rw_mod.build_transition(geom, edge_b, self.beta, sq, mesh_)
 
             def apply(cam):
                 return rw_mod.propagate_with_transition(geom, cam, edge_b,
@@ -537,6 +606,21 @@ def _pending_blocks(ds, out_dir: str, ext: str, cfg: Config,
         [todo[c0 : c0 + bsz] for c0 in range(0, len(todo), bsz)], name)
 
 
+def _walk_spread(cfg: Config, dev: torch.device, devices: Optional[List]
+                 ) -> Tuple[Optional[rw_sharded.ModelMesh],
+                            common.DeviceSpreader]:
+    """A make stage's walk mesh (:func:`walk_mesh`) and its spreader: under
+    a mesh one worker, inline on the mesh's first device, where the
+    forward and every step but the walk run (one image occupies the whole
+    mesh, JAX stages_irn.py:1212-1215; ``--infer_devices`` is ignored);
+    else :func:`common.make_spreader` over ``--infer_devices`` or
+    ``devices``."""
+    wmesh = walk_mesh(cfg, dev, devices)
+    if wmesh is not None:
+        return wmesh, common.DeviceSpreader([wmesh.first], inline=True)
+    return None, common.make_spreader(dev, cfg.infer_devices, devices)
+
+
 def _load_sem_cam(cfg: Config, name: str):
     cam_dict = np.load(os.path.join(cfg.cam_out_dir, name + ".npy"),
                        allow_pickle=True).item()
@@ -552,7 +636,10 @@ def make_sem_seg_labels(cfg: Config, device="cuda",
     In a process group each rank takes a strided share of the pending
     images; within the process, blocks go round-robin to the workers of
     ``common.DeviceSpreader`` (``--infer_devices`` cards, or ``devices``),
-    each with its own runner, walker and CUDA stream.
+    each with its own runner, walker and CUDA stream. Under
+    ``--rw_mesh_model k`` > 1 one worker runs every image and each walk
+    splits over k devices (``devices``, which must then be k, or
+    :func:`walk_mesh`'s).
 
     Returns a summary: images written, the seconds the image loop took
     (after the model load; every PNG written), the walk mode per grid
@@ -569,11 +656,12 @@ def make_sem_seg_labels(cfg: Config, device="cuda",
     n = len(ds)
     blocks = _pending_blocks(ds, cfg.sem_seg_out_dir, ".png", cfg,
                              "make_sem_seg")
-    spread = common.make_spreader(dev, cfg.infer_devices, devices)
+    wmesh, spread = _walk_spread(cfg, dev, devices)
 
     def setup(d):
         return dict(runner=_load_irn(cfg, d, state),
-                    walker=RandomWalkRunner(cfg, n_seed_rows=20, device=d),
+                    walker=RandomWalkRunner(cfg, n_seed_rows=20, device=d,
+                                            mesh=wmesh),
                     edge_sum=torch.zeros((), dtype=torch.float64, device=d),
                     edge_sat=torch.zeros((), dtype=torch.float64, device=d),
                     edge_cells=0, n_images=0,
@@ -809,11 +897,11 @@ def make_ins_seg_labels(cfg: Config, device="cuda",
     n = len(ds)
     blocks = _pending_blocks(ds, cfg.ins_seg_out_dir, ".npy", cfg,
                              "make_ins_seg")
-    spread = common.make_spreader(dev, cfg.infer_devices, devices)
+    wmesh, spread = _walk_spread(cfg, dev, devices)
 
     def setup(d):
         walker = RandomWalkRunner(cfg, n_seed_rows=cfg.ins_seed_cap,
-                                  device=d)
+                                  device=d, mesh=wmesh)
         return dict(runner=_load_irn(cfg, d, state), walker=walker,
                     tail=InstanceTail(cfg, walker), n_images=0,
                     pending=deque())  # (i, out_path, record)

@@ -41,7 +41,9 @@ SLICE = ("irn_tpu_torch.data.transforms", "irn_tpu_torch.models.cam",
          # the train_cam slice
          "irn_tpu_torch.train.cam_train", "irn_tpu_torch.utils.profiling",
          # several GPUs and processes
-         "irn_tpu_torch.parallel", "irn_tpu_torch.parallel.mesh")
+         "irn_tpu_torch.parallel", "irn_tpu_torch.parallel.mesh",
+         # the row-sharded walk
+         "irn_tpu_torch.parallel.rw_sharded")
 
 
 def _run_probe(prelude: str = ""):

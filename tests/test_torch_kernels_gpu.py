@@ -1857,3 +1857,50 @@ def test_two_streams_decode(cuda):
     xd = x.to(cuda)
     _two_streams(cuda, lambda: rw.decode(xd, h4, w4, h0, w0, bg,
                                           best=True), ("decode",))
+
+
+@pytest.mark.parametrize("c", [8, 128])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("largest", [False, True], ids=["m1", "mmax"])
+def test_mesh_diag_apply_bit_equal(cuda, c, k, largest):
+    """The column-split stencil on (cuda,) * k (``rw_sharded.diag_apply``):
+    K0 on each device's window per round, bit-equal to K0 on the whole
+    matrix, one launch per device and round (64x64 bucket, n 5120, 16
+    applications; m = 1 and the largest, 1 at k 8)."""
+    from irn_tpu_torch.parallel import rw_sharded as rs
+
+    geom = rw.build_geometry(64, 64, radius=5)
+    g = np.random.default_rng(k)
+    edge = torch.from_numpy(g.random((64, 64), dtype=np.float32)).to(cuda)
+    w, inv = rw.build_diag_operator(geom, edge)
+    x = torch.from_numpy(g.random((c, geom.n_pad), dtype=np.float32)).to(cuda)
+    doffs = rw.diag_offsets(geom)
+    m = rs.diag_max_per_round(geom.n_pad, doffs, k) if largest else 1
+    want = rw.apply_diag_chain(x, w, inv, doffs, 16)
+    _build.reset_launches()
+    got = rs.diag_apply(x, w, inv, doffs, 16, rs.ModelMesh([cuda] * k), m)
+    torch.cuda.synchronize()
+    plan = rs.diag_plan(geom.n_pad, doffs, k, 16, m)
+    assert _build.LAUNCHES["diag_chain"] == plan.rounds * k
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_banded_matches_banded(cuda, k):
+    """The row-split banded route (``propagate(..., mesh)`` at square_times
+    1: ``torch.matmul`` products in f32) against the single-device banded
+    route (K2, K1 + K3): scores within 1e-5 / 1e-4, labels equal."""
+    from irn_tpu_torch.parallel import rw_sharded as rs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geom = rw.build_geometry(64, 64, radius=5)
+    g = np.random.default_rng(0)
+    edge = torch.from_numpy(
+        g.random((64, 64), dtype=np.float32) * 0.9).to(cuda)
+    cam = torch.from_numpy(g.random((8, 64, 64), dtype=np.float32)).to(cuda)
+    got = rw.propagate(geom, cam, edge, 10, 4, square_times=1,
+                       mesh=rs.ModelMesh([cuda] * k))
+    want = rw.propagate_banded(geom, cam, edge, 10, 4, square_times=1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert torch.equal(rw.decode(got, 60, 61, 240, 243, 0.25).labels,
+                       rw.decode(want, 60, 61, 240, 243, 0.25).labels)

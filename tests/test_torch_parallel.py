@@ -21,8 +21,6 @@ from irn_tpu.parallel import mesh as jax_mesh
 from irn_tpu.pipeline import common as jax_common
 from irn_tpu_torch.parallel import mesh
 from irn_tpu_torch.pipeline import common
-from irn_tpu_torch.pipeline import stages_irn
-from irn_tpu_torch.pipeline.config import Config
 
 import torch_rank_workers as workers
 
@@ -115,14 +113,6 @@ def test_spreader_runs_every_block_on_its_worker():
     spread.setup(lambda d: None)
     with pytest.raises(KeyError, match="block 4"):
         spread.run(list(range(10)), boom)
-
-
-def test_row_sharded_walk_still_refused():
-    cfg = Config(rw_mesh_model=2)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        stages_irn.make_sem_seg_labels(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        stages_irn.make_ins_seg_labels(cfg, "cpu")
 
 
 def test_rank_failure_ends_the_run():

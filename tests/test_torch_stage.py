@@ -169,14 +169,13 @@ def test_walk_modes():
 
 # --mesh_data and --infer_devices were cases here until they were ported
 # (tests/test_torch_parallel.py, test_torch_dp_train.py and
-# test_torch_multiprocess.py run them); the flags still unported take
-# their places, on make_ins_seg and beside --infer_devices
+# test_torch_multiprocess.py run them), and --rw_mesh_model
+# (tests/test_torch_rw_sharded.py and test_torch_mesh_stage.py); the
+# flags still unported stay, on make_sem_seg and make_ins_seg
 @pytest.mark.parametrize("flags", [
-    ("--rw_mesh_model", "2"), ("--rw_matmul_dtype", "bfloat16"),
-    ("--sem_monolith",), ("--make_ins_seg_pass", "--rw_mesh_model", "2"),
+    ("--rw_matmul_dtype", "bfloat16"), ("--sem_monolith",),
     ("--make_ins_seg_pass", "--rw_matmul_dtype", "bfloat16"),
     ("--make_ins_seg_pass", "--sem_monolith"),
-    ("--infer_devices", "2", "--rw_mesh_model", "2"),
 ])
 def test_unported_flags_raise(tree, tmp_path, flags):
     _, cfg, _, _ = tree
