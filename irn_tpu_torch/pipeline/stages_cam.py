@@ -540,6 +540,7 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
     os.makedirs(cfg.ir_label_out_dir, exist_ok=True)
     n = len(ds)
     n_pool = max(1, cfg.num_workers)
+    threads = torch.get_num_threads()
     if backend == "tpu":
         refine = LandmarkCRF(
             stride=cfg.crf_landmark_stride, t=cfg.crf_iters,
@@ -549,6 +550,9 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
     else:
         refine = functools.partial(crf.crf_inference_label_pair,
                                    t=cfg.crf_iters)
+        # the lattice's OpenMP threads are the process's own count, which
+        # torch's intra-op threads share (one libgomp): the caller's count
+        # comes back when the stage ends
         native_mod.set_num_threads(max(1, (os.cpu_count() or 1) // n_pool))
 
     def work(i: int) -> int:
@@ -574,8 +578,11 @@ def cam_to_ir_label(cfg: Config, device="cuda") -> Dict:
         return 1
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=n_pool) as pool:
-        done = sum(pool.map(work, common.host_shard_range(n)))
+    try:
+        with ThreadPoolExecutor(max_workers=n_pool) as pool:
+            done = sum(pool.map(work, common.host_shard_range(n)))
+    finally:
+        torch.set_num_threads(threads)
     return {"n_images": done, "seconds": time.perf_counter() - t0,
             "backend": backend,
             "kernel_store": cfg.crf_kernel_store if backend == "tpu" else None}

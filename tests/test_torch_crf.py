@@ -60,14 +60,19 @@ def test_native_library_builds_and_matches_jax(rng):
     assert jax_native.load() is not None
     img, labels = _scene(rng, 45, 61)
     la, lb = labels % 6, (labels > 0).astype(np.int32) * 2
-    for threads in (1, 3):
-        native.set_num_threads(threads)
-        jax_native.set_num_threads(threads)
-        got = crf.crf_inference_label_pair(img, la, lb, n_labels=6)
-        want = jax_crf.crf_inference_label_pair(img, la, lb, n_labels=6)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype == np.int32
-            np.testing.assert_array_equal(g, w)
+    torch_threads = torch.get_num_threads()
+    try:
+        for threads in (1, 3):
+            native.set_num_threads(threads)
+            jax_native.set_num_threads(threads)
+            got = crf.crf_inference_label_pair(img, la, lb, n_labels=6)
+            want = jax_crf.crf_inference_label_pair(img, la, lb, n_labels=6)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == np.int32
+                np.testing.assert_array_equal(g, w)
+    finally:
+        # the lattice's OpenMP count is torch's too: leave the module's 2
+        torch.set_num_threads(torch_threads)
     np.testing.assert_array_equal(
         crf.crf_inference_label(img, la, n_labels=6),
         jax_crf.crf_inference_label(img, la, n_labels=6))

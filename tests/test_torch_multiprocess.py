@@ -37,6 +37,19 @@ from irn_tpu_torch.utils.weights import cam_to_jax, irn_to_jax
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Every run of this module on 2 torch threads, each spawned rank too
+    (``run_ranks`` hands a rank the parent's count): torch's intra-op
+    threads and the native lattice's OpenMP threads are one setting of the
+    process, so a test that ran the lattice earlier in this process may
+    have left another count: at 8 threads per spawned rank the runs of
+    tests/test_torch_dp_train.py passed their 120 s deadlines on a loaded
+    host, and 8 threads moved its one-process f64 CAM forward by 2e-9."""
+    torch.set_num_threads(2)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
 N = 6
