@@ -190,6 +190,23 @@ launches (``mesh_launches``, ``mesh_ins_launches``), the walks of (a)
 seconds per image (``mesh_per_image_s``) and the routes of (b) and (c)
 (``mesh_routes``).
 
+The phase ``walk_bf16: --rw_matmul_dtype bfloat16`` holds K5, K6, K2 and
+K4 in their bf16 operand modes on the kernels phase's inputs (n_pad
+14336): the one-pass split passes (the hi pieces alone) bit-equal to
+their twins, each result within rel 1e-5 of its twin (K2, K5, K6: the f64
+product over those pieces; K4: its bf16 twin on the f32 check's T^8),
+each mode's distance from the f32 mode on the same input printed, and
+times each beside its f32 mode, its twin, one ``torch.mm`` on the same
+bf16 operands with an f32 output, and its bf16 bound. Then make_sem_seg
+through the CLI at ``--rw_matmul_dtype bfloat16``: pure (4 images: K6 +
+7 x K5, two launches each, one pass), e3 (8 images: 3 x K2 + K4) and
+default (8 images: K10, K0, K15; every PNG byte-equal to the f32 default
+run's), each >= 99% label-equal to its f32 run; make_ins_seg in the pure
+bf16 run beside the same at f32 (instances printed); the dense mesh route
+(``rw_mesh_model`` 2 on (cuda, cuda), one image) in bf16 against f32.
+The kernels line gives K2, K4, K5 and K6 a ``bf16`` entry: that mode's
+times, bound, errors, and its launches in its bf16 run (``run``).
+
 Every check that fails raises, so the exit code is non-zero; without CUDA,
 or without the repository beside it, the script fails before printing any
 result.
@@ -5279,6 +5296,296 @@ def run_mesh(dev, stage: dict, card: str) -> dict:
     return out
 
 
+# -- walk_bf16: --rw_matmul_dtype bfloat16 ------------------------------------
+
+BF16_KERNELS = ("square_dense", "square_fused_first", "square_banded",
+                "apply_banded")
+# the bf16 run whose launch counts a bf16 mode's entry reports
+BF16_HOME_RUN = {"square_dense": "bf16 pure", "square_fused_first": "bf16 pure",
+                 "square_banded": "bf16 e3", "apply_banded": "bf16 e3"}
+
+
+def _bf16_entry(name: str, card: str, got, want, f32_got, calls: dict,
+                ops: float, nbytes: float, peak: float, what: str,
+                reps: int) -> dict:
+    """One bf16 kernel's record: its distance from the twin (rel <= 1e-5 of
+    the twin's max, all finite) and from the f32 mode on the same input
+    (printed, no gate), and the CUDA-event times of ``calls`` (bf16, f32,
+    plain, library) beside the bf16 mode's bound."""
+    err, rel = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"{name} bf16: rel err {rel} from {what}")
+    _, vs_f32 = rel_err(got, f32_got)
+    times = {k: cuda_ms(fn, reps) for k, fn in calls.items()}
+    out = dict(max_abs_err=err, rel_err=rel, vs_f32_rel=vs_f32,
+               ms=times["bf16"], f32_ms=times["f32"],
+               plain_ms=times["plain"], library_ms=times["library"],
+               **bound(ops, nbytes, peak))
+    print(f"walk_bf16 kernel {name}: {out['ms']:.4f} ms in bf16, "
+          f"{out['f32_ms']:.4f} ms in f32 ({card}); bf16 bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}; twin "
+          f"{out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms; "
+          f"max abs err {err:.3e} (rel {rel:.3e}) from {what}; bf16 vs f32 "
+          f"rel {vs_f32:.3e}", flush=True)
+    return out
+
+
+def check_bf16_kernels(dev, card: str) -> dict:
+    """K5, K6, K2 and K4 in their bf16 operand modes on the kernels phase's
+    inputs (the same seed, the 96x128 bucket, n_pad 14336): each split pass
+    (K2, K5, K6; the hi pieces alone, [2, n, n]) bit-equal to its one-pass
+    twin; each result within rel 1e-5 of its twin (K2, K5, K6: the f64 sum
+    of the one product over those pieces; K4: its bf16 twin, on the f32
+    check's T^8 with NaN beyond the band) and against the f32 mode on the
+    same input (printed); each timed beside its f32 mode, its twin, one
+    library call on the same bf16 operands (``torch.mm`` with an f32
+    output) and its bf16 bound."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED)
+    geom = rw.build_geometry(*BUCKET, radius=5)
+    n, h = geom.n_pad, rw.band_halfwidth(geom)
+    edge = torch.rand(BUCKET, generator=gen).to(dev) * 0.9
+    x = torch.rand((8, n), generator=gen).to(dev)
+    a = rw.dense_affinity(geom, edge)
+    t = rw.normalize_transition(a)
+    res = {}
+
+    # K5: one squaring of T, T rounded once
+    pieces = mk.split_identity(t, bf)
+    check(pieces.shape[0] == 2
+          and torch.equal(pieces, mk.split_identity_plain(t, bf)),
+          "square_dense bf16 split pass not bit-equal to its twin")
+    tb = t.to(bf)
+    res["square_dense"] = _bf16_entry(
+        "square_dense", card, mk.square_dense(t, bf),
+        mk.split_product_plain(pieces), mk.square_dense(t),
+        dict(bf16=lambda: mk.square_dense(t, bf),
+             f32=lambda: mk.square_dense(t),
+             plain=lambda: mk.square_dense_plain(t, bf),
+             library=lambda: torch.mm(tb, tb, out_dtype=torch.float32)),
+        2 * n ** 3, 2 * 4 * n * n, PEAK_BF16,
+        "the f64 product of its one-pass pieces", 3)
+    del pieces, tb
+
+    # K6: A -> T^2, beta 10, L and R rounded after the f32 pow and scale
+    inv = mk.fused_inv(a, 10)
+    pieces = mk.split_operands(a, inv, 10, bf)
+    check(pieces.shape[0] == 2
+          and torch.equal(pieces, mk.split_operands_plain(a, inv, 10, bf)),
+          "square_fused_first bf16 split pass not bit-equal to its twin")
+    lb, rb = (p_.to(bf) for p_ in mk.fused_operands(a, inv, 10))
+    res["square_fused_first"] = _bf16_entry(
+        "square_fused_first", card, mk.square_fused_first(a, 10, bf),
+        mk.split_product_plain(pieces), mk.square_fused_first(a, 10),
+        dict(bf16=lambda: mk.square_fused_first(a, 10, bf),
+             f32=lambda: mk.square_fused_first(a, 10),
+             plain=lambda: mk.square_fused_first_plain(a, 10, bf),
+             library=lambda: torch.mm(lb, rb, out_dtype=torch.float32)),
+        2 * n ** 3, 2 * 4 * n * n, PEAK_BF16,
+        "the f64 product of its one-pass pieces", 3)
+    del pieces, lb, rb, a, inv
+
+    # K2: one banded squaring of T (h 556), NaN in every input block beyond
+    # kb, compared in band
+    t_nan = _poison_blocks(t, h)
+    check(torch.equal(mk.split_banded(t_nan, h, BS, bf),
+                      mk.split_banded_plain(t, h, BS, bf)),
+          "square_banded bf16 split pass not bit-equal to its twin")
+    r = torch.arange(n, device=dev)
+    inband = (r[:, None] - r[None, :]).abs() <= 2 * h
+    ops, nbytes = _square_banded_work(n, h, BS)
+    tb = t.to(bf)
+    res["square_banded"] = _bf16_entry(
+        "square_banded", card, mk.square_banded(t_nan, h, BS, bf)[inband],
+        mk.square_banded_split_plain(t, h, BS, bf)[inband],
+        mk.square_banded(t_nan, h, BS)[inband],
+        dict(bf16=lambda: mk.square_banded(t_nan, h, BS, bf),
+             f32=lambda: mk.square_banded(t_nan, h, BS),
+             plain=lambda: mk.square_banded_plain(t, h, BS, bf),
+             library=lambda: torch.mm(tb, tb, out_dtype=torch.float32)),
+        ops, nbytes, PEAK_BF16,
+        "the f64 product of its one-pass pieces, in band", 5)
+    del inband, t_nan, tb
+
+    # K4: one application of T^8 (three f32 K2 squarings, h 4448: the f32
+    # check's input), NaN in every block beyond kb, x and T rounded as read
+    t8, h8 = t, h
+    for _ in range(3):
+        t8, h8 = mk.square_banded(t8, h8, BS), 2 * h8
+    del t
+    t8 = _poison_blocks(t8, h8)
+    f32_err = rel_err(mk.apply_banded(x, t8, h8, BS),
+                      mk.apply_banded_plain(x, t8, h8, BS))[0]
+    xb = x.to(bf)
+    t8b = torch.nan_to_num(t8, nan=0.0).to(bf)
+    rows = _band_rows(n, BS, -(-h8 // BS))
+    res["apply_banded"] = _bf16_entry(
+        "apply_banded", card, mk.apply_banded(x, t8, h8, BS, bf),
+        mk.apply_banded_plain(x, t8, h8, BS, bf),
+        mk.apply_banded(x, t8, h8, BS),
+        dict(bf16=lambda: mk.apply_banded(x, t8, h8, BS, bf),
+             f32=lambda: mk.apply_banded(x, t8, h8, BS),
+             plain=lambda: mk.apply_banded_plain(x, t8, h8, BS, bf),
+             library=lambda: torch.mm(xb, t8b, out_dtype=torch.float32)),
+        2 * 8 * rows * BS, 4 * (rows * BS + 2 * x.numel()), PEAK_F32,
+        "its twin", 10)
+    res["apply_banded"]["f32_max_abs_err"] = f32_err
+    print(f"walk_bf16 kernel apply_banded: the f32 mode's max abs err from "
+          f"its twin on the same input {f32_err:.3e}; the bf16 mode's "
+          f"{res['apply_banded']['max_abs_err']:.3e}", flush=True)
+    return res
+
+
+def run_walk_bf16(dev, stage: dict, card: str) -> dict:
+    """make_sem_seg through the CLI at ``--rw_matmul_dtype bfloat16`` on the
+    stage phase's tree, each run's launch counts set to 0 just before it and
+    read just after: pure (``--rw_square_times 8``, the N_PURE images: K6,
+    then 7 x K5, in their bf16 modes), e3 (``--exp_times 3
+    --rw_square_times 3``: 3 x K2, then K4) and default + bf16 (the K0
+    stencil: every PNG byte-equal to the f32 default run's), each
+    label-agreeing >= 99% with its f32 run; make_ins_seg in the pure bf16
+    run beside the same at f32 (instances printed); the dense mesh route
+    (``rw_mesh_model`` 2 through the library on (cuda, cuda), one image)
+    in bf16 and f32, >= 99% equal. Each run's seconds per image."""
+    from irn_tpu_torch.ops import _build
+    from irn_tpu_torch.pipeline import run as port_run
+    from irn_tpu_torch.pipeline import stages_irn
+
+    work, names = stage["work"], stage["names"]
+    root = os.path.join(work, "voc")
+    ids, four = os.path.join(root, "all.txt"), os.path.join(root, "pure.txt")
+    one = os.path.join(root, "walk_bf16_one.txt")
+    with open(one, "w") as f:
+        f.write(names[0] + "\n")
+    out_root = os.path.join(work, "walk_bf16")
+    bf = ("--rw_matmul_dtype", "bfloat16")
+
+    def argv(tag, ids_, extra):
+        return ["--voc12_root", root, "--infer_list", ids_, "--train_list",
+                ids_, "--cam_out_dir", os.path.join(work, "cam"),
+                "--irn_weights_name", stage["cfg"].irn_weights_name,
+                "--session_dir", os.path.join(work, "sess"),
+                "--log_name", os.path.join(work, "log_walk_bf16"),
+                "--sem_seg_out_dir", os.path.join(out_root, f"sem_{tag}"),
+                "--ins_seg_out_dir", os.path.join(out_root, f"ins_{tag}"),
+                "--coco_seg_format", "rle", "--device", str(dev), *extra]
+
+    runs = {}
+
+    def run(tag, ids_, extra, summary_key="make_sem_seg_labels"):
+        _build.reset_launches()
+        summ = cli(argv(tag, ids_, extra))[summary_key]
+        torch.cuda.synchronize()
+        stage["launches"][f"bf16 {tag}"] = dict(_build.LAUNCHES)
+        runs[tag] = dict(modes=summ["modes"], n_images=summ["n_images"],
+                         s_per_image=summ["seconds"] / summ["n_images"])
+        print(f"walk_bf16 run {tag}: {summ['n_images']} images, walk modes "
+              f"{summ['modes']}, {1e3 * runs[tag]['s_per_image']:.2f} ms "
+              f"per image ({card})", flush=True)
+        return summ
+
+    pure = ("--rw_square_times", "8", *bf, "--make_sem_seg_pass")
+    run("pure", four, pure)
+    run("e3", ids, ("--exp_times", "3", "--rw_square_times", "3", *bf,
+                    "--make_sem_seg_pass"))
+    run("default", ids, (*bf, "--make_sem_seg_pass"))
+    run("ins pure", four, ("--rw_square_times", "8", *bf,
+                           "--make_ins_seg_pass"), "make_ins_seg_labels")
+    run("ins pure f32", four, ("--rw_square_times", "8",
+                               "--make_ins_seg_pass"), "make_ins_seg_labels")
+    for tag, mode in (("pure", "dense"), ("e3", "banded"),
+                      ("default", "diag"), ("ins pure", "dense")):
+        modes = runs[tag]["modes"]
+        check(modes and set(modes.values()) == {mode},
+              f"walk_bf16 {tag} modes {modes}")
+    lp, le = stage["launches"]["bf16 pure"], stage["launches"]["bf16 e3"]
+    ld = stage["launches"]["bf16 default"]
+    check(lp["square_fused_first"] == 2 * N_PURE
+          and lp["square_dense"] == 2 * 7 * N_PURE
+          and lp["square_banded"] == lp["apply_banded"] == 0,
+          f"walk_bf16 pure launches {lp}")
+    check(le["square_banded"] == 2 * 3 * N_IMAGES
+          and le["apply_banded"] == N_IMAGES
+          and le["packed_chain"] == le["square_dense"] == 0,
+          f"walk_bf16 e3 launches {le}")
+    check(ld["diag_operator"] == ld["diag_chain"] == ld["decode"] == N_IMAGES
+          and not any(ld[k] for k in BF16_KERNELS),
+          f"walk_bf16 default launches {ld}")
+    li = stage["launches"]["bf16 ins pure"]
+    check(li["square_fused_first"] > 0 and li["square_dense"] > 0
+          and li["advect"] == N_PURE, f"walk_bf16 ins launches {li}")
+    agree = {}
+    for tag, f32_tag, names_ in (("pure", "pure", names[:N_PURE]),
+                                 ("e3", "e3", names),
+                                 ("default", "default", names)):
+        got = os.path.join(out_root, f"sem_{tag}")
+        a_ = agreement(stage["runs"][f32_tag]["out"], got, names_)
+        check(min(a_) >= 0.99, f"walk_bf16 {tag} vs f32 agreement {a_}")
+        agree[tag] = min(a_)
+        print(f"walk_bf16 labels {tag} bf16 vs f32: min {min(a_):.6f} mean "
+              f"{np.mean(a_):.6f}", flush=True)
+    n_eq = _files_equal(stage["runs"]["default"]["out"],
+                        os.path.join(out_root, "sem_default"))
+    print(f"walk_bf16 default + bf16: {n_eq} PNGs byte-equal to the f32 "
+          f"default run's", flush=True)
+    ins = []
+    for n_ in names[:N_PURE]:
+        d16, d32 = (np.load(os.path.join(out_root, f"ins_{t_}", n_ + ".npy"),
+                            allow_pickle=True).item()
+                    for t_ in ("ins pure", "ins pure f32"))
+        same = np.array_equal(d16["class"], d32["class"])
+        masks = ([float(np.mean(p_ == q_))
+                  for p_, q_ in zip(d16["mask"], d32["mask"])]
+                 if same else [])
+        check(d16["mask"].dtype == bool and d16["score"].dtype == np.float32
+              and np.isfinite(d16["score"]).all(),
+              f"walk_bf16 ins {n_}: dict {d16.keys()}")
+        ins.append((len(d16["class"]), len(d32["class"]), same,
+                    min(masks) if masks else None))
+    print(f"walk_bf16 make_ins_seg pure bf16 vs f32 per image (instances "
+          f"bf16, f32, same classes, least mask agreement): {ins}",
+          flush=True)
+
+    # the dense mesh route, one image, through the library on (cuda, cuda)
+    mesh_out = {}
+    for dtype in ("bfloat16", "float32"):
+        out = os.path.join(out_root, f"mesh_{dtype}")
+        cfg, _ = port_run.parse([
+            "--voc12_root", root, "--infer_list", one, "--train_list", one,
+            "--cam_out_dir", os.path.join(work, "cam"),
+            "--irn_weights_name", stage["cfg"].irn_weights_name,
+            "--sem_seg_out_dir", out, "--device", str(dev),
+            "--rw_mesh_model", "2", "--rw_square_times", "8",
+            "--rw_matmul_dtype", dtype])
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res_ = stages_irn.make_sem_seg_labels(cfg, dev,
+                                                  devices=[dev, dev])
+        torch.cuda.synchronize()
+        stage["launches"][f"bf16 mesh {dtype}"] = dict(_build.LAUNCHES)
+        check(set(res_["modes"].values()) == {"dense"},
+              f"walk_bf16 mesh {dtype} modes {res_['modes']}")
+        mesh_out[dtype] = dict(out=out, s_per_image=res_["seconds"]
+                               / res_["n_images"])
+    a_ = agreement(mesh_out["float32"]["out"], mesh_out["bfloat16"]["out"],
+                   names[:1])
+    b_ = agreement(os.path.join(out_root, "sem_pure"),
+                   mesh_out["bfloat16"]["out"], names[:1])
+    check(min(a_) >= 0.99, f"walk_bf16 mesh bf16 vs f32 agreement {a_}")
+    agree["mesh"] = min(a_)
+    print(f"walk_bf16 dense mesh route (rw_mesh_model 2, pure): bf16 vs f32 "
+          f"labels {a_[0]:.6f}, vs the single-device bf16 pure run "
+          f"{b_[0]:.6f}; {1e3 * mesh_out['bfloat16']['s_per_image']:.2f} ms "
+          f"per image in bf16, {1e3 * mesh_out['float32']['s_per_image']:.2f}"
+          f" ms in f32 ({card})", flush=True)
+    return dict(runs=runs, agreement=agree, ins=ins,
+                mesh_s_per_image={k: v["s_per_image"]
+                                  for k, v in mesh_out.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -5361,6 +5668,9 @@ def main() -> int:
         run_multi(dev, stage, here, card)
         phase("mesh: the row-sharded walk on one card")
         mesh = run_mesh(dev, stage, card)
+        phase("walk_bf16: --rw_matmul_dtype bfloat16")
+        bf16_kernels = check_bf16_kernels(dev, card)
+        walk_bf16 = run_walk_bf16(dev, stage, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5373,6 +5683,19 @@ def main() -> int:
 
     check(launches["mesh sem mesh"]["diag_chain"] > 0,
           "K0 never launched on the mesh path")
+    # each bf16 mode with its launches in its bf16 run, and the runs' label
+    # agreement with their f32 runs
+    for k in BF16_KERNELS:
+        n_ = launches[BF16_HOME_RUN[k]][k]
+        check(n_ > 0, f"the bf16 mode of {k} never launched on its path "
+                      f"({BF16_HOME_RUN[k]})")
+        kernels[k]["bf16"] = dict(bf16_kernels[k], launches=n_,
+                                  run=BF16_HOME_RUN[k])
+    kernels["square_dense"]["bf16"].update(
+        walk_agreement=walk_bf16["agreement"],
+        walk_s_per_image={k: v["s_per_image"]
+                          for k, v in walk_bf16["runs"].items()},
+        mesh_s_per_image=walk_bf16["mesh_s_per_image"])
     # K0 on the mesh path: its launches in the mesh make_sem_seg run, each
     # walk of the (a) sweep, the whole chain beside them, the stages' time
     # per image and the banded and dense mesh routes of (b) and (c)
@@ -5414,7 +5737,7 @@ def main() -> int:
                             "instances", "mesh_launches",
                             "mesh_ins_launches", "mesh_walks",
                             "mesh_whole_ms", "mesh_per_image_s",
-                            "mesh_routes")
+                            "mesh_routes", "bf16")
                 if key in kernels[k]})
         for k in _build.KERNELS
     ], "shared": shared}), flush=True)

@@ -19,11 +19,17 @@
 // in-band rows with coalesced 128-byte warp loads, the seed rows' window
 // staged in shared memory (irn::thin_apply in common.cuh). Row groups reduce
 // in a fixed order; one launch per call.
+//
+// The bf16 operand mode (bf16 1, the JAX kernel's matmul_dtype bfloat16:
+// x and T rounded to bf16, f32 accumulation and output) rounds each value
+// as it is read (thin_apply<true>): the same bytes move, so it stays bound
+// by HBM as the f32 mode is.
 
 #include "common.cuh"
 
 namespace {
 
+template <bool kRound>
 __global__ void __launch_bounds__(irn::kApplyThreads)
 apply_banded_kernel(const float* __restrict__ x, const float* __restrict__ t,
                     float* __restrict__ out, int C, int n, int bs, int kb) {
@@ -33,23 +39,30 @@ apply_banded_kernel(const float* __restrict__ x, const float* __restrict__ t,
   const int j = col0 / bs;
   const int klo = max(j - kb, 0);
   const int khi = min(j + kb, nb - 1);
-  irn::thin_apply(x, t, out, C, n, c0, col0, klo * bs, (khi + 1) * bs);
+  irn::thin_apply<kRound>(x, t, out, C, n, c0, col0, klo * bs,
+                          (khi + 1) * bs);
 }
 
 }  // namespace
 
-// x, out: [C, n]; t: [n, n]; n % bs == 0, bs % 32 == 0, kb >= 0.
+// x, out: [C, n]; t: [n, n]; n % bs == 0, bs % 32 == 0, kb >= 0; bf16 1
+// rounds x and T to bf16 operands, 0 keeps them f32.
 IRN_API int irn_apply_banded(const float* x, const float* t, float* out,
-                             int C, int n, int bs, int kb, void* stream,
-                             int* launched) {
+                             int C, int n, int bs, int kb, int bf16,
+                             void* stream, int* launched) {
   if (C < 1 || n < 1 || bs < irn::kApplyCols || bs % irn::kApplyCols ||
-      n % bs || kb < 0 || (C + irn::kApplyRows - 1) / irn::kApplyRows > 65535)
+      n % bs || kb < 0 || (C + irn::kApplyRows - 1) / irn::kApplyRows > 65535
+      || (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n / irn::kApplyCols,
                   (C + irn::kApplyRows - 1) / irn::kApplyRows);
-  apply_banded_kernel<<<grid, irn::kApplyThreads, 0, s>>>(x, t, out, C, n, bs,
-                                                          kb);
+  if (bf16)
+    apply_banded_kernel<true><<<grid, irn::kApplyThreads, 0, s>>>(
+        x, t, out, C, n, bs, kb);
+  else
+    apply_banded_kernel<false><<<grid, irn::kApplyThreads, 0, s>>>(
+        x, t, out, C, n, bs, kb);
   IRN_CHECK_LAUNCH(launched);
   return 0;
 }

@@ -11,6 +11,7 @@
 // entries of K3, K7 and K8 in packed_chain.cuh.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <atomic>
 #include <cstddef>
@@ -70,7 +71,14 @@ __device__ __forceinline__ float pow_int(float x, int e) {
 // [r_begin, r_end). The seed rows' window is staged through shared memory
 // in chunks of 256 rows; row group g sums the rows g, g+8, g+16, ... of
 // each chunk in order, and the groups reduce in a fixed order: the result
-// is deterministic.
+// is deterministic. kRound is the bf16 operand mode: every x and T value
+// is rounded to bf16 (nearest even) as it is read, so each product is
+// exact in f32 and the sums stay f32.
+
+// v rounded to bf16, nearest even, as an f32 value.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int kApplyCols = 32;
 constexpr int kApplyGroups = 8;
@@ -78,6 +86,7 @@ constexpr int kApplyRows = 8;
 constexpr int kApplyChunk = 256;
 constexpr int kApplyThreads = kApplyCols * kApplyGroups;
 
+template <bool kRound>
 __device__ __forceinline__ void thin_apply(const float* __restrict__ x,
                                            const float* __restrict__ t,
                                            float* __restrict__ out, int C,
@@ -99,14 +108,16 @@ __device__ __forceinline__ void thin_apply(const float* __restrict__ x,
          e += kApplyThreads) {
       const int r = e / kApplyChunk;
       const int s = e % kApplyChunk;
-      xs[r][s] = (c0 + r < C && s < len) ? x[(size_t)(c0 + r) * n + r0 + s]
-                                         : 0.f;
+      const float v = (c0 + r < C && s < len)
+                          ? x[(size_t)(c0 + r) * n + r0 + s] : 0.f;
+      xs[r][s] = kRound ? round_bf16(v) : v;
     }
     __syncthreads();
     const float* tcol = t + (size_t)r0 * n + col;
 #pragma unroll 4
     for (int s = g; s < len; s += kApplyGroups) {
-      const float tv = __ldg(tcol + (size_t)s * n);
+      const float tl = __ldg(tcol + (size_t)s * n);
+      const float tv = kRound ? round_bf16(tl) : tl;
 #pragma unroll
       for (int r = 0; r < kApplyRows; ++r) acc[r] = fmaf(xs[r][s], tv, acc[r]);
     }

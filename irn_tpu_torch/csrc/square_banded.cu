@@ -36,6 +36,13 @@
 //    accumulator per 64-deep slab added into an f32 total.
 // When the band covers the matrix the wrapper calls torch.matmul instead,
 // as the JAX function falls back to XLA's dot.
+//
+// The bf16 operand mode (passes 1, the JAX kernel's matmul_dtype bfloat16:
+// T rounded once to bf16, products accumulated in f32) is the same two
+// launches at kParts 1: the split pass writes the hi pieces alone
+// ([2, n, W], 4 bytes per in-band element), the product runs one wgmma per
+// k16 step (bound one sixth of the six-pass one, 0.16 ms at n 14336,
+// h 556).
 
 #include "split_product.cuh"
 
@@ -45,6 +52,7 @@ namespace sp = irn::split;
 
 // Grid ((bs/64)^2, 2kb+1, nb): 64 x 64 tile blockIdx.x of block (r_blk =
 // blockIdx.z, c_blk = r_blk + blockIdx.y - kb).
+template <int kParts>
 __global__ void __launch_bounds__(sp::kSplitThreads)
 band_split_kernel(const float* __restrict__ t, sp::bf16* __restrict__ pieces,
                   int n, int bs, int kb) {
@@ -66,20 +74,21 @@ band_split_kernel(const float* __restrict__ t, sp::bf16* __restrict__ pieces,
          e += sp::kSplitThreads) {
       const size_t o = (size_t)(e / sp::kSplitTile) * w + e % sp::kSplitTile;
 #pragma unroll
-      for (int p = 0; p < 6; ++p) l[p * piece + o] = z;
+      for (int p = 0; p < 2 * kParts; ++p) l[p * piece + o] = z;
     }
     return;
   }
   const int c0 = c_blk * bs + tx * sp::kSplitTile;
-  sp::split_tile_at<1, false>(
+  sp::split_tile_at<1, false, kParts>(
       t, nullptr, n, r0, c0, l, w, piece,
-      pieces + 3 * piece + (size_t)c0 * w + (2 * kb - d) * bs +
+      pieces + kParts * piece + (size_t)c0 * w + (2 * kb - d) * bs +
           ty * sp::kSplitTile,
       w, piece, 1);
 }
 
 // Grid ((bs/128)^2, 2jb+1, nb): 128 x 128 tile blockIdx.x of output block
 // (i = blockIdx.z, j = i + blockIdx.y - jb).
+template <int kParts>
 __global__ void __launch_bounds__(sp::kProductThreads, 1)
 band_product_kernel(const __grid_constant__ CUtensorMap pieces,
                     float* __restrict__ out, int n, int bs, int kb, int jb) {
@@ -92,7 +101,7 @@ band_product_kernel(const __grid_constant__ CUtensorMap pieces,
   const int col0 = j * bs + (int)(blockIdx.x % per) * sp::kBN;
   const int klo = max(max(i, j) - kb, 0);
   const int khi = min(min(i, j) + kb, nb - 1);
-  sp::product_tile_at(&pieces, n, row0, (klo - i + kb) * bs, col0,
+  sp::product_tile_at<kParts>(&pieces, n, row0, (klo - i + kb) * bs, col0,
                       (klo - j + kb) * bs, (khi - klo + 1) * bs / sp::kBK,
                       out + (size_t)row0 * n + col0, n);
 }
@@ -104,49 +113,65 @@ bool shape_ok(int n, int bs, int kb, int jb) {
          (bs / sp::kSplitTile) * (bs / sp::kSplitTile) <= 65535;
 }
 
+template <int kParts>
 int split(const float* t, void* pieces, int n, int bs, int kb,
           cudaStream_t s, int* launched) {
   const int per = bs / sp::kSplitTile;
-  band_split_kernel<<<dim3(per * per, 2 * kb + 1, n / bs), sp::kSplitThreads,
-                      0, s>>>(t, static_cast<sp::bf16*>(pieces), n, bs, kb);
+  band_split_kernel<kParts><<<dim3(per * per, 2 * kb + 1, n / bs),
+                              sp::kSplitThreads, 0, s>>>(
+      t, static_cast<sp::bf16*>(pieces), n, bs, kb);
+  IRN_CHECK_LAUNCH(launched);
+  return 0;
+}
+
+template <int kParts>
+int square(const float* t, void* pieces, float* out, int n, int bs, int kb,
+           int jb, cudaStream_t s, int* launched) {
+  constexpr int kSmem = sp::Ring<kParts>::kSmem;
+  const int e = split<kParts>(t, pieces, n, bs, kb, s, launched);
+  if (e) return e;
+  CUtensorMap map;
+  if (!sp::pieces_map(&map, pieces, 2 * kParts, n, (2 * kb + 1) * bs))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_product_kernel<kParts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int per = bs / sp::kBM;
+  band_product_kernel<kParts><<<dim3(per * per, 2 * jb + 1, n / bs),
+                                sp::kProductThreads, kSmem, s>>>(
+      map, out, n, bs, kb, jb);
   IRN_CHECK_LAUNCH(launched);
   return 0;
 }
 
 }  // namespace
 
-// The split pass alone: t [n, n] f32; pieces [6, n, (2kb+1) bs] bf16 (L's
-// row bands hi, mid, lo, then R's column bands transposed). One launch.
+// The split pass alone: t [n, n] f32; pieces [6, n, (2kb+1) bs] bf16 at
+// passes 6 (L's row bands hi, mid, lo, then R's column bands transposed),
+// [2, n, (2kb+1) bs] at passes 1 (the hi pieces alone). One launch.
 IRN_API int irn_square_banded_split(const float* t, void* pieces, int n,
-                                    int bs, int kb, void* stream,
+                                    int bs, int kb, int passes, void* stream,
                                     int* launched) {
-  if (!shape_ok(n, bs, kb, 0)) return (int)cudaErrorInvalidValue;
-  return split(t, pieces, n, bs, kb, static_cast<cudaStream_t>(stream),
-               launched);
+  if (!shape_ok(n, bs, kb, 0) || (passes != 6 && passes != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return passes == 6 ? split<3>(t, pieces, n, bs, kb, s, launched)
+                     : split<1>(t, pieces, n, bs, kb, s, launched);
 }
 
-// t, out: [n, n] f32 (out distinct from t); pieces: [6, n, (2kb+1) bs]
-// bf16 scratch. kb/jb: block-level input/output band halfwidths (jb <=
-// 2kb); bs a multiple of 128, n of bs. Two launches: the split pass, then
-// the product.
+// t, out: [n, n] f32 (out distinct from t); pieces: bf16 scratch of
+// [6, n, (2kb+1) bs] at passes 6 (f32-accurate), [2, n, (2kb+1) bs] at
+// passes 1 (bf16 operands). kb/jb: block-level input/output band
+// halfwidths (jb <= 2kb); bs a multiple of 128, n of bs. Two launches: the
+// split pass, then the product.
 IRN_API int irn_square_banded(const float* t, void* pieces, float* out,
-                              int n, int bs, int kb, int jb, void* stream,
-                              int* launched) {
-  if (!shape_ok(n, bs, kb, jb)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = split(t, pieces, n, bs, kb, s, launched);
-  if (e) return e;
-  CUtensorMap map;
-  if (!sp::pieces_map(&map, pieces, n, (2 * kb + 1) * bs))
+                              int n, int bs, int kb, int jb, int passes,
+                              void* stream, int* launched) {
+  if (!shape_ok(n, bs, kb, jb) || (passes != 6 && passes != 1))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      band_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sp::kProductSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int per = bs / sp::kBM;
-  band_product_kernel<<<dim3(per * per, 2 * jb + 1, n / bs),
-                        sp::kProductThreads, sp::kProductSmem, s>>>(
-      map, out, n, bs, kb, jb);
-  IRN_CHECK_LAUNCH(launched);
-  return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return passes == 6
+             ? square<3>(t, pieces, out, n, bs, kb, jb, s, launched)
+             : square<1>(t, pieces, out, n, bs, kb, jb, s, launched);
 }

@@ -26,6 +26,12 @@
 //    step, a fresh accumulator per 64-deep slab added into an f32 total.
 // The walk pads n to 512; this kernel takes any n that is a multiple of
 // 128.
+//
+// The bf16 operand mode (passes 1, the JAX package's matmul_dtype
+// bfloat16: square_pallas rounds T once to bf16 and accumulates in f32)
+// is the same two launches at kParts 1: the split pass writes bf16(T) and
+// its transpose ([2, n, n], 4 n^2 bytes), the product runs one wgmma per
+// k16 step, bound by 2n^3 over 989 TFLOP/s (5.96 ms at n 14336).
 
 #include "split_product.cuh"
 
@@ -33,43 +39,60 @@ namespace {
 
 namespace sp = irn::split;
 
+template <int kParts>
 __global__ void __launch_bounds__(sp::kSplitThreads)
 split_kernel(const float* __restrict__ t, sp::bf16* __restrict__ pieces,
              int n) {
-  sp::split_tile<1, false>(t, nullptr, pieces, n, 1);
+  sp::split_tile<1, false, kParts>(t, nullptr, pieces, n, 1);
 }
 
+template <int kParts>
 __global__ void __launch_bounds__(sp::kProductThreads, 1)
 product_kernel(const __grid_constant__ CUtensorMap pieces,
                float* __restrict__ out, int n) {
-  sp::product_tile(&pieces, out, n);
+  sp::product_tile<kParts>(&pieces, out, n);
 }
 
+template <int kParts>
 int split(const float* t, void* pieces, int n, cudaStream_t s,
           int* launched) {
-  split_kernel<<<sp::split_grid(n), sp::kSplitThreads, 0, s>>>(
+  split_kernel<kParts><<<sp::split_grid(n), sp::kSplitThreads, 0, s>>>(
       t, static_cast<sp::bf16*>(pieces), n);
   IRN_CHECK_LAUNCH(launched);
   return 0;
 }
 
-}  // namespace
-
-// The split pass alone: t [n, n] f32; pieces [6, n, n] bf16 (T hi, mid, lo,
-// then T^T hi, mid, lo). One launch.
-IRN_API int irn_square_dense_split(const float* t, void* pieces, int n,
-                                   void* stream, int* launched) {
-  if (!sp::shape_ok(n)) return (int)cudaErrorInvalidValue;
-  return split(t, pieces, n, static_cast<cudaStream_t>(stream), launched);
+template <int kParts>
+int square(const float* t, void* pieces, float* out, int n, cudaStream_t s,
+           int* launched) {
+  const int e = split<kParts>(t, pieces, n, s, launched);
+  if (e) return e;
+  return sp::launch_product<kParts>(product_kernel<kParts>, pieces, out, n,
+                                    s, launched);
 }
 
-// t, out: [n, n] f32 (out distinct from t), pieces: [6, n, n] bf16
-// scratch; n % 128 == 0. Two launches: the split pass, then the product.
-IRN_API int irn_square_dense(const float* t, void* pieces, float* out, int n,
-                             void* stream, int* launched) {
-  if (!sp::shape_ok(n)) return (int)cudaErrorInvalidValue;
+}  // namespace
+
+// The split pass alone: t [n, n] f32; pieces [6, n, n] bf16 at passes 6
+// (T hi, mid, lo, then T^T hi, mid, lo), [2, n, n] at passes 1 (bf16(T),
+// then its transpose). One launch.
+IRN_API int irn_square_dense_split(const float* t, void* pieces, int n,
+                                   int passes, void* stream, int* launched) {
+  if (!sp::shape_ok(n) || (passes != 6 && passes != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = split(t, pieces, n, s, launched);
-  if (e) return e;
-  return sp::launch_product(product_kernel, pieces, out, n, s, launched);
+  return passes == 6 ? split<3>(t, pieces, n, s, launched)
+                     : split<1>(t, pieces, n, s, launched);
+}
+
+// t, out: [n, n] f32 (out distinct from t), pieces: bf16 scratch of
+// [6, n, n] at passes 6 (f32-accurate), [2, n, n] at passes 1 (bf16
+// operands); n % 128 == 0. Two launches: the split pass, then the product.
+IRN_API int irn_square_dense(const float* t, void* pieces, float* out, int n,
+                             int passes, void* stream, int* launched) {
+  if (!sp::shape_ok(n) || (passes != 6 && passes != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return passes == 6 ? square<3>(t, pieces, out, n, s, launched)
+                     : square<1>(t, pieces, out, n, s, launched);
 }

@@ -11,7 +11,7 @@ Every kernel wrapper counts its kernel launches in :data:`LAUNCHES`: each C
 entry point reports how many kernels it launched (a chain through K0, K3
 or K7 is 1 launch, whatever its length; a batch of B images through K8 is
 1, or 1 per image group when it does not fit one wave; one K2, K5 or K6
-call is its split pass and its product, 2; one K10 operator build 1; one
+call is its split pass and its product, 2, in either operand mode; one K10 operator build 1; one
 K11 advection 1 (one cooperative launch); one K12a labeling or K12b call
 1, and a K12b call that labels first 1 under each of the two; one K15 decode 1 (one cooperative
 launch), or 1 for the upsample alone; one
@@ -170,18 +170,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, n,
     ]
     lib.irn_pack_banded.argtypes = [p, p, i, i, i, p, n]
-    lib.irn_square_banded.argtypes = [p, p, p, i, i, i, i, p, n]
-    lib.irn_square_banded_split.argtypes = [p, p, i, i, i, p, n]
+    lib.irn_square_banded.argtypes = [p, p, p, i, i, i, i, i, p, n]
+    lib.irn_square_banded_split.argtypes = [p, p, i, i, i, i, p, n]
     lib.irn_packed_chain.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, n,
     ]
     lib.irn_packed_chain_occupancy.argtypes = [i, i, n, n]
-    lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, p, n]
+    lib.irn_apply_banded.argtypes = [p, p, p, i, i, i, i, i, p, n]
     lib.irn_diag_chain_clusters.argtypes = [p, i, i, i, i, i, i, i, i, n]
-    lib.irn_square_dense.argtypes = [p, p, p, i, p, n]
-    lib.irn_square_dense_split.argtypes = [p, p, i, p, n]
-    lib.irn_square_fused_first.argtypes = [p, p, p, p, i, i, p, n]
-    lib.irn_square_fused_first_split.argtypes = [p, p, p, i, i, p, n]
+    lib.irn_square_dense.argtypes = [p, p, p, i, i, p, n]
+    lib.irn_square_dense_split.argtypes = [p, p, i, i, p, n]
+    lib.irn_square_fused_first.argtypes = [p, p, p, p, i, i, i, p, n]
+    lib.irn_square_fused_first_split.argtypes = [p, p, p, i, i, i, p, n]
     lib.irn_banded_chain.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, n,
     ]

@@ -36,8 +36,19 @@ Each kernel has a plain PyTorch twin beside it (``*_plain``). A wrapper runs
 the twin for CPU tensors and launches the kernel for CUDA tensors (or
 raises); it never falls back from the card to the twin. The dense products
 the JAX package leaves to XLA's dot outside any Pallas body (a band that
-covers the matrix) are ``torch.matmul`` here. Kernels take f32 only in
-this version.
+covers the matrix) are ``torch.matmul`` here (:func:`matmul`). Kernels take
+f32 tensors.
+
+``matmul_dtype`` (None or ``torch.bfloat16``, the JAX package's
+``matmul_dtype``) picks the operand mode of K2, K4, K5 and K6 and of the
+products outside them: None keeps f32 operands (K2, K5 and K6 to f32
+accuracy through six bf16 products); bf16 rounds each operand value to
+bf16 (nearest even) and accumulates in f32, so each product is exact and
+only the summation order separates a kernel from its twin (K2, K5 and K6
+run one bf16 product of the hi pieces, K4 rounds as it reads). The chains
+K1 + K3, K7 and K8 have no bf16 mode yet: a bf16 chain of more than one
+application that needs them raises :class:`NotImplementedError`
+(:func:`check_chain_dtype`).
 """
 
 from __future__ import annotations
@@ -70,6 +81,86 @@ def normalize_transition(affinity: torch.Tensor, beta: int = 10) -> torch.Tensor
     """A^beta, column-normalized (misc/indexing.py:132-137)."""
     scaled = pow_int(affinity, beta)
     return scaled / torch.sum(scaled, dim=0, keepdim=True)
+
+
+# -- operand modes ------------------------------------------------------------
+
+CHAIN_BF16_TODO = (
+    "--rw_matmul_dtype bfloat16 on a banded chain of more than one "
+    "application: the bf16 operand mode of K1 pack_banded + K3 packed_chain, "
+    "K7 banded_chain and K8 packed_chain_batched is not ported yet (ROADMAP "
+    "queue 1, item 13)")
+
+
+def check_dtype(matmul_dtype) -> None:
+    """``matmul_dtype`` is None (f32 operands) or ``torch.bfloat16``."""
+    if matmul_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"matmul_dtype {matmul_dtype!r}: None or "
+                         "torch.bfloat16")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to bf16 (nearest even), as f32 values."""
+    return x.to(torch.bfloat16).float()
+
+
+def operand(x: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """``x`` as a product at ``matmul_dtype`` takes it: as it is for f32
+    operands, :func:`round_bf16` for bf16. An operand reused over several
+    products is rounded once."""
+    check_dtype(matmul_dtype)
+    return x if matmul_dtype is None else round_bf16(x)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """``a @ b`` in f32 (``torch.matmul``, TF32 off as the stages pin it);
+    with ``matmul_dtype`` bf16 both operands are rounded to bf16 first, so
+    each product is exact and the result stays f32: the JAX package's dot
+    of bf16 operands with ``preferred_element_type`` f32, which it runs
+    outside its Pallas kernels. (``torch.matmul`` of two bf16 tensors would
+    return bf16.)"""
+    return torch.matmul(operand(a, matmul_dtype), operand(b, matmul_dtype))
+
+
+def _parts(matmul_dtype) -> int:
+    """bf16 pieces per operand value in the split kernels: 3 (hi, mid, lo:
+    six products, f32 accuracy) or 1 (hi: one product, bf16 operands)."""
+    check_dtype(matmul_dtype)
+    return 3 if matmul_dtype is None else 1
+
+
+def _passes(matmul_dtype) -> int:
+    """The split kernels' pass count: 6 products per k step, or 1."""
+    return 6 if _parts(matmul_dtype) == 3 else 1
+
+
+def split_products(n_pieces: int):
+    """(left piece, right piece) of the products over ``n_pieces`` split
+    pieces (both operands'): :data:`SPLIT_PRODUCTS` over 6, hi.hi over 2."""
+    if n_pieces == 6:
+        return SPLIT_PRODUCTS
+    if n_pieces == 2:
+        return ((0, 0),)
+    raise ValueError(f"split pieces {n_pieces}: 6 or 2")
+
+
+def chain_covers(n: int, h: int, bs: int, bj: int) -> bool:
+    """Whether :func:`apply_banded_chain`'s band covers the matrix (its
+    dense path, T masked to the band)."""
+    nkb, kh = _blocks(n, h, bs)
+    return bj // bs + 2 * kh >= nkb
+
+
+def check_chain_dtype(n: int, h: int, n_apply: int, bs: int, bj: int,
+                      matmul_dtype) -> None:
+    """Raises :class:`NotImplementedError` (:data:`CHAIN_BF16_TODO`) where
+    :func:`apply_banded_chain` at ``matmul_dtype`` bf16 would run a chain
+    without a bf16 mode: more than one application with the band under the
+    matrix (K1 + K3, or K7)."""
+    check_dtype(matmul_dtype)
+    if (matmul_dtype is not None and n_apply > 1
+            and not chain_covers(n, h, bs, bj)):
+        raise NotImplementedError(CHAIN_BF16_TODO)
 
 
 def _blocks(n: int, h: int, bs: int):
@@ -123,13 +214,15 @@ def _square_bands(n: int, h: int, bs: int):
     return nb, kb, jb, 2 * kb + 1 >= nb or 2 * jb + 1 >= nb
 
 
-def square_banded_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
+def square_banded_plain(t: torch.Tensor, h: int, bs: int = 512,
+                        matmul_dtype=None) -> torch.Tensor:
     """Block loop over the in-band output blocks, each contracting only the
-    blocks inside both operands' bands; out-of-band blocks are zero here
-    (the kernel leaves them unspecified)."""
+    blocks inside both operands' bands (:func:`matmul` at
+    ``matmul_dtype``); out-of-band blocks are zero here (the kernel leaves
+    them unspecified)."""
     nb, kb, jb, covers = _square_bands(t.shape[0], h, bs)
     if covers:
-        return torch.matmul(t, t)
+        return matmul(t, t, matmul_dtype)
     out = torch.zeros_like(t)
     for i in range(nb):
         for j in range(max(0, i - jb), min(nb, i + jb + 1)):
@@ -137,40 +230,45 @@ def square_banded_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
             khi = min(min(i, j) + kb, nb - 1)
             if klo > khi:
                 continue
-            out[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = torch.matmul(
+            out[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = matmul(
                 t[i * bs : (i + 1) * bs, klo * bs : (khi + 1) * bs],
                 t[klo * bs : (khi + 1) * bs, j * bs : (j + 1) * bs],
-            )
+                matmul_dtype)
     return out
 
 
-def split_banded_plain(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
-    """K2's split pass, plain: [6, n, W] bf16 with W = (2kb+1)*bs, the
-    :func:`split3_plain` pieces of T's in-band blocks in band layouts. L
-    (hi, mid, lo): row r of block row i holds T[r, (i - kb)*bs + w] at w
-    (K-major for the A operand); Rt (hi, mid, lo): row c of block column j
-    holds T[(j - kb)*bs + w, c] at w (T's column bands transposed, K-major
-    for B). Positions whose block lies past the matrix edge are zeros; no
-    block outside the band is read."""
+def split_banded_plain(t: torch.Tensor, h: int, bs: int = 512,
+                       matmul_dtype=None) -> torch.Tensor:
+    """K2's split pass, plain: [2P, n, W] bf16 with W = (2kb+1)*bs, the
+    :func:`split_parts_plain` pieces of T's in-band blocks in band layouts
+    (P = 3, hi, mid and lo, for f32 operands; P = 1, hi, for bf16). L's
+    pieces: row r of block row i holds T[r, (i - kb)*bs + w] at w (K-major
+    for the A operand); then Rt's: row c of block column j holds
+    T[(j - kb)*bs + w, c] at w (T's column bands transposed, K-major for
+    B). Positions whose block lies past the matrix edge are zeros; no block
+    outside the band is read."""
     n = t.shape[0]
     nb, kb = _blocks(n, h, bs)
     w = (2 * kb + 1) * bs
-    pieces = torch.zeros((6, n, w), dtype=torch.bfloat16, device=t.device)
+    parts = _parts(matmul_dtype)
+    pieces = torch.zeros((2 * parts, n, w), dtype=torch.bfloat16,
+                         device=t.device)
     for i in range(nb):
         for d in range(2 * kb + 1):
             k = i + d - kb
             if not 0 <= k < nb:
                 continue
-            blk = torch.stack(split3_plain(
-                t[i * bs : (i + 1) * bs, k * bs : (k + 1) * bs]))
-            pieces[:3, i * bs : (i + 1) * bs, d * bs : (d + 1) * bs] = blk
+            blk = torch.stack(split_parts_plain(
+                t[i * bs : (i + 1) * bs, k * bs : (k + 1) * bs], parts))
+            pieces[:parts, i * bs : (i + 1) * bs, d * bs : (d + 1) * bs] = blk
             e = 2 * kb - d  # block row i is offset e of column band k
-            pieces[3:, k * bs : (k + 1) * bs, e * bs : (e + 1) * bs] = \
+            pieces[parts:, k * bs : (k + 1) * bs, e * bs : (e + 1) * bs] = \
                 blk.transpose(1, 2)
     return pieces
 
 
-def split_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
+def split_banded(t: torch.Tensor, h: int, bs: int = 512,
+                 matmul_dtype=None) -> torch.Tensor:
     """K2's split pass alone (its first launch, counted under
     ``square_banded``); bit-equal to :func:`split_banded_plain`. ``t``:
     [n, n] f32, bs a multiple of 128, n of bs."""
@@ -178,70 +276,78 @@ def split_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
     if t.shape != (n, n):
         raise ValueError(f"split_banded: square matrix expected, got {t.shape}")
     if _build.is_plain(t):
-        return split_banded_plain(t, h, bs)
+        return split_banded_plain(t, h, bs, matmul_dtype)
     _build.check_cuda("square_banded", t)
     _, kb = _blocks(n, h, bs)
     if bs % 128:
         raise ValueError(f"split_banded: bs={bs} must be a multiple of 128")
-    pieces = torch.empty((6, n, (2 * kb + 1) * bs), dtype=torch.bfloat16,
-                         device=t.device)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, (2 * kb + 1) * bs),
+                         dtype=torch.bfloat16, device=t.device)
     _build.launch("square_banded", t.device, t.data_ptr(), pieces.data_ptr(),
-                  n, bs, kb, entry="square_banded_split")
+                  n, bs, kb, _passes(matmul_dtype),
+                  entry="square_banded_split")
     return pieces
 
 
-def square_banded_split_plain(t: torch.Tensor, h: int,
-                              bs: int = 512) -> torch.Tensor:
+def square_banded_split_plain(t: torch.Tensor, h: int, bs: int = 512,
+                              matmul_dtype=None) -> torch.Tensor:
     """What K2's product computes, plain: each in-band output block sums
-    the six :data:`SPLIT_PRODUCTS` of :func:`split_banded_plain`'s pieces
-    over its own k range, in f64 (exact for the bf16 products), returned as
-    f32; out-of-band blocks are zero. K2 differs only in the order of its
-    f32 sums. A band that covers the matrix is ``torch.matmul``, as the
-    kernel's wrapper."""
+    the products (:func:`split_products`) of :func:`split_banded_plain`'s
+    pieces over its own k range, in f64 (exact for the bf16 products),
+    returned as f32; out-of-band blocks are zero. K2 differs only in the
+    order of its f32 sums. A band that covers the matrix is
+    :func:`matmul`, as the kernel's wrapper."""
     n = t.shape[0]
     nb, kb, jb, covers = _square_bands(n, h, bs)
     if covers:
-        return torch.matmul(t, t)
-    pieces = split_banded_plain(t, h, bs).double()
+        return matmul(t, t, matmul_dtype)
+    pieces = split_banded_plain(t, h, bs, matmul_dtype).double()
+    parts = pieces.shape[0] // 2
     out = torch.zeros_like(t)
     for i in range(nb):
         for j in range(max(0, i - jb), min(nb, i + jb + 1)):
             klo = max(max(i, j) - kb, 0)
             khi = min(min(i, j) + kb, nb - 1)
-            a = pieces[:3, i * bs : (i + 1) * bs,
+            a = pieces[:parts, i * bs : (i + 1) * bs,
                        (klo - i + kb) * bs : (khi - i + kb + 1) * bs]
-            b = pieces[3:, j * bs : (j + 1) * bs,
+            b = pieces[parts:, j * bs : (j + 1) * bs,
                        (klo - j + kb) * bs : (khi - j + kb + 1) * bs]
-            acc = sum(a[p] @ b[q].t() for p, q in SPLIT_PRODUCTS)
+            acc = sum(a[p] @ b[q].t()
+                      for p, q in split_products(2 * parts))
             out[i * bs : (i + 1) * bs, j * bs : (j + 1) * bs] = acc.float()
     return out
 
 
-def square_banded(t: torch.Tensor, h: int, bs: int = 512) -> torch.Tensor:
-    """T @ T for T banded with halfwidth ``h`` (K2), to f32 accuracy on the
-    tensor cores: the split pass writes the bf16 pieces of T's in-band
-    blocks in band layouts (:func:`split_banded`), then K6's product sums
-    the six piece products over each in-band output block's k range. Two
-    launches. Only blocks within the 2h output band are written; the rest
-    is unspecified, so read the result through :func:`pack_banded` only.
-    Blocks of ``t`` outside its own band are never read. On the card bs is
-    a multiple of 128; scratch 12 n (2kb+1) bs bytes."""
+def square_banded(t: torch.Tensor, h: int, bs: int = 512,
+                  matmul_dtype=None) -> torch.Tensor:
+    """T @ T for T banded with halfwidth ``h`` (K2) on the tensor cores:
+    the split pass writes the bf16 pieces of T's in-band blocks in band
+    layouts (:func:`split_banded`), then K6's product sums the piece
+    products over each in-band output block's k range: six to f32 accuracy
+    (``matmul_dtype`` None), or one of the hi pieces (bf16: T rounded once
+    to bf16, f32 accumulation). Two launches. Only blocks within the 2h
+    output band are written; the rest is unspecified, so read the result
+    through :func:`pack_banded` only. Blocks of ``t`` outside its own band
+    are never read. A band that covers the matrix is :func:`matmul`, as the
+    JAX function falls back to XLA's dot. On the card bs is a multiple of
+    128; scratch 12 n (2kb+1) bs bytes (4 n (2kb+1) bs in bf16)."""
     n = t.shape[0]
     if t.shape != (n, n):
         raise ValueError(f"square_banded: square matrix expected, got {t.shape}")
+    check_dtype(matmul_dtype)
     if _build.is_plain(t):
-        return square_banded_plain(t, h, bs)
+        return square_banded_plain(t, h, bs, matmul_dtype)
     _build.check_cuda("square_banded", t)
     _, kb, jb, covers = _square_bands(n, h, bs)
     if covers:
-        return torch.matmul(t, t)
+        return matmul(t, t, matmul_dtype)
     if bs % 128:
         raise ValueError(f"square_banded: bs={bs} must be a multiple of 128")
-    pieces = torch.empty((6, n, (2 * kb + 1) * bs), dtype=torch.bfloat16,
-                         device=t.device)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, (2 * kb + 1) * bs),
+                         dtype=torch.bfloat16, device=t.device)
     out = torch.empty_like(t)
     _build.launch("square_banded", t.device, t.data_ptr(), pieces.data_ptr(),
-                  out.data_ptr(), n, bs, kb, jb)
+                  out.data_ptr(), n, bs, kb, jb, _passes(matmul_dtype))
     return out
 
 
@@ -503,65 +609,69 @@ def packed_chain(x: torch.Tensor, tp: torch.Tensor, n_apply: int,
 # -- K4 ---------------------------------------------------------------------
 
 def apply_banded_plain(x: torch.Tensor, t: torch.Tensor, h: int,
-                       bs: int = 512) -> torch.Tensor:
+                       bs: int = 512, matmul_dtype=None) -> torch.Tensor:
     """Column block j contracts the row blocks [j - kb, j + kb] in range
-    (``torch.matmul`` each); a band that covers the matrix is a full
-    product, as the TPU path's dot."""
+    (:func:`matmul` each, at ``matmul_dtype``); a band that covers the
+    matrix is a full product, as the TPU path's dot."""
     n = t.shape[0]
     nb, kb = _blocks(n, h, bs)
     if 2 * kb + 1 >= nb:
-        return torch.matmul(x, t)
+        return matmul(x, t, matmul_dtype)
     out = torch.empty_like(x)
     for j in range(nb):
         lo, hi = max(j - kb, 0) * bs, (min(j + kb, nb - 1) + 1) * bs
-        out[:, j * bs : (j + 1) * bs] = torch.matmul(
-            x[:, lo:hi], t[lo:hi, j * bs : (j + 1) * bs])
+        out[:, j * bs : (j + 1) * bs] = matmul(
+            x[:, lo:hi], t[lo:hi, j * bs : (j + 1) * bs], matmul_dtype)
     return out
 
 
 def apply_banded(x: torch.Tensor, t: torch.Tensor, h: int,
-                 bs: int = 512) -> torch.Tensor:
+                 bs: int = 512, matmul_dtype=None) -> torch.Tensor:
     """x @ T for a banded T (halfwidth ``h``), reading only the in-band
     bs x bs blocks (K4): the rest may hold :func:`square_banded`'s
-    unspecified fill. ``x``: [C, n] with C a multiple of 8. When the band
-    covers the matrix this is a full product (valid only for a T that is
-    zero out of band, as in the JAX package)."""
+    unspecified fill. ``matmul_dtype`` bf16 rounds x and T to bf16 as K4
+    reads them (f32 sums, f32 output). ``x``: [C, n] with C a multiple of
+    8. When the band covers the matrix this is a full product,
+    :func:`matmul` (valid only for a T that is zero out of band, as in the
+    JAX package)."""
     c, n = x.shape
     if t.shape != (n, n) or n % bs or c % 8:
         raise ValueError(f"apply_banded: x {tuple(x.shape)} t "
                          f"{tuple(t.shape)} bs {bs}")
+    check_dtype(matmul_dtype)
     if _build.is_plain(x):
-        return apply_banded_plain(x, t, h, bs)
+        return apply_banded_plain(x, t, h, bs, matmul_dtype)
     _build.check_cuda("apply_banded", x, t)
     nb, kb = _blocks(n, h, bs)
     if 2 * kb + 1 >= nb:
-        return torch.matmul(x, t)
+        return matmul(x, t, matmul_dtype)
     if bs % 32:
         raise ValueError(f"apply_banded: bs={bs} must be a multiple of 32")
     out = torch.empty_like(x)
     _build.launch("apply_banded", x.device,
-                  x.data_ptr(), t.data_ptr(), out.data_ptr(), c, n, bs, kb)
+                  x.data_ptr(), t.data_ptr(), out.data_ptr(), c, n, bs, kb,
+                  int(matmul_dtype is not None))
     return out
 
 
 # -- K5 ---------------------------------------------------------------------
 
-def square_dense_plain(t: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul(t, t)`` (f32 with TF32 off)."""
-    return torch.matmul(t, t)
+def square_dense_plain(t: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """:func:`matmul` (t, t) at ``matmul_dtype`` (f32 with TF32 off)."""
+    return matmul(t, t, matmul_dtype)
 
 
-def split_identity_plain(t: torch.Tensor) -> torch.Tensor:
-    """K5's split pass, plain: [6, n, n] bf16, the :func:`split3_plain`
-    pieces of T (hi, mid, lo, as [i][k]) and the same pieces stored
-    transposed ([j][k]), so both operands are K-major for the product:
-    :func:`split_operands_plain` at beta 1 with inv all ones, since
-    x * 1.0 is exact."""
-    pieces = split3_plain(t)
+def split_identity_plain(t: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """K5's split pass, plain: [2P, n, n] bf16, the :func:`split_parts_plain`
+    pieces of T (hi, mid, lo for f32 operands, P = 3; hi for bf16, P = 1;
+    as [i][k]) and the same pieces stored transposed ([j][k]), so both
+    operands are K-major for the product: :func:`split_operands_plain` at
+    beta 1 with inv all ones, since x * 1.0 is exact."""
+    pieces = split_parts_plain(t, _parts(matmul_dtype))
     return torch.stack([*pieces, *(p.t() for p in pieces)]).contiguous()
 
 
-def split_identity(t: torch.Tensor) -> torch.Tensor:
+def split_identity(t: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     """K5's split pass alone (its first launch, counted under
     ``square_dense``); bit-equal to :func:`split_identity_plain`. ``t``:
     [n, n] f32, n a multiple of 128."""
@@ -569,35 +679,40 @@ def split_identity(t: torch.Tensor) -> torch.Tensor:
     if t.shape != (n, n):
         raise ValueError(f"split_identity: square matrix expected, got {t.shape}")
     if _build.is_plain(t):
-        return split_identity_plain(t)
+        return split_identity_plain(t, matmul_dtype)
     _build.check_cuda("square_dense", t)
     if n % 128:
         raise ValueError(f"split_identity: n={n} must be a multiple of 128")
-    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=t.device)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, n),
+                         dtype=torch.bfloat16, device=t.device)
     _build.launch("square_dense", t.device, t.data_ptr(), pieces.data_ptr(),
-                  n, entry="square_dense_split")
+                  n, _passes(matmul_dtype), entry="square_dense_split")
     return pieces
 
 
-def square_dense(t: torch.Tensor) -> torch.Tensor:
-    """Dense T @ T to f32 accuracy on the tensor cores (K5): the split pass
-    writes the bf16 pieces of T and of T transposed
-    (:func:`split_identity`), then K6's product sums the six piece products
-    of :data:`SPLIT_PRODUCTS` in f32. Two launches. ``t``: [n, n] f32, n a
-    multiple of 128 (the product's tile; the walk pads n to 512); scratch
-    12 n^2 bytes."""
+def square_dense(t: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """Dense T @ T on the tensor cores (K5): the split pass writes the bf16
+    pieces of T and of T transposed (:func:`split_identity`), then K6's
+    product sums the piece products in f32: the six of
+    :data:`SPLIT_PRODUCTS` to f32 accuracy (``matmul_dtype`` None), or
+    hi.hi alone (bf16: T rounded once to bf16, as ``square_pallas`` rounds
+    it). Two launches. ``t``: [n, n] f32, n a multiple of 128 (the
+    product's tile; the walk pads n to 512); scratch 12 n^2 bytes (4 n^2 in
+    bf16)."""
     n = t.shape[0]
     if t.shape != (n, n):
         raise ValueError(f"square_dense: square matrix expected, got {t.shape}")
+    check_dtype(matmul_dtype)
     if _build.is_plain(t):
-        return square_dense_plain(t)
+        return square_dense_plain(t, matmul_dtype)
     _build.check_cuda("square_dense", t)
     if n % 128:
         raise ValueError(f"square_dense: n={n} must be a multiple of 128")
-    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=t.device)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, n),
+                         dtype=torch.bfloat16, device=t.device)
     out = torch.empty_like(t)
     _build.launch("square_dense", t.device, t.data_ptr(), pieces.data_ptr(),
-                  out.data_ptr(), n)
+                  out.data_ptr(), n, _passes(matmul_dtype))
     return out
 
 
@@ -622,20 +737,41 @@ def split3_plain(x: torch.Tensor):
     return hi, mid, lo
 
 
-def split_operands_plain(a: torch.Tensor, inv: torch.Tensor,
-                         beta: int = 10) -> torch.Tensor:
-    """K6's split pass, plain: [6, n, n] bf16 pieces of the left operand
-    L = A^beta (hi, mid, lo, as [i][k]) and of the right operand
-    R[k, j] = A^beta[k, j] * inv[k] * inv[j] (in that multiply order),
-    stored transposed ([j][k]), so both are K-major for the product."""
+def split_parts_plain(x: torch.Tensor, parts: int):
+    """f32 ``x`` as its first ``parts`` bf16 pieces: (hi, mid, lo) of
+    :func:`split3_plain` at 3, (hi,) = bf16(x) at 1 (the bf16 operand
+    mode: JAX's ``astype(bfloat16)``)."""
+    if parts == 3:
+        return split3_plain(x)
+    if parts == 1:
+        return (x.to(torch.bfloat16),)
+    raise ValueError(f"split parts {parts}: 3 or 1")
+
+
+def fused_operands(a: torch.Tensor, inv: torch.Tensor, beta: int = 10):
+    """K6's f32 operands before they are split: L = A^beta and
+    R[k, j] = A^beta[k, j] * inv[k] * inv[j], in that multiply order (the
+    JAX kernel's order, matpow_pallas._fused_kernel)."""
     b = pow_int(a, beta)
-    r = b * inv[:, None] * inv[None, :]
-    return torch.stack([*split3_plain(b),
-                        *(p.t() for p in split3_plain(r))]).contiguous()
+    return b, b * inv[:, None] * inv[None, :]
+
+
+def split_operands_plain(a: torch.Tensor, inv: torch.Tensor,
+                         beta: int = 10, matmul_dtype=None) -> torch.Tensor:
+    """K6's split pass, plain: [2P, n, n] bf16 pieces (P = 3 for f32
+    operands, 1 for bf16: :func:`split_parts_plain`) of the left operand
+    L (as [i][k]) and of the right operand R (stored transposed, [j][k]) of
+    :func:`fused_operands`, so both are K-major for the product; each value
+    is split after its f32 pow and scale."""
+    parts = _parts(matmul_dtype)
+    b, r = fused_operands(a, inv, beta)
+    return torch.stack([*split_parts_plain(b, parts),
+                        *(p.t() for p in split_parts_plain(r, parts))]
+                       ).contiguous()
 
 
 def split_operands(a: torch.Tensor, inv: torch.Tensor,
-                   beta: int = 10) -> torch.Tensor:
+                   beta: int = 10, matmul_dtype=None) -> torch.Tensor:
     """K6's split pass alone (its first launch, counted under
     ``square_fused_first``); bit-equal to :func:`split_operands_plain`.
     ``a``: [n, n] f32, ``inv``: [n] f32, n a multiple of 128."""
@@ -644,76 +780,98 @@ def split_operands(a: torch.Tensor, inv: torch.Tensor,
         raise ValueError(f"split_operands: a {tuple(a.shape)} inv "
                          f"{tuple(inv.shape)} beta {beta}")
     if _build.is_plain(a):
-        return split_operands_plain(a, inv, beta)
+        return split_operands_plain(a, inv, beta, matmul_dtype)
     _build.check_cuda("square_fused_first", a, inv)
     if n % 128:
         raise ValueError(f"split_operands: n={n} must be a multiple of 128")
-    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=a.device)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, n),
+                         dtype=torch.bfloat16, device=a.device)
     _build.launch("square_fused_first", a.device, a.data_ptr(),
                   inv.data_ptr(), pieces.data_ptr(), n, beta,
-                  entry="square_fused_first_split")
+                  _passes(matmul_dtype), entry="square_fused_first_split")
     return pieces
 
 
 def split_product_plain(pieces: torch.Tensor) -> torch.Tensor:
-    """The sum of the six products over split pieces
-    (:func:`split_operands`' for K6, :func:`split_identity`'s for K5), each
-    in f64 (exact for the bf16 products; the sums round once per add),
-    returned as f32: what the K5/K6 product computes, up to the order of
-    its f32 sums."""
-    lt, rt = pieces[:3].double(), pieces[3:].double()
+    """The sum of the products (:func:`split_products`: six over [6, n, n]
+    pieces, one over [2, n, n]) over split pieces (:func:`split_operands`'
+    for K6, :func:`split_identity`'s for K5), each in f64 (exact for the
+    bf16 products; the sums round once per add), returned as f32: what the
+    K5/K6 product computes, up to the order of its f32 sums."""
+    parts = pieces.shape[0] // 2
+    lt, rt = pieces[:parts].double(), pieces[parts:].double()
     out = torch.zeros(pieces.shape[1:], dtype=torch.float64,
                       device=pieces.device)
-    for p, q in SPLIT_PRODUCTS:
+    for p, q in split_products(pieces.shape[0]):
         out += lt[p] @ rt[q].t()
     return out.float()
 
 
-def square_fused_first_plain(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
-    """:func:`normalize_transition`, then ``torch.matmul(t, t)``."""
-    t = normalize_transition(a, beta)
-    return torch.matmul(t, t)
+def fused_inv(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
+    """1 / colsum(A^beta): K6's column scale, computed outside the kernel
+    as the JAX function computes it with XLA."""
+    return 1.0 / torch.sum(pow_int(a, beta), dim=0)
 
 
-def square_fused_first(a: torch.Tensor, beta: int = 10) -> torch.Tensor:
+def square_fused_first_plain(a: torch.Tensor, beta: int = 10,
+                             matmul_dtype=None) -> torch.Tensor:
+    """f32 operands: :func:`normalize_transition`, then
+    ``torch.matmul(t, t)``. bf16: :func:`matmul` of K6's own operands
+    (:func:`fused_operands` with :func:`fused_inv`), each rounded to bf16
+    after its f32 pow and scale as the JAX kernel rounds them."""
+    check_dtype(matmul_dtype)
+    if matmul_dtype is None:
+        t = normalize_transition(a, beta)
+        return torch.matmul(t, t)
+    return matmul(*fused_operands(a, fused_inv(a, beta), beta), matmul_dtype)
+
+
+def square_fused_first(a: torch.Tensor, beta: int = 10,
+                       matmul_dtype=None) -> torch.Tensor:
     """T @ T with T = colnorm(A^beta) (K6): the split pass writes the bf16
     pieces of L = A^beta and of R = A^beta * inv[k] * inv[j], with
-    inv = 1 / colsum(A^beta) computed here, and the product sums the six
-    piece products of :data:`SPLIT_PRODUCTS` on the tensor cores in f32.
-    Two launches. ``a``: [n, n] f32, n a multiple of 128 (the product's
-    tile; the walk pads n to 512); scratch 12 n^2 bytes."""
+    inv = 1 / colsum(A^beta) computed here, and the product sums the piece
+    products on the tensor cores in f32: the six of :data:`SPLIT_PRODUCTS`
+    to f32 accuracy (``matmul_dtype`` None), or hi.hi alone (bf16: L and R
+    each rounded once to bf16). Two launches. ``a``: [n, n] f32, n a
+    multiple of 128 (the product's tile; the walk pads n to 512); scratch
+    12 n^2 bytes (4 n^2 in bf16)."""
     n = a.shape[0]
     if a.shape != (n, n) or beta < 1:
         raise ValueError(f"square_fused_first: a {tuple(a.shape)} beta {beta}")
+    check_dtype(matmul_dtype)
     if _build.is_plain(a):
-        return square_fused_first_plain(a, beta)
+        return square_fused_first_plain(a, beta, matmul_dtype)
     _build.check_cuda("square_fused_first", a)
     if n % 128:
         raise ValueError(f"square_fused_first: n={n} must be a multiple of 128")
-    inv = 1.0 / torch.sum(pow_int(a, beta), dim=0)
-    pieces = torch.empty((6, n, n), dtype=torch.bfloat16, device=a.device)
+    inv = fused_inv(a, beta)
+    pieces = torch.empty((2 * _parts(matmul_dtype), n, n),
+                         dtype=torch.bfloat16, device=a.device)
     out = torch.empty_like(a)
     _build.launch("square_fused_first", a.device,
                   a.data_ptr(), inv.data_ptr(), pieces.data_ptr(),
-                  out.data_ptr(), n, beta)
+                  out.data_ptr(), n, beta, _passes(matmul_dtype))
     return out
 
 
 # -- K7 ---------------------------------------------------------------------
 
 def banded_chain_plain(x: torch.Tensor, t: torch.Tensor, h: int,
-                       n_apply: int) -> torch.Tensor:
+                       n_apply: int, matmul_dtype=None) -> torch.Tensor:
     """K7's twin: T with every element of |r - c| > h replaced by 0 (a
     select, so a NaN out of band does not leak), then ``n_apply`` dense
-    products; K7's tile row ranges only skip elements the mask zeroes.
+    products (:func:`matmul`: at bf16 the carry is rounded to bf16 before
+    each product); K7's tile row ranges only skip elements the mask zeroes.
     This is also the JAX package's path when the band covers the matrix
     (an XLA dot outside any kernel)."""
     r = torch.arange(t.shape[0], device=t.device)
-    tm = torch.where((r[:, None] - r[None, :]).abs() <= h, t,
-                     torch.zeros((), dtype=t.dtype, device=t.device))
+    tm = operand(torch.where((r[:, None] - r[None, :]).abs() <= h, t,
+                             torch.zeros((), dtype=t.dtype, device=t.device)),
+                 matmul_dtype)
     out = x
     for _ in range(n_apply):
-        out = torch.matmul(out, tm)
+        out = torch.matmul(operand(out, matmul_dtype), tm)
     return out
 
 
@@ -792,29 +950,31 @@ def banded_chain(x: torch.Tensor, t: torch.Tensor, h: int, n_apply: int,
 
 def apply_banded_chain(x: torch.Tensor, t: torch.Tensor, h: int,
                        n_apply: int, bs: int = 512,
-                       bj: Optional[int] = None) -> torch.Tensor:
+                       bj: Optional[int] = None,
+                       matmul_dtype=None) -> torch.Tensor:
     """x @ T^n_apply for a banded T (halfwidth ``h``) whose out-of-band
     blocks may hold :func:`square_banded`'s fill, dispatched as
     ``matpow_pallas.apply_banded_chain``: one application through
-    :func:`apply_banded` (K4); square tiles (``bj == bs``) with the band
-    under the matrix through :func:`pack_banded` + :func:`packed_chain`
-    (K1 + K3); a band covering the matrix through T masked to the band and
-    dense products; otherwise rectangular tiles through
-    :func:`banded_chain` (K7). ``x``: [C, n] with C a multiple of 8;
-    ``bj`` defaults to ``bs``, as ``matpow_pallas.default_apply_bj``."""
+    :func:`apply_banded` (K4); a band covering the matrix through T masked
+    to the band and dense products (:func:`banded_chain_plain`); square
+    tiles (``bj == bs``) through :func:`pack_banded` + :func:`packed_chain`
+    (K1 + K3); otherwise rectangular tiles through :func:`banded_chain`
+    (K7). ``matmul_dtype`` bf16 runs K4 and the dense products on bf16
+    operands and raises (:func:`check_chain_dtype`) for K1 + K3 and K7.
+    ``x``: [C, n] with C a multiple of 8; ``bj`` defaults to ``bs``, as
+    ``matpow_pallas.default_apply_bj``."""
     c, n = x.shape
     if bj is None:
         bj = bs
     if t.shape != (n, n) or n % bs or c % 8 or bj % bs or n % bj:
         raise ValueError(f"bad shapes x={tuple(x.shape)} t={tuple(t.shape)} "
                          f"bs={bs} bj={bj}")
+    check_chain_dtype(n, h, n_apply, bs, bj, matmul_dtype)
     if n_apply == 1:
-        return apply_banded(x, t, h, bs)
-    nkb, kh = _blocks(n, h, bs)
-    bjk = bj // bs
-    if bjk + 2 * kh >= nkb:  # the band covers the matrix
-        return banded_chain_plain(x, t, h, n_apply)
-    if bjk == 1:
+        return apply_banded(x, t, h, bs, matmul_dtype)
+    if chain_covers(n, h, bs, bj):
+        return banded_chain_plain(x, t, h, n_apply, matmul_dtype)
+    if bj == bs:
         return packed_chain(x, pack_banded(t, h, bs), n_apply, bs)
     return banded_chain(x, t, h, n_apply, bs, bj)
 
@@ -890,8 +1050,8 @@ def packed_chain_batched(xs: torch.Tensor, tps: torch.Tensor, n_apply: int,
 
 
 def apply_banded_chain_batched(xs: torch.Tensor, ts: Iterable[torch.Tensor],
-                               h: int, n_apply: int,
-                               bs: int = 512) -> torch.Tensor:
+                               h: int, n_apply: int, bs: int = 512,
+                               matmul_dtype=None) -> torch.Tensor:
     """B images' x_b @ T_b^n_apply in one batched chain, as
     ``matpow_pallas.apply_banded_chain_batched``: each T_b (halfwidth
     ``h``, out-of-band blocks unspecified) is packed by :func:`pack_banded`
@@ -900,8 +1060,13 @@ def apply_banded_chain_batched(xs: torch.Tensor, ts: Iterable[torch.Tensor],
     [n, n] tensors in image order; it is read once, each T_b only until it
     is packed, so a generator that builds them lets each dense T be freed
     before the next is built. A band that does not fit under the matrix
-    raises (no dense fallback). Returns [B, C, n] f32."""
+    raises (no dense fallback). ``matmul_dtype`` bf16 raises
+    :class:`NotImplementedError` (K1 and K8 have no bf16 mode yet). Returns
+    [B, C, n] f32."""
     bimg, c, n = xs.shape
+    check_dtype(matmul_dtype)
+    if matmul_dtype is not None:
+        raise NotImplementedError(CHAIN_BF16_TODO)
     if n % bs or c % 8:
         raise ValueError(f"bad shapes xs={tuple(xs.shape)} bs={bs}")
     nkb, kh = _blocks(n, h, bs)

@@ -39,6 +39,15 @@ quarter of the matrix, else the dense route with its squarings' rows
 split. The JAX switch ``IRN_TPU_APPLY`` is not read: the stencil is always
 selected (JAX ``diag_selected()`` True).
 
+``matmul_dtype`` (None or ``torch.bfloat16``, ``--rw_matmul_dtype``) is the
+operand mode of every product of the matrix routes, as in the JAX package:
+bf16 rounds each operand to bf16 and accumulates in f32 (K2, K4, K5, K6 in
+their bf16 modes; the products outside them, :func:`matpow_kernels.
+matmul`, the same way). The stencil routes (e = 0) have no product and
+ignore it. The banded route's chain of more than one application (K1 + K3,
+K7, K8) has no bf16 mode yet and raises :class:`NotImplementedError`
+before anything is built.
+
 Public functions keep the JAX layouts: [C, cap_h, cap_w] seeds,
 [cap_h, cap_w] edge, [n_pairs, n_pad] band table.
 """
@@ -545,34 +554,36 @@ def apply_transition_mesh_diag(geom: RandomWalkGeometry,
 
 def build_transition_mesh_banded(geom: RandomWalkGeometry,
                                  edge_capped: torch.Tensor, beta: int,
-                                 square_times: int, mesh
-                                 ) -> List[torch.Tensor]:
+                                 square_times: int, mesh,
+                                 matmul_dtype=None) -> List[torch.Tensor]:
     """T^(2^square_times) as row blocks over ``mesh``, from end to end:
     each device assembles its rows of A from the band table, the column
     sums are summed over the devices, the squarings ship only the band's
-    rows (:mod:`rw_sharded`). Check :func:`banded_sharded_fits` first."""
+    rows (:mod:`rw_sharded`; bf16 operands at ``matmul_dtype`` bf16, the
+    carry f32). Check :func:`banded_sharded_fits` first."""
     from irn_tpu_torch.parallel import rw_sharded
 
     vs, doffs = band_values(geom, edge_capped)
     a = rw_sharded.assemble_rows(vs, doffs, geom.n_pad, mesh)
     t = rw_sharded.normalize_rows(a, beta, mesh)
     return rw_sharded.banded_power(t, square_times, band_halfwidth(geom),
-                                   mesh)
+                                   mesh, matmul_dtype)
 
 
 def apply_transition_mesh_banded(geom: RandomWalkGeometry,
                                  cam_capped: torch.Tensor,
                                  edge_capped: torch.Tensor,
                                  t_blocks: Sequence[torch.Tensor],
-                                 n_apply: int, mesh) -> torch.Tensor:
+                                 n_apply: int, mesh,
+                                 matmul_dtype=None) -> torch.Tensor:
     """The seeds through ``n_apply`` applications of the row-split T of
     :func:`build_transition_mesh_banded` (partials summed in device
     order); the result on ``mesh.first``."""
     from irn_tpu_torch.parallel import rw_sharded
 
     seeds = _flat_seeds(geom, cam_capped, edge_capped)
-    return _unflatten_rw(geom, rw_sharded.banded_apply(seeds, t_blocks,
-                                                       n_apply, mesh))
+    return _unflatten_rw(geom, rw_sharded.banded_apply(
+        seeds, t_blocks, n_apply, mesh, matmul_dtype))
 
 
 def dense_affinity(geom: RandomWalkGeometry,
@@ -590,15 +601,15 @@ def dense_affinity(geom: RandomWalkGeometry,
 
 def build_transition_banded(geom: RandomWalkGeometry,
                             edge_capped: torch.Tensor, beta: int = 10,
-                            square_times: int = 2,
-                            bs: int = 512) -> Tuple[torch.Tensor, int]:
-    """T^(2^square_times) via banded squarings (K2). Returns (t, band); the
-    out-of-band blocks of ``t`` are unspecified. Check
-    :func:`banded_fits` first."""
+                            square_times: int = 2, bs: int = 512,
+                            matmul_dtype=None) -> Tuple[torch.Tensor, int]:
+    """T^(2^square_times) via banded squarings (K2, at ``matmul_dtype``).
+    Returns (t, band); the out-of-band blocks of ``t`` are unspecified.
+    Check :func:`banded_fits` first."""
     h = band_halfwidth(geom)
     t = normalize_transition(dense_affinity(geom, edge_capped), beta)
     for _ in range(square_times):
-        t = mk.square_banded(t, h, bs=bs)
+        t = mk.square_banded(t, h, bs=bs, matmul_dtype=matmul_dtype)
         h *= 2
     return t, h
 
@@ -607,61 +618,67 @@ def apply_transition_banded(geom: RandomWalkGeometry,
                             cam_capped: torch.Tensor,
                             edge_capped: torch.Tensor, t: torch.Tensor,
                             band: int, n_apply: int, bs: int = 512,
-                            bj: Optional[int] = None) -> torch.Tensor:
+                            bj: Optional[int] = None,
+                            matmul_dtype=None) -> torch.Tensor:
     """Seed propagation through a banded T (:func:`mk.apply_banded_chain`:
-    K4, K1 + K3 or K7)."""
+    K4, K1 + K3 or K7; at bf16 K4 alone, the chains raise)."""
     seeds = _flat_seeds(geom, cam_capped, edge_capped)
     c = seeds.shape[0]
     seeds = F.pad(seeds, (0, 0, 0, _round_up(c, 8) - c))
-    rw = mk.apply_banded_chain(seeds, t, band, n_apply, bs=bs, bj=bj)
+    rw = mk.apply_banded_chain(seeds, t, band, n_apply, bs=bs, bj=bj,
+                               matmul_dtype=matmul_dtype)
     return _unflatten_rw(geom, rw[:c])
 
 
 def transition_matrix(affinity: torch.Tensor, beta: int = 10,
-                      exp_times: int = 8) -> torch.Tensor:
+                      exp_times: int = 8, matmul_dtype=None) -> torch.Tensor:
     """A^beta, column-normalize, then ``exp_times`` squarings => T^(2^e):
     the first squaring fused with the normalization (K6), the rest dense
-    squarings (K5)."""
+    squarings (K5), each at ``matmul_dtype``."""
     if exp_times < 1:
         return normalize_transition(affinity, beta)
-    t = mk.square_fused_first(affinity, beta)
-    return matpow.matrix_power_squarings(t, exp_times - 1)
+    t = mk.square_fused_first(affinity, beta, matmul_dtype)
+    return matpow.matrix_power_squarings(t, exp_times - 1, matmul_dtype)
 
 
 def build_transition(geom: RandomWalkGeometry, edge_capped: torch.Tensor,
                      beta: int = 10, exp_times: int = 8,
-                     mesh=None) -> torch.Tensor:
+                     mesh=None, matmul_dtype=None) -> torch.Tensor:
     """Dense T^(2^e) from the edge map (seed-independent). With a ``mesh``
     of two or more devices the squarings run with T's rows split
-    (:func:`rw_sharded.sharded_matrix_power`, ``torch.matmul`` in f32 as
-    the JAX package leaves them to XLA's dot under a sharding) and T is
-    gathered on ``mesh.first``."""
+    (:func:`rw_sharded.sharded_matrix_power`, :func:`mk.operand` at
+    ``matmul_dtype`` as the JAX package leaves them to XLA's dot under a
+    sharding) and T is gathered on ``mesh.first``."""
     if mesh is None or len(mesh) < 2:
         return transition_matrix(dense_affinity(geom, edge_capped), beta,
-                                 exp_times)
+                                 exp_times, matmul_dtype)
     from irn_tpu_torch.parallel import rw_sharded
 
     t = normalize_transition(dense_affinity(geom, edge_capped), beta)
-    return mesh.gather(rw_sharded.sharded_matrix_power(t, exp_times, mesh),
-                       0)
+    return mesh.gather(rw_sharded.sharded_matrix_power(
+        t, exp_times, mesh, matmul_dtype), 0)
 
 
 def propagate_with_transition(geom: RandomWalkGeometry,
                               cam_capped: torch.Tensor,
                               edge_capped: torch.Tensor, t: torch.Tensor,
-                              n_apply: int = 1) -> torch.Tensor:
+                              n_apply: int = 1,
+                              matmul_dtype=None) -> torch.Tensor:
     """Boundary-damp the seeds and right-multiply them by a prebuilt T
-    ``n_apply`` times (``torch.matmul``, f32)."""
+    ``n_apply`` times (``torch.matmul``, f32 out; at ``matmul_dtype`` bf16
+    T is rounded once and the seeds before each product, as the JAX
+    function casts them)."""
     rw = _flat_seeds(geom, cam_capped, edge_capped)
+    t = mk.operand(t, matmul_dtype)
     for _ in range(n_apply):
-        rw = torch.matmul(rw, t)
+        rw = torch.matmul(mk.operand(rw, matmul_dtype), t)
     return _unflatten_rw(geom, rw)
 
 
 def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
               edge_capped: torch.Tensor, beta: int = 10, exp_times: int = 8,
               square_times: Optional[int] = None, mesh=None,
-              mesh_banded: bool = True) -> torch.Tensor:
+              mesh_banded: bool = True, matmul_dtype=None) -> torch.Tensor:
     """Dense propagation: T^(2^e) from :func:`build_transition`, then
     2^(E-e) applications (:func:`propagate_with_transition`).
     ``square_times`` None is the reference's pure squaring (e = E).
@@ -672,7 +689,8 @@ def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
     the column-split stencil (:func:`propagate_mesh_diag`) where
     :func:`diag_sharded_fits`, else the row-split banded T where
     :func:`banded_sharded_fits`; otherwise the dense T with its squarings'
-    rows split.
+    rows split. ``matmul_dtype``: the operand mode of every product (the
+    stencil has none).
 
     Returns [C, cap_h, cap_w] propagated scores (zero beyond extent)."""
     e = exp_times if square_times is None else square_times
@@ -684,53 +702,76 @@ def propagate(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
                                    exp_times, mesh)
     if mesh_banded and k > 1 and banded_sharded_fits(geom, exp_times, e, k):
         t_blocks = build_transition_mesh_banded(geom, edge_capped, beta, e,
-                                                mesh)
+                                                mesh, matmul_dtype)
         return apply_transition_mesh_banded(geom, cam_capped, edge_capped,
                                             t_blocks, 1 << (exp_times - e),
-                                            mesh)
-    t = build_transition(geom, edge_capped, beta, e, mesh)
+                                            mesh, matmul_dtype)
+    t = build_transition(geom, edge_capped, beta, e, mesh, matmul_dtype)
     return propagate_with_transition(geom, cam_capped, edge_capped, t,
-                                     n_apply=1 << (exp_times - e))
+                                     1 << (exp_times - e), matmul_dtype)
+
+
+def check_banded_dtype(geom: RandomWalkGeometry, exp_times: int,
+                       square_times: int, bs: int = 512,
+                       bj: Optional[int] = None, matmul_dtype=None) -> None:
+    """Raises :class:`NotImplementedError` when the banded route at
+    ``square_times`` (its band fitting) would run an application chain
+    without a bf16 mode (:func:`mk.check_chain_dtype`): 0 < e < E at bf16.
+    Called before any squaring runs."""
+    h = band_halfwidth(geom) << square_times
+    mk.check_chain_dtype(geom.n_pad, h, 1 << (exp_times - square_times), bs,
+                         bs if bj is None else bj, matmul_dtype)
 
 
 def propagate_banded(geom: RandomWalkGeometry, cam_capped: torch.Tensor,
                      edge_capped: torch.Tensor, beta: int = 10,
                      exp_times: int = 8, square_times: Optional[int] = None,
-                     bs: int = 512, bj: Optional[int] = None) -> torch.Tensor:
+                     bs: int = 512, bj: Optional[int] = None,
+                     matmul_dtype=None) -> torch.Tensor:
     """:func:`propagate` through the hand kernels: the diagonal stencil at
-    e = 0, the banded kernels when the band fits (``bj``: the output tile
-    width of the application chain, default ``bs``), else dense."""
+    e = 0 (no product: ``matmul_dtype`` does not apply), the banded kernels
+    when the band fits (``bj``: the output tile width of the application
+    chain, default ``bs``), else dense. At bf16 the banded route runs K2
+    and, at e = E, K4; a chain of more applications raises before anything
+    is built (:func:`check_banded_dtype`)."""
     e = exp_times if square_times is None else square_times
     if not 0 <= e <= exp_times:
         raise ValueError(f"square_times={e} not in [0, {exp_times}]")
+    mk.check_dtype(matmul_dtype)
     if e == 0:
         return propagate_diag(geom, cam_capped, edge_capped, beta, exp_times)
     if not banded_fits(geom, exp_times, e, bs):
         return propagate(geom, cam_capped, edge_capped, beta, exp_times,
-                         square_times=e)
-    t, band = build_transition_banded(geom, edge_capped, beta, e, bs)
+                         square_times=e, matmul_dtype=matmul_dtype)
+    check_banded_dtype(geom, exp_times, e, bs, bj, matmul_dtype)
+    t, band = build_transition_banded(geom, edge_capped, beta, e, bs,
+                                      matmul_dtype)
     return apply_transition_banded(geom, cam_capped, edge_capped, t, band,
-                                   1 << (exp_times - e), bs, bj)
+                                   1 << (exp_times - e), bs, bj,
+                                   matmul_dtype)
 
 
 def propagate_banded_batch(geom: RandomWalkGeometry, cams_capped: torch.Tensor,
                            edges_capped: torch.Tensor, beta: int = 10,
                            exp_times: int = 8,
                            square_times: Optional[int] = None,
-                           bs: int = 512) -> torch.Tensor:
+                           bs: int = 512, matmul_dtype=None) -> torch.Tensor:
     """B same-bucket images' walks, each equal to :func:`propagate_banded`
     of that image: at e = 0 the diagonal stencil (K0) per image, no matrix;
     when the band outgrows the matrix, dense :func:`propagate` per image;
     otherwise each image's banded T^(2^e) (K2) goes to one batched chain,
     :func:`mk.apply_banded_chain_batched` (K1 per image, then K8 for all).
     The dense T's are built one at a time and each freed once packed, where
-    the JAX function stacks them.
+    the JAX function stacks them. ``matmul_dtype`` bf16 runs the stencil
+    and the dense routes; the batched chain has no bf16 mode yet and
+    raises before anything is built.
 
     ``cams_capped``: [B, C, cap_h, cap_w]; ``edges_capped``:
     [B, cap_h, cap_w]. Returns [B, C, cap_h, cap_w]."""
     e = exp_times if square_times is None else square_times
     if not 0 <= e <= exp_times:
         raise ValueError(f"square_times={e} not in [0, {exp_times}]")
+    mk.check_dtype(matmul_dtype)
     bimg = cams_capped.shape[0]
     if e == 0:
         return torch.stack([
@@ -741,9 +782,11 @@ def propagate_banded_batch(geom: RandomWalkGeometry, cams_capped: torch.Tensor,
     if not banded_fits(geom, exp_times, e, bs):
         return torch.stack([
             propagate(geom, cams_capped[b], edges_capped[b], beta, exp_times,
-                      square_times=e)
+                      square_times=e, matmul_dtype=matmul_dtype)
             for b in range(bimg)
         ])
+    if matmul_dtype is not None:
+        raise NotImplementedError(mk.CHAIN_BF16_TODO)
     seeds = torch.stack([
         _flat_seeds(geom, cams_capped[b], edges_capped[b])
         for b in range(bimg)
@@ -763,15 +806,19 @@ def pick_square_times_banded(exp_times: int) -> int:
     return 0
 
 
-def pick_square_times(n_pad: int, exp_times: int) -> int:
-    """Cost-model split for the dense path (constants as in the JAX package,
-    f32 operands): each squaring costs 2n^3 FLOPs, each application one
-    streaming read of T."""
-    sq = 2 * n_pad**3 / 2.8e13
-    ap = 4 * n_pad**2 / 8.2e11 * 1.8
+def pick_square_times(n_pad: int, exp_times: int, n_chunks: int = 1,
+                      matmul_dtype=None) -> int:
+    """Cost-model split for the dense path (the JAX package's constants,
+    for f32 or bf16 operands): each squaring costs 2n^3 FLOPs, each
+    application one streaming read of T, ``n_chunks`` times (seed-row
+    chunks that reuse one T)."""
+    mk.check_dtype(matmul_dtype)
+    bf16 = matmul_dtype is not None
+    sq = 2 * n_pad**3 / (1.5e14 if bf16 else 2.8e13)
+    ap = (2 if bf16 else 4) * n_pad**2 / 8.2e11 * 1.8
     return min(
         range(exp_times + 1),
-        key=lambda e: e * sq + (1 << (exp_times - e)) * ap,
+        key=lambda e: e * sq + n_chunks * (1 << (exp_times - e)) * ap,
     )
 
 

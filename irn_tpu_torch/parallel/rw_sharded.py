@@ -28,9 +28,13 @@ Routes (the JAX functions named beside each):
 - :func:`sharded_matrix_power` and :func:`sharded_propagate_rows`: the
   dense route with the rows split.
 
-The JAX package runs every product here as ``jnp.dot`` at HIGHEST
-precision outside its Pallas kernels (those are single-chip); the port's
-are ``torch.matmul`` in f32, with TF32 off as the stages pin it.
+The JAX package runs every product here as ``jnp.dot`` outside its Pallas
+kernels (those are single-chip): at HIGHEST precision for f32 operands, or
+on bf16 operands with f32 accumulation and an f32 result at
+``matmul_dtype`` bfloat16. The port's are ``torch.matmul`` in f32, with
+TF32 off as the stages pin it, on operands rounded to bf16 at
+``matmul_dtype`` ``torch.bfloat16`` (:func:`matpow_kernels.operand`): each
+product exact, the carry between squarings and applications f32.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops.matpow_kernels import pow_int
 from irn_tpu_torch.parallel import mesh as mesh_mod
 
@@ -252,16 +257,19 @@ def halo_rows(blocks: Sequence[torch.Tensor], h: int,
 
 
 def banded_power(t_blocks: Sequence[torch.Tensor], exp_times: int, h: int,
-                 mesh: ModelMesh) -> List[torch.Tensor]:
+                 mesh: ModelMesh, matmul_dtype=None) -> List[torch.Tensor]:
     """T^(2^exp_times) for a banded T of halfwidth ``h``, row-split, still
     row-split (JAX ``banded_power_in_jit``). Each squaring ships the band's
     rows (:func:`halo_rows`) and runs one product per device, [n_loc,
     n_loc + 2h] @ [n_loc + 2h, n]: full output rows, so entries beyond the
-    band stay exact zeros."""
+    band stay exact zeros. At ``matmul_dtype`` bf16 each squaring rounds
+    the blocks to bf16 before the halo rows are cut (JAX casts them before
+    its exchange); the products and the carry stay f32."""
     n = t_blocks[0].shape[1]
     bounds = mesh.bounds(n)
     blocks = list(t_blocks)
     for _ in range(exp_times):
+        blocks = [mk.operand(b, matmul_dtype) for b in blocks]
         ctx = halo_rows(blocks, h, mesh)
         new = []
         for (r0, r1), blk, rows in zip(bounds, blocks, ctx):
@@ -274,28 +282,34 @@ def banded_power(t_blocks: Sequence[torch.Tensor], exp_times: int, h: int,
 
 
 def banded_apply(seeds: torch.Tensor, t_blocks: Sequence[torch.Tensor],
-                 n_apply: int, mesh: ModelMesh) -> torch.Tensor:
+                 n_apply: int, mesh: ModelMesh,
+                 matmul_dtype=None) -> torch.Tensor:
     """x @ T^n_apply with T row-split (JAX ``banded_apply_in_jit``): each
     application contracts the seed columns of a device's rows with its
     block, and the partials are summed on ``mesh.first`` in device order.
-    Returns [C, n] there."""
+    At ``matmul_dtype`` bf16 the blocks are rounded once and the seed
+    columns before each product. Returns [C, n] there."""
     bounds = mesh.bounds(seeds.shape[1])
+    blocks = [mk.operand(b, matmul_dtype) for b in t_blocks]
     x = seeds.to(mesh.first)
     for _ in range(n_apply):
-        x = mesh.sum([torch.matmul(x[:, r0:r1].to(blk.device), blk)
-                      for (r0, r1), blk in zip(bounds, t_blocks)])
+        xb = mk.operand(x, matmul_dtype)
+        x = mesh.sum([torch.matmul(xb[:, r0:r1].to(blk.device), blk)
+                      for (r0, r1), blk in zip(bounds, blocks)])
     return x
 
 
 # -- the dense matrix, rows split -------------------------------------------
 
-def sharded_matrix_power(t: torch.Tensor, exp_times: int,
-                         mesh: ModelMesh) -> List[torch.Tensor]:
+def sharded_matrix_power(t: torch.Tensor, exp_times: int, mesh: ModelMesh,
+                         matmul_dtype=None) -> List[torch.Tensor]:
     """T^(2^exp_times) with T's rows split (JAX ``sharded_matrix_power``):
     per squaring each device's row block times the whole T, gathered once
-    per distinct device. Returns the row blocks."""
+    per distinct device (both rounded to bf16 first at ``matmul_dtype``
+    bf16; the carry f32). Returns the row blocks."""
     blocks = mesh.split(t, 0)
     for _ in range(exp_times):
+        blocks = [mk.operand(b, matmul_dtype) for b in blocks]
         whole = {}
         for d in mesh.devices:
             if d not in whole:
@@ -306,8 +320,10 @@ def sharded_matrix_power(t: torch.Tensor, exp_times: int,
 
 
 def sharded_propagate_rows(seeds: torch.Tensor, t: torch.Tensor,
-                           mesh: ModelMesh) -> torch.Tensor:
+                           mesh: ModelMesh,
+                           matmul_dtype=None) -> torch.Tensor:
     """x @ T with T's rows split (JAX ``sharded_propagate_rows``): each
-    device contracts its seed columns with its row block; the partials are
-    summed on ``mesh.first`` in device order."""
-    return banded_apply(seeds, mesh.split(t, 0), 1, mesh)
+    device contracts its seed columns with its row block (at
+    ``matmul_dtype``, as :func:`banded_apply`); the partials are summed on
+    ``mesh.first`` in device order."""
+    return banded_apply(seeds, mesh.split(t, 0), 1, mesh, matmul_dtype)

@@ -23,6 +23,9 @@ INIT_SEED = 0
 
 # --model_dtype values the port runs, as torch dtypes
 MODEL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# --rw_matmul_dtype values, as the walk's ``matmul_dtype`` (None: f32
+# operands)
+RW_MATMUL_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def model_dtype(cfg: Config) -> torch.dtype:
@@ -34,6 +37,17 @@ def model_dtype(cfg: Config) -> torch.dtype:
             f"model_dtype={cfg.model_dtype!r}: the port runs "
             f"{' and '.join(map(repr, MODEL_DTYPES))}")
     return MODEL_DTYPES[cfg.model_dtype]
+
+
+def rw_matmul_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """The walk's operand dtype of ``cfg.rw_matmul_dtype`` (the JAX
+    ``Config.rw_matmul_jnp_dtype``): None for float32, ``torch.bfloat16``;
+    any other value raises."""
+    if cfg.rw_matmul_dtype not in RW_MATMUL_DTYPES:
+        raise ValueError(
+            f"rw_matmul_dtype={cfg.rw_matmul_dtype!r}: "
+            f"{' or '.join(map(repr, RW_MATMUL_DTYPES))}")
+    return RW_MATMUL_DTYPES[cfg.rw_matmul_dtype]
 
 
 def pin_numerics() -> None:

@@ -10,9 +10,14 @@ Usage:
         --eval_ins_seg_pass --make_cocoann_pass [--device cuda|cpu]
 
 All ten stages are ported (``--train_cam_pass`` too). A flag whose code
-path is not ported (``--rw_matmul_dtype bfloat16``, ``--sem_monolith``,
-among a few others) raises ``NotImplementedError`` naming the ROADMAP item
-that ports it, so nothing is skipped silently.
+path is not ported (``--sem_monolith`` among a few others, and
+``--rw_matmul_dtype bfloat16`` on the single-device banded route with
+0 < ``--rw_square_times`` < ``--exp_times``, whose application chain has no
+bf16 mode yet) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it, so nothing is skipped silently. ``--rw_matmul_dtype bfloat16``
+runs every other walk route: the default stencil (no product), pure
+squaring, ``--exp_times`` = ``--rw_square_times`` on the banded route, the
+dense routes and the mesh routes.
 
 ``--rw_mesh_model k`` splits each image's random walk in make_sem_seg and
 make_ins_seg over k devices of this process (the CPU k times with

@@ -45,6 +45,7 @@ from irn_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from irn_tpu_torch.models.irn import IRNet
 from irn_tpu_torch.ops import ccl
 from irn_tpu_torch.ops import centroids
+from irn_tpu_torch.ops import matpow_kernels as mk
 from irn_tpu_torch.ops import random_walk as rw_mod
 from irn_tpu_torch.parallel import mesh
 from irn_tpu_torch.parallel import rw_sharded
@@ -70,18 +71,44 @@ def resolve_device(device) -> torch.device:
 
 def check_slice_flags(cfg: Config) -> None:
     """Flags whose code paths are not ported yet raise instead of running
-    something else."""
-    if cfg.rw_matmul_dtype != "float32":
-        raise NotImplementedError(
-            f"rw_matmul_dtype={cfg.rw_matmul_dtype!r}: bf16 operand modes "
-            "for K2/K3 are later work (ROADMAP queue 2)"
-        )
+    something else. ``--rw_matmul_dtype bfloat16`` raises here when every
+    grid bucket of ``rw_grid_cap`` would take the banded chain of more than
+    one application (:func:`bf16_chain_everywhere`), else in the walk of a
+    bucket that does (``RandomWalkRunner._route``), with the same
+    message."""
+    if common.rw_matmul_dtype(cfg) is not None and bf16_chain_everywhere(cfg):
+        raise NotImplementedError(mk.CHAIN_BF16_TODO)
     common.model_dtype(cfg)
     if cfg.sem_monolith:
         raise NotImplementedError(
             "sem_monolith: the relay-transport monolith is not ported "
             "(ROADMAP queue 1, 'Not ported')"
         )
+
+
+def walk_buckets(cap: int) -> List[int]:
+    """The grid sides :meth:`RandomWalkRunner._bucket` gives under the cap
+    ``cap``: multiples of ``RandomWalkRunner.BUCKET`` below it, and the cap."""
+    step = RandomWalkRunner.BUCKET
+    return sorted({min(b, cap) for b in range(step, cap + step, step)})
+
+
+def bf16_chain_everywhere(cfg: Config) -> bool:
+    """Whether the flags alone route every walk to an application chain
+    without a bf16 mode: one device (``rw_mesh_model`` 1), and every
+    bucket of ``rw_grid_cap`` on the banded route at 0 < e < E."""
+    if cfg.rw_mesh_model > 1:
+        return False
+    walker = RandomWalkRunner(cfg, 1, torch.device("cpu"))
+    sides = walk_buckets(cfg.rw_grid_cap)
+    for ch in sides:
+        for cw in sides:
+            try:
+                walker.resolve_mode(ch, cw)
+            except NotImplementedError:
+                continue
+            return False
+    return True
 
 
 def _images(batch: Dict, dev: torch.device) -> torch.Tensor:
@@ -382,12 +409,16 @@ class RandomWalkRunner:
         self.n_rows = n_seed_rows
         self.square_times_cfg = cfg.rw_square_times
         self.banded_cfg = cfg.rw_banded
+        self.mm_dtype = common.rw_matmul_dtype(cfg)
         self.modes: Dict[Tuple[int, int], str] = {}
 
     def _square_times(self, geom) -> int:
+        """The pinned split, or the cost model's at the operand dtype (JAX
+        ``_square_times``, n_chunks 1 so the chunked walk picks the same)."""
         if self.square_times_cfg >= 0:
             return min(self.square_times_cfg, self.exp_times)
-        return rw_mod.pick_square_times(geom.n_pad, self.exp_times)
+        return rw_mod.pick_square_times(geom.n_pad, self.exp_times,
+                                        matmul_dtype=self.mm_dtype)
 
     def _use_banded(self, geom, sq: int) -> bool:
         """The single-device hand-kernel routes (stencil or banded) on every
@@ -423,11 +454,16 @@ class RandomWalkRunner:
 
     def _route(self, geom) -> Tuple[int, str]:
         """(square_times, mode): ``diag`` (K0 stencil) | ``banded`` (K2 +
-        K1 + K3) | ``mesh_diag`` (K0 per device and round) |
-        ``mesh_banded`` (the row-split band) | ``dense`` (on one device,
-        or its squarings' rows split over the mesh)."""
+        K1 + K3, or K2 + K4 at e = E) | ``mesh_diag`` (K0 per device and
+        round) | ``mesh_banded`` (the row-split band) | ``dense`` (on one
+        device, or its squarings' rows split over the mesh). At bf16 the
+        banded route with a chain of more than one application raises
+        :class:`NotImplementedError` (no bf16 mode of K1 + K3 yet)."""
         sq, banded = self._resolve(geom)
         if banded:
+            if sq > 0:
+                rw_mod.check_banded_dtype(geom, self.exp_times, sq,
+                                          matmul_dtype=self.mm_dtype)
             return sq, "diag" if sq == 0 else "banded"
         if self._mesh_diag(geom, sq):
             return sq, "mesh_diag"
@@ -461,10 +497,12 @@ class RandomWalkRunner:
         self.modes[(ch, cw)] = mode
         if mode in ("diag", "banded"):
             return rw_mod.propagate_banded(geom, cam_t, edge_b, self.beta,
-                                           self.exp_times, square_times=sq)
+                                           self.exp_times, square_times=sq,
+                                           matmul_dtype=self.mm_dtype)
         return rw_mod.propagate(geom, cam_t, edge_b, self.beta,
                                 self.exp_times, square_times=sq,
-                                mesh=self.mesh, mesh_banded=self.banded_cfg)
+                                mesh=self.mesh, mesh_banded=self.banded_cfg,
+                                matmul_dtype=self.mm_dtype)
 
     def __call__(self, cam_rows: np.ndarray, edge: torch.Tensor, h4: int,
                  w4: int, size: Tuple[int, int], bg_thres: float):
@@ -525,6 +563,7 @@ class RandomWalkRunner:
         self.modes[(ch, cw)] = mode
         n_apply = 1 << (self.exp_times - sq)
         mesh_ = self.mesh
+        mm = self.mm_dtype
         if mode == "diag":
             w, inv = rw_mod.build_diag_operator(geom, edge_b, self.beta)
             doffs = rw_mod.diag_offsets(geom)
@@ -540,26 +579,27 @@ class RandomWalkRunner:
                 return rw_mod.apply_transition_mesh_diag(
                     geom, cam, edge_b, winv, n_apply, mesh_)
         elif mode == "banded":
-            t, band = rw_mod.build_transition_banded(geom, edge_b,
-                                                     self.beta, sq)
+            t, band = rw_mod.build_transition_banded(
+                geom, edge_b, self.beta, sq, matmul_dtype=mm)
 
             def apply(cam):
-                return rw_mod.apply_transition_banded(geom, cam, edge_b, t,
-                                                      band, n_apply)
+                return rw_mod.apply_transition_banded(
+                    geom, cam, edge_b, t, band, n_apply, matmul_dtype=mm)
         elif mode == "mesh_banded":
             # T stays row-split over the mesh for every chunk
-            blocks = rw_mod.build_transition_mesh_banded(geom, edge_b,
-                                                         self.beta, sq, mesh_)
+            blocks = rw_mod.build_transition_mesh_banded(
+                geom, edge_b, self.beta, sq, mesh_, mm)
 
             def apply(cam):
                 return rw_mod.apply_transition_mesh_banded(
-                    geom, cam, edge_b, blocks, n_apply, mesh_)
+                    geom, cam, edge_b, blocks, n_apply, mesh_, mm)
         else:
-            t = rw_mod.build_transition(geom, edge_b, self.beta, sq, mesh_)
+            t = rw_mod.build_transition(geom, edge_b, self.beta, sq, mesh_,
+                                        mm)
 
             def apply(cam):
                 return rw_mod.propagate_with_transition(geom, cam, edge_b,
-                                                        t, n_apply)
+                                                        t, n_apply, mm)
 
         best_val = torch.zeros((4 * ch, 4 * cw), device=self.device)
         best_row = torch.zeros((4 * ch, 4 * cw), dtype=torch.int64,

@@ -302,6 +302,117 @@ def test_transition_matrix_runs_k6_then_k5(cuda):
                                atol=1e-5 * float(want.abs().max()))
 
 
+# -- the bf16 operand mode of K2, K4, K5 and K6 (--rw_matmul_dtype bfloat16)
+
+BF16 = torch.bfloat16
+
+
+def _close_to_max(got, want, rtol=1e-5):
+    """All finite and max |got - want| <= rtol max |want|: the kernels' f32
+    sums of exact bf16 products in another order than the twin's."""
+    assert bool(torch.isfinite(got).all())
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= rtol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_square_banded_bf16(cuda, n):
+    """K2's one-pass mode: the split pass (hi pieces, [2, n, W]) bit-equal
+    to its twin; the product within rel 1e-5 of the f64 sum over those
+    pieces and of the twin (bf16 operands, torch.matmul in f32) in band,
+    with NaN in every input block beyond kb; two launches."""
+    h, bs = 130, 128
+    t = _banded(n, h).to(cuda)
+    got = mk.square_banded(_poisoned(t, h, bs), h, bs, BF16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_banded"] == 2  # split, product
+    r = torch.arange(n, device=cuda)
+    inband = (r[:, None] - r[None, :]).abs() <= 2 * h
+    for want in (mk.square_banded_split_plain(t, h, bs, BF16),
+                 mk.square_banded_plain(t, h, bs, BF16)):
+        _close_to_max(got[inband], want[inband])
+    pieces = mk.split_banded(_poisoned(t, h, bs), h, bs, BF16)
+    assert pieces.shape[0] == 2
+    assert torch.equal(pieces, mk.split_banded_plain(t, h, bs, BF16))
+
+
+@pytest.mark.parametrize("c", [8, 16])
+def test_apply_banded_bf16(cuda, c):
+    """K4's bf16 mode (x and T rounded as read) vs its twin, NaN beyond kb;
+    one launch."""
+    n, h, bs = 1024, 130, 128
+    t = _banded(n, h).to(cuda)
+    x = torch.rand((c, n), generator=torch.Generator().manual_seed(0)).to(cuda)
+    got = mk.apply_banded(x, _poisoned(t, h, bs), h, bs, BF16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["apply_banded"] == 1
+    _close_to_max(got, mk.apply_banded_plain(x, t, h, bs, BF16))
+
+
+@pytest.mark.parametrize("n", [384, 1024])
+def test_square_dense_bf16(cuda, n):
+    """K5's one-pass mode: split pass bit-equal ([2, n, n]), the product
+    within rel 1e-5 of the f64 hi.hi product and of the twin; two launches
+    per squaring."""
+    t = _banded(n, n).to(cuda)
+    got = mk.square_dense(t, BF16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_dense"] == 2
+    pieces = mk.split_identity(t, BF16)
+    assert torch.equal(pieces, mk.split_identity_plain(t, BF16))
+    _close_to_max(got, mk.split_product_plain(pieces))
+    _close_to_max(got, mk.square_dense_plain(t, BF16))
+    matpow.matrix_power_squarings(t, 3, BF16)
+    assert _build.LAUNCHES["square_dense"] == 2 + 1 + 2 * 3
+
+
+@pytest.mark.parametrize("n,lo", [(512, 0.3), (1024, 0.0), (4096, 0.3)])
+def test_square_fused_first_bf16(cuda, n, lo):
+    """K6's one-pass mode: the split pass (bf16 of A^beta and of
+    A^beta * inv_k * inv_j) bit-equal to its twin, the product within rel
+    1e-5 of the f64 product over those pieces and of the twin; two
+    launches."""
+    a = _affinity(n, lo).to(cuda)
+    got = mk.square_fused_first(a, 10, BF16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["square_fused_first"] == 2
+    inv = mk.fused_inv(a, 10)
+    pieces = mk.split_operands(a, inv, 10, BF16)
+    assert torch.equal(pieces, mk.split_operands_plain(a, inv, 10, BF16))
+    _close_to_max(got, mk.split_product_plain(pieces))
+    _close_to_max(got, mk.square_fused_first_plain(a, 10, BF16))
+
+
+def test_walk_bf16_routes_on_the_card(cuda):
+    """The bf16 routes launch the kernels' bf16 modes and no twin: the
+    dense route (K6, then K5), e = E banded (K2, then K4); a chain of more
+    applications raises before any launch."""
+    geom = rw.build_geometry(16, 16, radius=5)
+    g = np.random.default_rng(0)
+    edge = torch.from_numpy(g.random((16, 16), dtype=np.float32)).to(cuda)
+    rw.transition_matrix(rw.dense_affinity(geom, edge), 10, 4, BF16)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["square_fused_first"],
+            _build.LAUNCHES["square_dense"]) == (2, 6)
+    _build.reset_launches()
+    small = rw.build_geometry(32, 32, radius=2)
+    edge = torch.from_numpy(g.random((32, 32), dtype=np.float32)).to(cuda)
+    cam = torch.from_numpy(g.random((3, 32, 32), dtype=np.float32)).to(cuda)
+    got = rw.propagate_banded(small, cam, edge, 10, 3, square_times=3,
+                              bs=128, matmul_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["square_banded"],
+            _build.LAUNCHES["apply_banded"]) == (6, 1)
+    want = rw.propagate_banded(small, cam.cpu(), edge.cpu(), 10, 3,
+                               square_times=3, bs=128, matmul_dtype=BF16)
+    _close_to_max(got.cpu(), want, 1e-2)
+    _build.reset_launches()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rw.propagate_banded(small, cam, edge, 10, 3, square_times=1, bs=128,
+                            matmul_dtype=BF16)
+    assert not any(_build.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("n,bj", [(1024, 256), (2048, 512)])
 def test_banded_chain(cuda, n, bj):
     h, bs = 130, 128

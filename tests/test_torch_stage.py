@@ -171,16 +171,49 @@ def test_walk_modes():
 # (tests/test_torch_parallel.py, test_torch_dp_train.py and
 # test_torch_multiprocess.py run them), and --rw_mesh_model
 # (tests/test_torch_rw_sharded.py and test_torch_mesh_stage.py); the
-# flags still unported stay, on make_sem_seg and make_ins_seg
+# flags still unported stay, on make_sem_seg and make_ins_seg.
+# --rw_matmul_dtype bfloat16 runs every route but the banded chain of more
+# than one application (tests/test_torch_walk_bf16.py): at
+# --rw_square_times 1 every bucket of the grid cap takes that chain, so the
+# stage refuses it before anything runs
 @pytest.mark.parametrize("flags", [
-    ("--rw_matmul_dtype", "bfloat16"), ("--sem_monolith",),
-    ("--make_ins_seg_pass", "--rw_matmul_dtype", "bfloat16"),
+    ("--rw_square_times", "1", "--rw_matmul_dtype", "bfloat16"),
+    ("--sem_monolith",),
+    ("--make_ins_seg_pass", "--rw_square_times", "1", "--rw_matmul_dtype",
+     "bfloat16"),
     ("--make_ins_seg_pass", "--sem_monolith"),
 ])
 def test_unported_flags_raise(tree, tmp_path, flags):
     _, cfg, _, _ = tree
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_run.main(_port_argv(cfg, str(tmp_path / "out"), flags))
+
+
+@pytest.mark.parametrize("call", ["batch", "bj"])
+def test_unported_bf16_chains_raise(call, monkeypatch):
+    """The library's bf16 chains without a bf16 mode raise, naming ROADMAP,
+    before any squaring: the batched chain (K1 per image, then K8) and the
+    rectangular-tile chain (``bj``, K7) at 0 < e < E."""
+    from irn_tpu_torch.ops import matpow_kernels as mk
+    from irn_tpu_torch.ops import random_walk as rw
+
+    def refuse(*args, **kw):
+        raise AssertionError("a squaring ran before the refusal")
+
+    monkeypatch.setattr(mk, "square_banded", refuse)
+    geom = rw.build_geometry(CAP, CAP, radius=5)
+    g = np.random.default_rng(0)
+    edge = torch.from_numpy(g.random((CAP, CAP), dtype=np.float32))
+    cam = torch.from_numpy(g.random((3, CAP, CAP), dtype=np.float32))
+    assert rw.banded_fits(geom, 8, 1) and rw.banded_fits(geom, 8, 1, bs=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if call == "batch":
+            rw.propagate_banded_batch(geom, cam[None], edge[None], 10, 8,
+                                      square_times=1,
+                                      matmul_dtype=torch.bfloat16)
+        else:  # 512-wide tiles over bs 256: the band stays under the matrix
+            rw.propagate_banded(geom, cam, edge, 10, 8, square_times=1,
+                                bs=256, bj=512, matmul_dtype=torch.bfloat16)
 
 
 def test_cuda_device_without_card_raises(monkeypatch):
